@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Build and drive unit_tpu_torch's serving path once on one NVIDIA GPU.
+"""Build and drive unit_tpu_torch's serving and training paths on one NVIDIA GPU.
 
 Run from the repository root on a machine with a CUDA card (an H100 for the
 sm_90a kernels) and nvcc:
@@ -8,24 +8,37 @@ sm_90a kernels) and nvcc:
 
 Phases (any failure raises and the script exits non-zero):
   0  environment: card, power limit, torch/CUDA/nvcc versions, PyYAML
-  1  build the two CUDA kernels from unit_tpu_torch/csrc with nvcc, timed
+  1  build the three CUDA kernels from unit_tpu_torch/csrc, one nvcc each,
+     all started together, timed
   2  K1 ROIAlignV2 forward vs its plain version at the flagship shapes
   3  K3 greedy-NMS mask vs its plain version (RPN, final and degenerate cases)
-  4  end to end: the flagship VOC R-101-C4 detector at full width, random
-     seeded weights, bf16, served by DetectionService.detect_array in both
-     canvas orientations; launch counters prove the path ran the kernels
-  5  whole-path kernel check in f32 (TF32 off): predict_raw with the kernels
-     vs with the plain versions
+  4  serving end to end: the flagship VOC R-101-C4 detector at full width,
+     random seeded weights, bf16, served by DetectionService.detect_array in
+     both canvas orientations; launch counters prove the path ran K1 and K3
+  5  whole serving path in f32 (TF32 off): predict_raw with the kernels vs
+     with the plain versions
+  6  K2 ROIAlignV2 backward vs its plain version at the flagship train-step
+     shapes; two launches bit-identical
+  7  training end to end: TrainerNoMeta takes 2 warm-up and 8 timed steps of
+     the flagship recipe at full width (2 strong + 2 weak images per step,
+     canvases alternating 800x1344 / 1344x800, bf16) with build_optimizer's
+     SGD (gradients clipped: the weights are random); launch counters prove
+     every step ran K1 x2, K2 x2 and K3 x4
+  8  whole train path in f32 (TF32 off): train_losses + backward with the
+     kernels vs with the plain versions, same weights and generator seed
 The last three lines are the card (nvidia-smi), one JSON object describing
-the kernels, and {"ok": true, "device": {...}}.  Without a CUDA device, or
-without the unit_tpu_torch package beside it, the script fails before any
-result is printed.
+the kernels (launches counted on the train path of phase 7), and
+{"ok": true, "device": {...}}.  Without a CUDA device, or without the
+unit_tpu_torch package beside it, the script fails before any result is
+printed.
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import dataclasses
+import itertools
 import json
 import subprocess
 import sys
@@ -53,6 +66,31 @@ E2E_PROBS_ATOL = 1e-4
 E2E_BBOX_RTOL = 1e-4
 # Served requests, alternating landscape and portrait canvases.
 REQUESTS = 6
+# K2 in f32 vs its plain version, elementwise: |k - p| <= K2_REL * S, where
+# S = roi_align_backward_plain(|g|) is the sum of the absolute values of the
+# terms both add up (the bilinear weights are non-negative).  The two sum the
+# same f32 products in different orders (K2 per feature row in ROI order, the
+# plain version by index_add_), so they differ by a few f32 roundings of S;
+# 2^-16 leaves a factor ~100 over 2^-23 while a missing or doubled sample
+# moves a cell by one whole term.  bf16 output: one bf16 ulp beyond that.
+K2_REL = 2.0 ** -16
+# Train steps of phase 7, and their (canvas, content) sizes: a 600x800 image
+# resized to the recipe's 800-pixel short side, in both orientations.
+TRAIN_WARMUP = 2
+TRAIN_STEPS = 8
+TRAIN_CANVASES = (((800, 1344), (800, 1067)), ((1344, 800), (1067, 800)))
+# Whole train path in f32, kernels vs plain versions: the proposals and the
+# sampled slots are identical (K3 is exact); K1/K2 differ from their plain
+# versions by f32 rounding (~5e-7), which the random-weight heads amplify:
+# their logits are in the hundreds (loss_cls ~300), so a few leaves' gradients
+# move by ~1e-3 of their own largest element (1.07e-3 on box_head res5
+# block2 conv3 with --seed 0 on an H100, while the largest gradient of the
+# network, G, is ~1e3 times larger).  Per leaf: max|diff| <= TRAIN_GRAD_REL * max|g_leaf|
+# + TRAIN_GRAD_FLOOR * G.  A dropped or misweighted ROI sample moves the
+# backbone's gradients (downstream of K2) and the losses by whole percents.
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_REL = 1e-3
+TRAIN_GRAD_FLOOR = 1e-6
 
 
 def log(*parts):
@@ -105,9 +143,11 @@ def phase_build():
     from unit_tpu_torch.ops import cuda_lib, nms_cuda, roi_align_cuda
 
     t0 = time.perf_counter()
-    roi_align_cuda._lib()
-    nms_cuda._lib()
-    log(f"[1] built both kernels in {time.perf_counter() - t0:.1f} s")
+    loaders = (roi_align_cuda._lib, roi_align_cuda._bwd_lib, nms_cuda._lib)
+    with concurrent.futures.ThreadPoolExecutor(len(loaders)) as pool:
+        for fut in [pool.submit(f) for f in loaders]:
+            fut.result()
+    log(f"[1] built the three kernels in {time.perf_counter() - t0:.1f} s (in parallel)")
     for name, (secs, report) in cuda_lib.BUILD_LOG.items():
         log(f"[1] {name}: nvcc {secs:.1f} s")
         for line in report.splitlines():
@@ -182,6 +222,23 @@ def phase_k1(rng):
         if not err <= K1_F32_ATOL:
             raise AssertionError(f"K1 disagrees at {shape}: {err}")
     return {"max_abs_err": worst_bf16, "ms": times[1][0], "plain_ms": times[1][1]}
+
+
+def piled_rois(rng, n, h_img=800, w_img=1344):
+    """ROIs as the train path lays them out: half jittered around three
+    objects (sampled fg/bg slots), a quarter clipped flat against the bottom
+    and right borders (invalid proposal slots), the rest uniform."""
+    rois = flagship_rois(rng, n, h_img, w_img)
+    objs = np.asarray([[100, 120, 400, 500], [600, 300, 900, 700], [1000, 50, 1300, 350]])
+    k = n // 2
+    rois[:k] = objs[rng.randint(3, size=k)] + rng.randn(k, 4) * 20
+    flat = slice(k, k + n // 4)
+    x1 = rng.uniform(0, w_img, n // 4)
+    rois[flat] = np.stack([x1, np.full(n // 4, h_img), x1 + rng.uniform(1, 300, n // 4),
+                           np.full(n // 4, h_img)], -1)
+    rois[k:k + n // 8, 0] = w_img
+    rois[k:k + n // 8, 2] = w_img
+    return rois.astype(np.float32)
 
 
 def clustered_boxes(rng, n, h=800, w=1344):
@@ -389,27 +446,54 @@ def phase_e2e(cfg, seed):
     return launches
 
 
+# Kernel names -> the layer they belong to, for the profiled breakdowns.
+KERNEL_KINDS = (
+    ("K1 roi_align_fwd", ("roi_align_fwd",)),
+    ("K2 roi_align_bwd", ("roi_align_bwd",)),
+    ("K3 nms_mask", ("iou_mask", "greedy_walk")),
+    ("cuDNN conv", ("xmma", "implicit_gemm", "cudnn", "conv2d")),
+    ("cuBLAS matmul", ("nvjet", "gemm", "cutlass")),
+    ("copies", ("Memcpy", "Memset", "copy")),
+    ("sort/scan/index", ("sort", "Sort", "scan", "index", "gather", "scatter")),
+    ("elementwise/reduce", ("elementwise", "reduce", "Reduce", "foreach")),
+)
+
+
 def profile_request(svc, image):
     """Where one request's time goes: torch.profiler over one more request."""
+    profile_run(lambda: svc.detect_array(image), "[4]", "request")
+
+
+def profile_run(fn, tag, what, top=15):
+    """torch.profiler over one fn() that ends in a device-to-host copy:
+    wall time, device busy share and the kernels with the most device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        svc.detect_array(image)
+        fn()
         wall = (time.perf_counter() - t0) * 1e3
     # device-side events only (kernels, copies): the CPU-side aten ops carry
-    # the same device time again
+    # the same device time again, and so do annotated ranges such as
+    # Optimizer.step#SGD.step
     rows = [(e.self_device_time_total / 1e3, e.count, e.key)
             for e in prof.key_averages()
-            if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
+            if e.device_type.name == "CUDA" and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)]
     busy = sum(r[0] for r in rows)
     n_ops = sum(r[1] for r in rows)
-    log(f"[4] profiled request: wall {wall:.2f} ms, device busy {busy:.2f} ms "
+    log(f"{tag} profiled {what}: wall {wall:.2f} ms, device busy {busy:.2f} ms "
         f"({100 * busy / wall:.1f}%, idle {100 - 100 * busy / wall:.1f}%), "
         f"{n_ops} device ops")
-    for ms, count, key in sorted(rows, reverse=True)[:15]:
-        log(f"[4]   {ms:9.3f} ms  x{count:<5d} {key[:110]}")
+    by_kind = {}
+    for ms, count, key in rows:
+        kind = next((k for k, frags in KERNEL_KINDS if any(f in key for f in frags)), "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + ms
+    log(f"{tag} device ms by kind: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in sorted(by_kind.items(), key=lambda kv: -kv[1])))
+    for ms, count, key in sorted(rows, reverse=True)[:top]:
+        log(f"{tag}   {ms:9.3f} ms  x{count:<5d} {key[:110]}")
     torch.cuda.synchronize()
 
 
@@ -447,6 +531,277 @@ def phase_whole_path(cfg, seed):
     if not (same_props and dprobs <= E2E_PROBS_ATOL and dbbox <= E2E_BBOX_RTOL):
         raise AssertionError("the whole path with kernels disagrees with the plain path")
 
+def phase_k2(rng):
+    import torch
+
+    from unit_tpu_torch.ops import roi_align as ra
+    from unit_tpu_torch.ops.roi_align_cuda import roi_align_backward_cuda
+
+    dev = torch.device("cuda")
+
+    def check(g, rois, shape, p, label):
+        got = roi_align_backward_cuda(g, rois, shape, p)
+        again = roi_align_backward_cuda(g, rois, shape, p)
+        want = ra.roi_align_backward_plain(g, rois, shape, p)
+        s_abs = ra.roi_align_backward_plain(g.float().abs(), rois, shape, p)
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        bound = s_abs * K2_REL
+        if g.dtype == torch.bfloat16:
+            bound = bound + torch.maximum(got.float().abs(), want.float().abs()) * 2.0 ** -7
+        rel = float((diff / s_abs.clamp_min(1e-30)).max())
+        same = torch.equal(got, again)
+        log(f"[6] K2 {label}: max|diff| {float(diff.max()):.3g}, max|diff|/S {rel:.3g} "
+            f"(bound {K2_REL:.3g}{' + 1 bf16 ulp' if g.dtype == torch.bfloat16 else ''}), "
+            f"two launches bit-identical {same}")
+        if not (bool((diff <= bound).all()) and same):
+            raise AssertionError(f"K2 disagrees with its plain version ({label})")
+        return float(diff.max())
+
+    worst, times = 0.0, {}
+    for b in (1, 2):
+        shape = (b, 50, 84, 1024)
+        rois = torch.as_tensor(np.stack([flagship_rois(rng, 512) for _ in range(b)]), device=dev)
+        g32 = torch.as_tensor(rng.randn(b, 512, 14, 14, 1024).astype(np.float32), device=dev)
+        check(g32, rois, shape, 14, f"[{b},512,14,14,1024] f32")
+        g16 = g32.to(torch.bfloat16)
+        del g32
+        worst = max(worst, check(g16, rois, shape, 14, f"[{b},512,14,14,1024] bf16"))
+        k_ms = cuda_ms(lambda: roi_align_backward_cuda(g16, rois, shape), 10)
+        p_ms = cuda_ms(lambda: ra.roi_align_backward_plain(g16, rois, shape), 3)
+        times[b] = (k_ms, p_ms)
+        log(f"[6] K2 B={b} bf16: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms (median, CUDA events)")
+        if b == 2:  # the train path's layout: ROIs piled onto a few rows
+            piled = torch.as_tensor(np.stack([piled_rois(rng, 512) for _ in range(b)]),
+                                    device=dev)
+            worst = max(worst, check(g16, piled, shape, 14, "[2,512,14,14,1024] bf16 piled"))
+            k_ms = cuda_ms(lambda: roi_align_backward_cuda(g16, piled, shape), 10)
+            p_ms = cuda_ms(lambda: ra.roi_align_backward_plain(g16, piled, shape), 3)
+            log(f"[6] K2 B=2 bf16 piled ROIs: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+    # tiny shapes: odd sizes, H = 1 and W = 1 maps
+    for shape in ((1, 1, 5, 8), (2, 7, 1, 6), (1, 9, 11, 130)):
+        rois = torch.as_tensor(
+            np.stack([flagship_rois(rng, 17, shape[1] * 16, shape[2] * 16)
+                      for _ in range(shape[0])]), device=dev)
+        g = torch.as_tensor(rng.randn(shape[0], 17, 7, 7, shape[3]).astype(np.float32),
+                            device=dev)
+        check(g, rois, shape, 7, f"{shape} x 17 ROIs P=7 f32")
+    torch.cuda.empty_cache()
+    return {"max_abs_err": worst, "ms": times[2][0], "plain_ms": times[2][1]}
+
+
+def synthetic_train_batches(cfg, seed, n_batches=4, per_stream=2, max_gt=5):
+    """Strong and weak numpy batches made from ``seed``, their canvases
+    alternating between the two of TRAIN_CANVASES (strong and weak of one
+    step share the canvas).
+
+    Random BGR content fills the content size, zero padding the rest; strong
+    images carry 1..max_gt base-class boxes (padded to TPU.MAX_GT_BOXES),
+    weak images a multi-hot label over all classes."""
+    rng = np.random.RandomState(seed + 7)
+    base = np.asarray(cfg.DATASETS.FEWSHOT.BASE_CLASSES_ID)
+    n_cls = cfg.MODEL.ROI_HEADS.NUM_CLASSES
+    g_cap = cfg.TPU.MAX_GT_BOXES
+    strong, weak = [], []
+    for k in range(n_batches):
+        canvas, content = TRAIN_CANVASES[k % 2]
+
+        def images():
+            im = np.zeros((per_stream,) + canvas + (3,), np.float32)
+            im[:, :content[0], :content[1]] = rng.uniform(
+                0, 255, (per_stream,) + content + (3,)).astype(np.float32)
+            return im
+
+        sizes = np.asarray([content] * per_stream, np.float32)
+        boxes = np.zeros((per_stream, g_cap, 4), np.float32)
+        classes = np.zeros((per_stream, g_cap), np.int32)
+        valid = np.zeros((per_stream, g_cap), bool)
+        for i in range(per_stream):
+            n = rng.randint(1, max_gt + 1)
+            wh = rng.uniform(0.06, 0.5, (n, 2)) * np.asarray(content[::-1])
+            xy = rng.uniform(0, 1, (n, 2)) * (np.asarray(content[::-1]) - wh)
+            boxes[i, :n] = np.concatenate([xy, xy + wh], 1)
+            classes[i, :n] = rng.choice(base, n)
+            valid[i, :n] = True
+        labels = np.zeros((per_stream, n_cls), np.float32)
+        for i in range(per_stream):
+            labels[i, rng.choice(n_cls, rng.randint(1, 4), replace=False)] = 1.0
+        strong.append(dict(image=images(), gt_boxes=boxes, gt_classes=classes,
+                           gt_valid=valid, image_size=sizes))
+        weak.append(dict(image=images(), labels=labels, image_size=sizes))
+    return strong, weak
+
+
+def phase_train(cfg, seed):
+    import torch
+
+    from unit_tpu_torch.engine import TrainerNoMeta
+    from unit_tpu_torch.ops.nms_cuda import nms_sorted_mask_cuda
+    from unit_tpu_torch.ops.roi_align_cuda import roi_align_backward_cuda, roi_align_cuda
+    from unit_tpu_torch.solver import build_optimizer
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    # The recipe starts from ImageNet weights; from random weights its SGD
+    # diverges within ~10 steps of the LR ramp (losses ~1e15, then NaN), so
+    # the smoke clips the gradient by its global norm (SOLVER.CLIP_GRADIENTS,
+    # off in the recipe).
+    cfg = cfg.clone()
+    cfg.SOLVER.CLIP_GRADIENTS.ENABLED = True
+    cfg.SOLVER.CLIP_GRADIENTS.CLIP_TYPE = "norm"
+    model = flagship_model(cfg, seed, dev)
+    solver = build_optimizer(cfg, model)
+    mc = model.mc
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters() if not p.requires_grad}
+    start = {n: p.detach().clone() for n, p in model.named_parameters() if p.requires_grad}
+    strong, weak = synthetic_train_batches(cfg, seed)
+    trainer = TrainerNoMeta(model, solver, itertools.cycle(strong), itertools.cycle(weak),
+                            seed=seed)
+    trainer.init_state()
+    log(f"[7] R-{mc.depth}-C4 train set-up in {time.perf_counter() - t0:.1f} s: "
+        f"{sum(p.numel() for p in start.values()) / 1e6:.1f} M trainable params in "
+        f"{len(start)} tensors, {len(frozen)} frozen (FREEZE_AT "
+        f"{cfg.MODEL.BACKBONE.FREEZE_AT}), {len(solver.optimizer.param_groups)} SGD groups, "
+        f"gradient clipped to global norm {cfg.SOLVER.CLIP_GRADIENTS.CLIP_VALUE}, "
+        f"compute {mc.compute_dtype}, RPN train {mc.rpn.pre_nms_topk_train}->"
+        f"{mc.rpn.post_nms_topk_train}, {mc.roi_batch_size} ROIs per strong image, "
+        f"{mc.weak_proposal_count} per weak image")
+
+    # which trainable tensors got a non-zero gradient in some step (on the
+    # device; read once at the end)
+    params = dict(model.named_parameters())
+    had_grad = {n: torch.zeros((), dtype=torch.bool, device=dev) for n in start}
+
+    def step(label):
+        lr = solver.optimizer.param_groups[0]["lr"]
+        t = time.perf_counter()
+        m = trainer.run_step()  # ends in one device-to-host copy of the losses
+        ms = (time.perf_counter() - t) * 1e3
+        for n, flag in had_grad.items():
+            if params[n].grad is not None:
+                flag |= params[n].grad.ne(0).any()
+        log(f"[7] step {trainer.state.step} ({label}) {ms:.1f} ms, lr {lr:.6g}: "
+            + ", ".join(f"{k} {v:.4g}" for k, v in m.items() if k != "data_time"))
+        return ms
+
+    for _ in range(TRAIN_WARMUP):
+        step("warm-up")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    roi_align_cuda.launches = 0
+    roi_align_backward_cuda.launches = 0
+    nms_sorted_mask_cuda.launches = 0
+    times = [step("timed") for _ in range(TRAIN_STEPS)]
+    launches = {"roi_align_fwd": roi_align_cuda.launches,
+                "roi_align_bwd": roi_align_backward_cuda.launches,
+                "nms_mask": nms_sorted_mask_cuda.launches}
+    peak = torch.cuda.max_memory_allocated()
+    med = float(np.median(times))
+    imgs = 2 * strong[0]["image"].shape[0]
+    log(f"[7] {TRAIN_STEPS} timed steps: median {med:.2f} ms (min {min(times):.2f}, max "
+        f"{max(times):.2f}), {1e3 * imgs / med:.2f} images/s ({imgs} per step), peak "
+        f"device memory {peak / 2**20:.1f} MiB")
+    log(f"[7] launches during the timed steps: {launches}")
+    want = {"roi_align_fwd": 2 * TRAIN_STEPS, "roi_align_bwd": 2 * TRAIN_STEPS,
+            "nms_mask": 4 * TRAIN_STEPS}
+    if launches != want:
+        raise AssertionError(f"the train path did not run K1 x2, K2 x2, K3 x4 per step: "
+                             f"{launches}")
+    for metrics in trainer.metrics_history:
+        if not all(np.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"non-finite loss: {metrics}")
+    zero_grad = [n for n, flag in had_grad.items() if not bool(flag)]
+    still = [n for n, p in start.items() if torch.equal(p, params[n])]
+    unmoved = [n for n in still if n not in zero_grad]
+    changed = [n for n, p in frozen.items() if not torch.equal(p, params[n])]
+    log(f"[7] trainable tensors moved: {len(start) - len(still)}/{len(start)}; with an "
+        f"all-zero gradient in every step: {zero_grad}; frozen tensors bit-unchanged: "
+        f"{len(frozen) - len(changed)}/{len(frozen)}")
+    if unmoved or changed:
+        raise AssertionError(f"trainable tensors with a gradient that did not move {unmoved[:5]}, "
+                             f"changed frozen {changed[:5]}")
+    profile_run(trainer.run_step, "[7]", "train step", top=20)
+    del trainer, model, solver
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_whole_path(cfg, seed):
+    import torch
+
+    from unit_tpu_torch.models import rpn as rpn_lib
+    from unit_tpu_torch.ops import sampling as sampling_ops
+    from unit_tpu_torch.solver import build_optimizer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    cfg32 = cfg.clone()
+    cfg32.TPU.COMPUTE_DTYPE = "float32"
+    dev = torch.device("cuda")
+    model = flagship_model(cfg32, seed, dev)
+    build_optimizer(cfg32, model)  # freezes the stem and res2
+    strong, weak = synthetic_train_batches(cfg32, seed + 1, n_batches=1)
+    strong = {k: torch.as_tensor(v, device=dev) for k, v in strong[0].items()}
+    weak = {k: torch.as_tensor(v, device=dev) for k, v in weak[0].items()}
+
+    # record the proposals and sampled slots train_losses draws
+    recorded = []
+    real_select, real_sample = rpn_lib.select_proposals, sampling_ops.label_and_sample_proposals
+
+    def select(*a, **kw):
+        out = real_select(*a, **kw)
+        recorded.append(("proposals", out.boxes, out.valid))
+        return out
+
+    def sample(*a, **kw):
+        out = real_sample(*a, **kw)
+        recorded.append(("sampled", out.boxes, out.gt_classes, out.valid))
+        return out
+
+    runs = {}
+    rpn_lib.select_proposals, sampling_ops.label_and_sample_proposals = select, sample
+    try:
+        for impl in ("cuda", "plain"):
+            model.mc = dataclasses.replace(model.mc, roi_align_impl=impl, nms_impl=impl)
+            model.zero_grad(set_to_none=True)
+            recorded.clear()
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(seed)
+            losses = model.train_losses(gen, strong, weak)
+            torch.stack(list(losses.values())).sum().backward()
+            grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+                     if p.grad is not None}
+            runs[impl] = ({k: float(v.detach()) for k, v in losses.items()}, list(recorded),
+                          grads)
+    finally:
+        rpn_lib.select_proposals = real_select
+        sampling_ops.label_and_sample_proposals = real_sample
+    (lk, rk, gk), (lp, rp, gp) = runs["cuda"], runs["plain"]
+    same = len(rk) == len(rp) and all(
+        a[0] == b[0] and all(torch.equal(x, y) for x, y in zip(a[1:], b[1:]))
+        for a, b in zip(rk, rp))
+    loss_rel = max(abs(lk[k] - lp[k]) / max(abs(lp[k]), 1e-12) for k in lp)
+    scale = {n: float(g.abs().max()) for n, g in gp.items()}
+    big = max(scale.values())
+    diffs = {n: float((gk[n] - gp[n]).abs().max()) for n in gp if n in gk}
+    over = {n: d / (TRAIN_GRAD_REL * scale[n] + TRAIN_GRAD_FLOOR * big)
+            for n, d in diffs.items()}
+    log(f"[8] f32, TF32 off: proposals and sampled slots identical {same} ({len(rk)} "
+        f"records); losses max rel diff {loss_rel:.3g} (tol {TRAIN_LOSS_RTOL}); "
+        f"{len(gp)} gradients, largest |grad| G = {big:.4g}, worst max|diff|/bound "
+        f"{max(over.values()):.3g} (bound {TRAIN_GRAD_REL} * max|g_leaf| + "
+        f"{TRAIN_GRAD_FLOOR} * G)")
+    for n in sorted(over, key=over.get, reverse=True)[:5]:
+        log(f"[8]   {n}: max|diff| {diffs[n]:.3g}, max|g| {scale[n]:.3g}, "
+            f"diff/bound {over[n]:.3g}")
+    log(f"[8] losses (kernels): " + ", ".join(f"{k} {v:.6g}" for k, v in lk.items()))
+    if not (same and set(gk) == set(gp) and loss_rel <= TRAIN_LOSS_RTOL
+            and max(over.values()) <= 1.0):
+        raise AssertionError("the train path with kernels disagrees with the plain path")
+    del model
+    torch.cuda.empty_cache()
+
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -469,14 +824,20 @@ def main():
     k3 = phase_k3(rng)
     cfg = get_cfg()
     cfg.merge_from_file(str(FLAGSHIP))
-    launches = phase_e2e(cfg, args.seed)
+    phase_e2e(cfg, args.seed)
     phase_whole_path(cfg, args.seed)
+    k2 = phase_k2(rng)
+    launches = phase_train(cfg, args.seed)
+    phase_train_whole_path(cfg, args.seed)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     kernels = [
         dict(name="roi_align_fwd", route="cuda", source="unit_tpu_torch/csrc/roi_align_fwd.cu",
              replaces="unit_tpu/ops/roi_align_pallas.py:230",
              launches=launches["roi_align_fwd"], **k1),
+        dict(name="roi_align_bwd", route="cuda", source="unit_tpu_torch/csrc/roi_align_bwd.cu",
+             replaces="unit_tpu/ops/roi_align_pallas_bwd.py:564",
+             launches=launches["roi_align_bwd"], **k2),
         dict(name="nms_mask", route="cuda", source="unit_tpu_torch/csrc/nms_mask.cu",
              replaces="unit_tpu/ops/nms_pallas.py:115",
              launches=launches["nms_mask"], **k3),

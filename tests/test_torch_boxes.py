@@ -88,3 +88,16 @@ def test_grid_anchors_yxa_order(fh, fw):
     got = tanchors.grid_anchors(fh, fw, 16, sizes, ars).numpy()
     assert got.shape == (fh * fw * 15, 4)
     np.testing.assert_array_equal(got, want)
+
+
+def test_get_deltas(rng):
+    """get_deltas vs unit_tpu, with degenerate boxes (sides floored at 1e-6),
+    and apply_deltas inverting it on proper boxes."""
+    src, tgt = boxes_with_degenerate(rng, 31), boxes_with_degenerate(rng, 31)
+    w = (10.0, 10.0, 5.0, 5.0)
+    got, want = both("get_deltas", src, tgt, w)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
+    src, tgt = random_boxes(rng, 19, size=300.0), random_boxes(rng, 19, size=300.0)
+    d = tboxes.get_deltas(torch.as_tensor(src), torch.as_tensor(tgt), w)
+    back = tboxes.apply_deltas(d, torch.as_tensor(src), w)
+    np.testing.assert_allclose(back.numpy(), tgt, atol=1e-3)

@@ -49,6 +49,27 @@ def test_weak_detector_evaluation(oicr_iter):
     np.testing.assert_allclose(got_bbox.numpy(), np.asarray(want_bbox), atol=ATOL)
 
 
+@pytest.mark.parametrize("temps", [(2.0, 1.0), (1.0, 3.0)])
+def test_weak_detector_training_streams(temps):
+    """WeakDetectorPredictor.forward: MIL logits divided by their
+    temperatures, OICR logits per iteration (unit_tpu's __call__)."""
+    det_t, cls_t = temps
+    x = np.random.RandomState(5).randn(13, D).astype(np.float32)
+    jm = jpred.WeakDetectorPredictor(num_classes=20, oicr_iter=3, detector_temp=det_t,
+                                     classifier_temp=cls_t)
+    params = random_tree(jm.init(jax.random.PRNGKey(0), jnp.asarray(x))["params"], 2)
+    want = jm.apply({"params": params}, jnp.asarray(x))
+    tm = load_jax_params(tpred.WeakDetectorPredictor(D, 20, 3, detector_temp=det_t,
+                                                     classifier_temp=cls_t), params)
+    with torch.no_grad():
+        got = tm(t(x))
+    for k in ("classifier_stream", "detection_stream"):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), atol=ATOL)
+    assert len(got["oicr_scores"]) == 3
+    for g, w in zip(got["oicr_scores"], want["oicr_scores"]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL)
+
+
 def test_supervised_predictor():
     x = np.random.RandomState(2).randn(9, D).astype(np.float32)
     jm = jpred.SupervisedPredictor(num_classes=20)

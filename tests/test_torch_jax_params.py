@@ -71,3 +71,20 @@ def test_buffers_stay_buffers(resnet_tree):
     assert "stem_conv1_bn.weight" in dict(model.named_buffers())
     assert "stem_conv1.weight" in dict(model.named_parameters())
     assert all(p.dtype == torch.float32 for p in model.parameters())
+
+
+def test_flax_leaves_invert_the_load(resnet_tree):
+    """flax_leaves gives back every parameter leaf of the tree in the flax
+    layout (and gradients the same way); FrozenBN buffers are not parameters."""
+    from unit_tpu_torch.checkpoint import flax_leaves
+
+    model = load_jax_params(ResNetC4(depth=26, res2_out_channels=32), resnet_tree)
+    flat = flatten_tree(resnet_tree)
+    leaves = flax_leaves(model)
+    assert set(leaves) == {k for k in flat if "_bn/" not in k}
+    for path, value in leaves.items():
+        np.testing.assert_array_equal(value, flat[path])
+    assert all(v is None for v in flax_leaves(model, grads=True).values())
+    model.res3.block0.conv2.weight.grad = torch.ones_like(model.res3.block0.conv2.weight)
+    grads = flax_leaves(model, grads=True)
+    assert grads["res3/block0/conv2/kernel"].shape == flat["res3/block0/conv2/kernel"].shape

@@ -140,9 +140,17 @@ def test_detection_service_matches(pair, shape):
 
 def test_unported_paths_raise(pair):
     _, _, _, tmodel = pair
-    for fn in (tmodel.train_losses, tmodel.predict_tta, tmodel.predict_weak_only):
+    for fn in (tmodel.predict_tta, tmodel.predict_weak_only):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             fn()
+    # training options that are not ported yet: TRAIN_ONLY_WEAK and PCL here,
+    # masks (MODEL.MASK_ON) at construction below
+    with pytest.raises(NotImplementedError, match="item 20"):
+        tmodel.train_losses(None, None, None, train_only_weak=True)
+    cfg = small_flagship_cfg()
+    cfg.MODEL.ROI_HEADS.FAST_RCNN.WEAK_DETECTOR.TYPE = "PCL"
+    with pytest.raises(NotImplementedError, match="item 21"):
+        WSRCNN(ModelConfig.from_cfg(cfg)).train_losses(None, None, None)
     for key, value, item in [("MODEL.MASK_ON", "True", "item 22"),
                              ("MODEL.ROI_HEADS.FAST_RCNN.NAME",
                               "SupervisedDetectorOutputsFineTune", "item 19"),

@@ -11,12 +11,14 @@ Module paths in the port follow the flax tree, so the mapping is by name:
     embeddings                  -> the ``embeddings`` buffer
 
 It is strict: every leaf is consumed, every parameter and buffer of the
-model is set, and any shape mismatch raises.
+model is set, and any shape mismatch raises.  ``flax_path`` and
+``flax_leaves`` go the other way, so parameters, gradients and updated
+parameters can be compared with unit_tpu's leaf by leaf.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -68,3 +70,34 @@ def load_jax_params(model: nn.Module, tree: Mapping) -> nn.Module:
         raise KeyError(f"{len(unset)} model tensors not in the flax tree, e.g. "
                        f"{sorted(unset)[:5]}")
     return model
+
+
+def flax_path(name: str, value: torch.Tensor) -> str:
+    """The flax path of a torch parameter or buffer name: ``a.b.weight`` of a
+    conv or linear weight (2-D or 4-D) -> ``a/b/kernel``; anything else (a
+    bias, a FrozenBN buffer) keeps its last part."""
+    parts = name.split(".")
+    if parts[-1] == "weight" and value.dim() in (2, 4):
+        parts[-1] = "kernel"
+    return "/".join(parts)
+
+
+def to_flax_layout(value: np.ndarray) -> np.ndarray:
+    """A torch weight in the flax layout: OIHW -> HWIO, [out, in] -> [in, out]."""
+    if value.ndim == 4:
+        return value.transpose(2, 3, 1, 0)
+    if value.ndim == 2:
+        return value.T
+    return value
+
+
+def flax_leaves(model: nn.Module, grads: bool = False) -> Dict[str, Optional[np.ndarray]]:
+    """{flax path: f32 numpy copy in the flax layout} of every parameter of
+    ``model`` (its ``.grad`` with ``grads=True``, None where it has none)."""
+    out: Dict[str, Optional[np.ndarray]] = {}
+    for name, param in model.named_parameters():
+        t = param.grad if grads else param
+        out[flax_path(name, param)] = (
+            None if t is None
+            else np.array(to_flax_layout(t.detach().float().cpu().numpy()), copy=True))
+    return out

@@ -1,5 +1,6 @@
-"""Entry points around the model (port of unit_tpu.engine, predict only)."""
+"""Entry points around the model (port of unit_tpu.engine: predict and train)."""
 
 from .predict import make_predict_fn
+from .train import TrainerBase, TrainerNoMeta, TrainState, make_train_step
 
-__all__ = ["make_predict_fn"]
+__all__ = ["TrainState", "TrainerBase", "TrainerNoMeta", "make_predict_fn", "make_train_step"]

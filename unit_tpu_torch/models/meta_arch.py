@@ -1,10 +1,14 @@
-"""The weakly-supervised R-CNN detector: serving path.
+"""The weakly-supervised R-CNN detector: base training and serving.
 
-Port of unit_tpu/models/meta_arch.py:43-336,699-797 for inference with
-``WeaklySupervisedRCNNNoMeta`` configs: ResNet-C4 -> RPN (+ NMS kernel) ->
-ROIAlignV2 (kernel) -> one or two Res5 heads -> supervised delta heads + OICR
-weak detector -> lingual/visual base->novel transfer -> softmax -> per-class
-NMS (kernel).  Training, TTA, the weak-only path, masks and the meta stream
+Port of unit_tpu/models/meta_arch.py:43-336,429-651,699-797 for
+``WeaklySupervisedRCNNNoMeta`` configs.  Inference: ResNet-C4 -> RPN (+ NMS
+kernel K3) -> ROIAlignV2 (K1) -> one or two Res5 heads -> supervised delta
+heads + OICR weak detector -> lingual/visual base->novel transfer -> softmax
+-> per-class NMS (K3).  Training (``train_losses``): one fused backbone + RPN
+pass over both streams, RPN losses, proposal sampling, ROIAlignV2 with its
+backward (K1 + K2), supervised Fast R-CNN losses on top of the frozen weak
+scores, MIL + OICR losses on the weak stream.  TTA, the weak-only path,
+masks, the meta stream, PCL, fine-tuning and the other training options
 raise ``NotImplementedError`` naming the ROADMAP item that ports them.
 
 Precision mirrors ``TPU.COMPUTE_DTYPE``: backbone, RPN convs and Res5 run in
@@ -22,10 +26,12 @@ from torch import nn
 
 from ..config import validate_registry_names
 from ..ops import roi_align as roi_align_ops
-from ..structures.instances import Detections, stack_fields
+from ..ops import sampling as sampling_ops
+from ..structures.instances import Detections, GTInstances, SampledProposals, stack_fields
 from . import fast_rcnn as frcnn
 from . import rpn as rpn_lib
 from . import similarity as sim_lib
+from . import weak_losses as weak_lib
 from .predictors import (
     SupervisedPredictor,
     WeakDetectorPredictor,
@@ -61,9 +67,19 @@ class ModelConfig:
     pooler_scale: float = 1.0 / 16.0
     pooler_type: str = "ROIAlignV2"
     sampling_ratio: int = 2
+    roi_batch_size: int = 512
+    roi_positive_fraction: float = 0.25
+    roi_iou_thresholds: Tuple[float, ...] = (0.5,)
+    roi_iou_labels: Tuple[int, ...] = (0, 1)
+    proposal_append_gt: bool = True
+    weak_proposal_count: int = 512
+    detector_temp: float = 1.0
+    classifier_temp: float = 1.0
     regression_branch: bool = False
     oicr_regression_branch: bool = False
     oicr_iter: int = 3
+    weak_detector_type: str = "OICR"  # OICR | PCL
+    rpn_self_training: bool = False
     finetune: bool = False
     weak_detector_finetune: bool = False
     pixel_mean: Tuple[float, ...] = (103.53, 116.28, 123.675)
@@ -77,6 +93,7 @@ class ModelConfig:
     use_meta: bool = False
     rpn: rpn_lib.RPNConfig = rpn_lib.RPNConfig()
     frcnn: frcnn.FastRCNNConfig = frcnn.FastRCNNConfig(num_classes=20)
+    weak: weak_lib.WeakLossConfig = weak_lib.WeakLossConfig(num_classes=20)
     sim: sim_lib.SimilarityConfig = sim_lib.SimilarityConfig(
         terms=(("cls", ("lingual",)), ("bbox", ("lingual",))),
         base_ids=(), novel_ids=(), coco_indexer=(),
@@ -95,7 +112,8 @@ class ModelConfig:
                 sim_lib.VOC_CLASSES if num_classes == 20
                 else sim_lib.COCO_CLASSES[:num_classes]
             )
-        wd = cfg.MODEL.ROI_HEADS.FAST_RCNN.WEAK_DETECTOR
+        roi = cfg.MODEL.ROI_HEADS
+        wd = roi.FAST_RCNN.WEAK_DETECTOR
         fast_name = cfg.MODEL.ROI_HEADS.FAST_RCNN.NAME
         return cls(
             meta_architecture=cfg.MODEL.META_ARCHITECTURE,
@@ -110,9 +128,20 @@ class ModelConfig:
             pooler_resolution=cfg.MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION,
             pooler_type=cfg.MODEL.ROI_BOX_HEAD.POOLER_TYPE,
             sampling_ratio=cfg.TPU.ROI_ALIGN_SAMPLING_RATIO,
+            roi_batch_size=roi.BATCH_SIZE_PER_IMAGE,
+            roi_positive_fraction=roi.POSITIVE_FRACTION,
+            roi_iou_thresholds=tuple(roi.IOU_THRESHOLDS),
+            roi_iou_labels=tuple(roi.IOU_LABELS),
+            proposal_append_gt=roi.PROPOSAL_APPEND_GT,
+            weak_proposal_count=(roi.BATCH_SIZE_PER_IMAGE
+                                 // roi.WEAK_CLASSIFIER_PROPOSAL_DIVISOR),
+            detector_temp=wd.DETECTOR_TEMP,
+            classifier_temp=wd.CLASSIFIER_TEMP,
             regression_branch=wd.REGRESSION_BRANCH,
             oicr_regression_branch=wd.OICR_REGRESSION_BRANCH,
             oicr_iter=wd.OICR_ITER,
+            weak_detector_type=wd.TYPE,
+            rpn_self_training=cfg.MODEL.META_ARCHITECTURE == "WeaklySupervisedRCNNRPN",
             finetune="FineTune" in fast_name,
             weak_detector_finetune=wd.NAME == "WeakDetectorOutputsFT",
             pixel_mean=tuple(cfg.MODEL.PIXEL_MEAN),
@@ -126,6 +155,15 @@ class ModelConfig:
             use_meta=cfg.MODEL.ROI_HEADS.NAME in ("WSROIHead", "WSROIHeadFineTuneMeta"),
             rpn=rpn_lib.RPNConfig.from_cfg(cfg),
             frcnn=frcnn.FastRCNNConfig.from_cfg(cfg),
+            weak=weak_lib.WeakLossConfig(
+                num_classes=num_classes,
+                oicr_iter=wd.OICR_ITER,
+                fg_threshold=roi.IOU_THRESHOLDS[0],
+                bg_threshold=wd.BG_THRESHOLD,
+                mil_multiplier=wd.MIL_MULTIPLIER,
+                weak_loss_multiplier=wd.WEAK_LOSS_MULTIPLIER,
+                regression_branch=wd.REGRESSION_BRANCH,
+            ),
             sim=sim_lib.SimilarityConfig.from_cfg(cfg, class_names),
         )
 
@@ -180,8 +218,9 @@ class WSRCNN(nn.Module):
                                       dtype=dt, generator=g)
         d = self.box_head.out_channels
         self.supervised = SupervisedPredictor(d, mc.num_classes, generator=g)
-        self.weak_detector = WeakDetectorPredictor(d, mc.num_classes,
-                                                   oicr_iter=mc.oicr_iter, generator=g)
+        self.weak_detector = WeakDetectorPredictor(
+            d, mc.num_classes, oicr_iter=mc.oicr_iter, detector_temp=mc.detector_temp,
+            classifier_temp=mc.classifier_temp, generator=g)
         emb = torch.empty(80, 300)
         with torch.no_grad():
             emb.normal_(0.0, 0.02, generator=g)
@@ -222,10 +261,111 @@ class WSRCNN(nn.Module):
         """Mean OICR classifier weight [C+1, D]."""
         return torch.stack([m.weight for m in self.weak_detector.oicr_predictors()]).mean(0)
 
-    # ---------------------------------------------------------------- not ported
-    def train_losses(self, *args, **kwargs):
-        raise _not_ported("training", "ROADMAP Queue 1 slice B, items 8-13")
+    # ---------------------------------------------------------------- training
+    def _check_trainable(self, train_only_weak, meta) -> None:
+        """Training options beyond those _check_supported refuses at
+        construction (masks, precomputed proposals, fine-tuning)."""
+        mc = self.mc
+        if train_only_weak:
+            raise _not_ported("TRAIN_ONLY_WEAK training", "ROADMAP Queue 1 item 20")
+        if mc.rpn_self_training:
+            raise _not_ported("RPN self-training (WeaklySupervisedRCNNRPN)",
+                              "ROADMAP Queue 1 item 20")
+        if mc.weak_detector_type != "OICR":
+            raise _not_ported(f"the {mc.weak_detector_type} weak detector",
+                              "ROADMAP Queue 1 item 21")
+        if meta is not None:
+            raise _not_ported("the meta (support) stream", "ROADMAP Queue 1 item 23")
 
+    def train_losses(
+        self,
+        generator: Optional[torch.Generator],
+        strong: Optional[Dict[str, torch.Tensor]],
+        weak: Optional[Dict[str, torch.Tensor]],
+        train_only_weak: bool = False,
+        meta: Optional[Dict[str, torch.Tensor]] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """One training step's loss dict (unit_tpu meta_arch.py:429-651).
+
+        strong: {image [B,H,W,3], gt_boxes [B,G,4], gt_classes [B,G],
+                 gt_valid [B,G], image_size [B,2]}
+        weak:   {image [Bw,H',W',3], labels [Bw,C], image_size [Bw,2]}
+        ``generator`` (on the batches' device) draws every random choice:
+        the RPN's anchor subsampling and the ROI heads' proposal sampling.
+        """
+        self._check_trainable(train_only_weak, meta)
+        mc = self.mc
+        losses: Dict[str, torch.Tensor] = {}
+
+        # Both streams on one canvas: one fused backbone + RPN pass over
+        # cat(strong, weak); the gradients are those of two passes.
+        feats = feats_w = logits = deltas = logits_w = deltas_w = None
+        if (strong is not None and weak is not None
+                and strong["image"].shape[1:] == weak["image"].shape[1:]):
+            bs = strong["image"].shape[0]
+            all_feats = self.features(torch.cat([strong["image"], weak["image"]]))
+            feats, feats_w = all_feats[:bs], all_feats[bs:]
+            all_logits, all_deltas = self.rpn(all_feats)
+            logits, logits_w = all_logits[:bs], all_logits[bs:]
+            deltas, deltas_w = all_deltas[:bs], all_deltas[bs:]
+
+        if strong is not None:
+            gt = GTInstances(boxes=strong["gt_boxes"], classes=strong["gt_classes"].long(),
+                             valid=strong["gt_valid"].bool())
+            if feats is None:
+                feats = self.features(strong["image"])
+                logits, deltas = self.rpn(feats)
+            anchors = rpn_lib.get_anchors(feats.shape[1], feats.shape[2], mc.rpn,
+                                          device=feats.device)
+            losses.update(rpn_lib.rpn_losses(generator, logits, deltas, anchors, gt, mc.rpn))
+            proposals = rpn_lib.select_proposals(
+                logits.detach(), deltas.detach(), anchors, strong["image_size"], mc.rpn,
+                nms_impl=mc.nms_impl, training=True)
+            sampled = stack_fields([
+                sampling_ops.label_and_sample_proposals(
+                    generator, proposals.boxes[i], proposals.valid[i],
+                    GTInstances(gt.boxes[i], gt.classes[i], gt.valid[i]),
+                    mc.roi_batch_size, mc.roi_positive_fraction, mc.num_classes,
+                    mc.roi_iou_thresholds, mc.roi_iou_labels, mc.proposal_append_gt)
+                for i in range(feats.shape[0])
+            ], SampledProposals)
+
+            pooled = self.pooled_rois(feats, sampled.boxes)
+            box_feats = self.box_features(pooled, "box")
+            sup = self.supervised(box_feats)
+            # Frozen weak scores on top of the deltas: no graph (unit_tpu
+            # stops the gradient here), so Res5 keeps no activations for it.
+            with torch.no_grad():
+                sup_weak_feats = (self.box_features(pooled, "weak") if mc.multi_box_head
+                                  else box_feats)
+                weak_scores, weak_box_deltas = self.weak_detector.evaluation(sup_weak_feats)
+            scores = combine_cls_logits(sup["delta_scores"], weak_scores)
+            scores = frcnn.mask_novel_scores(scores, mc.novel_ids)
+            bbox = sup["proposal_deltas"] + weak_box_deltas
+            flat = SampledProposals(**{
+                f.name: getattr(sampled, f.name).flatten(0, 1)
+                for f in dataclasses.fields(SampledProposals)})
+            losses.update(frcnn.fast_rcnn_losses(scores, bbox, flat, mc.frcnn))
+
+        if weak is not None:
+            if feats_w is None:
+                feats_w = self.features(weak["image"])
+                logits_w, deltas_w = self.rpn(feats_w)
+            anchors_w = rpn_lib.get_anchors(feats_w.shape[1], feats_w.shape[2], mc.rpn,
+                                            device=feats_w.device)
+            props_w = rpn_lib.select_proposals(
+                logits_w.detach(), deltas_w.detach(), anchors_w, weak["image_size"], mc.rpn,
+                nms_impl=mc.nms_impl, training=True)
+            # the top (BATCH_SIZE_PER_IMAGE // WEAK_CLASSIFIER_PROPOSAL_DIVISOR)
+            w_boxes = props_w.boxes[:, :mc.weak_proposal_count].contiguous()
+            w_valid = props_w.valid[:, :mc.weak_proposal_count]
+            pooled_w = self.pooled_rois(feats_w, w_boxes)
+            weak_feats = self.box_features(pooled_w, "weak" if mc.multi_box_head else "box")
+            losses.update(weak_lib.weak_detector_losses(
+                self.weak_detector(weak_feats), w_boxes, w_valid, weak["labels"], mc.weak))
+        return losses
+
+    # ---------------------------------------------------------------- not ported
     def predict_tta(self, *args, **kwargs):
         raise _not_ported("test-time augmentation", "ROADMAP Queue 1 item 24")
 

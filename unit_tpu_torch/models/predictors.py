@@ -1,11 +1,11 @@
 """Box predictors (weak detector streams, supervised delta heads) and the
 base -> novel transfer.
 
-Port of unit_tpu/models/predictors.py for the inference path of the shipped
-configs.  The heads are f32 ``nn.Linear`` layers named after the flax
-parameters; the transfer math is plain functions on tensors.  The fine-tune
-(``*_ft`` / delta stream) variants belong to ROADMAP Queue 1 item 19, the
-weak regression branches (set by no shipped config) to item 25.
+Port of unit_tpu/models/predictors.py for the base-training and inference
+paths of the shipped configs.  The heads are f32 ``nn.Linear`` layers named
+after the flax parameters; the transfer math is plain functions on tensors.
+The fine-tune (``*_ft`` / delta stream) variants belong to ROADMAP Queue 1
+item 19, the weak regression branches (set by no shipped config) to item 25.
 """
 
 from __future__ import annotations
@@ -33,15 +33,18 @@ def _dense(in_features: int, out_features: int, std: Optional[float],
 class WeakDetectorPredictor(nn.Module):
     """MIL + OICR linear heads over box features [N, D].
 
-    The MIL streams are not read at inference; they are here so a flax
-    parameter tree loads strictly.
+    ``forward`` gives the training streams (raw logits; the losses are in
+    models/weak_losses.py), ``evaluation`` the inference scores, which read
+    only the OICR heads.
     """
 
     def __init__(self, in_features: int, num_classes: int, oicr_iter: int = 3,
+                 detector_temp: float = 1.0, classifier_temp: float = 1.0,
                  box_dim: int = 4, generator: Optional[torch.Generator] = None):
         super().__init__()
         c = num_classes
         self.num_classes, self.box_dim, self.oicr_iter = c, box_dim, oicr_iter
+        self.detector_temp, self.classifier_temp = detector_temp, classifier_temp
         self.classifier_stream = _dense(in_features, c, 0.01, generator)
         self.detection_stream = _dense(in_features, c, 0.01, generator)
         for i in range(oicr_iter):
@@ -50,6 +53,15 @@ class WeakDetectorPredictor(nn.Module):
 
     def oicr_predictors(self) -> List[nn.Linear]:
         return [getattr(self, f"oicr_predictor_{i}") for i in range(self.oicr_iter)]
+
+    def forward(self, x: torch.Tensor) -> Dict[str, object]:
+        """Training streams: MIL classifier and detection logits divided by
+        their temperatures [N, C], and the OICR logits [N, C+1] per iteration."""
+        return {
+            "classifier_stream": self.classifier_stream(x) / self.classifier_temp,
+            "detection_stream": self.detection_stream(x) / self.detector_temp,
+            "oicr_scores": [m(x) for m in self.oicr_predictors()],
+        }
 
     def evaluation(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Inference-time weak scores: (OICR logits stacked over iterations

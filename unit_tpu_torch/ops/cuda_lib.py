@@ -35,6 +35,7 @@ BASE_FLAGS = ARCH_FLAGS + (
 EXTRA_FLAGS: Dict[str, Tuple[str, ...]] = {
     "nms_mask": ("-fmad=false",),
     "roi_align_fwd": (),
+    "roi_align_bwd": (),
 }
 
 # name -> (seconds spent in nvcc, 0.0 if the library was already built;

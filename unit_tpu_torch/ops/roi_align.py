@@ -1,41 +1,54 @@
-"""ROIAlignV2 ("aligned") on [B, H, W, C] feature maps.
+"""ROIAlignV2 ("aligned") on [B, H, W, C] feature maps, and its gradient.
 
-Port of unit_tpu/ops/roi_align.py:29-195.  ``roi_align_batched`` dispatches
-between the hand-written CUDA kernel (``roi_align_cuda``, K1, forward only)
-and its plain PyTorch version ``roi_align_plain``, a vectorised gather in f32:
+Port of unit_tpu/ops/roi_align.py:29-195 and of the custom_vjp of
+unit_tpu/ops/roi_align_pallas.py:221-314.  ``roi_align_batched`` dispatches
+between the hand-written CUDA kernels (``roi_align_cuda``, K1, and
+``roi_align_backward_cuda``, K2) and their plain PyTorch versions
+``roi_align_plain`` (a vectorised gather in f32) and
+``roi_align_backward_plain`` (an explicit f32 scatter):
 
-    impl="auto"   kernel for CUDA tensors, plain version for CPU tensors
-    impl="cuda"   kernel; raises for CPU tensors
-    impl="plain"  plain version (tests and chip_smoke.py's comparisons)
+    impl="auto"   kernels for CUDA tensors, plain versions for CPU tensors
+    impl="cuda"   kernels; raises for CPU tensors
+    impl="plain"  plain versions (tests and chip_smoke.py's comparisons)
 
-Semantics (both): ROI corners scaled by ``spatial_scale`` and shifted by
+When the features require grad, the call goes through
+``RoIAlignV2Function``, whose forward is K1 (or roi_align_plain) and whose
+backward is K2 (or roi_align_backward_plain); the ROIs get no gradient.
+
+Semantics (all four): ROI corners scaled by ``spatial_scale`` and shifted by
 -0.5; each of the P x P bins averages s x s bilinear samples; a sample
 outside [-1, H] x [-1, W] contributes zero.  The sampling ratio is fixed, not
-adaptive (docs/DEVIATIONS.md).  The pooled output keeps the feature dtype.
+adaptive (docs/DEVIATIONS.md).  The pooled output and the feature gradient
+keep the feature dtype; sums are f32.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
-from .roi_align_cuda import roi_align_cuda
+from .roi_align_cuda import roi_align_backward_cuda, roi_align_cuda
+
+
+def _corners(v: torch.Tensor, size: int):
+    """Bilinear corners of coordinates ``v`` along an axis of length ``size``:
+    (lo, hi) int64 indices, (1 - l, l) weights and the outside mask.  A NaN
+    coordinate (a diverged step's ROI) samples index 0, as the kernels'
+    fmaxf/fminf clamp does."""
+    oob = (v < -1.0) | (v > size)
+    vc = torch.where(torch.isnan(v), 0.0, v).clamp(0.0, size - 1)
+    v0 = torch.floor(vc)
+    hi = (v0 + 1).clamp_max(size - 1)
+    l = vc - v0
+    return v0.to(torch.int64), hi.to(torch.int64), 1.0 - l, l, oob
 
 
 def _bilinear_gather(flat: torch.Tensor, h: int, w: int, y: torch.Tensor,
                      x: torch.Tensor) -> torch.Tensor:
     """Sample ``flat`` [H*W, C] at float coords y, x [...] -> [..., C] f32."""
-    oob = (y < -1.0) | (y > h) | (x < -1.0) | (x > w)
-    yc = y.clamp(0.0, h - 1)
-    xc = x.clamp(0.0, w - 1)
-    y0 = torch.floor(yc)
-    x0 = torch.floor(xc)
-    y1 = (y0 + 1).clamp_max(h - 1)
-    x1 = (x0 + 1).clamp_max(w - 1)
-    ly = yc - y0
-    lx = xc - x0
-    hy = 1.0 - ly
-    hx = 1.0 - lx
-    y0i, y1i, x0i, x1i = (v.to(torch.int64) for v in (y0, y1, x0, x1))
+    y0i, y1i, hy, ly, y_oob = _corners(y, h)
+    x0i, x1i, hx, lx, x_oob = _corners(x, w)
+    oob = y_oob | x_oob
 
     def g(yi, xi):
         return flat[yi * w + xi].to(torch.float32)
@@ -100,6 +113,66 @@ def roi_align_plain(
     return out
 
 
+def roi_align_backward_plain(
+    g: torch.Tensor,
+    rois: torch.Tensor,
+    feature_shape,
+    output_size: int = 14,
+    spatial_scale: float = 1.0 / 16.0,
+    sampling_ratio: int = 2,
+    chunk_size: int = 64,
+) -> torch.Tensor:
+    """Plain PyTorch gradient of ROIAlignV2 w.r.t. the features: g
+    [B, N, P, P, C], rois [B, N, 4], feature_shape (B, H, W, C) -> dF
+    [B, H, W, C] in the dtype of g.  Each sample's g / s^2 times each
+    corner's bilinear weight is scattered with ``index_add_`` into an f32
+    buffer, ROIs in chunks (no autograd through the forward)."""
+    b, h, w, c = (int(v) for v in feature_shape)
+    n = rois.shape[1]
+    p, s = output_size, sampling_ratio
+    out = torch.zeros((b, h * w, c), dtype=torch.float32, device=g.device)
+    inv = 1.0 / (s * s)
+    for i in range(b):
+        for lo in range(0, n, chunk_size):
+            chunk = rois[i, lo:lo + chunk_size].to(torch.float32)
+            m = chunk.shape[0]
+            ys, xs = _roi_sample_coords(chunk, p, spatial_scale, s)
+            y_lo, y_hi, y_wl, y_wh, y_oob = _corners(ys, h)
+            x_lo, x_hi, x_wl, x_wh, x_oob = _corners(xs, w)
+            inside = ~(y_oob[:, :, None] | x_oob[:, None, :])  # [m, P*s, P*s]
+            gs = g[i, lo:lo + m].to(torch.float32) * inv     # [m, P, P, C]
+            gs = gs[:, :, None, :, None, :].expand(m, p, s, p, s, c).reshape(
+                m, p * s, p * s, c)
+            for yi, wy in ((y_lo, y_wl), (y_hi, y_wh)):
+                for xi, wx in ((x_lo, x_wl), (x_hi, x_wh)):
+                    wgt = torch.where(inside, wy[:, :, None] * wx[:, None, :], 0.0)
+                    idx = yi[:, :, None] * w + xi[:, None, :]
+                    out[i].index_add_(0, idx.reshape(-1), (gs * wgt[..., None]).reshape(-1, c))
+    return out.reshape(b, h, w, c).to(g.dtype)
+
+
+class RoIAlignV2Function(torch.autograd.Function):
+    """ROIAlignV2 with its gradient: forward K1 and backward K2 for
+    impl="cuda", roi_align_plain and roi_align_backward_plain for
+    impl="plain".  The ROIs get no gradient (unit_tpu returns zeros)."""
+
+    @staticmethod
+    def forward(ctx, features, rois, output_size, spatial_scale, sampling_ratio, impl):
+        ctx.save_for_backward(rois)
+        ctx.args = (tuple(features.shape), output_size, spatial_scale, sampling_ratio, impl)
+        fwd = roi_align_cuda if impl == "cuda" else roi_align_plain
+        return fwd(features, rois, output_size, spatial_scale, sampling_ratio)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        (rois,) = ctx.saved_tensors
+        shape, output_size, spatial_scale, sampling_ratio, impl = ctx.args
+        bwd = roi_align_backward_cuda if impl == "cuda" else roi_align_backward_plain
+        df = bwd(g.contiguous(), rois, shape, output_size, spatial_scale, sampling_ratio)
+        return df, None, None, None, None, None
+
+
 def roi_align_batched(
     features: torch.Tensor,
     rois: torch.Tensor,
@@ -111,8 +184,10 @@ def roi_align_batched(
     """Whole-batch ROIAlignV2 -> [B, N, P, P, C] (see the module docstring)."""
     if impl == "auto":
         impl = "cuda" if features.is_cuda else "plain"
-    if impl == "cuda":
-        return roi_align_cuda(features, rois, output_size, spatial_scale, sampling_ratio)
-    if impl == "plain":
-        return roi_align_plain(features, rois, output_size, spatial_scale, sampling_ratio)
-    raise ValueError(f"unknown ROIAlign impl {impl!r} (auto | cuda | plain)")
+    if impl not in ("cuda", "plain"):
+        raise ValueError(f"unknown ROIAlign impl {impl!r} (auto | cuda | plain)")
+    if features.requires_grad and torch.is_grad_enabled():
+        return RoIAlignV2Function.apply(features, rois, output_size, spatial_scale,
+                                        sampling_ratio, impl)
+    fwd = roi_align_cuda if impl == "cuda" else roi_align_plain
+    return fwd(features, rois, output_size, spatial_scale, sampling_ratio)

@@ -1,0 +1,5 @@
+"""The optimizer (port of unit_tpu.solver: SGD, schedule, LR groups, freezing)."""
+
+from .build import Solver, build_optimizer, is_frozen, lr_factor_for, warmup_multistep
+
+__all__ = ["Solver", "build_optimizer", "is_frozen", "lr_factor_for", "warmup_multistep"]

@@ -61,6 +61,32 @@ def nonempty(boxes: torch.Tensor, threshold: float = 0.0) -> torch.Tensor:
     return (w > threshold) & (h > threshold)
 
 
+def get_deltas(
+    src_boxes: torch.Tensor,
+    target_boxes: torch.Tensor,
+    weights: Sequence[float] = (1.0, 1.0, 1.0, 1.0),
+) -> torch.Tensor:
+    """Box2BoxTransform.get_deltas, the inverse of :func:`apply_deltas`:
+    (wx*dx, wy*dy, ww*log(tw/sw), wh*log(th/sh)); sides are floored at 1e-6,
+    degenerate boxes give values the callers mask."""
+    src_w = (src_boxes[..., 2] - src_boxes[..., 0]).clamp_min(1e-6)
+    src_h = (src_boxes[..., 3] - src_boxes[..., 1]).clamp_min(1e-6)
+    src_cx = src_boxes[..., 0] + 0.5 * src_w
+    src_cy = src_boxes[..., 1] + 0.5 * src_h
+
+    tgt_w = (target_boxes[..., 2] - target_boxes[..., 0]).clamp_min(1e-6)
+    tgt_h = (target_boxes[..., 3] - target_boxes[..., 1]).clamp_min(1e-6)
+    tgt_cx = target_boxes[..., 0] + 0.5 * tgt_w
+    tgt_cy = target_boxes[..., 1] + 0.5 * tgt_h
+
+    wx, wy, ww, wh = weights
+    dx = wx * (tgt_cx - src_cx) / src_w
+    dy = wy * (tgt_cy - src_cy) / src_h
+    dw = ww * torch.log(tgt_w / src_w)
+    dh = wh * torch.log(tgt_h / src_h)
+    return torch.stack([dx, dy, dw, dh], dim=-1)
+
+
 def apply_deltas(
     deltas: torch.Tensor,
     boxes: torch.Tensor,

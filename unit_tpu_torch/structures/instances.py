@@ -1,6 +1,6 @@
 """Fixed-shape instance containers.
 
-Port of unit_tpu/structures/instances.py:41-92: every field is a padded
+Port of unit_tpu/structures/instances.py:18-92: every field is a padded
 tensor with a leading static capacity (after an optional batch dimension)
 plus a boolean ``valid`` mask.
 """
@@ -9,6 +9,32 @@ from __future__ import annotations
 
 import dataclasses
 import torch
+
+
+@dataclasses.dataclass
+class GTInstances:
+    """Padded ground truth: boxes [..., G, 4] XYXY in canvas coordinates;
+    classes [..., G] int64 in [0, C) (padded entries arbitrary); valid
+    [..., G] bool."""
+
+    boxes: torch.Tensor
+    classes: torch.Tensor
+    valid: torch.Tensor
+
+
+@dataclasses.dataclass
+class SampledProposals:
+    """Proposals after IoU matching and subsampling (training): boxes
+    [..., S, 4]; gt_classes [..., S] int64 in [0, C] (C is background);
+    gt_boxes [..., S, 4] matched GT box; valid [..., S] bool (slot is real);
+    is_fg [..., S] bool; gt_index [..., S] int64 matched GT slot."""
+
+    boxes: torch.Tensor
+    gt_classes: torch.Tensor
+    gt_boxes: torch.Tensor
+    valid: torch.Tensor
+    is_fg: torch.Tensor
+    gt_index: torch.Tensor
 
 
 @dataclasses.dataclass

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Build and drive unit_tpu_torch's serving and training paths on one NVIDIA GPU.
+"""Build and drive unit_tpu_torch's serving, training and run-loop paths on one NVIDIA GPU.
 
 Run from the repository root on a machine with a CUDA card (an H100 for the
 sm_90a kernels) and nvcc:
@@ -7,28 +7,41 @@ sm_90a kernels) and nvcc:
     python3 chip_smoke.py [--seed 0]
 
 Phases (any failure raises and the script exits non-zero):
-  0  environment: card, power limit, torch/CUDA/nvcc versions, PyYAML
-  1  build the three CUDA kernels from unit_tpu_torch/csrc, one nvcc each,
+  0  environment: card, power limit, torch/CUDA/nvcc versions, PyYAML, PIL
+  1  build the four CUDA kernels from unit_tpu_torch/csrc, one nvcc each,
      all started together, timed
   2  K1 ROIAlignV2 forward vs its plain version at the flagship shapes
   3  K3 greedy-NMS mask vs its plain version (RPN, final and degenerate cases)
   4  serving end to end: the flagship VOC R-101-C4 detector at full width,
      random seeded weights, bf16, served by DetectionService.detect_array in
-     both canvas orientations; launch counters prove the path ran K1 and K3
-  5  whole serving path in f32 (TF32 off): predict_raw with the kernels vs
-     with the plain versions
+     both canvas orientations; launch counters prove the path ran K1, K3
+     and K4 (one launch per FrozenBN); the same requests again with the plain
+     epilogue, in turns
+  5  whole serving path in f32 (TF32 off): predict_raw with the kernels
+     (K1, K3, K4) vs with the plain versions
   6  K2 ROIAlignV2 backward vs its plain version at the flagship train-step
      shapes; two launches bit-identical
   7  training end to end: TrainerNoMeta takes 2 warm-up and 8 timed steps of
      the flagship recipe at full width (2 strong + 2 weak images per step,
      canvases alternating 800x1344 / 1344x800, bf16) with build_optimizer's
      SGD (gradients clipped: the weights are random); launch counters prove
-     every step ran K1 x2, K2 x2 and K3 x4
+     every step ran K1 x2, K2 x2, K3 x4 and K4 once per FrozenBN forward and
+     once per differentiated FrozenBN backward; the same steps again with the
+     plain epilogue, in turns
   8  whole train path in f32 (TF32 off): train_losses + backward with the
      kernels vs with the plain versions, same weights and generator seed
+  9  K4 fused FrozenBN + residual + ReLU epilogue vs its plain version,
+     forward and backward, bf16 and f32, at the flagship shapes and two narrow
+     ones (bit-identical); times beside the four-op chain it replaces and the
+     bound of the bytes it must move
+ 10  the run loop at full width and depth: engine.runner.run on a synthetic
+     VOC devkit (XML and image sets on disk, images from a seeded loader):
+     6 steps with checkpoints and evaluations every 3, a resume from step 3,
+     --eval-only from step 6, one evaluation with TPU.FOLD_BN_AT_EVAL, and
+     24 steps without hooks for the loader's steady rate
 The last three lines are the card (nvidia-smi), one JSON object describing
-the kernels (launches counted on the train path of phase 7), and
-{"ok": true, "device": {...}}.  Without a CUDA device, or without the
+the kernels (launches counted on the run loop of phase 10, and per path under
+launches_by_path), and {"ok": true, "device": {...}}.  Without a CUDA device, or without the
 unit_tpu_torch package beside it, the script fails before any result is
 printed.
 """
@@ -40,9 +53,13 @@ import concurrent.futures
 import dataclasses
 import itertools
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -91,6 +108,52 @@ TRAIN_CANVASES = (((800, 1344), (800, 1067)), ((1344, 800), (1067, 800)))
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_REL = 1e-3
 TRAIN_GRAD_FLOOR = 1e-6
+# The card's published peaks (NVIDIA H100 SXM data sheet), for each kernel's
+# bound: the least time the card could take for the same work.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+# K4 vs its plain version: bit-identical, in f32 and bf16, forward and
+# backward.  The kernel does the plain version's f32 operations in its order
+# with round-to-nearest intrinsics (nothing contracts into an FMA) and both
+# round once to the activation's type.
+K4_MAX_ABS_ERR = 0.0
+# K4 shapes [N, H, W, C], (residual, relu): the stem, res2's and res4's conv3
+# epilogue at one served image, a shortcut, res4 at a train step's 4 images,
+# Res5 over 1024 ROIs, and two narrow ones (C = 4 and 130 take the scalar path).
+K4_SHAPES = (
+    ((1, 400, 672, 64), (False, True)),
+    ((1, 50, 84, 256), (True, True)),
+    ((1, 50, 84, 1024), (True, True)),
+    ((1, 50, 84, 1024), (False, False)),
+    ((4, 50, 84, 1024), (True, True)),
+    ((1024, 7, 7, 2048), (True, True)),
+    ((3, 5, 7, 4), (True, True)),
+    ((2, 9, 11, 130), (True, True)),
+)
+K4_REPORTED = ((4, 50, 84, 1024), (True, True))  # the kernels line's K4 row
+# Run loop (phase 10): steps, and how far the losses of a resumed run may be
+# from the uninterrupted run's.  With cudnn.deterministic pinned every kernel
+# of the step has a fixed summation order except PyTorch's own scatter/index
+# kernels with float atomics (index_put_ with accumulate in the plain
+# matcher/sampling and loss code); the script prints whether the two runs
+# were bit-identical and holds them to this relative bound either way.
+RUN_STEPS = 6
+RUN_PERIOD = 3
+RUN_TEST_IMAGES = 8
+RUN_STEADY_STEPS = 24  # a longer run without hooks in the way: the loader's steady rate
+RUN_EXTRA_OPTS = ()  # more config overrides (a rehearsal at a small size sets them)
+RUN_DEVICE = "cuda"  # a rehearsal of the run loop's control flow sets "cpu"
+RESUME_LOSS_RTOL = 1e-3
+# Folded vs unfolded evaluation.  In f32 with TF32 off the fold moves one f32
+# rounding per convolution: the res4 features agree to FOLD_F32_REL of their
+# largest magnitude.  In bf16 it moves one bf16 rounding per convolution (the
+# weight is scaled before its cast instead of the rounded output after it),
+# and a random-weight R-101 amplifies every rounding over its 100
+# convolutions, so the bound is the network's own bf16 noise: the folded bf16
+# features may be at most FOLD_BF16_FACTOR times as far (mean |diff|) from
+# the f32 features as the unfolded bf16 features are.
+FOLD_F32_REL = 1e-3
+FOLD_BF16_FACTOR = 2.0
 
 
 def log(*parts):
@@ -119,6 +182,59 @@ def cuda_ms(fn, iters):
     return float(np.median(times))
 
 
+def cuda_ms_queued(fn, iters):
+    """(device ms, host ms) per call of fn() over ``iters`` back-to-back calls.
+
+    For kernels shorter than a launch costs the host (tens of microseconds):
+    the device is first held busy by a spin kernel, so the calls queue up
+    behind it and the events bracket device work only; the host's own time
+    per call is read from an un-queued run.  Median of 3 such runs."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    reps = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(host * 2.5e9))  # cycles: longer than the host needs to enqueue
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        reps.append(start.elapsed_time(end) / iters)
+    return float(np.median(reps)), 1e3 * host / iters
+
+
+def bound(bytes_moved, flops):
+    """The least time the card could take for this work, in ms: its bytes
+    (each input read once, each output written once) over the HBM rate, or
+    its f32 operations over the f32 peak, whichever is larger, and which."""
+    by_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / F32_FLOPS * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+# f32 operations per output element of ROIAlignV2 (and per gradient element
+# of its backward): 4 samples x 4 corners x (multiply, add).
+ROI_ALIGN_FLOPS = 32
+# f32 operations of one IoU test: 4 min/max, 2 subtract, 2 clamp, 1 multiply
+# (intersection); 2 add, 1 subtract (union); 1 divide, 1 compare; the areas
+# are amortised.
+IOU_FLOPS = 14
+
+
 # --------------------------------------------------------------------------- #
 def phase_env():
     import torch
@@ -129,25 +245,30 @@ def phase_env():
 
     nvcc = run([cuda_lib.nvcc_path(), "--version"]).splitlines()[-1]
     try:
-        import yaml  # noqa: F401  (unit_tpu.config reads the recipes with it)
+        import yaml  # noqa: F401  (unit_tpu_torch.config reads the recipes with it)
         has_yaml = f"yes ({yaml.__version__})"
     except ImportError:
         has_yaml = "no"
+    try:
+        import PIL  # noqa: F401  (data.transforms.load_image_bgr reads image files with it)
+        has_pil = f"yes ({PIL.__version__})"
+    except ImportError:
+        has_pil = "no"
     log(f"[0] python {sys.version.split()[0]}, torch {torch.__version__}, CUDA "
-        f"{torch.version.cuda}, nvcc {nvcc}, PyYAML {has_yaml}, "
+        f"{torch.version.cuda}, nvcc {nvcc}, PyYAML {has_yaml}, PIL {has_pil}, "
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     return card
 
 
 def phase_build():
-    from unit_tpu_torch.ops import cuda_lib, nms_cuda, roi_align_cuda
+    from unit_tpu_torch.ops import bn_act_cuda, cuda_lib, nms_cuda, roi_align_cuda
 
     t0 = time.perf_counter()
-    loaders = (roi_align_cuda._lib, roi_align_cuda._bwd_lib, nms_cuda._lib)
+    loaders = (roi_align_cuda._lib, roi_align_cuda._bwd_lib, nms_cuda._lib, bn_act_cuda._lib)
     with concurrent.futures.ThreadPoolExecutor(len(loaders)) as pool:
         for fut in [pool.submit(f) for f in loaders]:
             fut.result()
-    log(f"[1] built the three kernels in {time.perf_counter() - t0:.1f} s (in parallel)")
+    log(f"[1] built the four kernels in {time.perf_counter() - t0:.1f} s (in parallel)")
     for name, (secs, report) in cuda_lib.BUILD_LOG.items():
         log(f"[1] {name}: nvcc {secs:.1f} s")
         for line in report.splitlines():
@@ -208,8 +329,11 @@ def phase_k1(rng):
         worst_f32, worst_bf16 = max(worst_f32, err32), max(worst_bf16, err16)
         k_ms = cuda_ms(lambda: ra.roi_align_batched(feat, rois, impl="cuda"), 20)
         p_ms = cuda_ms(lambda: ra.roi_align_batched(feat, rois, impl="plain"), 3)
-        times[b] = (k_ms, p_ms)
-        log(f"[2] K1 B={b} bf16: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms (median, CUDA events)")
+        out_elems = b * 1000 * 14 * 14 * 1024
+        times[b] = (k_ms, p_ms, bound(nbytes(feat, rois) + out_elems * feat.element_size(),
+                                      out_elems * ROI_ALIGN_FLOPS))
+        log(f"[2] K1 B={b} bf16: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms (median, CUDA "
+            f"events); bound {times[b][2]['bound_ms']:.4f} ms by {times[b][2]['bound_by']}")
     # tiny shapes: odd sizes, H = 1 and W = 1 maps
     for shape in ((1, 1, 5, 8), (2, 7, 1, 6), (1, 9, 11, 130)):
         feat = torch.as_tensor(rng.randn(*shape).astype(np.float32), device=dev)
@@ -221,7 +345,8 @@ def phase_k1(rng):
         log(f"[2] K1 {shape} x 17 ROIs P=7 f32: max|diff| {err:.3g}")
         if not err <= K1_F32_ATOL:
             raise AssertionError(f"K1 disagrees at {shape}: {err}")
-    return {"max_abs_err": worst_bf16, "ms": times[1][0], "plain_ms": times[1][1]}
+    return {"max_abs_err": worst_bf16, "ms": times[1][0], "plain_ms": times[1][1],
+            **times[1][2], "library_ms": None}  # no one PyTorch call computes ROIAlignV2
 
 
 def piled_rois(rng, n, h_img=800, w_img=1344):
@@ -281,7 +406,17 @@ def phase_k3(rng):
         raise AssertionError("K3: nms() indices differ from the plain version (RPN)")
     rpn_ms = cuda_ms(lambda: nms_ops.nms_sorted_mask(sb, 0.7, 1000, impl="cuda"), 20)
     rpn_plain = cuda_ms(lambda: nms_ops.nms_sorted_mask(sb, 0.7, 1000, impl="plain"), 3)
-    log(f"[3] K3 RPN mask: kernel {rpn_ms:.4f} ms, plain {rpn_plain:.4f} ms")
+    # The work this run's boxes need: exact greedy NMS tests each box, up to
+    # the row of the last keep it returns, against the boxes kept before it.
+    keep = nms_ops.nms_sorted_mask(sb, 0.7, 1000, impl="cuda")
+    kept = int(keep.sum())
+    last = int(keep.nonzero().max()) if kept else 0
+    tests = int(torch.cumsum(keep[: last + 1].long(), 0).sum()) - kept
+    rpn_bound = bound(nbytes(sb, keep), tests * IOU_FLOPS)
+    log(f"[3] K3 RPN mask: kernel {rpn_ms:.4f} ms, plain {rpn_plain:.4f} ms; {kept} keeps, "
+        f"the last at row {last}: {tests} IoU tests of a box against an earlier keep, "
+        f"bound {rpn_bound['bound_ms']:.5f} ms by {rpn_bound['bound_by']} (a serial walk "
+        f"of {kept} dependent keeps is not in this bound)")
 
     # final detections: 1000 proposals x 20 classes, class-offset, IoU 0.5, 100 out
     p, c = 1000, 20
@@ -310,7 +445,8 @@ def phase_k3(rng):
     boxes[1::5, 3] = boxes[1::5, 1]
     boxes[2::7] = boxes[3::7][: len(boxes[2::7])]
     same_mask(torch.as_tensor(boxes, device=dev), 0.5, None, "700 boxes with zero-area rows")
-    return {"max_abs_err": worst[0], "ms": rpn_ms, "plain_ms": rpn_plain}
+    return {"max_abs_err": worst[0], "ms": rpn_ms, "plain_ms": rpn_plain, **rpn_bound,
+            "library_ms": None}  # torchvision's nms is not installed and not used
 
 
 def calibrate_frozen_bn(model, image, size):
@@ -364,13 +500,53 @@ def flagship_model(cfg, seed, dev):
     return model
 
 
+def frozen_bn_counts(model):
+    """FrozenBN modules (one K4 forward launch each per pass) of the backbone
+    and of one Res5 head, and how many of the backbone's sit behind a
+    trainable convolution (one K4 backward launch each per step)."""
+    from unit_tpu_torch.models.resnet import FrozenBN
+
+    def walk(root):
+        total = trainable = 0
+        for parent in root.modules():
+            for name, child in parent.named_children():
+                if isinstance(child, FrozenBN):
+                    total += 1
+                    trainable += bool(getattr(parent, name[: -len("_bn")]).weight.requires_grad)
+        return total, trainable
+
+    backbone, backbone_trainable = walk(model.backbone)
+    res5, _ = walk(model.box_head)
+    return backbone, res5, backbone_trainable
+
+
+def reset_launch_counts():
+    from unit_tpu_torch.ops import bn_act_cuda, nms_cuda, roi_align_cuda
+
+    for fn in (roi_align_cuda.roi_align_cuda, roi_align_cuda.roi_align_backward_cuda,
+               nms_cuda.nms_sorted_mask_cuda, bn_act_cuda.bn_act_forward_cuda,
+               bn_act_cuda.bn_act_backward_cuda):
+        fn.launches = 0
+    bn_act_cuda.layout_copies = 0
+
+
+def read_launch_counts():
+    from unit_tpu_torch.ops import bn_act_cuda, nms_cuda, roi_align_cuda
+
+    return {"roi_align_fwd": roi_align_cuda.roi_align_cuda.launches,
+            "roi_align_bwd": roi_align_cuda.roi_align_backward_cuda.launches,
+            "nms_mask": nms_cuda.nms_sorted_mask_cuda.launches,
+            "bn_act_fwd": bn_act_cuda.bn_act_forward_cuda.launches,
+            "bn_act_bwd": bn_act_cuda.bn_act_backward_cuda.launches,
+            "bn_act_layout_copies": bn_act_cuda.layout_copies}
+
+
 def phase_e2e(cfg, seed):
     import torch
 
     from unit_tpu_torch.data.transforms import prepare_test_image
+    from unit_tpu_torch.models.resnet import set_bn_act_impl
     from unit_tpu_torch.models.similarity import VOC_CLASSES
-    from unit_tpu_torch.ops.nms_cuda import nms_sorted_mask_cuda
-    from unit_tpu_torch.ops.roi_align_cuda import roi_align_cuda
     from unit_tpu_torch.serving import DetectionService
 
     dev = torch.device("cuda")
@@ -393,22 +569,39 @@ def phase_e2e(cfg, seed):
     shapes = [(375, 500), (500, 375)]
     images = [rng.uniform(0, 255, shapes[i % 2] + (3,)).astype(np.float32)
               for i in range(REQUESTS)]
+    def serve_all():
+        lat, results = [], []
+        for img in images:
+            t0 = time.perf_counter()
+            results.append(svc.detect_array(img))  # ends in a device-to-host copy
+            lat.append((time.perf_counter() - t0) * 1e3)
+        return lat, results
+
     torch.cuda.reset_peak_memory_stats()
-    roi_align_cuda.launches = 0
-    nms_sorted_mask_cuda.launches = 0
-    lat, results = [], []
-    for img in images:
-        t0 = time.perf_counter()
-        results.append(svc.detect_array(img))  # ends in a device-to-host copy
-        lat.append((time.perf_counter() - t0) * 1e3)
-    launches = {"roi_align_fwd": roi_align_cuda.launches,
-                "nms_mask": nms_sorted_mask_cuda.launches}
+    reset_launch_counts()
+    lat, results = serve_all()
+    launches = read_launch_counts()
     peak = torch.cuda.max_memory_allocated()
     log(f"[4] {REQUESTS} requests, latency ms {[round(v, 2) for v in lat]}, "
         f"median {np.median(lat):.2f}, peak device memory {peak / 2**20:.1f} MiB")
-    log(f"[4] launches during the requests: {launches}")
-    if launches["roi_align_fwd"] != REQUESTS or launches["nms_mask"] != 2 * REQUESTS:
-        raise AssertionError(f"the path did not run each kernel per request: {launches}")
+    n_backbone, n_res5, _ = frozen_bn_counts(model)
+    k4_per_request = n_backbone + (2 if mc.multi_box_head else 1) * n_res5
+    log(f"[4] launches during the requests: {launches}; FrozenBN modules: backbone "
+        f"{n_backbone}, one Res5 head {n_res5} -> {k4_per_request} K4 launches a request")
+    want = {"roi_align_fwd": REQUESTS, "roi_align_bwd": 0, "nms_mask": 2 * REQUESTS,
+            "bn_act_fwd": k4_per_request * REQUESTS, "bn_act_bwd": 0, "bn_act_layout_copies": 0}
+    if launches != want:
+        raise AssertionError(f"the path did not run K1 x1, K3 x2 and K4 x{k4_per_request} "
+                             f"per request without layout copies: {launches}")
+    # the same requests with the plain epilogue and with K4, in turns
+    medians = {"cuda": [float(np.median(lat))], "plain": []}
+    for impl in ("plain", "cuda", "plain"):
+        set_bn_act_impl(model, impl)
+        svc.warmup()
+        medians[impl].append(float(np.median(serve_all()[0])))
+    set_bn_act_impl(model, "cuda")
+    log(f"[4] request medians ms, bn_act_impl in turns: cuda {medians['cuda']}, plain "
+        f"{medians['plain']}")
     for img, dets in zip(images, results):
         h, w = img.shape[:2]
         for d in dets:
@@ -451,6 +644,7 @@ KERNEL_KINDS = (
     ("K1 roi_align_fwd", ("roi_align_fwd",)),
     ("K2 roi_align_bwd", ("roi_align_bwd",)),
     ("K3 nms_mask", ("iou_mask", "greedy_walk")),
+    ("K4 bn_act", ("bn_act",)),
     ("cuDNN conv", ("xmma", "implicit_gemm", "cudnn", "conv2d")),
     ("cuBLAS matmul", ("nvjet", "gemm", "cutlass")),
     ("copies", ("Memcpy", "Memset", "copy")),
@@ -501,6 +695,7 @@ def phase_whole_path(cfg, seed):
     import torch
 
     from unit_tpu_torch.data.transforms import TransformConfig, prepare_test_image
+    from unit_tpu_torch.models.resnet import set_bn_act_impl
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -518,6 +713,7 @@ def phase_whole_path(cfg, seed):
     outs = {}
     for impl in ("cuda", "plain"):
         model.mc = dataclasses.replace(model.mc, roi_align_impl=impl, nms_impl=impl)
+        set_bn_act_impl(model, impl)
         with torch.inference_mode():
             probs, bbox, props, _ = model.predict_raw(img, size)
         outs[impl] = (probs, bbox, props)
@@ -569,8 +765,11 @@ def phase_k2(rng):
         worst = max(worst, check(g16, rois, shape, 14, f"[{b},512,14,14,1024] bf16"))
         k_ms = cuda_ms(lambda: roi_align_backward_cuda(g16, rois, shape), 10)
         p_ms = cuda_ms(lambda: ra.roi_align_backward_plain(g16, rois, shape), 3)
-        times[b] = (k_ms, p_ms)
-        log(f"[6] K2 B={b} bf16: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms (median, CUDA events)")
+        out_bytes = int(np.prod(shape)) * g16.element_size()
+        times[b] = (k_ms, p_ms, bound(nbytes(g16, rois) + out_bytes,
+                                      g16.numel() * ROI_ALIGN_FLOPS))
+        log(f"[6] K2 B={b} bf16: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms (median, CUDA "
+            f"events); bound {times[b][2]['bound_ms']:.4f} ms by {times[b][2]['bound_by']}")
         if b == 2:  # the train path's layout: ROIs piled onto a few rows
             piled = torch.as_tensor(np.stack([piled_rois(rng, 512) for _ in range(b)]),
                                     device=dev)
@@ -587,7 +786,8 @@ def phase_k2(rng):
                             device=dev)
         check(g, rois, shape, 7, f"{shape} x 17 ROIs P=7 f32")
     torch.cuda.empty_cache()
-    return {"max_abs_err": worst, "ms": times[2][0], "plain_ms": times[2][1]}
+    return {"max_abs_err": worst, "ms": times[2][0], "plain_ms": times[2][1],
+            **times[2][2], "library_ms": None}  # no one PyTorch call computes its backward
 
 
 def synthetic_train_batches(cfg, seed, n_batches=4, per_stream=2, max_gt=5):
@@ -636,8 +836,7 @@ def phase_train(cfg, seed):
     import torch
 
     from unit_tpu_torch.engine import TrainerNoMeta
-    from unit_tpu_torch.ops.nms_cuda import nms_sorted_mask_cuda
-    from unit_tpu_torch.ops.roi_align_cuda import roi_align_backward_cuda, roi_align_cuda
+    from unit_tpu_torch.models.resnet import set_bn_act_impl
     from unit_tpu_torch.solver import build_optimizer
 
     dev = torch.device("cuda")
@@ -688,13 +887,9 @@ def phase_train(cfg, seed):
         step("warm-up")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    roi_align_cuda.launches = 0
-    roi_align_backward_cuda.launches = 0
-    nms_sorted_mask_cuda.launches = 0
+    reset_launch_counts()
     times = [step("timed") for _ in range(TRAIN_STEPS)]
-    launches = {"roi_align_fwd": roi_align_cuda.launches,
-                "roi_align_bwd": roi_align_backward_cuda.launches,
-                "nms_mask": nms_sorted_mask_cuda.launches}
+    launches = read_launch_counts()
     peak = torch.cuda.max_memory_allocated()
     med = float(np.median(times))
     imgs = 2 * strong[0]["image"].shape[0]
@@ -702,11 +897,35 @@ def phase_train(cfg, seed):
         f"{max(times):.2f}), {1e3 * imgs / med:.2f} images/s ({imgs} per step), peak "
         f"device memory {peak / 2**20:.1f} MiB")
     log(f"[7] launches during the timed steps: {launches}")
+    # K4: one forward launch per FrozenBN of the fused backbone pass and of
+    # the three Res5 passes; one backward launch per FrozenBN that autograd
+    # differentiates (behind a trainable convolution: res3, res4 and the two
+    # Res5 passes with gradient)
+    n_backbone, n_res5, n_trainable = frozen_bn_counts(model)
+    k4_fwd, k4_bwd = n_backbone + 3 * n_res5, n_trainable + 2 * n_res5
+    log(f"[7] FrozenBN modules: backbone {n_backbone} ({n_trainable} behind a trainable "
+        f"convolution), one Res5 head {n_res5} -> {k4_fwd} K4 forward and {k4_bwd} K4 "
+        f"backward launches a step")
     want = {"roi_align_fwd": 2 * TRAIN_STEPS, "roi_align_bwd": 2 * TRAIN_STEPS,
-            "nms_mask": 4 * TRAIN_STEPS}
+            "nms_mask": 4 * TRAIN_STEPS, "bn_act_fwd": k4_fwd * TRAIN_STEPS,
+            "bn_act_bwd": k4_bwd * TRAIN_STEPS,
+            # the spatial mean after each Res5 pass with gradient hands its last
+            # epilogue an NCHW-contiguous gradient: one counted conversion each
+            "bn_act_layout_copies": 2 * TRAIN_STEPS}
     if launches != want:
-        raise AssertionError(f"the train path did not run K1 x2, K2 x2, K3 x4 per step: "
-                             f"{launches}")
+        raise AssertionError(f"the train path did not run K1 x2, K2 x2, K3 x4, K4 x{k4_fwd} "
+                             f"forward and x{k4_bwd} backward per step with 2 layout "
+                             f"copies: {launches}")
+    # the same steps with the plain epilogue and with K4, in turns
+    medians = {"cuda": [med], "plain": []}
+    for impl in ("plain", "cuda", "plain"):
+        set_bn_act_impl(model, impl)
+        step(f"warm-up, bn_act {impl}")
+        medians[impl].append(float(np.median([step(f"bn_act {impl}")
+                                              for _ in range(TRAIN_STEPS)])))
+    set_bn_act_impl(model, "cuda")
+    log(f"[7] step medians ms, bn_act_impl in turns: cuda {medians['cuda']}, plain "
+        f"{medians['plain']}")
     for metrics in trainer.metrics_history:
         if not all(np.isfinite(v) for v in metrics.values()):
             raise AssertionError(f"non-finite loss: {metrics}")
@@ -730,6 +949,7 @@ def phase_train_whole_path(cfg, seed):
     import torch
 
     from unit_tpu_torch.models import rpn as rpn_lib
+    from unit_tpu_torch.models.resnet import set_bn_act_impl
     from unit_tpu_torch.ops import sampling as sampling_ops
     from unit_tpu_torch.solver import build_optimizer
 
@@ -764,6 +984,7 @@ def phase_train_whole_path(cfg, seed):
     try:
         for impl in ("cuda", "plain"):
             model.mc = dataclasses.replace(model.mc, roi_align_impl=impl, nms_impl=impl)
+            set_bn_act_impl(model, impl)
             model.zero_grad(set_to_none=True)
             recorded.clear()
             gen = torch.Generator(device=dev)
@@ -803,6 +1024,334 @@ def phase_train_whole_path(cfg, seed):
     torch.cuda.empty_cache()
 
 
+def phase_k4(rng):
+    import torch
+
+    from unit_tpu_torch.ops import bn_act as ba
+    from unit_tpu_torch.ops import bn_act_cuda as k4
+
+    dev = torch.device("cuda")
+    worst, reported = 0.0, None
+
+    def chain(x, s16, t16, res, relu):
+        """The four-op chain the model ran before the fused epilogue: scale
+        and shift rounded to the activation's type, one pass per operation."""
+        y = x * s16 + t16
+        if res is not None:
+            y = y + res
+        return torch.relu(y) if relu else y
+
+    for shape, (has_res, relu) in K4_SHAPES:
+        n, h, w, c = shape
+        scale = torch.as_tensor(rng.uniform(0.5, 1.5, c).astype(np.float32), device=dev)
+        shift = torch.as_tensor((rng.randn(c) * 0.3).astype(np.float32), device=dev)
+        gen = torch.Generator(device=dev).manual_seed(int(rng.randint(2 ** 31)))
+        label = f"[{n},{h},{w},{c}] res={int(has_res)} relu={int(relu)}"
+        for dtype in (torch.float32, torch.bfloat16):
+            def nhwc():
+                return torch.randn(shape, generator=gen, device=dev).to(dtype).permute(0, 3, 1, 2)
+
+            x, res, g = nhwc(), (nhwc() if has_res else None), nhwc()
+            outs = {}
+            for impl in ("cuda", "plain"):
+                xi = x.clone().requires_grad_(True)
+                ri = res.clone().requires_grad_(True) if has_res else None
+                y = ba.bn_act(xi, scale, shift, ri, relu, impl)
+                y.backward(g)
+                outs[impl] = [y.detach(), xi.grad] + ([ri.grad] if has_res else [])
+                del xi, ri, y
+            again = k4.bn_act_backward_cuda(g, outs["cuda"][0] if relu else None, scale, relu,
+                                            need_dx=True, need_dres=has_res)
+            torch.cuda.synchronize()
+            err = max(float((a.float() - b.float()).abs().max())
+                      for a, b in zip(outs["cuda"], outs["plain"]))
+            same = all(torch.equal(a, b) for a, b in zip(outs["cuda"], outs["plain"]))
+            twice = all(torch.equal(a, b) for a, b in zip(outs["cuda"][1:], again))
+            dense = all(k4.nhwc_dense(t) for t in outs["cuda"])
+            log(f"[9] K4 {label} {str(dtype).split('.')[-1]}: forward and backward "
+                f"max|diff| {err:.3g} (tol {K4_MAX_ABS_ERR}), bit-identical {same}, two "
+                f"backward launches bit-identical {twice}, outputs NHWC-dense {dense}")
+            if not (err <= K4_MAX_ABS_ERR and same and twice and dense):
+                raise AssertionError(f"K4 disagrees with its plain version ({label} {dtype})")
+            worst = max(worst, err)
+            y_saved = outs["cuda"][0]
+            del outs, again
+        # times in bf16 (x, res, g, y_saved are the bf16 tensors of the last pass)
+        s16 = scale.to(torch.bfloat16).view(1, -1, 1, 1)
+        t16 = shift.to(torch.bfloat16).view(1, -1, 1, 1)
+        with torch.no_grad():
+            k_ms, k_host = cuda_ms_queued(
+                lambda: k4.bn_act_forward_cuda(x, scale, shift, res, relu), 20)
+            p_ms, _ = cuda_ms_queued(lambda: ba.bn_act_plain(x, scale, shift, res, relu), 10)
+            c_ms, c_host = cuda_ms_queued(lambda: chain(x, s16, t16, res, relu), 10)
+            kb_ms, _ = cuda_ms_queued(lambda: k4.bn_act_backward_cuda(
+                g, y_saved if relu else None, scale, relu, True, has_res), 20)
+            pb_ms, _ = cuda_ms_queued(
+                lambda: ba.bn_act_backward_plain(g, y_saved, scale, relu), 10)
+        elems = x.numel()
+        # forward: x [+ res] read, out written; backward: g [+ y] read, dx [+ dres] written;
+        # 3 or 4 f32 operations an element
+        fwd = bound((2 + has_res) * elems * 2 + 8 * c, (3 + has_res) * elems)
+        bwd = bound((2 + relu + (has_res and relu)) * elems * 2 + 4 * c, 2 * elems)
+        log(f"[9] K4 {label} bf16 forward: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+            f"four-op chain {c_ms:.4f} ms, bound {fwd['bound_ms']:.4f} ms by {fwd['bound_by']} "
+            f"({100 * fwd['bound_ms'] / k_ms:.0f}% of the kernel's time); backward: kernel "
+            f"{kb_ms:.4f} ms, plain {pb_ms:.4f} ms, bound {bwd['bound_ms']:.4f} ms; host time "
+            f"to enqueue one call: kernel wrapper {k_host:.4f} ms, chain {c_host:.4f} ms")
+        if (shape, (has_res, relu)) == K4_REPORTED:
+            reported = {"ms": k_ms, "plain_ms": p_ms, **fwd, "library_ms": None,
+                        "chain_ms": c_ms, "host_ms": k_host, "bwd_ms": kb_ms,
+                        "bwd_plain_ms": pb_ms,
+                        "bwd_bound_ms": bwd["bound_ms"]}
+        del x, res, g, y_saved
+        torch.cuda.empty_cache()
+    # no one PyTorch call computes the epilogue (library_ms null); the chain is four calls
+    return {"max_abs_err": worst, **reported}
+
+
+_XML = """<annotation>
+  <size><width>{w}</width><height>{h}</height><depth>3</depth></size>
+  {objects}
+</annotation>"""
+_OBJ = """<object><name>{name}</name><difficult>0</difficult>
+  <bndbox><xmin>{x1}</xmin><ymin>{y1}</ymin><xmax>{x2}</xmax><ymax>{y2}</ymax></bndbox>
+</object>"""
+
+
+def write_devkit(root, seed, n_images=RUN_TEST_IMAGES):
+    """A synthetic VOCdevkit under ``root``: annotations and image sets of
+    VOC2007 trainval/test and VOC2012 trainval, 600x800 and 800x600 images in
+    turn with 1-3 boxes each, no image files."""
+    from unit_tpu_torch.models.similarity import VOC_CLASSES
+
+    rng = np.random.RandomState(seed + 11)
+    for year, splits in (("2007", ("trainval", "test")), ("2012", ("trainval",))):
+        base = Path(root) / f"VOC{year}"
+        for sub in ("Annotations", "ImageSets/Main", "JPEGImages"):
+            (base / sub).mkdir(parents=True)
+        for split in splits:
+            ids = []
+            for i in range(n_images):
+                h, w = ((600, 800), (800, 600))[i % 2]
+                image_id = f"{year}_{split}_{i:03d}"
+                ids.append(image_id)
+                objs = []
+                for _ in range(rng.randint(1, 4)):
+                    bw, bh = rng.randint(w // 10, w // 2), rng.randint(h // 10, h // 2)
+                    x1, y1 = rng.randint(1, w - bw), rng.randint(1, h - bh)
+                    objs.append(_OBJ.format(name=VOC_CLASSES[rng.randint(len(VOC_CLASSES))],
+                                            x1=x1, y1=y1, x2=x1 + bw, y2=y1 + bh))
+                (base / "Annotations" / f"{image_id}.xml").write_text(
+                    _XML.format(w=w, h=h, objects="\n".join(objs)))
+            (base / "ImageSets" / "Main" / f"{split}.txt").write_text("\n".join(ids))
+    return str(root)
+
+
+def seeded_image_loader(rec):
+    """Float BGR content made from the record's id."""
+    rng = np.random.RandomState(zlib.crc32(rec["image_id"].encode()) % 2 ** 31)
+    return rng.uniform(0, 255, (rec["height"], rec["width"], 3)).astype(np.float32)
+
+
+def phase_run_loop(cfg, seed):
+    import torch
+
+    from unit_tpu_torch.checkpoint import Checkpointer, read_checkpoint
+    from unit_tpu_torch.data import DatasetCatalog
+    from unit_tpu_torch.data.transforms import TransformConfig, prepare_test_image
+    from unit_tpu_torch.engine import runner
+    from unit_tpu_torch.engine.train import TrainerNoMeta, TrainState
+    from unit_tpu_torch.models import WSRCNN, ModelConfig
+    from unit_tpu_torch.solver import build_optimizer
+    from unit_tpu_torch.utils.bn_fold import fold_frozen_bn
+
+    dev = torch.device(RUN_DEVICE)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    made = []
+
+    class Recording(TrainerNoMeta):
+        """TrainerNoMeta that keeps itself, so the script can read its losses."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.step_ms = []
+            made.append(self)
+
+        def run_step(self):
+            t = time.perf_counter()
+            metrics = super().run_step()  # ends in the loss fetch
+            self.step_ms.append((time.perf_counter() - t) * 1e3)
+            return metrics
+
+    def strip_time(results):
+        return {k: v for k, v in results.items() if k != "inference_seconds_per_image"}
+
+    with tempfile.TemporaryDirectory(prefix="unit_tpu_torch_run_") as tmp:
+        devkit = write_devkit(os.path.join(tmp, "VOCdevkit"), seed)
+        out_a, out_b = os.path.join(tmp, "run_a"), os.path.join(tmp, "run_b")
+        # The recipe starts from ImageNet weights, which are not in the
+        # repository: the run warm-starts from one of the port's own
+        # checkpoints instead (MODEL.WEIGHTS), holding the seeded weights with
+        # calibrated FrozenBN statistics, and clips its gradients as phase 7.
+        t0 = time.perf_counter()
+        model = flagship_model(cfg, seed, dev)
+        init = Checkpointer(os.path.join(tmp, "init")).save(
+            0, TrainState(model, build_optimizer(cfg, model), 0))
+        del model
+        torch.cuda.empty_cache()
+        log(f"[10] devkit of {RUN_TEST_IMAGES} images a split and the initial checkpoint "
+            f"({os.path.getsize(init) / 2**20:.1f} MiB) written in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        def run(out, *flags, opts=()):
+            DatasetCatalog.clear()
+            made.clear()
+            args = runner.default_argument_parser().parse_args([
+                "--config-file", str(FLAGSHIP), "--data-root", devkit, "--device", RUN_DEVICE,
+                *flags,
+                "MODEL.WEIGHTS", init, "OUTPUT_DIR", out,
+                "MODEL.ROI_HEADS.EMBEDDING_PATH", str(ROOT / cfg.MODEL.ROI_HEADS.EMBEDDING_PATH),
+                "DATASETS.CLASSIFIER_DATAROOT", devkit, "SEED", str(seed),
+                "SOLVER.IMS_PER_BATCH", "2", "SOLVER.MAX_ITER", str(RUN_STEPS),
+                "SOLVER.CHECKPOINT_PERIOD", str(RUN_PERIOD), "TEST.EVAL_PERIOD", str(RUN_PERIOD),
+                "SOLVER.CLIP_GRADIENTS.ENABLED", "True",
+                "SOLVER.CLIP_GRADIENTS.CLIP_TYPE", "norm", *RUN_EXTRA_OPTS, *opts])
+            t = time.perf_counter()
+            results = runner.run(args, image_loader=seeded_image_loader)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            trainer = made[-1]
+            first = trainer.state.step - len(trainer.metrics_history)
+            losses = {first + 1 + k: m for k, m in enumerate(trainer.metrics_history)}
+            return results, losses, trainer, time.perf_counter() - t
+
+        real_trainer, runner.TrainerNoMeta = runner.TrainerNoMeta, Recording
+        try:
+            # (a) 6 steps, checkpoints and evaluations at 3 and 6, a final evaluation
+            reset_launch_counts()
+            results_a, losses_a, trainer, secs = run(out_a)
+            launches = read_launch_counts()
+            log(f"[10] run of {RUN_STEPS} steps with 2 in-run evaluations and the final one "
+                f"over {RUN_TEST_IMAGES} images: {secs:.1f} s; launches {launches}")
+            for step, m in losses_a.items():
+                log(f"[10]   step {step}: " + ", ".join(f"{k} {v:.4g}" for k, v in m.items()))
+            files = sorted(os.listdir(out_a))
+            bbox = results_a["bbox"]
+            log(f"[10] output directory: {files}; AP {bbox['AP']:.4g}, AP50 {bbox['AP50']:.4g}, "
+                f"AP75 {bbox['AP75']:.4g}, novel_mean {bbox['novel_mean']:.4g}; "
+                f"{results_a['inference_seconds_per_image']:.4f} s per evaluated image (host "
+                f"clock, after one warm-up image); data time per step, median "
+                f"{1e3 * np.median([m['data_time'] for m in losses_a.values()]):.2f} ms")
+            need = {"step_3.pt", "step_6.pt", "best", "best_info.json", "log.txt"}
+            ok = (need <= set(files) and sorted(losses_a) == list(range(1, RUN_STEPS + 1))
+                  and all(np.isfinite(v) for m in losses_a.values() for v in m.values())
+                  and all(np.isfinite(bbox[k]) for k in ("AP", "AP50", "AP75", "novel_mean"))
+                  and np.isfinite(results_a["inference_seconds_per_image"])
+                  and all(launches[k] > 0 for k in ("roi_align_fwd", "roi_align_bwd",
+                                                    "nms_mask", "bn_act_fwd", "bn_act_bwd")))
+            if not ok:
+                raise AssertionError("the run loop left out a checkpoint, a step, a finite "
+                                     "result or a kernel")
+            t = time.perf_counter()
+            path = Checkpointer(os.path.join(tmp, "timed")).save(RUN_STEPS, trainer.state)
+            log(f"[10] checkpoint (model, momentum, schedule, step): "
+                f"{os.path.getsize(path) / 2**20:.1f} MiB, written and renamed in "
+                f"{time.perf_counter() - t:.2f} s")
+            del trainer
+
+            # (b) resume from a copy that holds only step 3
+            os.makedirs(out_b)
+            shutil.copy(os.path.join(out_a, "step_3.pt"), out_b)
+            results_b, losses_b, trainer, secs = run(out_b, "--resume")
+            del trainer
+            rel = max(abs(losses_b[s][k] - losses_a[s][k]) / max(abs(losses_a[s][k]), 1e-12)
+                      for s in losses_b for k in losses_b[s] if k != "data_time")
+            same = all(losses_b[s][k] == losses_a[s][k] for s in losses_b
+                       for k in losses_b[s] if k != "data_time")
+            ma = read_checkpoint(os.path.join(out_a, "step_6.pt"))["model"]
+            mb = read_checkpoint(os.path.join(out_b, "step_6.pt"))["model"]
+            same_params = all(torch.equal(ma[k], mb[k]) for k in ma)
+            log(f"[10] resumed from step 3 in {secs:.1f} s: steps {sorted(losses_b)}, losses "
+                f"bit-identical to the uninterrupted run's {same} (max rel diff {rel:.3g}, "
+                f"tol {RESUME_LOSS_RTOL}), final parameters bit-identical {same_params}, "
+                f"final AP equal {strip_time(results_b) == strip_time(results_a)}")
+            if sorted(losses_b) != list(range(RUN_PERIOD + 1, RUN_STEPS + 1)) \
+                    or not rel <= RESUME_LOSS_RTOL:
+                raise AssertionError("the resumed run does not reproduce steps 4-6")
+
+            # (c) --eval-only from the step-6 checkpoint equals the in-run evaluation
+            results_c, losses_c, trainer, secs = run(out_a, "--eval-only", "--resume")
+            del trainer
+            log(f"[10] --eval-only from step 6 in {secs:.1f} s: results equal to the in-run "
+                f"evaluation bit for bit {strip_time(results_c) == strip_time(results_a)}")
+            if losses_c or strip_time(results_c) != strip_time(results_a):
+                raise AssertionError("--eval-only does not reproduce the in-run evaluation")
+
+            # (d) one evaluation with FrozenBN folded into the convolutions
+            results_d, _, trainer, secs = run(out_a, "--eval-only", "--resume",
+                                              opts=["TPU.FOLD_BN_AT_EVAL", "True"])
+            net = trainer.model
+            del trainer
+            s = prepare_test_image(seeded_image_loader(
+                {"image_id": "fold", "height": 600, "width": 800}),
+                TransformConfig.test_from_cfg(cfg))
+            img = torch.as_tensor(s["image"][None], device=dev)
+            size = torch.as_tensor(s["image_size"][None], device=dev)
+            cfg32 = cfg.clone()
+            cfg32.TPU.COMPUTE_DTYPE = "float32"
+            net32 = WSRCNN(ModelConfig.from_cfg(cfg32)).to(dev).eval()
+            net32.load_state_dict(net.state_dict())
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+            with torch.inference_mode():
+                feats = {name: m.predict_raw(img, size)[3].float()
+                         for name, m in (("bf16", net), ("bf16 folded", fold_frozen_bn(net)),
+                                         ("f32", net32), ("f32 folded", fold_frozen_bn(net32)))}
+            ref = feats["f32"]
+            rel32 = float((feats["f32 folded"] - ref).abs().max() / ref.abs().max())
+            far = {k: float((feats[k] - ref).abs().mean() / ref.abs().mean())
+                   for k in ("bf16", "bf16 folded")}
+            log(f"[10] TPU.FOLD_BN_AT_EVAL evaluation in {secs:.1f} s: AP50 "
+                f"{results_d['bbox']['AP50']:.4g} (unfolded {bbox['AP50']:.4g}), "
+                f"{results_d['inference_seconds_per_image']:.4f} s per image; res4 features of "
+                f"one image, folded vs unfolded in f32: max|diff|/max {rel32:.3g} (tol "
+                f"{FOLD_F32_REL}); mean|diff|/mean|f32| from the f32 features: bf16 "
+                f"{far['bf16']:.3g}, bf16 folded {far['bf16 folded']:.3g} (tol "
+                f"{FOLD_BF16_FACTOR} x the unfolded)")
+            if not (np.isfinite(results_d["bbox"]["AP50"]) and rel32 <= FOLD_F32_REL
+                    and far["bf16 folded"] <= FOLD_BF16_FACTOR * far["bf16"]):
+                raise AssertionError("the folded evaluation is not finite or not close")
+            del net, net32, feats
+            torch.backends.cudnn.allow_tf32 = True
+            torch.backends.cuda.matmul.allow_tf32 = True
+
+            # (e) the loader's steady rate: more steps, no checkpoint or evaluation
+            # between them, so the prefetch queues drain to what the host can make
+            _, losses_e, trainer, secs = run(
+                os.path.join(tmp, "run_e"),
+                opts=["SOLVER.MAX_ITER", str(RUN_STEADY_STEPS), "SOLVER.CHECKPOINT_PERIOD", "0",
+                      "TEST.EVAL_PERIOD", "0"])
+            half = RUN_STEADY_STEPS // 2
+            waits = [1e3 * losses_e[s]["data_time"] for s in sorted(losses_e)[half:]]
+            steps = trainer.step_ms[half:]
+            del trainer
+            log(f"[10] {RUN_STEADY_STEPS} steps without hooks in {secs:.1f} s; over the last "
+                f"{len(steps)}: step median {np.median(steps):.2f} ms "
+                f"({4e3 / np.median(steps):.2f} images/s), of which waiting for the two "
+                f"prefetched streams {np.median(waits):.2f} ms (median; min {min(waits):.2f}, "
+                f"max {max(waits):.2f})")
+            if len(losses_e) != RUN_STEADY_STEPS:
+                raise AssertionError("the steady run did not take its steps")
+        finally:
+            runner.TrainerNoMeta = real_trainer
+            made.clear()
+            torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -824,23 +1373,43 @@ def main():
     k3 = phase_k3(rng)
     cfg = get_cfg()
     cfg.merge_from_file(str(FLAGSHIP))
-    phase_e2e(cfg, args.seed)
+    by_path = {"serving": phase_e2e(cfg, args.seed)}
     phase_whole_path(cfg, args.seed)
     k2 = phase_k2(rng)
-    launches = phase_train(cfg, args.seed)
+    by_path["train"] = phase_train(cfg, args.seed)
     phase_train_whole_path(cfg, args.seed)
+    k4 = phase_k4(rng)
+    by_path["run_loop"] = launches = phase_run_loop(cfg, args.seed)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
+
+    def per_path(*names):
+        return {path: sum(counts[n] for n in names) for path, counts in by_path.items()}
+
+    # every kernel of a path was launched on it (K2 and K4's backward are not
+    # on the serving path)
+    for path, counts in by_path.items():
+        for name, count in counts.items():
+            on_path = not (path == "serving" and name.endswith("_bwd")) \
+                and name != "bn_act_layout_copies"
+            if on_path and count <= 0:
+                raise AssertionError(f"{name} was not launched on the {path} path")
 
     kernels = [
         dict(name="roi_align_fwd", route="cuda", source="unit_tpu_torch/csrc/roi_align_fwd.cu",
              replaces="unit_tpu/ops/roi_align_pallas.py:230",
-             launches=launches["roi_align_fwd"], **k1),
+             launches=launches["roi_align_fwd"],
+             launches_by_path=per_path("roi_align_fwd"), **k1),
         dict(name="roi_align_bwd", route="cuda", source="unit_tpu_torch/csrc/roi_align_bwd.cu",
              replaces="unit_tpu/ops/roi_align_pallas_bwd.py:564",
-             launches=launches["roi_align_bwd"], **k2),
+             launches=launches["roi_align_bwd"],
+             launches_by_path=per_path("roi_align_bwd"), **k2),
         dict(name="nms_mask", route="cuda", source="unit_tpu_torch/csrc/nms_mask.cu",
              replaces="unit_tpu/ops/nms_pallas.py:115",
-             launches=launches["nms_mask"], **k3),
+             launches=launches["nms_mask"], launches_by_path=per_path("nms_mask"), **k3),
+        dict(name="bn_act", route="cuda", source="unit_tpu_torch/csrc/bn_act.cu",
+             replaces="scripts/bench_backbone_epilogue.py:155",
+             launches=launches["bn_act_fwd"] + launches["bn_act_bwd"],
+             launches_by_path=per_path("bn_act_fwd", "bn_act_bwd"), **k4),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

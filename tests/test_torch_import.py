@@ -2,8 +2,8 @@
 
 The check runs in a subprocess: this test process has already imported jax
 (tests/conftest.py).  A source scan adds what an import cannot show: no
-library kernel, no torch.compile, and no import of unit_tpu beyond its
-jax-free config package.
+library kernel, no torch.compile, and no import of unit_tpu at all (the port
+keeps its own copy of what it needs, the config package included).
 """
 
 import re
@@ -35,7 +35,8 @@ with torch.inference_mode():
 assert dets.boxes.shape[0] == 1 and bool(torch.isfinite(dets.boxes).all())
 recs = DetectionService(cfg, model).detect_array(torch.rand(50, 70, 3).numpy() * 255)
 assert isinstance(recs, list)
-loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax"))
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "torchvision", "unit_tpu"))
 assert not loaded, loaded
 print("no jax")
 """
@@ -63,8 +64,13 @@ def test_sources_use_no_jax_library_kernels_or_compile():
         assert not hits, f"{path.relative_to(REPO)}: {hits}"
 
 
-def test_only_the_config_package_of_unit_tpu_is_imported():
-    imports = re.compile(r"^\s*(?:from|import)\s+(unit_tpu(?:\.[\w.]+)?)\b", re.M)
-    for path in _sources():
-        for name in imports.findall(path.read_text()):
-            assert name == "unit_tpu.config", f"{path.relative_to(REPO)} imports {name}"
+def test_no_source_of_the_port_imports_unit_tpu():
+    imports = re.compile(r"^\s*(?:from|import)\s+(unit_tpu(?:\.[\w.]+)?)\b(?!_)", re.M)
+    dynamic = re.compile(r"import_module\(\s*[\"']unit_tpu[\"'.]|__import__\(\s*[\"']unit_tpu[\"'.]")
+    sources = _sources() + [REPO / "scripts" / "train_VOC_torch.py"]
+    assert len(sources) > 50
+    for path in sources:
+        text = path.read_text()
+        names = [n for n in imports.findall(text) if n.split(".")[0] == "unit_tpu"]
+        assert not names, f"{path.relative_to(REPO)} imports {names}"
+        assert not dynamic.search(text), f"{path.relative_to(REPO)} imports unit_tpu dynamically"

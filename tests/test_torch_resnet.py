@@ -4,6 +4,11 @@ Shared random weights (FrozenBN statistics included) go through
 load_jax_params.  The bound is 1e-4 of the output's largest magnitude: both
 sides run the same f32 convolutions, summed in different orders by XLA and
 oneDNN over up to 3x3x1024 terms per output.
+
+In bf16 the two differ by design: unit_tpu's FrozenBN rounds scale, shift and
+each of its three or four ops to bf16, the port's fused epilogue computes in
+f32 and rounds once (as the TPU epilogue kernel of
+scripts/bench_backbone_epilogue.py does).  See test_bf16_against_unit_tpu.
 """
 
 import jax
@@ -64,6 +69,40 @@ def test_res5_matches_flax(res2):
             got = tm(torch.as_tensor(x), spatial_mean=mean).numpy()
         assert got.shape == want.shape
         assert_close_rel(got, want)
+
+
+# bf16 compute against unit_tpu in bf16.  Each epilogue differs by about one
+# bf16 ulp (2^-8 relative) and so does each convolution (different summation
+# orders, both rounded to bf16); depth 26 chains 13 convolutions with their
+# epilogues, and the errors add like a random walk on values of the output's
+# scale: sqrt(26) * 2^-8 ~ 2%.  The bound is 4% of the output's largest
+# magnitude for the worst element and 0.5% for the mean; both sides are also
+# held to their common f32 result with the same bound, so neither is the
+# outlier.  (On the CPU: port vs unit_tpu max 1.0%, mean 0.08%; against f32 the
+# port 1.1% / 0.06%, unit_tpu 1.3% / 0.08%.)
+BF16_MAX_REL, BF16_MEAN_REL = 0.04, 0.005
+
+
+def test_bf16_against_unit_tpu():
+    rng = np.random.RandomState(11)
+    x = rng.uniform(-100, 100, (2, 64, 96, 3)).astype(np.float32)
+    jm32 = JResNetC4(depth=26, res2_out_channels=32, dtype=jnp.float32)
+    jm16 = JResNetC4(depth=26, res2_out_channels=32, dtype=jnp.bfloat16)
+    tm16 = ResNetC4(depth=26, res2_out_channels=32, dtype=torch.bfloat16).eval()
+    params = shared(jm32, tm16, x[:1])
+    exact = np.asarray(jm32.apply({"params": params}, jnp.asarray(x)))
+    want = np.asarray(jm16.apply({"params": params}, jnp.asarray(x)).astype(jnp.float32))
+    with torch.no_grad():
+        out = tm16(torch.as_tensor(x))
+    assert out.dtype == torch.bfloat16
+    got = out.permute(0, 2, 3, 1).float().numpy()
+    scale = float(np.abs(exact).max())
+    for a, b in ((got, want), (got, exact), (want, exact)):
+        diff = np.abs(a - b)
+        assert diff.max() <= BF16_MAX_REL * scale, diff.max() / scale
+        assert diff.mean() <= BF16_MEAN_REL * scale, diff.mean() / scale
+    # the single rounding is not further from f32 than the chain of roundings
+    assert np.abs(got - exact).mean() <= 1.25 * np.abs(want - exact).mean()
 
 
 def test_bf16_compute_keeps_f32_params():

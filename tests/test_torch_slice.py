@@ -75,6 +75,7 @@ def test_config_distils_the_same_fields(pair):
     assert tmc.frcnn == type(tmc.frcnn)(*[getattr(jmc.frcnn, f) for f in tmc.frcnn._fields])
     assert tmc.sim == type(tmc.sim)(*jmc.sim)
     assert tmc.roi_align_impl == "auto" and tmc.nms_impl == "auto"
+    assert tmc.bn_act_impl == "auto"
 
 
 def test_predict_raw_matches(pair):
@@ -161,7 +162,8 @@ def test_unported_paths_raise(pair):
         cfg.merge_from_list([key, value])
         with pytest.raises(NotImplementedError, match=item):
             WSRCNN(ModelConfig.from_cfg(cfg))
+    # TPU.FOLD_BN_AT_EVAL is ported (tests/test_torch_bn_fold.py); the uint8 wire is not
     cfg = small_flagship_cfg()
-    cfg.TPU.FOLD_BN_AT_EVAL = True
-    with pytest.raises(NotImplementedError, match="FOLD_BN_AT_EVAL"):
+    cfg.TPU.HOST_TRANSFER_UINT8 = True
+    with pytest.raises(NotImplementedError, match="item 29"):
         DetectionService(cfg, tmodel)

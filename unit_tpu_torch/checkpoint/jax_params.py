@@ -14,6 +14,8 @@ It is strict: every leaf is consumed, every parameter and buffer of the
 model is set, and any shape mismatch raises.  ``flax_path`` and
 ``flax_leaves`` go the other way, so parameters, gradients and updated
 parameters can be compared with unit_tpu's leaf by leaf.
+``load_jax_train_state`` carries a whole unit_tpu train state across: the
+parameters, the optax momentum trace and the step.
 """
 
 from __future__ import annotations
@@ -101,3 +103,32 @@ def flax_leaves(model: nn.Module, grads: bool = False) -> Dict[str, Optional[np.
             None if t is None
             else np.array(to_flax_layout(t.detach().float().cpu().numpy()), copy=True))
     return out
+
+
+def load_jax_train_state(state, params: Mapping, momentum: Optional[Mapping] = None,
+                         step: int = 0):
+    """Turn a unit_tpu train state into the port's, in place: ``params`` (the
+    flax tree) into ``state.model``, ``momentum`` (optax's trace, a tree of
+    the same structure; leaves of frozen parameters are ignored) into the SGD
+    momentum buffers, and ``step`` into the state and the LR schedule.
+    All leaves are numpy arrays.  Returns ``state``."""
+    load_jax_params(state.model, params)
+    optimizer, scheduler = state.solver.optimizer, state.solver.scheduler
+    if momentum is not None:
+        trace = flatten_tree(momentum)
+        for name, param in state.model.named_parameters():
+            if not param.requires_grad:
+                continue
+            path = flax_path(name, param)
+            _, value = _to_torch_name_and_value(path, trace[path])
+            if tuple(param.shape) != value.shape:
+                raise ValueError(f"momentum {path}: shape {value.shape} vs {tuple(param.shape)}")
+            optimizer.state[param]["momentum_buffer"] = torch.from_numpy(
+                np.array(value, dtype=np.float32)).to(param.device)
+    state.step = int(step)
+    scheduler.last_epoch = int(step)
+    for group, base, fn in zip(optimizer.param_groups, scheduler.base_lrs,
+                               scheduler.lr_lambdas):
+        group["lr"] = base * fn(int(step))
+    scheduler._last_lr = [group["lr"] for group in optimizer.param_groups]
+    return state

@@ -1,9 +1,12 @@
-"""The port's config surface: unit_tpu.config, shared as it is.
+"""The port's config surface: its own CfgNode, defaults and validation.
 
-unit_tpu.config imports no jax (only PyYAML, for the recipe files), so the
-two packages read the same YAML recipes into the same CfgNode.
+Copies of unit_tpu/config/{node,defaults,validate}.py (PyYAML only), so the
+two packages read the same YAML recipes into equal trees while the port
+imports nothing of unit_tpu.  tests/test_torch_config.py holds them equal.
 """
 
-from unit_tpu.config import CfgNode, get_cfg, validate_registry_names
+from .node import CfgNode
+from .defaults import get_cfg, add_config
+from .validate import validate_registry_names
 
-__all__ = ["CfgNode", "get_cfg", "validate_registry_names"]
+__all__ = ["CfgNode", "get_cfg", "add_config", "validate_registry_names"]

@@ -1,1 +1,21 @@
-"""Host-side data transforms (port of the test side of unit_tpu.data.transforms)."""
+"""Host-side data: catalogs, VOC registration, transforms and loaders (port of
+unit_tpu.data for the VOC suites)."""
+
+from .catalog import DatasetCatalog, MetadataCatalog
+from .loader import (
+    Prefetcher,
+    StreamLoader,
+    build_classifier_loader,
+    build_strong_loader,
+    build_test_loader,
+    sample_classifier_dataset,
+)
+from .transforms import TransformConfig, collate, prepare_detection_record
+from .voc import RegisterVOC, kshot_sample, load_voc_split, parse_voc_xml
+
+__all__ = [
+    "DatasetCatalog", "MetadataCatalog", "Prefetcher", "RegisterVOC", "StreamLoader",
+    "TransformConfig", "build_classifier_loader", "build_strong_loader",
+    "build_test_loader", "collate", "kshot_sample", "load_voc_split", "parse_voc_xml",
+    "prepare_detection_record", "sample_classifier_dataset",
+]

@@ -1,0 +1,387 @@
+"""Host-side data loaders: strong query stream, weak classifier stream, test set.
+
+Port of unit_tpu/data/loader.py for one process: seeded numpy iterators that
+emit fixed-shape batches.  Every random draw comes from the loader's own
+``np.random.RandomState``, in unit_tpu's order, so a stream here equals
+unit_tpu's record for record (tests/test_torch_data.py).  The weak classifier
+stream reproduces the seeded per-class k-shot sampling with base/novel
+multipliers and oversampling modes.  ``Prefetcher`` overlaps host IO with the
+device's work and can hand out batches in pinned memory, from which the
+trainer's upload is asynchronous.
+
+Not ported, each raising with its ROADMAP item: the native C loader (Queue 1
+item 30; records always go through ``image_loader`` or PIL), the host-shard
+and synchronized-orientation paths of multi-process runs (item 27), TTA
+(item 24), the support stream (item 23), precomputed proposals (item 25) and
+the uint8 wire (item 29).
+"""
+
+from __future__ import annotations
+
+import itertools
+import queue as queue_lib
+import threading
+from typing import Callable, Dict, Iterator, List, Optional, Sequence
+
+import numpy as np
+
+from .catalog import DatasetCatalog
+from .transforms import (
+    TransformConfig, _not_ported, collate, oriented_canvas, prepare_detection_record,
+)
+
+_STRONG_KEYS = ("image", "image_size", "gt_boxes", "gt_classes", "gt_valid")
+_WEAK_KEYS = ("image", "image_size", "labels")
+
+
+def sample_classifier_dataset(cfg, records: List[dict]) -> List[dict]:
+    """Seeded k-shot image-level sampling (reference data/build.py:356-438).
+
+    Each (image, class) pair becomes a record whose annotations carry only that
+    class; base classes keep all records (or sample_num * BASE_MULTIPLIER),
+    novel classes are subsampled to WEAK_CLASSIFIER_SAMPLE_NUM (optionally
+    repeated/oversampled).
+    """
+    sample_num = cfg.DATASETS.WEAK_CLASSIFIER_SAMPLE_NUM
+    if sample_num <= 0:
+        return records
+    rng = np.random.RandomState(cfg.DATASETS.SAMPLE_SEED)
+    num_classes = cfg.MODEL.ROI_HEADS.NUM_CLASSES
+    base_ids = set(cfg.DATASETS.FEWSHOT.BASE_CLASSES_ID)
+
+    label_to_records: Dict[int, List[dict]] = {c: [] for c in range(num_classes)}
+    for rec in records:
+        seen = {}
+        for ann in rec["annotations"]:
+            cid = ann["category_id"]
+            if cid not in seen:
+                r = dict(rec)
+                r["annotations"] = [ann]
+                seen[cid] = r
+            else:
+                seen[cid]["annotations"].append(ann)
+        for cid, r in seen.items():
+            if cid in label_to_records:
+                label_to_records[cid].append(r)
+
+    def choice(pool, size, replace):
+        idx = rng.choice(len(pool), size=size, replace=replace)
+        return [pool[i] for i in idx]
+
+    out: List[dict] = []
+    for cid, pool in label_to_records.items():
+        if not pool:
+            continue
+        if cid in base_ids:
+            if not cfg.DATASETS.OVER_SAMPLE and cfg.DATASETS.BASE_MULTIPLIER > 0:
+                size = int(sample_num * cfg.DATASETS.BASE_MULTIPLIER)
+                sampled = choice(pool, size, replace=size > len(pool))
+            else:
+                sampled = pool
+        else:
+            if not cfg.DATASETS.OVER_SAMPLE:
+                if cfg.DATASETS.BASE_MULTIPLIER > 0:
+                    sampled = choice(pool, sample_num, replace=sample_num > len(pool))
+                    if cfg.DATASETS.NOVEL_MULTIPLER > 0:
+                        sampled = [
+                            r for r in sampled for _ in range(int(cfg.DATASETS.NOVEL_MULTIPLER))
+                        ]
+                else:
+                    sampled = []
+            else:
+                k = choice(pool, min(sample_num, len(pool)), replace=False)
+                if not cfg.DATASETS.SAMPLE_WITH_REPLACEMENT:
+                    sampled = choice(k, len(pool), replace=True)
+                else:
+                    reps, rem = divmod(len(pool), len(k))
+                    sampled = list(
+                        itertools.chain.from_iterable([r] * reps for r in k)
+                    )
+                    if rem:
+                        sampled += choice(k, rem, replace=True)
+        out.extend(sampled)
+    return out
+
+
+class StreamLoader:
+    """Infinite shuffled iterator over records -> fixed-shape batches."""
+
+    def __init__(
+        self,
+        records: List[dict],
+        tcfg: TransformConfig,
+        batch_size: int,
+        keys: Sequence[str],
+        seed: int = 0,
+        training: bool = True,
+        image_loader: Optional[Callable[[dict], np.ndarray]] = None,
+    ):
+        if not records:
+            raise ValueError("empty dataset")
+        self.records = records
+        self.tcfg = tcfg
+        self.batch_size = batch_size
+        self.keys = keys
+        self.seed = seed
+        self.rng = np.random.RandomState(seed)
+        self.training = training
+        self.image_loader = image_loader
+        self._resume = None
+
+    def _draw_aug(self):
+        """The ONLY rng draws per record (min-size choice + flip coin).  Both
+        `_load` and `fast_forward` consume this exact sequence, so a resumed
+        stream replays the same augmentations without decoding anything."""
+        t = self.tcfg
+        min_size = (
+            t.min_sizes[self.rng.randint(len(t.min_sizes))]
+            if self.training else t.min_sizes[0]
+        )
+        flip = bool(self.training and t.flip and self.rng.rand() < 0.5)
+        return min_size, flip
+
+    def _load(self, rec, aug=None):
+        aug = aug if aug is not None else self._draw_aug()
+        img = self.image_loader(rec) if self.image_loader else None
+        return prepare_detection_record(rec, self.tcfg, self.rng, image=img,
+                                        training=self.training, aug=aug)
+
+    def __iter__(self) -> Iterator[dict]:
+        """Aspect-ratio-grouped batching (d2 AspectRatioGroupedDataset):
+        landscape and portrait samples go to separate buckets (two fixed
+        canvases), a batch is emitted whenever one bucket fills."""
+        order: List[int] = []
+        buckets: Dict[tuple, List[dict]] = {}
+        if self._resume is not None:
+            # fast_forward left the stream mid-epoch: records already drawn
+            # into partially-filled buckets are decoded NOW with their
+            # recorded augmentation draws (at most batch_size-1 per bucket).
+            order, bucket_meta = self._resume
+            self._resume = None
+            buckets = {
+                key: [self._load(self.records[i], aug=aug) for i, aug in metas]
+                for key, metas in bucket_meta.items()
+            }
+        while True:
+            if not order:
+                order = list(self.rng.permutation(len(self.records)))
+            sample = self._load(self.records[order.pop()])
+            key = sample["image"].shape[:2]
+            buckets.setdefault(key, []).append(sample)
+            if len(buckets[key]) == self.batch_size:
+                batch, buckets[key] = buckets[key], []
+                yield collate(batch, self.keys)
+
+    def fast_forward(self, n_batches: int) -> None:
+        """Advance the stream past ``n_batches`` WITHOUT decoding any image.
+
+        Exact-resume support (--resume): replays the index-permutation and
+        augmentation rng draws the real iterator would have consumed, then
+        pre-positions the next ``__iter__`` so batch ``n_batches`` onward is
+        bit-identical to an un-resumed run's.
+        """
+        if n_batches <= 0:
+            return
+        order: List[int] = []
+        buckets: Dict[tuple, List[tuple]] = {}  # key -> [(rec_idx, aug)]
+        done = 0
+        while done < n_batches:
+            if not order:
+                order = list(self.rng.permutation(len(self.records)))
+            i = order.pop()
+            aug = self._draw_aug()
+            rec = self.records[i]
+            key = oriented_canvas(
+                int(rec["height"]), int(rec["width"]), self.tcfg.canvas
+            )
+            buckets.setdefault(key, []).append((i, aug))
+            if len(buckets[key]) == self.batch_size:
+                buckets[key] = []
+                done += 1
+        self._resume = (order, {k: v for k, v in buckets.items() if v})
+
+
+def _check_no_proposals(cfg, files) -> None:
+    if cfg.MODEL.LOAD_PROPOSALS and files:
+        raise _not_ported("precomputed proposals", "ROADMAP Queue 1 item 25")
+
+
+def build_strong_loader(cfg, dataset_names=None, seed=0, image_loader=None,
+                        batch_size=None) -> StreamLoader:
+    names = dataset_names or cfg.DATASETS.TRAIN
+    records = list(itertools.chain.from_iterable(DatasetCatalog.get(n) for n in names))
+    _check_no_proposals(cfg, cfg.DATASETS.PROPOSAL_FILES_TRAIN)
+    return StreamLoader(
+        records, TransformConfig.train_from_cfg(cfg),
+        batch_size or cfg.SOLVER.IMS_PER_BATCH, _STRONG_KEYS, seed=seed,
+        image_loader=image_loader,
+    )
+
+
+def build_classifier_loader(cfg, seed=1, image_loader=None, batch_size=None) -> StreamLoader:
+    names = cfg.DATASETS.CLASSIFIER_TRAIN
+    if isinstance(names, str):
+        names = (names,)
+    records = list(itertools.chain.from_iterable(DatasetCatalog.get(n) for n in names))
+    records = sample_classifier_dataset(cfg, records)
+    _check_no_proposals(cfg, True)
+    return StreamLoader(
+        records, TransformConfig.train_from_cfg(cfg),
+        batch_size or cfg.SOLVER.IMS_PER_BATCH, _WEAK_KEYS, seed=seed,
+        image_loader=image_loader,
+    )
+
+
+def build_test_loader(cfg, dataset_name: str, image_loader=None, batch_size=1):
+    """Finite iterator over a test dataset and its length; yields per-batch
+    dicts plus metadata (image_id, scale, orig_size) for the evaluator.  The
+    final partial batch is padded with copies whose ``image_id`` is None.  The
+    iterator is a background Prefetcher, so host prep overlaps the device."""
+    records = DatasetCatalog.get(dataset_name)
+    _check_no_proposals(cfg, cfg.DATASETS.PROPOSAL_FILES_TEST)
+    tcfg = TransformConfig.test_from_cfg(cfg)
+    rng = np.random.RandomState(0)
+
+    def load_one(rec):
+        img = image_loader(rec) if image_loader else None
+        return prepare_detection_record(rec, tcfg, rng, image=img, training=False)
+
+    def gen():
+        batch = []
+        for rec in records:
+            batch.append(load_one(rec))
+            if len(batch) == batch_size:
+                yield _finalize_test_batch(batch)
+                batch = []
+        if batch:
+            while len(batch) < batch_size:  # pad the final partial batch
+                pad = {k: np.copy(v) for k, v in batch[-1].items()}
+                pad["image_id"] = None
+                batch.append(pad)
+            yield _finalize_test_batch(batch)
+
+    return Prefetcher(gen(), depth=4), len(records)
+
+
+def _finalize_test_batch(batch):
+    out = collate(batch, ("image", "image_size"))
+    out["image_id"] = [s["image_id"] for s in batch]
+    out["scale"] = np.asarray([s["scale"] for s in batch])
+    out["orig_size"] = np.stack([s["orig_size"] for s in batch])
+    out["gt_boxes"] = np.stack([s["gt_boxes"] for s in batch])
+    out["gt_classes"] = np.stack([s["gt_classes"] for s in batch])
+    out["gt_valid"] = np.stack([s["gt_valid"] for s in batch])
+    return out
+
+
+def build_tta_test_loader(*args, **kwargs):
+    raise _not_ported("the TTA test loader", "ROADMAP Queue 1 item 24")
+
+
+def build_support_loader(*args, **kwargs):
+    raise _not_ported("the support (meta) loader", "ROADMAP Queue 1 item 23")
+
+
+def build_classifier_strong_loader(*args, **kwargs):
+    raise _not_ported("the boxed classifier stream of TrainerOnlyWeakFineTune",
+                      "ROADMAP Queue 1 item 19")
+
+
+def pin_batch(batch):
+    """A batch dict with every numeric array as a torch tensor in pinned
+    (page-locked) memory, from which ``.to(device, non_blocking=True)`` is an
+    asynchronous copy; other values pass through."""
+    import torch
+
+    if not isinstance(batch, dict):
+        return batch
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
+            if isinstance(v, np.ndarray) and v.dtype.kind in "biuf" else v
+            for k, v in batch.items()}
+
+
+class _PrefetchError:
+    """Envelope forwarding a producer-thread exception to the consumer."""
+
+    def __init__(self, exc: BaseException):
+        self.exc = exc
+
+
+_PREFETCH_DONE = object()
+
+
+def _prefetch_worker(it, q, stop, sentinel, transform):
+    # Module-level so the thread does NOT hold a reference to the Prefetcher:
+    # an abandoned Prefetcher then becomes garbage, its __del__ sets `stop`,
+    # and the thread exits instead of reading disk forever.
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue_lib.Full:
+                continue
+        return False
+
+    try:
+        for item in it:
+            if transform is not None:
+                item = transform(item)
+            if not put(item) or stop.is_set():
+                return
+        put(sentinel)
+    except BaseException as e:  # noqa: BLE001 — forwarded, re-raised by consumer
+        if not stop.is_set():
+            put(_PrefetchError(e))
+
+
+class Prefetcher:
+    """Background-thread prefetch of an iterator (replaces DataLoader workers).
+
+    Closeable: ``close()`` (also via ``with`` or garbage collection) signals the
+    producer thread to stop, so abandoned iterators do not leak a thread that
+    keeps reading disk.  Producer exceptions are re-raised in the consumer.
+    ``transform`` (e.g. :func:`pin_batch`) runs on each item in the producer
+    thread."""
+
+    def __init__(self, it: Iterator, depth: int = 2,
+                 transform: Optional[Callable] = None):
+        self.q: queue_lib.Queue = queue_lib.Queue(maxsize=depth)
+        self._stop = threading.Event()
+        self.thread = threading.Thread(
+            target=_prefetch_worker, args=(it, self.q, self._stop, _PREFETCH_DONE, transform),
+            daemon=True,
+        )
+        self.thread.start()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self._stop.is_set():
+            raise StopIteration
+        item = self.q.get()
+        if item is _PREFETCH_DONE:
+            raise StopIteration
+        if isinstance(item, _PrefetchError):
+            raise item.exc
+        return item
+
+    def close(self, timeout: float = 5.0):
+        self._stop.set()
+        try:  # drain so a blocked producer unblocks immediately
+            while True:
+                self.q.get_nowait()
+        except queue_lib.Empty:
+            pass
+        self.thread.join(timeout=timeout)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def __del__(self):
+        # only signal — joining from a finalizer is unsafe
+        self._stop.set()

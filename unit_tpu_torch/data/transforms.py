@@ -1,17 +1,23 @@
-"""Test-time image transform to a fixed, orientation-bucketed canvas.
+"""Host-side image transforms to a fixed, orientation-bucketed canvas.
 
-Port of the test side of unit_tpu/data/transforms.py:18-132 (numpy only):
-resize the shortest edge, cap the longest, and paste into a zero canvas of
-one shape per orientation.  Images are float32 BGR (INPUT.FORMAT=BGR).
-unit_tpu.data is not imported: its package import pulls in jax.
+Port of unit_tpu/data/transforms.py (numpy only): resize the shortest edge,
+cap the longest, random flip when training, paste into a zero canvas of one
+shape per orientation, and pad the annotations to fixed shapes.  Images are
+float32 BGR (INPUT.FORMAT=BGR).  Masks, precomputed proposals, the uint8
+wire and the native loader's ``preprocessed`` input are not ported; each
+raises with its ROADMAP item.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to unit_tpu_torch yet ({item})")
 
 
 @dataclasses.dataclass
@@ -19,13 +25,36 @@ class TransformConfig:
     min_sizes: Sequence[int] = (800,)
     max_size: int = 1333
     canvas: Tuple[int, int] = (800, 1344)  # fixed (H, W) bucket
+    flip: bool = True
+    max_gt: int = 100
+    num_classes: int = 20
+
+    @classmethod
+    def train_from_cfg(cls, cfg) -> "TransformConfig":
+        if cfg.MODEL.MASK_ON:
+            raise _not_ported("the mask head's data side", "ROADMAP Queue 1 item 22")
+        if cfg.TPU.HOST_TRANSFER_UINT8:
+            raise _not_ported("TPU.HOST_TRANSFER_UINT8", "ROADMAP Queue 1 item 29")
+        min_sizes = cfg.INPUT.MIN_SIZE_TRAIN
+        if isinstance(min_sizes, int):
+            min_sizes = (min_sizes,)
+        max_size = cfg.INPUT.MAX_SIZE_TRAIN
+        canvas = _canvas_for(max(min_sizes), max_size, cfg.TPU.SIZE_DIVISIBILITY)
+        return cls(
+            min_sizes=tuple(min_sizes), max_size=max_size, canvas=canvas,
+            flip=cfg.INPUT.RANDOM_FLIP != "none", max_gt=cfg.TPU.MAX_GT_BOXES,
+            num_classes=cfg.MODEL.ROI_HEADS.NUM_CLASSES,
+        )
 
     @classmethod
     def test_from_cfg(cls, cfg) -> "TransformConfig":
         min_size = cfg.INPUT.MIN_SIZE_TEST
         max_size = cfg.INPUT.MAX_SIZE_TEST
         canvas = _canvas_for(min_size, max_size, cfg.TPU.SIZE_DIVISIBILITY)
-        return cls(min_sizes=(min_size,), max_size=max_size, canvas=canvas)
+        return cls(
+            min_sizes=(min_size,), max_size=max_size, canvas=canvas, flip=False,
+            max_gt=cfg.TPU.MAX_GT_BOXES, num_classes=cfg.MODEL.ROI_HEADS.NUM_CLASSES,
+        )
 
 
 def _canvas_for(min_size: int, max_size: int, divisibility: int) -> Tuple[int, int]:
@@ -69,17 +98,105 @@ def resize_image(img: np.ndarray, new_h: int, new_w: int) -> np.ndarray:
     return (top * (1 - wy) + bot * wy).astype(np.float32)
 
 
+def resize_to_canvas(image: np.ndarray, min_size: int, tcfg: TransformConfig,
+                     flip: bool = False):
+    """(canvas [Hc, Wc, 3], new_h, new_w, scale): the image resized to
+    ``min_size`` on its shortest edge (longest capped), optionally flipped,
+    in the top-left corner of its orientation's zero canvas."""
+    h, w = image.shape[:2]
+    new_h, new_w, scale = resize_shortest_edge(h, w, min_size, tcfg.max_size)
+    ch, cw = oriented_canvas(h, w, tcfg.canvas)
+    new_h, new_w = min(new_h, ch), min(new_w, cw)
+    img = resize_image(image, new_h, new_w)
+    if flip:
+        img = img[:, ::-1]
+    canvas = np.zeros((ch, cw, 3), np.float32)
+    canvas[:new_h, :new_w] = img[:new_h, :new_w]
+    return canvas, new_h, new_w, scale
+
+
+def load_image_bgr(path: str) -> np.ndarray:
+    """Read an image file to float32 BGR HxWx3."""
+    from PIL import Image
+
+    with Image.open(path) as im:
+        rgb = np.asarray(im.convert("RGB"), dtype=np.float32)
+    return rgb[:, :, ::-1].copy()
+
+
+def prepare_detection_record(
+    record: dict,
+    tcfg: TransformConfig,
+    rng: np.random.RandomState,
+    image: Optional[np.ndarray] = None,
+    training: bool = True,
+    aug: Optional[tuple] = None,
+) -> dict:
+    """record dict -> fixed-shape arrays for one image:
+    {image [Hc, Wc, 3], image_size [2], gt_boxes [G, 4], gt_classes [G],
+    gt_valid [G], labels [C], scale, image_id, orig_size}.
+
+    ``aug=(min_size, flip)``: the caller already drew the augmentation
+    parameters (StreamLoader draws them once per record, so that
+    ``fast_forward`` can replay them); no draws happen here.
+    """
+    if image is None:
+        image = load_image_bgr(record["file_name"])
+    h, w = image.shape[:2]
+    if aug is not None:
+        min_size, flipped = aug[0], bool(aug[1])
+    else:  # the draws in unit_tpu's order: the size, then the flip coin
+        min_size = (tcfg.min_sizes[rng.randint(len(tcfg.min_sizes))] if training
+                    else tcfg.min_sizes[0])
+        flipped = bool(training and tcfg.flip and rng.rand() < 0.5)
+    canvas, new_h, new_w, scale = resize_to_canvas(image, min_size, tcfg, flipped)
+
+    annotations = record.get("annotations", [])
+    boxes = np.asarray([a["bbox"] for a in annotations], np.float32).reshape(-1, 4) * scale
+    classes = np.asarray([a["category_id"] for a in annotations], np.int64)
+    if flipped and len(boxes):
+        x1 = new_w - boxes[:, 2]
+        x2 = new_w - boxes[:, 0]
+        boxes[:, 0], boxes[:, 2] = x1.copy(), x2.copy()
+
+    g = tcfg.max_gt
+    gt_boxes = np.zeros((g, 4), np.float32)
+    gt_classes = np.zeros((g,), np.int32)
+    gt_valid = np.zeros((g,), bool)
+    n = min(len(boxes), g)
+    if n:
+        gt_boxes[:n] = boxes[:n]
+        gt_classes[:n] = classes[:n]
+        gt_valid[:n] = True
+
+    labels = np.zeros((tcfg.num_classes,), np.float32)
+    for c in classes:
+        if 0 <= c < tcfg.num_classes:
+            labels[c] = 1.0
+
+    return {
+        "image": canvas,
+        "image_size": np.asarray([new_h, new_w], np.float32),
+        "gt_boxes": gt_boxes,
+        "gt_classes": gt_classes,
+        "gt_valid": gt_valid,
+        "labels": labels,
+        "scale": np.float32(scale),
+        "image_id": record.get("image_id", ""),
+        "orig_size": np.asarray([h, w], np.float32),
+    }
+
+
+def collate(samples: List[dict], keys: Sequence[str]) -> dict:
+    return {k: np.stack([s[k] for s in samples]) for k in keys}
+
+
 def prepare_test_image(image: np.ndarray, tcfg: TransformConfig) -> dict:
     """The image part of unit_tpu's prepare_detection_record (training=False):
     {image [Hc, Wc, 3] canvas, image_size [2] (h, w) of the content,
     scale, orig_size [2]}."""
     h, w = image.shape[:2]
-    new_h, new_w, scale = resize_shortest_edge(h, w, tcfg.min_sizes[0], tcfg.max_size)
-    ch, cw = oriented_canvas(h, w, tcfg.canvas)
-    new_h, new_w = min(new_h, ch), min(new_w, cw)
-    img = resize_image(image, new_h, new_w)
-    canvas = np.zeros((ch, cw, 3), np.float32)
-    canvas[:new_h, :new_w] = img[:new_h, :new_w]
+    canvas, new_h, new_w, scale = resize_to_canvas(image, tcfg.min_sizes[0], tcfg)
     return {
         "image": canvas,
         "image_size": np.asarray([new_h, new_w], np.float32),

@@ -1,4 +1,5 @@
-"""Entry points around the model (port of unit_tpu.engine: predict and train)."""
+"""Entry points around the model (port of unit_tpu.engine: predict, train
+and the CLI runner in ``engine.runner``)."""
 
 from .predict import make_predict_fn
 from .train import TrainerBase, TrainerNoMeta, TrainState, make_train_step

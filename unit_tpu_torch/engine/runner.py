@@ -1,0 +1,392 @@
+"""CLI runner utilities: argument parsing, config setup, end-to-end train/eval.
+
+Port of unit_tpu/engine/runner.py for one device: build cfg from YAML and
+dotted overrides, register datasets, construct the trainer for the configured
+meta-architecture, run training with checkpoint and evaluation hooks (with
+resume and a save on preemption), or run eval-only.
+
+What differs from unit_tpu, on purpose:
+  * ``--device`` (default ``cuda``): the model is built on the card; without
+    one the run raises instead of carrying on on the CPU.  Tests pass
+    ``--device cpu``;
+  * ``build_everything`` and ``run`` take an optional ``image_loader``
+    (record -> float BGR array), threaded to every loader as ``make_eval_fn``
+    already takes one, so a run needs no image files;
+  * the training streams hand out batches in pinned memory when the model is
+    on a card (``data.loader.pin_batch``).
+Not ported, each raising with its ROADMAP item: the other trainers (items 19,
+20, 23), TTA (24), precomputed proposals (25), PreciseBN (26), more than one
+device, ``--dist``, TP and PP (27, 29), ``TPU.GRAD_ACCUM`` > 1 (12) and the
+profile hook (31).
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import signal
+import sys
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from ..checkpoint import (
+    Checkpointer,
+    PeriodicCheckpointerWithEval,
+    load_glove_embeddings,
+    load_torch_resnet,
+    merge_params_from_checkpoint,
+)
+from ..config import get_cfg, validate_registry_names
+from ..data import (
+    DatasetCatalog,
+    Prefetcher,
+    build_classifier_loader,
+    build_strong_loader,
+    build_test_loader,
+)
+from ..data.loader import pin_batch
+from ..data.utils import get_evaluator, register_datasets
+from ..evaluation import inference_on_dataset
+from ..models import WSRCNN, ModelConfig
+from ..models.meta_arch import _not_ported
+from ..solver import build_optimizer
+from ..solver.build import warmup_multistep
+from ..utils.events import MetricsHook, print_csv_format
+from .predict import make_predict_fn
+from .train import TrainerNoMeta
+
+logger = logging.getLogger("unit_tpu_torch")
+
+
+def setup_logger(output_dir: Optional[str] = None, level: int = logging.INFO):
+    """Configure the "unit_tpu_torch" logger for CLI runs: stream to stdout
+    and a log.txt in OUTPUT_DIR.  The logger does not propagate, so a root
+    handler installed by another library neither drops nor doubles its lines."""
+    lg = logging.getLogger("unit_tpu_torch")
+    lg.setLevel(level)
+    lg.propagate = False
+    fmt = logging.Formatter(
+        "[%(asctime)s unit_tpu_torch]: %(message)s", datefmt="%m/%d %H:%M:%S"
+    )
+    if not any(
+        isinstance(h, logging.StreamHandler) and not isinstance(h, logging.FileHandler)
+        for h in lg.handlers
+    ):
+        sh = logging.StreamHandler(sys.stdout)
+        sh.setFormatter(fmt)
+        lg.addHandler(sh)
+    if output_dir and not any(isinstance(h, logging.FileHandler) for h in lg.handlers):
+        fh = logging.FileHandler(os.path.join(output_dir, "log.txt"))
+        fh.setFormatter(fmt)
+        lg.addHandler(fh)
+    return lg
+
+
+def default_argument_parser():
+    parser = argparse.ArgumentParser(description="unit_tpu_torch training")
+    parser.add_argument("--config-file", default="", metavar="FILE")
+    parser.add_argument("--eval-only", action="store_true")
+    parser.add_argument("--resume", action="store_true")
+    parser.add_argument("--num-gpus", type=int, default=1,
+                        help="number of devices (only 1 is ported)")
+    parser.add_argument("--data-root", default=None)
+    parser.add_argument("--dist", action="store_true",
+                        help="multi-process run (not ported)")
+    parser.add_argument("--device", default="cuda",
+                        help="where the model runs: cuda (default) or cpu")
+    parser.add_argument("opts", default=None, nargs=argparse.REMAINDER)
+    return parser
+
+
+def auto_scale_workers(cfg, num_workers: int):
+    """SOLVER.REFERENCE_WORLD_SIZE linear-scaling-rule adjustment.
+
+    When REFERENCE_WORLD_SIZE is nonzero and differs from the actual device
+    count, the global batch and BASE_LR scale UP by num_workers/old, and the
+    iteration-denominated quantities (MAX_ITER, WARMUP_ITERS, STEPS,
+    EVAL_PERIOD, CHECKPOINT_PERIOD) scale DOWN, keeping total epochs and the
+    LR-vs-epoch curve invariant.  REFERENCE_WORLD_SIZE is rewritten to
+    num_workers so the scaling is idempotent (the saved config can be reused).
+    """
+    old = cfg.SOLVER.REFERENCE_WORLD_SIZE
+    if old == 0 or old == num_workers:
+        return cfg
+    was_frozen = cfg.is_frozen()
+    cfg = cfg.clone()
+    cfg.defrost()
+    if cfg.SOLVER.IMS_PER_BATCH % old != 0:
+        raise ValueError(
+            f"SOLVER.IMS_PER_BATCH {cfg.SOLVER.IMS_PER_BATCH} not divisible by "
+            f"REFERENCE_WORLD_SIZE {old}")
+    scale = num_workers / old
+    cfg.SOLVER.IMS_PER_BATCH = int(round(cfg.SOLVER.IMS_PER_BATCH * scale))
+    cfg.SOLVER.BASE_LR = cfg.SOLVER.BASE_LR * scale
+    cfg.SOLVER.MAX_ITER = int(round(cfg.SOLVER.MAX_ITER / scale))
+    cfg.SOLVER.WARMUP_ITERS = int(round(cfg.SOLVER.WARMUP_ITERS / scale))
+    cfg.SOLVER.STEPS = tuple(int(round(s / scale)) for s in cfg.SOLVER.STEPS)
+    cfg.TEST.EVAL_PERIOD = int(round(cfg.TEST.EVAL_PERIOD / scale))
+    cfg.SOLVER.CHECKPOINT_PERIOD = int(round(cfg.SOLVER.CHECKPOINT_PERIOD / scale))
+    cfg.SOLVER.REFERENCE_WORLD_SIZE = num_workers
+    logger.info(
+        "auto_scale_workers: %d -> %d workers; IMS_PER_BATCH=%d BASE_LR=%g "
+        "MAX_ITER=%d WARMUP_ITERS=%d STEPS=%s",
+        old, num_workers, cfg.SOLVER.IMS_PER_BATCH, cfg.SOLVER.BASE_LR,
+        cfg.SOLVER.MAX_ITER, cfg.SOLVER.WARMUP_ITERS, cfg.SOLVER.STEPS)
+    if was_frozen:
+        cfg.freeze()
+    return cfg
+
+
+def resolve_device(name: Optional[str]) -> torch.device:
+    """The device an entry point runs on: the card unless the caller asks for
+    the CPU.  A missing card raises; nothing carries on on the CPU."""
+    device = torch.device(name or "cuda")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: unit_tpu_torch runs on the card; pass --device cpu "
+            "to run on the CPU on purpose")
+    return device
+
+
+def setup(args):
+    if getattr(args, "dist", False) or int(getattr(args, "num_gpus", 1) or 1) > 1:
+        raise _not_ported("more than one device (--num-gpus, --dist)",
+                          "ROADMAP Queue 1 item 27")
+    cfg = get_cfg()
+    if args.config_file:
+        cfg.merge_from_file(args.config_file)
+    if args.opts:
+        cfg.merge_from_list(args.opts)
+    cfg = auto_scale_workers(cfg, 1)
+    cfg.freeze()
+    validate_registry_names(cfg)  # reject unknown registry names at setup
+    os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
+    setup_logger(cfg.OUTPUT_DIR)
+    if cfg.TPU.DEBUG_NANS:
+        torch.autograd.set_detect_anomaly(True)
+    register_datasets(cfg, args.data_root)
+    return cfg
+
+
+# trainer name -> the ROADMAP item it waits for
+_UNPORTED_TRAINERS = {
+    "Trainer": "ROADMAP Queue 1 item 23",
+    "TrainerFineTune": "ROADMAP Queue 1 item 19",
+    "TrainerOnlyWeak": "ROADMAP Queue 1 item 20",
+    "TrainerOnlyWeakFineTune": "ROADMAP Queue 1 items 19 and 20",
+}
+
+
+def trainer_name_for(cfg) -> str:
+    """The trainer unit_tpu picks for ``cfg`` (runner.py:182), by name."""
+    explicit = getattr(cfg, "ENGINE", None) and cfg.ENGINE.TRAINER
+    if explicit:
+        if explicit != "TrainerNoMeta" and explicit not in _UNPORTED_TRAINERS:
+            raise KeyError(f"unknown ENGINE.TRAINER {explicit!r}; one of "
+                           f"{sorted(['TrainerNoMeta', *_UNPORTED_TRAINERS])}")
+        return explicit
+    if cfg.MODEL.META_ARCHITECTURE == "WeakRCNN":
+        return "TrainerOnlyWeak"
+    if "FineTune" in cfg.MODEL.ROI_HEADS.FAST_RCNN.NAME:
+        return "TrainerFineTune"
+    if cfg.MODEL.ROI_HEADS.NAME == "WSROIHead":
+        return "Trainer"  # meta/support-stream trainer
+    return "TrainerNoMeta"
+
+
+def trainer_class_for(cfg):
+    name = trainer_name_for(cfg)
+    if name in _UNPORTED_TRAINERS:
+        raise _not_ported(name, _UNPORTED_TRAINERS[name])
+    return TrainerNoMeta
+
+
+def build_everything(cfg, device: Optional[torch.device] = None, seed: int = 0,
+                     start_step: int = 0, image_loader: Optional[Callable] = None):
+    """(model, solver, trainer) for a config, the model on ``device``.
+
+    ``start_step`` > 0 (--resume): every training stream is fast-forwarded
+    past the batches the preempted run already consumed, so the resumed run
+    sees exactly the data an uninterrupted run would have."""
+    device = device if device is not None else resolve_device(None)
+    if int(getattr(cfg.TPU, "TP", 1) or 1) > 1 or bool(getattr(cfg.TPU, "PP", False)) \
+            or cfg.TPU.FSDP:
+        raise _not_ported("TPU.TP, TPU.PP and TPU.FSDP", "ROADMAP Queue 1 items 27 and 29")
+    trainer_cls = trainer_class_for(cfg)
+    model = WSRCNN(ModelConfig.from_cfg(cfg),
+                   generator=torch.Generator().manual_seed(seed)).to(device)
+    grad_accum = int(getattr(cfg.TPU, "GRAD_ACCUM", 1) or 1)
+    pin = pin_batch if device.type == "cuda" else None
+
+    def stream(loader):
+        # exact resume: each train step consumes one batch from this stream
+        if start_step > 0:
+            loader.fast_forward(start_step * grad_accum)
+        return Prefetcher(iter(loader), transform=pin)
+
+    if not cfg.DATASETS.TRAIN:
+        raise ValueError("DATASETS.TRAIN is empty")
+    strong_iter = stream(build_strong_loader(cfg, seed=seed, image_loader=image_loader))
+    weak_iter = stream(build_classifier_loader(cfg, seed=seed + 1, image_loader=image_loader))
+    solver = build_optimizer(cfg, model)
+    try:
+        trainer = trainer_cls(model, solver, strong_iter=strong_iter, weak_iter=weak_iter,
+                              seed=seed, grad_accum=grad_accum)
+    except BaseException:
+        strong_iter.close()
+        weak_iter.close()
+        raise
+    return model, solver, trainer
+
+
+def load_initial_weights(cfg, model):
+    """MODEL.WEIGHTS (one of this package's checkpoints, .npz, .pkl or .pth)
+    and the GloVe embeddings into ``model``, in place."""
+    weights = cfg.MODEL.WEIGHTS
+    own = weights and (os.path.isdir(weights) or weights.endswith(".pt"))
+    if weights and not os.path.exists(weights):
+        # silently evaluating a random-init model is far worse than failing
+        raise FileNotFoundError(f"MODEL.WEIGHTS points at {weights!r}, which does not exist")
+    if own:
+        # a snapshot of one of our own runs (e.g. <base_run>/best): the
+        # fine-tune warm start, tolerant of missing and new tensors
+        _, loaded, skipped = merge_params_from_checkpoint(model, weights)
+        logger.info("warm-started %d tensors from %s (%d new/skipped)",
+                    loaded, weights, len(skipped))
+    elif weights:
+        if weights.endswith(".npz"):
+            sd = dict(np.load(weights))
+        else:
+            obj = torch.load(weights, map_location="cpu", weights_only=False)
+            sd = obj.get("model", obj.get("state_dict", obj))
+            sd = {k: v.numpy() if hasattr(v, "numpy") else v for k, v in sd.items()}
+        _, loaded, skipped = load_torch_resnet(
+            model, sd, load_res5_into=("box_head", "weak_box_head"))
+        logger.info("loaded %d tensors from %s (%d skipped)", loaded, weights, len(skipped))
+    emb = cfg.MODEL.ROI_HEADS.EMBEDDING_PATH
+    if emb and os.path.exists(emb):
+        load_glove_embeddings(model, emb)
+        logger.info("loaded GloVe embeddings from %s", emb)
+    return model
+
+
+def make_eval_fn(cfg, model, image_loader: Optional[Callable] = None):
+    """state (or model) -> results of every dataset of DATASETS.TEST."""
+    if cfg.TEST.AUG.ENABLED:
+        raise _not_ported("test-time augmentation", "ROADMAP Queue 1 item 24")
+    if cfg.MODEL.LOAD_PROPOSALS and cfg.DATASETS.PROPOSAL_FILES_TEST:
+        raise _not_ported("precomputed proposals", "ROADMAP Queue 1 item 25")
+
+    def eval_fn(state):
+        # Accumulate per dataset; with a single test dataset return its
+        # metrics flat, matching d2's DefaultTrainer.test.
+        net = state.model if hasattr(state, "model") else state
+        was_training = net.training
+        eval_net = net
+        if getattr(cfg.TPU, "FOLD_BN_AT_EVAL", False):
+            from ..utils.bn_fold import fold_frozen_bn
+
+            eval_net = fold_frozen_bn(net)  # a copy: training goes on unfolded
+        predict = make_predict_fn(eval_net)
+        all_results = {}
+        try:
+            for name in cfg.DATASETS.TEST:
+                evaluator = get_evaluator(cfg, name)
+                for rec in DatasetCatalog.get(name):
+                    evaluator.process_gt_record(rec)
+                loader, n = build_test_loader(
+                    cfg, name, image_loader=image_loader,
+                    batch_size=int(getattr(cfg.TPU, "EVAL_BATCH_SIZE", 1)),
+                )
+                try:
+                    all_results[name] = inference_on_dataset(predict, loader, evaluator, n)
+                finally:
+                    loader.close()
+        finally:
+            net.train(was_training)
+        if len(all_results) == 1:
+            return next(iter(all_results.values()))
+        return all_results
+
+    return eval_fn
+
+
+def run(args, image_loader: Optional[Callable] = None):
+    cfg = setup(args)
+    device = resolve_device(getattr(args, "device", None))
+    if cfg.TPU.PROFILE_START_STEP > 0:
+        raise _not_ported("the profile hook (TPU.PROFILE_START_STEP)",
+                          "ROADMAP Queue 1 item 31")
+    if cfg.TEST.PRECISE_BN.ENABLED:
+        raise _not_ported("PreciseBN", "ROADMAP Queue 1 item 26")
+    seed = cfg.SEED if cfg.SEED >= 0 else 0
+    ckpt = Checkpointer(cfg.OUTPUT_DIR, max_to_keep=3)
+    resume_step = ckpt.latest_step() if args.resume else None
+    model, solver, trainer = build_everything(
+        cfg, device, seed=seed,
+        start_step=0 if args.eval_only else int(resume_step or 0),
+        image_loader=image_loader,
+    )
+    try:
+        trainer.init_state()
+        load_initial_weights(cfg, model)
+        if resume_step is not None:
+            ckpt.restore(state=trainer.state)
+            logger.info("resuming from step %d", int(resume_step))
+
+        eval_fn = make_eval_fn(cfg, model, image_loader=image_loader)
+        if args.eval_only:
+            results = eval_fn(trainer.state)
+            logger.info("eval results: %s", results)
+            print_csv_format(results)
+            return results
+
+        lr_schedule = warmup_multistep(
+            cfg.SOLVER.BASE_LR, cfg.SOLVER.STEPS, cfg.SOLVER.GAMMA,
+            cfg.SOLVER.WARMUP_FACTOR, cfg.SOLVER.WARMUP_ITERS,
+        )
+        metrics_hook = MetricsHook(cfg.OUTPUT_DIR, period=20, max_iter=cfg.SOLVER.MAX_ITER,
+                                   lr_fn=lr_schedule)
+        hooks = [
+            metrics_hook,
+            PeriodicCheckpointerWithEval(
+                ckpt, eval_fn, cfg.TEST.EVAL_PERIOD, cfg.SOLVER.CHECKPOINT_PERIOD,
+                cfg.TEST.MIN_EVAL_PERIOD,
+            ),
+        ]
+        # Preemption safety: SIGTERM or SIGINT asks for a clean loop exit
+        # after the step in flight, then the state is saved below so --resume
+        # continues from the preempted step.
+        prev_handlers = {}
+
+        def _on_preempt(signum, frame):
+            logger.warning("signal %d: stopping after the current step", signum)
+            trainer.request_stop()
+
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                prev_handlers[sig] = signal.signal(sig, _on_preempt)
+            except ValueError:  # not the main thread (e.g. tests): skip
+                pass
+        try:
+            trainer.train(cfg.SOLVER.MAX_ITER, hooks=hooks)
+            if trainer.stop_requested:
+                step = int(trainer.state.step)
+                if ckpt.latest_step() != step:  # the periodic hook may have just saved
+                    logger.warning("preempted at iter %d: saving checkpoint", step)
+                    ckpt.save(step, trainer.state, wait=True)
+        finally:
+            for sig, h in prev_handlers.items():
+                signal.signal(sig, h)
+            metrics_hook.close()
+            ckpt.wait()
+        if trainer.stop_requested:  # preempted: exit promptly, skip the final eval
+            return None
+        results = eval_fn(trainer.state)
+        print_csv_format(results)
+        return results
+    finally:
+        trainer.close()

@@ -3,7 +3,8 @@
 Port of unit_tpu/engine/train.py:38-191,579-814 for one device.  PyTorch
 runs eagerly, so the step is a plain closure (zero_grad -> train_losses ->
 sum -> backward -> clip -> SGD step -> LR step) and the trainer moves each
-step's numpy batches to the model's device.
+step's batches to the model's device (numpy arrays, or tensors in pinned
+memory from a ``data.Prefetcher`` with ``pin_batch``).
 
 What differs from unit_tpu, on purpose:
   * the randomness of step k is one ``torch.Generator`` on the device,
@@ -122,8 +123,11 @@ class TrainerBase:
     def _to_device(self, batch):
         if batch is None:
             return None
-        return {k: torch.as_tensor(np.asarray(v)).to(self.device, non_blocking=True)
-                for k, v in batch.items()}
+        # a Prefetcher with data.loader.pin_batch hands out tensors in pinned
+        # memory, from which the copy is asynchronous; numpy arrays (pageable)
+        # are copied synchronously whatever the flag says
+        return {k: (v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v)))
+                .to(self.device, non_blocking=True) for k, v in batch.items()}
 
     def run_step(self) -> Dict[str, float]:
         assert self.state is not None, "call init_state() first"

@@ -1,0 +1,6 @@
+"""Evaluation: the inference loop and the PASCAL VOC evaluator."""
+
+from .evaluator import inference_on_dataset
+from .voc_eval import PascalVOCEvaluator, eval_class, voc_ap
+
+__all__ = ["PascalVOCEvaluator", "eval_class", "inference_on_dataset", "voc_ap"]

@@ -1,0 +1,104 @@
+"""Inference loop: run a model over a test loader and feed an evaluator.
+
+Port of unit_tpu/evaluation/evaluator.py:21-109 for one process: warmup-aware
+timing, progress logging, the evaluator's process/evaluate protocol.
+Detections come back as padded arrays; boxes are rescaled from network-input
+to original-image coordinates here.
+
+One batch stays in flight.  Right after batch k is dispatched, its four
+output fields are packed into one [B, D, 7] f32 tensor on the device and one
+asynchronous copy into pinned host memory is enqueued behind it, with an
+event.  The host then handles batch k - 1 (event wait, rescale, evaluator)
+while the device works on batch k.  On the CPU the packed tensor is read
+directly.
+
+The multi-process merge of unit_tpu (:96-105) and the meta evaluation loop are not
+ported (ROADMAP Queue 1 items 27 and 23).
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from typing import Callable, Iterator, Optional
+
+import numpy as np
+import torch
+
+logger = logging.getLogger("unit_tpu_torch")
+
+
+def _start_fetch(det):
+    """Detections -> (host tensor [B, D, 7], event or None): boxes, score,
+    class and valid in one device-to-host copy (classes and flags are exact
+    in f32)."""
+    packed = torch.cat([
+        det.boxes.float(), det.scores.float().unsqueeze(-1),
+        det.classes.float().unsqueeze(-1), det.valid.float().unsqueeze(-1),
+    ], dim=-1)
+    if not packed.is_cuda:
+        return packed, None
+    host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+    host.copy_(packed, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return host, event
+
+
+def inference_on_dataset(
+    predict_fn: Callable,          # (images, image_sizes) -> Detections (batched)
+    loader: Iterator,              # yields test batches from build_test_loader
+    evaluator,                     # PascalVOCEvaluator-like
+    total_images: Optional[int] = None,
+    warmup: int = 1,
+) -> dict:
+    # NOTE: no evaluator.reset() here: callers (engine/runner.py eval_fn) feed
+    # GT records before handing the evaluator over
+    num_done = 0
+    t_start = None
+    timed_base = 0
+    total_time = 0.0
+
+    def collect(batch, host, event):
+        nonlocal num_done
+        if event is not None:
+            event.synchronize()
+        out = host.numpy()
+        for i, image_id in enumerate(batch["image_id"]):
+            if image_id is None:  # padding of the final partial batch
+                continue
+            scale = batch["scale"][i]
+            oh, ow = batch["orig_size"][i]
+            b = out[i, :, :4] / scale
+            b[:, 0::2] = np.clip(b[:, 0::2], 0, ow)
+            b[:, 1::2] = np.clip(b[:, 1::2], 0, oh)
+            evaluator.process(image_id, b, out[i, :, 4], out[i, :, 5].astype(np.int32),
+                              out[i, :, 6] > 0)
+            num_done += 1
+
+    pending = None
+    if warmup <= 0:  # no warmup exclusion: time everything
+        t_start = time.perf_counter()
+    for batch_idx, batch in enumerate(loader):
+        fetch = _start_fetch(predict_fn(batch["image"], batch["image_size"]))
+        if pending is not None:
+            collect(*pending)
+            if batch_idx == warmup:
+                # the clock starts after the warmup batch (its collect
+                # absorbed the kernels' build and cuDNN's algorithm search)
+                t_start = time.perf_counter()
+                timed_base = num_done
+        pending = (batch,) + fetch
+        if total_images and batch_idx % 50 == 0 and t_start is not None:
+            total_time = time.perf_counter() - t_start
+            per_img = total_time / max(num_done - timed_base, 1)
+            logger.info("inference %d/%d (%.4f s/img, ETA %.0fs)", num_done, total_images,
+                        per_img, per_img * (total_images - num_done))
+    if pending is not None:
+        collect(*pending)
+    if t_start is not None:
+        total_time = time.perf_counter() - t_start
+    results = evaluator.evaluate()
+    if t_start is not None and num_done > timed_base:
+        results["inference_seconds_per_image"] = total_time / (num_done - timed_base)
+    return results

@@ -39,7 +39,7 @@ from .predictors import (
     transfer_deltas,
     transfer_scores,
 )
-from .resnet import Res5, ResNetC4
+from .resnet import Res5, ResNetC4, set_bn_act_impl
 
 # TPU.ROI_ALIGN_IMPL / TPU.NMS_IMPL keep their meaning: the hand-written CUDA
 # kernel takes the Pallas kernel's place, the plain PyTorch version XLA's.
@@ -88,6 +88,7 @@ class ModelConfig:
     compute_dtype: str = "float32"
     roi_align_impl: str = "auto"  # auto | cuda | plain
     nms_impl: str = "auto"        # auto | cuda | plain
+    bn_act_impl: str = "auto"     # auto | cuda | plain (no YAML key: auto)
     mask_on: bool = False
     load_proposals: bool = False
     use_meta: bool = False
@@ -188,7 +189,7 @@ def _check_supported(mc: ModelConfig) -> None:
         raise _not_ported("the mask head", "ROADMAP Queue 1 item 22")
     if mc.use_meta:
         raise _not_ported("the meta (support) stream", "ROADMAP Queue 1 item 23")
-    for impl in (mc.roi_align_impl, mc.nms_impl):
+    for impl in (mc.roi_align_impl, mc.nms_impl, mc.bn_act_impl):
         if impl not in ("auto", "cuda", "plain"):
             raise ValueError(f"unknown kernel impl {impl!r} (auto | cuda | plain)")
 
@@ -225,6 +226,7 @@ class WSRCNN(nn.Module):
         with torch.no_grad():
             emb.normal_(0.0, 0.02, generator=g)
         self.register_buffer("embeddings", emb)
+        set_bn_act_impl(self, mc.bn_act_impl)
 
     # ---------------------------------------------------------------- pieces
     def preprocess(self, images: torch.Tensor) -> torch.Tensor:

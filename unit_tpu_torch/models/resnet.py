@@ -15,11 +15,13 @@ tree, so ``checkpoint.jax_params.load_jax_params`` maps paths one to one.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops.bn_act import bn_act
 
 # d2 ResNet stage specs: number of bottleneck blocks per stage for each depth.
 BLOCKS_PER_STAGE = {
@@ -68,10 +70,17 @@ class Conv2d(nn.Module):
 
 
 class FrozenBN(nn.Module):
-    """y = (x - mean) / sqrt(var + eps) * weight + bias with constant buffers.
+    """y = act((x - mean) / sqrt(var + eps) * weight + bias [+ residual]) with
+    constant buffers, as one fused epilogue (``ops.bn_act``).
 
-    Scale and shift are formed in f32 and cast to the compute dtype before
-    they touch ``x`` (unit_tpu resnet.py:56-58).  Starts as the identity.
+    Scale and shift are formed in f32 from the four buffers on every call (the
+    buffers may be reloaded or folded between calls) and the epilogue computes
+    in f32 and rounds once to the dtype of ``x``.  unit_tpu's FrozenBN
+    (resnet.py:56-58) rounds scale, shift and each intermediate to the compute
+    dtype instead: the same values in f32, about one bf16 ulp per epilogue
+    apart in bf16.  ``impl`` (auto | cuda | plain) picks the hand-written
+    kernel or the plain version; ``set_bn_act_impl`` sets it for a whole model.
+    Starts as the identity.
     """
 
     def __init__(self, features: int, eps: float = 1e-5,
@@ -79,16 +88,30 @@ class FrozenBN(nn.Module):
         super().__init__()
         self.eps = eps
         self.dtype = dtype
+        self.impl = "auto"
         self.register_buffer("weight", torch.ones(features))
         self.register_buffer("bias", torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def scale_shift(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The affine form of the four buffers, f32 [C] each."""
         scale = self.weight / torch.sqrt(self.var + self.eps)
-        shift = self.bias - self.mean * scale
-        shape = (1, -1, 1, 1)
-        return x * scale.to(self.dtype).view(shape) + shift.to(self.dtype).view(shape)
+        return scale, self.bias - self.mean * scale
+
+    def forward(self, x: torch.Tensor, residual: Optional[torch.Tensor] = None,
+                relu: bool = False) -> torch.Tensor:
+        scale, shift = self.scale_shift()
+        return bn_act(x, scale, shift, residual, relu, self.impl)
+
+
+def set_bn_act_impl(module: nn.Module, impl: str) -> None:
+    """Route every FrozenBN under ``module`` to ``impl`` (auto | cuda | plain)."""
+    if impl not in ("auto", "cuda", "plain"):
+        raise ValueError(f"unknown bn_act impl {impl!r} (auto | cuda | plain)")
+    for m in module.modules():
+        if isinstance(m, FrozenBN):
+            m.impl = impl
 
 
 class BottleneckBlock(nn.Module):
@@ -114,11 +137,10 @@ class BottleneckBlock(nn.Module):
             self.shortcut = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.relu(self.conv1_bn(self.conv1(x)))
-        out = F.relu(self.conv2_bn(self.conv2(out)))
-        out = self.conv3_bn(self.conv3(out))
+        out = self.conv1_bn(self.conv1(x), relu=True)
+        out = self.conv2_bn(self.conv2(out), relu=True)
         sc = x if self.shortcut is None else self.shortcut_bn(self.shortcut(x))
-        return F.relu(out + sc)
+        return self.conv3_bn(self.conv3(out), residual=sc, relu=True)
 
 
 class ResNetStage(nn.Module):
@@ -168,7 +190,7 @@ class ResNetC4(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x [B, H, W, 3] -> [B, C, H/16, W/16] (channels_last memory)."""
         x = x.permute(0, 3, 1, 2).to(self.dtype)
-        x = F.relu(self.stem_conv1_bn(self.stem_conv1(x)))
+        x = self.stem_conv1_bn(self.stem_conv1(x), relu=True)
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         return self.res4(self.res3(self.res2(x)))
 

@@ -23,11 +23,13 @@ class DetectionService:
     """prep -> predict -> detections, one request at a time."""
 
     def __init__(self, cfg, model, class_names: Optional[Sequence[str]] = None):
-        if cfg.TPU.HOST_TRANSFER_UINT8 or cfg.TPU.FOLD_BN_AT_EVAL:
+        if cfg.TPU.HOST_TRANSFER_UINT8:
             raise NotImplementedError(
-                "TPU.HOST_TRANSFER_UINT8 and TPU.FOLD_BN_AT_EVAL are not ported "
-                "(ROADMAP Queue 1 items 26 and 29)"
-            )
+                "TPU.HOST_TRANSFER_UINT8 is not ported (ROADMAP Queue 1 item 29)")
+        if cfg.TPU.FOLD_BN_AT_EVAL:
+            from ..utils.bn_fold import fold_frozen_bn
+
+            model = fold_frozen_bn(model)  # a folded copy, made once
         self.tcfg = TransformConfig.test_from_cfg(cfg)
         self.class_names = list(class_names) if class_names else None
         self._lock = threading.Lock()  # one request on the device at a time

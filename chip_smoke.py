@@ -20,7 +20,9 @@ Phases (any failure raises and the script exits non-zero):
   5  whole serving path in f32 (TF32 off): predict_raw with the kernels
      (K1, K3, K4) vs with the plain versions
   6  K2 ROIAlignV2 backward vs its plain version at the flagship train-step
-     shapes; two launches bit-identical
+     shapes, f32 and bf16, with uniform ROIs, ROIs piled as a train step lays
+     them out and ROIs in one band (row lists of several segments); two
+     launches bit-identical; the wrapper's host time and scratch bytes
   7  training end to end: TrainerNoMeta takes 2 warm-up and 8 timed steps of
      the flagship recipe at full width (2 strong + 2 weak images per step,
      canvases alternating 800x1344 / 1344x800, bf16) with build_optimizer's
@@ -363,6 +365,15 @@ def piled_rois(rng, n, h_img=800, w_img=1344):
                            np.full(n // 4, h_img)], -1)
     rois[k:k + n // 8, 0] = w_img
     rois[k:k + n // 8, 2] = w_img
+    return rois.astype(np.float32)
+
+
+def one_band_rois(rng, n, h_img=800, w_img=1344):
+    """ROIs that all lie in one 40-pixel band of the canvas: two or three
+    feature rows carry every ROI, so their lists run to n entries."""
+    rois = flagship_rois(rng, n, h_img, w_img)
+    rois[:, 1] = h_img * 0.4 + rng.uniform(0, 10, n)
+    rois[:, 3] = rois[:, 1] + rng.uniform(0, 30, n)
     return rois.astype(np.float32)
 
 
@@ -731,7 +742,7 @@ def phase_k2(rng):
     import torch
 
     from unit_tpu_torch.ops import roi_align as ra
-    from unit_tpu_torch.ops.roi_align_cuda import roi_align_backward_cuda
+    from unit_tpu_torch.ops.roi_align_cuda import BWD_TUNING, roi_align_backward_cuda
 
     dev = torch.device("cuda")
 
@@ -754,6 +765,18 @@ def phase_k2(rng):
             raise AssertionError(f"K2 disagrees with its plain version ({label})")
         return float(diff.max())
 
+    def timed(g, rois, shape, label):
+        """Kernel and plain ms; the wrapper's host time and its scratch."""
+        k_ms = cuda_ms(lambda: roi_align_backward_cuda(g, rois, shape), 10)
+        p_ms = cuda_ms(lambda: ra.roi_align_backward_plain(g, rois, shape), 3)
+        q_ms, host_ms = cuda_ms_queued(lambda: roi_align_backward_cuda(g, rois, shape), 10)
+        sizes = roi_align_backward_cuda.scratch_bytes
+        log(f"[6] K2 {label}: kernel {k_ms:.4f} ms ({q_ms:.4f} queued), plain {p_ms:.4f} ms "
+            f"(median, CUDA events); wrapper host {1e3 * host_ms:.1f} us a call; scratch "
+            f"{sizes['scratch'] / 1e6:.1f} MB allocated + workspace "
+            f"{sizes['workspace'] / 1e6:.2f} MB")
+        return k_ms, p_ms
+
     worst, times = 0.0, {}
     for b in (1, 2):
         shape = (b, 50, 84, 1024)
@@ -761,22 +784,35 @@ def phase_k2(rng):
         g32 = torch.as_tensor(rng.randn(b, 512, 14, 14, 1024).astype(np.float32), device=dev)
         check(g32, rois, shape, 14, f"[{b},512,14,14,1024] f32")
         g16 = g32.to(torch.bfloat16)
+        if b == 2:
+            # the train path's layout (ROIs piled onto a few rows), and rows whose
+            # lists are longer than two of the kernel's segments
+            piled = torch.as_tensor(np.stack([piled_rois(rng, 512) for _ in range(b)]),
+                                    device=dev)
+            long_rows = torch.as_tensor(np.stack([one_band_rois(rng, 512) for _ in range(b)]),
+                                        device=dev)
+            longest = int(ra.roi_row_lists(long_rows, 50, 84)[1].max())
+            seg = BWD_TUNING["seg"]
+            log(f"[6] K2 one-band ROIs: the longest row list has {longest} entries "
+                f"({-(-longest // seg)} segments of at most {seg})")
+            if longest <= 2 * seg:
+                raise AssertionError("the one-band ROIs do not fill more than two segments")
+            check(g32, piled, shape, 14, "[2,512,14,14,1024] f32 piled")
+            check(g32, long_rows, shape, 14, "[2,512,14,14,1024] f32 one band")
         del g32
         worst = max(worst, check(g16, rois, shape, 14, f"[{b},512,14,14,1024] bf16"))
-        k_ms = cuda_ms(lambda: roi_align_backward_cuda(g16, rois, shape), 10)
-        p_ms = cuda_ms(lambda: ra.roi_align_backward_plain(g16, rois, shape), 3)
+        k_ms, p_ms = timed(g16, rois, shape, f"B={b} bf16")
         out_bytes = int(np.prod(shape)) * g16.element_size()
         times[b] = (k_ms, p_ms, bound(nbytes(g16, rois) + out_bytes,
                                       g16.numel() * ROI_ALIGN_FLOPS))
-        log(f"[6] K2 B={b} bf16: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms (median, CUDA "
-            f"events); bound {times[b][2]['bound_ms']:.4f} ms by {times[b][2]['bound_by']}")
-        if b == 2:  # the train path's layout: ROIs piled onto a few rows
-            piled = torch.as_tensor(np.stack([piled_rois(rng, 512) for _ in range(b)]),
-                                    device=dev)
+        log(f"[6] K2 B={b} bf16: bound {times[b][2]['bound_ms']:.4f} ms by "
+            f"{times[b][2]['bound_by']}")
+        if b == 2:
             worst = max(worst, check(g16, piled, shape, 14, "[2,512,14,14,1024] bf16 piled"))
-            k_ms = cuda_ms(lambda: roi_align_backward_cuda(g16, piled, shape), 10)
-            p_ms = cuda_ms(lambda: ra.roi_align_backward_plain(g16, piled, shape), 3)
-            log(f"[6] K2 B=2 bf16 piled ROIs: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+            timed(g16, piled, shape, "B=2 bf16 piled ROIs")
+            worst = max(worst, check(g16, long_rows, shape, 14,
+                                     "[2,512,14,14,1024] bf16 one band"))
+            timed(g16, long_rows, shape, "B=2 bf16 one-band ROIs")
     # tiny shapes: odd sizes, H = 1 and W = 1 maps
     for shape in ((1, 1, 5, 8), (2, 7, 1, 6), (1, 9, 11, 130)):
         rois = torch.as_tensor(

@@ -151,6 +151,94 @@ def roi_align_backward_plain(
     return out.reshape(b, h, w, c).to(g.dtype)
 
 
+def roi_axis_weights(pos: torch.Tensor, size: int, sampling_ratio: int) -> torch.Tensor:
+    """Dense bilinear weights of each ROI's bins along one axis of length
+    ``size``, from the sample coordinates ``pos`` [N, P*s] of that axis:
+    [N, P, size] f32.  Entry [n, p, i] is the sum, over the s samples of bin
+    p, of the sample's weight on index i (1 - l on its low corner plus l on
+    its high corner; both on the same index where the clamp makes them equal;
+    nothing for a sample outside [-1, size]), times 1/s."""
+    n, s = pos.shape[0], sampling_ratio
+    lo, hi, wl, wh, oob = _corners(pos, size)
+    inside = (~oob).to(torch.float32) / s
+    dense = torch.zeros((n, pos.shape[1], size), dtype=torch.float32, device=pos.device)
+    dense.scatter_add_(2, lo[..., None], (wl * inside)[..., None])
+    dense.scatter_add_(2, hi[..., None], (wh * inside)[..., None])
+    return dense.reshape(n, -1, s, size).sum(2)
+
+
+def roi_align_backward_separable(
+    g: torch.Tensor,
+    rois: torch.Tensor,
+    feature_shape,
+    output_size: int = 14,
+    spatial_scale: float = 1.0 / 16.0,
+    sampling_ratio: int = 2,
+    chunk_size: int = 64,
+) -> torch.Tensor:
+    """The gradient of ROIAlignV2 in its separable form, the sums K2 forms:
+    a sample's weight on a cell is a y-factor times an x-factor, and a sample
+    outside on either axis has weight 0 on that axis, so per ROI
+
+        dF[y, x, c] = sum_pw Wx[pw, x] * (sum_ph Wy[ph, y] * g[ph, pw, c])
+
+    with Wy [N, P, H] and Wx [N, P, W] from ``roi_axis_weights``.  Same
+    arguments and result as ``roi_align_backward_plain``; dense, for tests
+    and small shapes only."""
+    b, h, w, c = (int(v) for v in feature_shape)
+    n = rois.shape[1]
+    p, s = output_size, sampling_ratio
+    out = torch.zeros((b, h, w, c), dtype=torch.float32, device=g.device)
+    for i in range(b):
+        for lo in range(0, n, chunk_size):
+            chunk = rois[i, lo:lo + chunk_size].to(torch.float32)
+            ys, xs = _roi_sample_coords(chunk, p, spatial_scale, s)
+            wy = roi_axis_weights(ys, h, s)
+            wx = roi_axis_weights(xs, w, s)
+            t = torch.einsum("nph,npqc->nhqc", wy, g[i, lo:lo + chunk_size].to(torch.float32))
+            out[i] += torch.einsum("nqw,nhqc->hwc", wx, t)
+    return out.to(g.dtype)
+
+
+def roi_row_support(rois: torch.Tensor, h: int, w: int, output_size: int = 14,
+                    spatial_scale: float = 1.0 / 16.0, sampling_ratio: int = 2):
+    """The feature rows a ROI's gradient can touch, for ROIs [N, 4]: (first,
+    last) int64 [N], inclusive, first > last for a ROI that touches none.
+    The rows run from the low corner of the first y-sample to the high corner
+    of the last (the samples are monotone along a side); a ROI whose samples
+    all lie beyond the same border of the map, on either axis, has no
+    support.  It may hold rows on which every weight is 0 (a superset), never
+    fewer."""
+    ys, xs = _roi_sample_coords(rois.to(torch.float32), output_size, spatial_scale,
+                                sampling_ratio)
+
+    def beyond(pos, size):  # the first and the last sample past the same border
+        a, z = pos[:, 0], pos[:, -1]
+        return ((a > size) & (z > size)) | ((a < -1.0) & (z < -1.0))
+
+    lo, hi, _, _, _ = _corners(ys[:, [0, -1]], h)
+    empty = beyond(ys, h) | beyond(xs, w)
+    return (torch.where(empty, 1, lo.min(1).values), torch.where(empty, 0, hi.max(1).values))
+
+
+def roi_row_lists(rois: torch.Tensor, h: int, w: int, output_size: int = 14,
+                  spatial_scale: float = 1.0 / 16.0, sampling_ratio: int = 2):
+    """Plain version of K2's list kernel: for ROIs [B, N, 4], the indices of
+    the ROIs whose row support holds row y, in ROI order: (lists [B, H, N]
+    int32, filled from the front and padded with -1, lengths [B, H] int32)."""
+    b, n = rois.shape[:2]
+    lists = torch.full((b, h, n), -1, dtype=torch.int32, device=rois.device)
+    rows = torch.arange(h, device=rois.device)[:, None]
+    index = torch.arange(n, dtype=torch.int32, device=rois.device).expand(h, n)
+    for i in range(b):
+        lo, hi = roi_row_support(rois[i], h, w, output_size, spatial_scale, sampling_ratio)
+        hit = (lo[None, :] <= rows) & (rows <= hi[None, :])  # [H, N]
+        # a stable sort of the misses behind the hits keeps the ROI order
+        order = torch.sort((~hit).to(torch.int8), dim=1, stable=True).indices
+        lists[i] = torch.where(torch.gather(hit, 1, order), torch.gather(index, 1, order), -1)
+    return lists, (lists >= 0).sum(2).to(torch.int32)
+
+
 class RoIAlignV2Function(torch.autograd.Function):
     """ROIAlignV2 with its gradient: forward K1 and backward K2 for
     impl="cuda", roi_align_plain and roi_align_backward_plain for

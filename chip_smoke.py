@@ -10,7 +10,10 @@ Phases (any failure raises and the script exits non-zero):
   0  environment: card, power limit, torch/CUDA/nvcc versions, PyYAML, PIL
   1  build the four CUDA kernels from unit_tpu_torch/csrc, one nvcc each,
      all started together, timed
-  2  K1 ROIAlignV2 forward vs its plain version at the flagship shapes
+  2  K1 ROIAlignV2 forward vs its plain version at the flagship shapes: a
+     request's and a train step's ROIs (uniform, piled and in one band), two
+     launches bit-identical, kernel, plain and bound times, the wrapper's
+     host time a call
   3  K3 greedy-NMS mask vs its plain version, bit-identical: the RPN's test
      shape (6000 -> 1000), the final detections (20000 class-offset boxes ->
      100), zero-area rows and duplicates, cap 1 and a cap above N, a batch of
@@ -308,43 +311,67 @@ def phase_k1(rng):
     import torch
 
     from unit_tpu_torch.ops import roi_align as ra
+    from unit_tpu_torch.ops.roi_align_cuda import roi_align_cuda
 
     dev = torch.device("cuda")
-    worst_f32 = worst_bf16 = 0.0
-    times = {}
-    for b in (1, 2):
-        feat = torch.as_tensor(rng.randn(b, 50, 84, 1024).astype(np.float32), device=dev)
-        feat = feat.to(torch.bfloat16)
-        rois = torch.as_tensor(np.stack([flagship_rois(rng, 1000) for _ in range(b)]), device=dev)
-        # f32: the algorithm
+
+    def check(feat, rois, label):
+        """Kernel vs plain version in f32 (the algorithm) and in bf16 (the
+        working type, in ulps of the output); two launches bit-identical."""
         f32 = feat.float()
         got = ra.roi_align_batched(f32, rois, impl="cuda")
         want = ra.roi_align_batched(f32, rois, impl="plain")
         torch.cuda.synchronize()
         err32 = float((got - want).abs().max())
-        # bf16: the working type, compared in ulps of the output
-        got16 = ra.roi_align_batched(feat, rois, impl="cuda").float()
+        del got, want, f32
+        got16 = ra.roi_align_batched(feat, rois, impl="cuda")
+        same = torch.equal(got16, ra.roi_align_batched(feat, rois, impl="cuda"))
+        got16 = got16.float()
         want16 = ra.roi_align_batched(feat, rois, impl="plain").float()
         diff = (got16 - want16).abs()
         ulp = torch.maximum(got16.abs(), want16.abs()) * 2.0 ** -7
         ulps = float(((diff - K1_F32_ATOL).clamp_min(0.0) / ulp.clamp_min(1e-30)).max())
         err16 = float(diff.max())
-        log(f"[2] K1 [{b},50,84,1024] x 1000 ROIs: f32 max|diff| {err32:.3g} "
-            f"(tol {K1_F32_ATOL}), bf16 max|diff| {err16:.3g} = {ulps:.2f} ulp "
-            f"beyond the f32 tol (tol {K1_BF16_ULPS} ulp)")
+        log(f"[2] K1 {label}: f32 max|diff| {err32:.3g} (tol {K1_F32_ATOL}), bf16 max|diff| "
+            f"{err16:.3g} = {ulps:.2f} ulp beyond the f32 tol (tol {K1_BF16_ULPS} ulp), two "
+            f"launches bit-identical {same}")
         if not np.isfinite(err32) or err32 > K1_F32_ATOL:
-            raise AssertionError(f"K1 f32 disagrees with its plain version: {err32}")
+            raise AssertionError(f"K1 f32 disagrees with its plain version ({label}): {err32}")
         if not np.isfinite(ulps) or ulps > K1_BF16_ULPS:
-            raise AssertionError(f"K1 bf16 disagrees with its plain version: {ulps} ulp")
-        worst_f32, worst_bf16 = max(worst_f32, err32), max(worst_bf16, err16)
-        k_ms = cuda_ms(lambda: ra.roi_align_batched(feat, rois, impl="cuda"), 20)
+            raise AssertionError(f"K1 bf16 disagrees with its plain version ({label}): "
+                                 f"{ulps} ulp")
+        if not same:
+            raise AssertionError(f"two launches of K1 differ ({label})")
+        return err16
+
+    def timed(feat, rois, label):
+        """Kernel, plain and bound ms; the wrapper's host time a call."""
+        k_ms = cuda_ms(lambda: roi_align_cuda(feat, rois), 20)
+        q_ms, host_ms = cuda_ms_queued(lambda: roi_align_cuda(feat, rois), 20)
         p_ms = cuda_ms(lambda: ra.roi_align_batched(feat, rois, impl="plain"), 3)
-        out_elems = b * 1000 * 14 * 14 * 1024
-        times[b] = (k_ms, p_ms, bound(nbytes(feat, rois) + out_elems * feat.element_size(),
-                                      out_elems * ROI_ALIGN_FLOPS))
-        log(f"[2] K1 B={b} bf16: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms (median, CUDA "
-            f"events); bound {times[b][2]['bound_ms']:.4f} ms by {times[b][2]['bound_by']}")
-    # tiny shapes: odd sizes, H = 1 and W = 1 maps
+        out_elems = rois.shape[0] * rois.shape[1] * 14 * 14 * feat.shape[-1]
+        least = bound(nbytes(feat, rois) + out_elems * feat.element_size(),
+                      out_elems * ROI_ALIGN_FLOPS)
+        log(f"[2] K1 {label}: kernel {k_ms:.4f} ms ({q_ms:.4f} queued), plain {p_ms:.4f} ms "
+            f"(median, CUDA events); wrapper host {1e3 * host_ms:.1f} us a call; bound "
+            f"{least['bound_ms']:.4f} ms by {least['bound_by']}")
+        return k_ms, p_ms, least
+
+    worst, times = 0.0, {}
+    for b in (1, 2):
+        feat = torch.as_tensor(rng.randn(b, 50, 84, 1024).astype(np.float32), device=dev)
+        feat = feat.to(torch.bfloat16)
+        rois = torch.as_tensor(np.stack([flagship_rois(rng, 1000) for _ in range(b)]), device=dev)
+        worst = max(worst, check(feat, rois, f"[{b},50,84,1024] x 1000 ROIs"))
+        times[b] = timed(feat, rois, f"B={b} x 1000 bf16")
+    # the train step's shape, [2,50,84,1024] x 512, in the layouts of phase 6
+    for name, make in (("piled", piled_rois), ("one band", one_band_rois)):
+        rois = torch.as_tensor(np.stack([make(rng, 512) for _ in range(2)]), device=dev)
+        worst = max(worst, check(feat, rois, f"[2,50,84,1024] x 512 {name} ROIs"))
+        timed(feat, rois, f"B=2 x 512 bf16 {name} ROIs")
+    del feat
+    # tiny shapes: odd sizes, H = 1 and W = 1 maps; C = 6 and 130 take the
+    # channel-pair path
     for shape in ((1, 1, 5, 8), (2, 7, 1, 6), (1, 9, 11, 130)):
         feat = torch.as_tensor(rng.randn(*shape).astype(np.float32), device=dev)
         rois = torch.as_tensor(
@@ -355,7 +382,8 @@ def phase_k1(rng):
         log(f"[2] K1 {shape} x 17 ROIs P=7 f32: max|diff| {err:.3g}")
         if not err <= K1_F32_ATOL:
             raise AssertionError(f"K1 disagrees at {shape}: {err}")
-    return {"max_abs_err": worst_bf16, "ms": times[1][0], "plain_ms": times[1][1],
+    torch.cuda.empty_cache()
+    return {"max_abs_err": worst, "ms": times[1][0], "plain_ms": times[1][1],
             **times[1][2], "library_ms": None}  # no one PyTorch call computes ROIAlignV2
 
 

@@ -7,6 +7,11 @@ interpret mode, in f32 with atol 1e-4: the bound of
 tests/test_roi_align_pallas.py, which covers f32 rounding of the
 interpolation sums at unit-normal features and gradients.
 
+``roi_align_separable`` (the sums K1 forms, in PyTorch) is held to
+``roi_align_plain`` within 2e-5 in f32, the bound the kernel itself is held
+to on the card: the two add the same f32 terms in another order and fold 1/s
+per axis, a few f32 ulps of values of order 1-5.
+
 The CUDA kernel tests need the card and are skipped elsewhere.  jax is
 imported only by the tests that compare with unit_tpu, so on the card (which
 has no jax) the kernel tests run with
@@ -145,27 +150,90 @@ def test_backward_kernel_names_its_output_size_limit(p):
     assert "32" in ra.RoIAlignV2Function.__doc__ and "32" in roi_align_backward_cuda.__doc__
 
 
+def k1_cases():
+    """(name, [B, H, W, C], ROIs an image or None for the edge set, ROI
+    layout, P, s, elements the feature pointer is moved off its alignment)."""
+    return [
+        ("edge", (2, 13, 17, 64), None, "edge", 14, 2, 0),
+        ("edge_h1", (1, 1, 5, 8), None, "edge", 7, 2, 0),
+        ("edge_w1_pairs", (2, 7, 1, 6), None, "edge", 7, 2, 0),
+        ("edge_c130_pairs", (1, 9, 11, 130), None, "edge", 7, 2, 0),
+        ("piled", (2, 13, 17, 64), 96, "piled", 14, 2, 0),
+        ("outside", (2, 13, 17, 64), 40, "outside", 14, 2, 0),
+        ("one_roi", (1, 9, 11, 8), 1, "edge", 6, 2, 0),
+        ("unaligned_pointer_pairs", (2, 13, 17, 64), 40, "piled", 14, 2, 2),
+        ("partial_last_slice", (1, 9, 11, 1088), 24, "piled", 7, 2, 0),
+        ("sampling_ratio_3", (2, 13, 17, 64), 40, "piled", 17, 3, 0),
+        ("more_than_48_kb_of_sums", (1, 20, 200, 256), 30, "piled", 40, 2, 0),
+        ("slice_halved_to_fit", (1, 6, 300, 256), 12, "piled", 80, 2, 0),
+    ]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_kernel_matches_plain(cuda_device, dtype):
-    """Kernel vs plain version on the card: f32 within 2e-5 (FMA contraction
-    and summation order), bf16 within that plus one bf16 ulp."""
+@pytest.mark.parametrize("case", k1_cases(), ids=lambda c: c[0])
+def test_kernel_matches_plain(cuda_device, dtype, case, monkeypatch):
+    """K1 vs its plain version on the card: f32 within 2e-5 (FMA contraction
+    and summation order), bf16 within that plus one bf16 ulp; two launches
+    bit-identical; the launch counter moves by one a call.  Cases: the edge
+    ROIs on odd sizes and H = 1, W = 1 maps; C = 6 and 130 and a feature
+    pointer off 16 bytes (the channel-pair path); piled ROIs; every ROI
+    outside (all zeros); one ROI; a last slice narrower than the others;
+    another sampling ratio; a P whose sums need more than 48 KB of shared
+    memory, and one where the slice is halved to fit the card's limit.  The
+    tunables do not change a bit of the result."""
+    name, shape, n, layout, p, s, shift = case
+    rng = np.random.RandomState(3)
+    b, h, w, c = shape
+    store = torch.empty(int(np.prod(shape)) + shift, dtype=dtype, device=cuda_device)
+    feats = store[shift:].view(shape)
+    feats.copy_(torch.as_tensor(rng.randn(*shape).astype(np.float32)))
+    rois = torch.as_tensor(np.stack([k2_rois(h, w, rng, n, layout) for _ in range(b)]),
+                           device=cuda_device)
+    vec = rac.fwd_vector(c, dtype, feats.data_ptr())
+    assert vec == (2 if "pairs" in name else 16 // feats.element_size())
+    before = roi_align_cuda.launches
+    got = roi_align_cuda(feats, rois, p, 1 / 16.0, s)
+    again = roi_align_cuda(feats, rois, p, 1 / 16.0, s)
+    assert roi_align_cuda.launches == before + 2
+    assert got.dtype == dtype and got.shape == (b, rois.shape[1], p, p, c)
+    assert torch.equal(got, again)
+    want = ra.roi_align_plain(feats, rois, p, 1 / 16.0, s).float()
+    tol = 2e-5 + (torch.maximum(got.float().abs(), want.abs()) * 2.0 ** -7
+                  if dtype == torch.bfloat16 else 0.0)
+    assert bool(((got.float() - want).abs() <= tol).all())
+    if layout == "outside":
+        assert not got.any()
+    channels = rac.fwd_slice(c, w, p, s)
+    need = rac.fwd_smem_bytes(w, p, s, channels)
+    assert need == rac._lib().roi_align_fwd_smem_bytes(w, p, s, channels)
+    if name == "more_than_48_kb_of_sums":
+        assert channels == 256 and need > 48 * 1024
+    if name == "slice_halved_to_fit":
+        assert channels == 128 and rac.fwd_smem_bytes(w, p, s, 256) > rac._SMEM_LIMIT
+    for slice_, threads in ((64, 32), (128, 256), (1024, 96)):
+        monkeypatch.setitem(rac.FWD_TUNING, "slice", slice_)
+        monkeypatch.setitem(rac.FWD_TUNING, "threads", threads)
+        assert torch.equal(roi_align_cuda(feats, rois, p, 1 / 16.0, s), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_pair_through_the_function(cuda_device, dtype):
+    """With features that require grad the dispatch goes through
+    RoIAlignV2Function: K1 forward, K2 backward, one launch each."""
     rng = np.random.RandomState(0)
     feats = torch.as_tensor(rng.randn(2, 13, 17, 64).astype(np.float32),
                             device=cuda_device).to(dtype)
     rois = torch.as_tensor(np.stack([edge_rois(13, 17, rng, 40) for _ in range(2)]),
                            device=cuda_device)
-    before = roi_align_cuda.launches
-    got = ra.roi_align_batched(feats, rois, 14, impl="auto").float()
+    before, before_bwd = roi_align_cuda.launches, roi_align_backward_cuda.launches
+    got = ra.roi_align_batched(feats, rois, 14, impl="auto")
     assert roi_align_cuda.launches == before + 1
-    want = ra.roi_align_batched(feats, rois, 14, impl="plain").float()
-    tol = 2e-5 + (torch.maximum(got.abs(), want.abs()) * 2.0 ** -7
-                  if dtype == torch.bfloat16 else 0.0)
-    assert bool(((got - want).abs() <= tol).all())
-    # with features that require grad the same call goes through K1 and K2
-    before_bwd = roi_align_backward_cuda.launches
     f = feats.detach().requires_grad_()
-    ra.roi_align_batched(f, rois, 14, impl="auto").float().sum().backward()
+    out = ra.roi_align_batched(f, rois, 14, impl="auto")
+    assert torch.equal(out.detach(), got)
+    out.float().sum().backward()
     assert roi_align_cuda.launches == before + 2
     assert roi_align_backward_cuda.launches == before_bwd + 1
     assert f.grad.dtype == dtype and f.grad.shape == f.shape
@@ -335,6 +403,157 @@ def test_axis_weights_sum_to_one_inside(rng):
     np.testing.assert_allclose(wgt.sum(2).numpy(), [[1, 1], [0, 1], [0, 0]], atol=1e-6)
     np.testing.assert_allclose(wgt[1, 1].numpy(), [0, 0, 0, 0, 1], atol=1e-6)
     np.testing.assert_allclose(wgt[0, 0].numpy(), [0.5, 0.5, 0, 0, 0], atol=1e-6)
+
+
+# K1 and roi_align_separable vs roi_align_plain in f32 (chip_smoke's K1_F32_ATOL).
+K1_ATOL = 2e-5
+FORWARD_SEPARABLE_SHAPES = [((12, 15), 8, 7), ((7, 9), 6, 14), ((1, 6), 8, 6), ((5, 1), 6, 17),
+                            ((9, 11), 130, 7), ((6, 7), 8, 17), ((1, 1), 6, 6)]
+
+
+def layout_rois(h, w, rng, layout, n=19):
+    return {"edge": lambda: edge_rois(h, w, rng), "piled": lambda: piled_rois(h, w, rng, n),
+            "outside": lambda: outside_rois(h, w, n)}[layout]()
+
+
+@pytest.mark.parametrize("layout", ["edge", "piled", "outside"])
+@pytest.mark.parametrize("hw,c,p", FORWARD_SEPARABLE_SHAPES)
+def test_separable_matches_plain(rng, hw, c, p, layout):
+    """The dense separable form (what K1 sums) equals the sample-by-sample
+    gather within K1_ATOL on edge ROIs (whole map, last cell, partly and
+    fully outside, sub-bin, degenerate), piled ROIs and ROIs wholly outside,
+    on H = 1 and W = 1 maps, for P in {6, 7, 14, 17} and C in {6, 8, 130},
+    with another sampling ratio, and whatever the ROI chunks."""
+    h, w = hw
+    feats = torch.as_tensor(rng.randn(2, h, w, c).astype(np.float32))
+    rois = torch.as_tensor(np.stack([layout_rois(h, w, rng, layout) for _ in range(2)]))
+    for s in (2, 3):
+        want = ra.roi_align_plain(feats, rois, p, 1 / 16.0, s)
+        got = ra.roi_align_separable(feats, rois, p, 1 / 16.0, s)
+        assert got.shape == want.shape and got.dtype == torch.float32
+        assert float((got - want).abs().max()) <= K1_ATOL
+        if layout == "outside":
+            assert not got.any() and not want.any()
+        chunked = ra.roi_align_separable(feats, rois, p, 1 / 16.0, s, chunk_size=5)
+        assert float((chunked - want).abs().max()) <= K1_ATOL
+
+
+@pytest.mark.parametrize("hw,c,p", [((12, 15), 8, 7), ((7, 9), 32, 14), ((1, 6), 4, 4)])
+def test_separable_matches_xla(rng, hw, c, p):
+    """...and unit_tpu's XLA ROIAlign at ATOL, on the inputs of
+    test_plain_matches_xla; bf16 features keep their dtype and stay within
+    one bf16 ulp of roi_align_plain on them."""
+    h, w = hw
+    feats = rng.randn(2, h, w, c).astype(np.float32)
+    rois = np.stack([edge_rois(h, w, rng) for _ in range(2)])
+    want = xla_roi_align(feats, rois, p)
+    got = ra.roi_align_separable(torch.as_tensor(feats), torch.as_tensor(rois), p, 1 / 16.0, 2)
+    assert got.shape == (2, rois.shape[1], p, p, c) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
+    # in bf16 both plain versions round their f32 sums once: one bf16 ulp apart at most
+    feats16 = torch.as_tensor(feats).to(torch.bfloat16)
+    got16 = ra.roi_align_separable(feats16, torch.as_tensor(rois), p)
+    want16 = ra.roi_align_plain(feats16, torch.as_tensor(rois), p).float()
+    assert got16.dtype == torch.bfloat16
+    ulp = torch.maximum(got16.float().abs(), want16.abs()) * 2.0 ** -7
+    assert bool(((got16.float() - want16).abs() <= K1_ATOL + ulp).all())
+
+
+def test_separable_matches_pallas_interpret(rng):
+    """...and unit_tpu's Pallas kernel in interpret mode, at ATOL, on the
+    inputs of test_plain_matches_pallas_interpret."""
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from unit_tpu.ops.roi_align_pallas import roi_align_pallas_batched
+
+    feats = rng.randn(2, 10, 12, 128).astype(np.float32)
+    rois = np.stack([edge_rois(10, 12, rng, n_random=3) for _ in range(2)])
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(roi_align_pallas_batched(
+            jnp.asarray(feats), jnp.asarray(rois), 7, 1 / 16.0, 2))
+    got = ra.roi_align_separable(torch.as_tensor(feats), torch.as_tensor(rois), 7, 1 / 16.0, 2)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
+
+
+@pytest.mark.parametrize("coordinate", [0, 1, 2, 3])
+@pytest.mark.parametrize("fn", ["roi_align_plain", "roi_align_separable"])
+def test_a_nan_roi_stays_with_its_roi(rng, fn, coordinate):
+    """A diverged step hands ROIAlign NaN boxes.  Neither plain version
+    indexes with the NaN: ``_corners`` puts a NaN sample on index 0 with
+    weight 1, as the kernels' fmaxf/fminf clamp does, so the rows of that ROI
+    are finite (the first row or column, interpolated along the other axis)
+    and both versions agree on them; every other ROI's rows are bit-equal to
+    a run without the NaN."""
+    h, w, p = 9, 11, 7
+    feats = torch.as_tensor(rng.randn(1, h, w, 6).astype(np.float32))
+    rois = torch.as_tensor(edge_rois(h, w, rng)[None])
+    clean = getattr(ra, fn)(feats, rois, p)
+    bad = rois.clone()
+    victim = 9
+    bad[0, victim, coordinate] = float("nan")
+    got = getattr(ra, fn)(feats, bad, p)
+    assert bool(torch.isfinite(got).all())
+    others = [i for i in range(rois.shape[1]) if i != victim]
+    assert torch.equal(got[0, others], clean[0, others])
+    other_fn = "roi_align_separable" if fn == "roi_align_plain" else "roi_align_plain"
+    twin = getattr(ra, other_fn)(feats, bad, p)
+    assert float((got - twin).abs().max()) <= K1_ATOL
+    # every sample of the NaN axis sits on index 0: the bins along it are equal
+    axis = 2 if coordinate % 2 == 0 else 1  # x: the pw axis of [N, P, P, C]; y: ph
+    first = got[0, victim].select(axis - 1, 0)
+    for k in range(1, p):
+        assert float((got[0, victim].select(axis - 1, k) - first).abs().max()) <= K1_ATOL
+
+
+@pytest.mark.parametrize("c,dtype,offset,want", [
+    (1024, torch.bfloat16, 0, 8), (1024, torch.float32, 0, 4),
+    (1088, torch.bfloat16, 0, 8), (512, torch.float32, 16, 4),
+    (8, torch.bfloat16, 0, 8), (8, torch.float32, 0, 4),
+    (130, torch.bfloat16, 0, 2), (130, torch.float32, 0, 2),   # C off the vector
+    (6, torch.float32, 0, 2), (12, torch.bfloat16, 0, 2), (12, torch.float32, 0, 4),
+    (1024, torch.bfloat16, 4, 2), (1024, torch.bfloat16, 8, 2),  # pointer off 16 bytes
+    (1024, torch.float32, 8, 2),
+    (1024, torch.bfloat16, 2, 0), (1024, torch.float32, 4, 0),   # pointer off a pair
+    (7, torch.float32, 0, 0), (1023, torch.bfloat16, 0, 0),      # odd C
+])
+def test_load_path_is_a_function_of_shape_and_alignment(c, dtype, offset, want):
+    """``fwd_vector``: 16 bytes a thread where C and every pointer allow it,
+    else channel pairs, else nothing (the wrapper raises); decided from (C,
+    dtype, addresses) alone, here on made-up addresses without a card."""
+    base = 0x7F0000000000
+    assert rac.fwd_vector(c, dtype, base + offset) == want
+    assert rac.fwd_vector(c, dtype, base + offset, base) == want
+    assert rac.fwd_vector(c, dtype, base, base + offset) == want
+
+
+@pytest.mark.parametrize("c,w,p,s,want", [
+    (1024, 84, 14, 2, 256),     # the flagship: FWD_TUNING's slice
+    (1088, 84, 14, 2, 256),
+    (64, 84, 14, 2, 64),        # no wider than the channels there are
+    (130, 11, 7, 2, 256),       # 130 > 128: the next power of two
+    (6, 1, 7, 2, 8),
+    (256, 200, 40, 2, 256),     # 160 columns x 256 channels: 164 KB, fits
+    (256, 300, 80, 2, 128),     # 300 columns: halved to fit 227 KB
+    (1024, 2000, 500, 2, 16),
+])
+def test_slice_fits_the_shared_memory(c, w, p, s, want, monkeypatch):
+    """``fwd_slice``: the tuned slice, narrowed to the channels and halved
+    until a block's sums fit the card's shared memory; a shape that does not
+    fit at 8 channels raises and names the limit."""
+    monkeypatch.setitem(rac.FWD_TUNING, "slice", 256)
+    got = rac.fwd_slice(c, w, p, s)
+    assert got == want and got % 8 == 0
+    assert rac.fwd_smem_bytes(w, p, s, got) <= rac._SMEM_LIMIT
+    if got > max(8, rac.FWD_MIN_SLICE) and got < 256 and got < c:
+        assert rac.fwd_smem_bytes(w, p, s, 2 * got) > rac._SMEM_LIMIT
+    with pytest.raises(ValueError, match="232448"):
+        rac.fwd_slice(64, 20000, 5000, 2)
+    assert rac.fwd_threads() == rac.FWD_TUNING["threads"]
+    for threads in (0, 48, 512):
+        monkeypatch.setitem(rac.FWD_TUNING, "threads", threads)
+        with pytest.raises(ValueError, match="at most 256"):
+            rac.fwd_threads()
 
 
 @pytest.mark.parametrize("layout", ["edge", "piled", "outside"])

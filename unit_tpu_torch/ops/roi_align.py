@@ -5,7 +5,9 @@ unit_tpu/ops/roi_align_pallas.py:221-314.  ``roi_align_batched`` dispatches
 between the hand-written CUDA kernels (``roi_align_cuda``, K1, and
 ``roi_align_backward_cuda``, K2) and their plain PyTorch versions
 ``roi_align_plain`` (a vectorised gather in f32) and
-``roi_align_backward_plain`` (an explicit f32 scatter):
+``roi_align_backward_plain`` (an explicit f32 scatter).  The kernels sum in a
+separable form; ``roi_align_separable`` and ``roi_align_backward_separable``
+form exactly those sums in PyTorch (dense, for tests and small shapes):
 
     impl="auto"   kernels for CUDA tensors, plain versions for CPU tensors
     impl="cuda"   kernels; raises for CPU tensors
@@ -165,6 +167,41 @@ def roi_axis_weights(pos: torch.Tensor, size: int, sampling_ratio: int) -> torch
     dense.scatter_add_(2, lo[..., None], (wl * inside)[..., None])
     dense.scatter_add_(2, hi[..., None], (wh * inside)[..., None])
     return dense.reshape(n, -1, s, size).sum(2)
+
+
+def roi_align_separable(
+    features: torch.Tensor,
+    rois: torch.Tensor,
+    output_size: int = 14,
+    spatial_scale: float = 1.0 / 16.0,
+    sampling_ratio: int = 2,
+    chunk_size: int = 64,
+) -> torch.Tensor:
+    """ROIAlignV2 in its separable form, the sums K1 forms: a sample's weight
+    on a cell is a y-factor times an x-factor, and a sample outside on either
+    axis has weight 0 on that axis, so per ROI
+
+        out[ph, pw, c] = sum_x Wx[pw, x] * (sum_y Wy[ph, y] * F[y, x, c])
+
+    with Wy [N, P, H] and Wx [N, P, W] from ``roi_axis_weights`` (1/s folded
+    into each axis).  Same arguments and result as ``roi_align_plain``, f32
+    up to the one rounding to the feature dtype; dense, for tests and small
+    shapes only."""
+    b, h, w, c = features.shape
+    n = rois.shape[1]
+    p, s = output_size, sampling_ratio
+    out = torch.empty((b, n, p, p, c), dtype=features.dtype, device=features.device)
+    for i in range(b):
+        f32 = features[i].to(torch.float32)
+        for lo in range(0, n, chunk_size):
+            chunk = rois[i, lo:lo + chunk_size].to(torch.float32)
+            ys, xs = _roi_sample_coords(chunk, p, spatial_scale, s)
+            wy = roi_axis_weights(ys, h, s)
+            wx = roi_axis_weights(xs, w, s)
+            t = torch.einsum("nph,hwc->npwc", wy, f32)
+            out[i, lo:lo + chunk.shape[0]] = torch.einsum("nqw,npwc->npqc", wx, t).to(
+                features.dtype)
+    return out
 
 
 def roi_align_backward_separable(

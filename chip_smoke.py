@@ -11,7 +11,8 @@ Phases (any failure raises and the script exits non-zero):
   1  build the four CUDA kernels from unit_tpu_torch/csrc, one nvcc each,
      all started together, timed
   2  K1 ROIAlignV2 forward vs its plain version at the flagship shapes: a
-     request's and a train step's ROIs (uniform, piled and in one band), two
+     request's, a train step's (uniform, piled and in one band) and a
+     fine-tune step's (8 images) ROIs, two
      launches bit-identical, kernel, plain and bound times, the wrapper's
      host time a call
   3  K3 greedy-NMS mask vs its plain version, bit-identical: the RPN's test
@@ -52,6 +53,14 @@ Phases (any failure raises and the script exits non-zero):
      6 steps with checkpoints and evaluations every 3, a resume from step 3,
      --eval-only from step 6, one evaluation with TPU.FOLD_BN_AT_EVAL, and
      24 steps without hooks for the loader's steady rate
+ 11  k-shot fine-tuning: engine.runner.run on the shipped 10-shot split1
+     fine-tune recipe (8 strong images a step), warm-started from phase 10's
+     best/model as the recipe spells it, 6 steps with checkpoints and
+     evaluations every 3; every frozen tensor bit-identical to the snapshot,
+     the RPN and *_ft heads moved, no K2 or K4 backward launched; 2 warm-up +
+     8 timed steps with launch counts (K1 x1, K3 x1 for 8 images, K4 forward
+     only) and one profiled step; the f32 fine-tune path with the kernels vs
+     the plain versions
 The last three lines are the card (nvidia-smi), one JSON object describing
 the kernels (launches counted on the run loop of phase 10, and per path under
 launches_by_path), and {"ok": true, "device": {...}}.  Without a CUDA device, or without the
@@ -79,6 +88,7 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 FLAGSHIP = ROOT / "configs" / "VOC" / "VOC-RCNN-101-C4-split1.yaml"
+FT_RECIPE = ROOT / "configs" / "VOC" / "FT" / "10_shot" / "VOC-RCNN-101-C4-split1-ft.yaml"
 
 # Tolerances, each with its reason.
 # K1 in f32: kernel and plain version compute the same f32 expression; they
@@ -167,6 +177,8 @@ RESUME_LOSS_RTOL = 1e-3
 # the f32 features as the unfolded bf16 features are.
 FOLD_F32_REL = 1e-3
 FOLD_BF16_FACTOR = 2.0
+# Fine-tuning (phase 11): the recipe's batch of 8 strong images a step.
+FT_IMAGES = 8
 
 
 def log(*parts):
@@ -369,6 +381,13 @@ def phase_k1(rng):
         rois = torch.as_tensor(np.stack([make(rng, 512) for _ in range(2)]), device=dev)
         worst = max(worst, check(feat, rois, f"[2,50,84,1024] x 512 {name} ROIs"))
         timed(feat, rois, f"B=2 x 512 bf16 {name} ROIs")
+    # a fine-tune step's shape (phase 11): 8 images, an f32 output of 3.3 GB
+    local = np.random.RandomState(80)  # leaves rng, and K3's inputs, as they were
+    feat = torch.as_tensor(local.randn(8, 50, 84, 1024).astype(np.float32), device=dev)
+    feat = feat.to(torch.bfloat16)
+    rois = torch.as_tensor(np.stack([piled_rois(local, 512) for _ in range(8)]), device=dev)
+    worst = max(worst, check(feat, rois, "[8,50,84,1024] x 512 piled ROIs"))
+    timed(feat, rois, "B=8 x 512 bf16 piled ROIs")
     del feat
     # tiny shapes: odd sizes, H = 1 and W = 1 maps; C = 6 and 130 take the
     # channel-pair path
@@ -1107,25 +1126,17 @@ def phase_train(cfg, seed):
     return launches
 
 
-def phase_train_whole_path(cfg, seed):
+def train_path_kernels_vs_plain(model, strong, weak, seed, tag):
+    """train_losses + backward with the kernels and with their plain versions
+    (same weights, same generator seed): the proposals and sampled slots must
+    be identical, the losses within TRAIN_LOSS_RTOL and every gradient within
+    TRAIN_GRAD_REL of its leaf's largest element + TRAIN_GRAD_FLOOR of the
+    network's.  Returns the launch counts of the kernels' pass."""
     import torch
 
     from unit_tpu_torch.models import rpn as rpn_lib
     from unit_tpu_torch.models.resnet import set_bn_act_impl
     from unit_tpu_torch.ops import sampling as sampling_ops
-    from unit_tpu_torch.solver import build_optimizer
-
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.deterministic = True
-    cfg32 = cfg.clone()
-    cfg32.TPU.COMPUTE_DTYPE = "float32"
-    dev = torch.device("cuda")
-    model = flagship_model(cfg32, seed, dev)
-    build_optimizer(cfg32, model)  # freezes the stem and res2
-    strong, weak = synthetic_train_batches(cfg32, seed + 1, n_batches=1)
-    strong = {k: torch.as_tensor(v, device=dev) for k, v in strong[0].items()}
-    weak = {k: torch.as_tensor(v, device=dev) for k, v in weak[0].items()}
 
     # record the proposals and sampled slots train_losses draws
     recorded = []
@@ -1149,18 +1160,20 @@ def phase_train_whole_path(cfg, seed):
             set_bn_act_impl(model, impl)
             model.zero_grad(set_to_none=True)
             recorded.clear()
-            gen = torch.Generator(device=dev)
+            reset_launch_counts()
+            gen = torch.Generator(device=strong["image"].device)
             gen.manual_seed(seed)
             losses = model.train_losses(gen, strong, weak)
             torch.stack(list(losses.values())).sum().backward()
             grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
                      if p.grad is not None}
             runs[impl] = ({k: float(v.detach()) for k, v in losses.items()}, list(recorded),
-                          grads)
+                          grads, read_launch_counts())
     finally:
         rpn_lib.select_proposals = real_select
         sampling_ops.label_and_sample_proposals = real_sample
-    (lk, rk, gk), (lp, rp, gp) = runs["cuda"], runs["plain"]
+        set_bn_act_impl(model, "cuda")
+    (lk, rk, gk, launches), (lp, rp, gp, _) = runs["cuda"], runs["plain"]
     same = len(rk) == len(rp) and all(
         a[0] == b[0] and all(torch.equal(x, y) for x, y in zip(a[1:], b[1:]))
         for a, b in zip(rk, rp))
@@ -1170,18 +1183,38 @@ def phase_train_whole_path(cfg, seed):
     diffs = {n: float((gk[n] - gp[n]).abs().max()) for n in gp if n in gk}
     over = {n: d / (TRAIN_GRAD_REL * scale[n] + TRAIN_GRAD_FLOOR * big)
             for n, d in diffs.items()}
-    log(f"[8] f32, TF32 off: proposals and sampled slots identical {same} ({len(rk)} "
+    log(f"{tag} f32, TF32 off: proposals and sampled slots identical {same} ({len(rk)} "
         f"records); losses max rel diff {loss_rel:.3g} (tol {TRAIN_LOSS_RTOL}); "
         f"{len(gp)} gradients, largest |grad| G = {big:.4g}, worst max|diff|/bound "
         f"{max(over.values()):.3g} (bound {TRAIN_GRAD_REL} * max|g_leaf| + "
         f"{TRAIN_GRAD_FLOOR} * G)")
     for n in sorted(over, key=over.get, reverse=True)[:5]:
-        log(f"[8]   {n}: max|diff| {diffs[n]:.3g}, max|g| {scale[n]:.3g}, "
+        log(f"{tag}   {n}: max|diff| {diffs[n]:.3g}, max|g| {scale[n]:.3g}, "
             f"diff/bound {over[n]:.3g}")
-    log(f"[8] losses (kernels): " + ", ".join(f"{k} {v:.6g}" for k, v in lk.items()))
+    log(f"{tag} losses (kernels): " + ", ".join(f"{k} {v:.6g}" for k, v in lk.items()))
     if not (same and set(gk) == set(gp) and loss_rel <= TRAIN_LOSS_RTOL
             and max(over.values()) <= 1.0):
         raise AssertionError("the train path with kernels disagrees with the plain path")
+    return launches
+
+
+def phase_train_whole_path(cfg, seed):
+    import torch
+
+    from unit_tpu_torch.solver import build_optimizer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    cfg32 = cfg.clone()
+    cfg32.TPU.COMPUTE_DTYPE = "float32"
+    dev = torch.device("cuda")
+    model = flagship_model(cfg32, seed, dev)
+    build_optimizer(cfg32, model)  # freezes the stem and res2
+    strong, weak = synthetic_train_batches(cfg32, seed + 1, n_batches=1)
+    strong = {k: torch.as_tensor(v, device=dev) for k, v in strong[0].items()}
+    weak = {k: torch.as_tensor(v, device=dev) for k, v in weak[0].items()}
+    train_path_kernels_vs_plain(model, strong, weak, seed, "[8]")
     del model
     torch.cuda.empty_cache()
 
@@ -1315,7 +1348,9 @@ def seeded_image_loader(rec):
     return rng.uniform(0, 255, (rec["height"], rec["width"], 3)).astype(np.float32)
 
 
-def phase_run_loop(cfg, seed):
+def phase_run_loop(cfg, seed, workdir):
+    """Phase 10 in the directory ``workdir``; phase 11 fine-tunes from the run
+    it leaves in ``workdir/run_a``."""
     import torch
 
     from unit_tpu_torch.checkpoint import Checkpointer, read_checkpoint
@@ -1351,166 +1386,341 @@ def phase_run_loop(cfg, seed):
     def strip_time(results):
         return {k: v for k, v in results.items() if k != "inference_seconds_per_image"}
 
-    with tempfile.TemporaryDirectory(prefix="unit_tpu_torch_run_") as tmp:
-        devkit = write_devkit(os.path.join(tmp, "VOCdevkit"), seed)
-        out_a, out_b = os.path.join(tmp, "run_a"), os.path.join(tmp, "run_b")
-        # The recipe starts from ImageNet weights, which are not in the
-        # repository: the run warm-starts from one of the port's own
-        # checkpoints instead (MODEL.WEIGHTS), holding the seeded weights with
-        # calibrated FrozenBN statistics, and clips its gradients as phase 7.
-        t0 = time.perf_counter()
-        model = flagship_model(cfg, seed, dev)
-        init = Checkpointer(os.path.join(tmp, "init")).save(
-            0, TrainState(model, build_optimizer(cfg, model), 0))
-        del model
+    tmp = workdir
+    devkit = write_devkit(os.path.join(tmp, "VOCdevkit"), seed)
+    out_a, out_b = os.path.join(tmp, "run_a"), os.path.join(tmp, "run_b")
+    # The recipe starts from ImageNet weights, which are not in the
+    # repository: the run warm-starts from one of the port's own
+    # checkpoints instead (MODEL.WEIGHTS), holding the seeded weights with
+    # calibrated FrozenBN statistics, and clips its gradients as phase 7.
+    t0 = time.perf_counter()
+    model = flagship_model(cfg, seed, dev)
+    init = Checkpointer(os.path.join(tmp, "init")).save(
+        0, TrainState(model, build_optimizer(cfg, model), 0))
+    del model
+    torch.cuda.empty_cache()
+    log(f"[10] devkit of {RUN_TEST_IMAGES} images a split and the initial checkpoint "
+        f"({os.path.getsize(init) / 2**20:.1f} MiB) written in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def run(out, *flags, opts=()):
+        DatasetCatalog.clear()
+        made.clear()
+        args = runner.default_argument_parser().parse_args([
+            "--config-file", str(FLAGSHIP), "--data-root", devkit, "--device", RUN_DEVICE,
+            *flags,
+            "MODEL.WEIGHTS", init, "OUTPUT_DIR", out,
+            "MODEL.ROI_HEADS.EMBEDDING_PATH", str(ROOT / cfg.MODEL.ROI_HEADS.EMBEDDING_PATH),
+            "DATASETS.CLASSIFIER_DATAROOT", devkit, "SEED", str(seed),
+            "SOLVER.IMS_PER_BATCH", "2", "SOLVER.MAX_ITER", str(RUN_STEPS),
+            "SOLVER.CHECKPOINT_PERIOD", str(RUN_PERIOD), "TEST.EVAL_PERIOD", str(RUN_PERIOD),
+            "SOLVER.CLIP_GRADIENTS.ENABLED", "True",
+            "SOLVER.CLIP_GRADIENTS.CLIP_TYPE", "norm", *RUN_EXTRA_OPTS, *opts])
+        t = time.perf_counter()
+        results = runner.run(args, image_loader=seeded_image_loader)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        trainer = made[-1]
+        first = trainer.state.step - len(trainer.metrics_history)
+        losses = {first + 1 + k: m for k, m in enumerate(trainer.metrics_history)}
+        return results, losses, trainer, time.perf_counter() - t
+
+    real_trainer, runner.TrainerNoMeta = runner.TrainerNoMeta, Recording
+    try:
+        # (a) 6 steps, checkpoints and evaluations at 3 and 6, a final evaluation
+        reset_launch_counts()
+        results_a, losses_a, trainer, secs = run(out_a)
+        launches = read_launch_counts()
+        log(f"[10] run of {RUN_STEPS} steps with 2 in-run evaluations and the final one "
+            f"over {RUN_TEST_IMAGES} images: {secs:.1f} s; launches {launches}")
+        for step, m in losses_a.items():
+            log(f"[10]   step {step}: " + ", ".join(f"{k} {v:.4g}" for k, v in m.items()))
+        files = sorted(os.listdir(out_a))
+        bbox = results_a["bbox"]
+        log(f"[10] output directory: {files}; AP {bbox['AP']:.4g}, AP50 {bbox['AP50']:.4g}, "
+            f"AP75 {bbox['AP75']:.4g}, novel_mean {bbox['novel_mean']:.4g}; "
+            f"{results_a['inference_seconds_per_image']:.4f} s per evaluated image (host "
+            f"clock, after one warm-up image); data time per step, median "
+            f"{1e3 * np.median([m['data_time'] for m in losses_a.values()]):.2f} ms")
+        need = {"step_3.pt", "step_6.pt", "best", "best_info.json", "log.txt"}
+        ok = (need <= set(files) and sorted(losses_a) == list(range(1, RUN_STEPS + 1))
+              and all(np.isfinite(v) for m in losses_a.values() for v in m.values())
+              and all(np.isfinite(bbox[k]) for k in ("AP", "AP50", "AP75", "novel_mean"))
+              and np.isfinite(results_a["inference_seconds_per_image"])
+              and all(launches[k] > 0 for k in ("roi_align_fwd", "roi_align_bwd",
+                                                "nms_mask", "bn_act_fwd", "bn_act_bwd")))
+        if not ok:
+            raise AssertionError("the run loop left out a checkpoint, a step, a finite "
+                                 "result or a kernel")
+        t = time.perf_counter()
+        path = Checkpointer(os.path.join(tmp, "timed")).save(RUN_STEPS, trainer.state)
+        log(f"[10] checkpoint (model, momentum, schedule, step): "
+            f"{os.path.getsize(path) / 2**20:.1f} MiB, written and renamed in "
+            f"{time.perf_counter() - t:.2f} s")
+        del trainer
+
+        # (b) resume from a copy that holds only step 3
+        os.makedirs(out_b)
+        shutil.copy(os.path.join(out_a, "step_3.pt"), out_b)
+        results_b, losses_b, trainer, secs = run(out_b, "--resume")
+        del trainer
+        rel = max(abs(losses_b[s][k] - losses_a[s][k]) / max(abs(losses_a[s][k]), 1e-12)
+                  for s in losses_b for k in losses_b[s] if k != "data_time")
+        same = all(losses_b[s][k] == losses_a[s][k] for s in losses_b
+                   for k in losses_b[s] if k != "data_time")
+        ma = read_checkpoint(os.path.join(out_a, "step_6.pt"))["model"]
+        mb = read_checkpoint(os.path.join(out_b, "step_6.pt"))["model"]
+        same_params = all(torch.equal(ma[k], mb[k]) for k in ma)
+        log(f"[10] resumed from step 3 in {secs:.1f} s: steps {sorted(losses_b)}, losses "
+            f"bit-identical to the uninterrupted run's {same} (max rel diff {rel:.3g}, "
+            f"tol {RESUME_LOSS_RTOL}), final parameters bit-identical {same_params}, "
+            f"final AP equal {strip_time(results_b) == strip_time(results_a)}")
+        if sorted(losses_b) != list(range(RUN_PERIOD + 1, RUN_STEPS + 1)) \
+                or not rel <= RESUME_LOSS_RTOL:
+            raise AssertionError("the resumed run does not reproduce steps 4-6")
+
+        # (c) --eval-only from the step-6 checkpoint equals the in-run evaluation
+        results_c, losses_c, trainer, secs = run(out_a, "--eval-only", "--resume")
+        del trainer
+        log(f"[10] --eval-only from step 6 in {secs:.1f} s: results equal to the in-run "
+            f"evaluation bit for bit {strip_time(results_c) == strip_time(results_a)}")
+        if losses_c or strip_time(results_c) != strip_time(results_a):
+            raise AssertionError("--eval-only does not reproduce the in-run evaluation")
+
+        # (d) one evaluation with FrozenBN folded into the convolutions
+        results_d, _, trainer, secs = run(out_a, "--eval-only", "--resume",
+                                          opts=["TPU.FOLD_BN_AT_EVAL", "True"])
+        net = trainer.model
+        del trainer
+        s = prepare_test_image(seeded_image_loader(
+            {"image_id": "fold", "height": 600, "width": 800}),
+            TransformConfig.test_from_cfg(cfg))
+        img = torch.as_tensor(s["image"][None], device=dev)
+        size = torch.as_tensor(s["image_size"][None], device=dev)
+        cfg32 = cfg.clone()
+        cfg32.TPU.COMPUTE_DTYPE = "float32"
+        net32 = WSRCNN(ModelConfig.from_cfg(cfg32)).to(dev).eval()
+        net32.load_state_dict(net.state_dict())
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        with torch.inference_mode():
+            feats = {name: m.predict_raw(img, size)[3].float()
+                     for name, m in (("bf16", net), ("bf16 folded", fold_frozen_bn(net)),
+                                     ("f32", net32), ("f32 folded", fold_frozen_bn(net32)))}
+        ref = feats["f32"]
+        rel32 = float((feats["f32 folded"] - ref).abs().max() / ref.abs().max())
+        far = {k: float((feats[k] - ref).abs().mean() / ref.abs().mean())
+               for k in ("bf16", "bf16 folded")}
+        log(f"[10] TPU.FOLD_BN_AT_EVAL evaluation in {secs:.1f} s: AP50 "
+            f"{results_d['bbox']['AP50']:.4g} (unfolded {bbox['AP50']:.4g}), "
+            f"{results_d['inference_seconds_per_image']:.4f} s per image; res4 features of "
+            f"one image, folded vs unfolded in f32: max|diff|/max {rel32:.3g} (tol "
+            f"{FOLD_F32_REL}); mean|diff|/mean|f32| from the f32 features: bf16 "
+            f"{far['bf16']:.3g}, bf16 folded {far['bf16 folded']:.3g} (tol "
+            f"{FOLD_BF16_FACTOR} x the unfolded)")
+        if not (np.isfinite(results_d["bbox"]["AP50"]) and rel32 <= FOLD_F32_REL
+                and far["bf16 folded"] <= FOLD_BF16_FACTOR * far["bf16"]):
+            raise AssertionError("the folded evaluation is not finite or not close")
+        del net, net32, feats
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+
+        # (e) the loader's steady rate: more steps, no checkpoint or evaluation
+        # between them, so the prefetch queues drain to what the host can make
+        _, losses_e, trainer, secs = run(
+            os.path.join(tmp, "run_e"),
+            opts=["SOLVER.MAX_ITER", str(RUN_STEADY_STEPS), "SOLVER.CHECKPOINT_PERIOD", "0",
+                  "TEST.EVAL_PERIOD", "0"])
+        half = RUN_STEADY_STEPS // 2
+        waits = [1e3 * losses_e[s]["data_time"] for s in sorted(losses_e)[half:]]
+        steps = trainer.step_ms[half:]
+        del trainer
+        log(f"[10] {RUN_STEADY_STEPS} steps without hooks in {secs:.1f} s; over the last "
+            f"{len(steps)}: step median {np.median(steps):.2f} ms "
+            f"({4e3 / np.median(steps):.2f} images/s), of which waiting for the two "
+            f"prefetched streams {np.median(waits):.2f} ms (median; min {min(waits):.2f}, "
+            f"max {max(waits):.2f})")
+        if len(losses_e) != RUN_STEADY_STEPS:
+            raise AssertionError("the steady run did not take its steps")
+    finally:
+        runner.TrainerNoMeta = real_trainer
+        made.clear()
         torch.cuda.empty_cache()
-        log(f"[10] devkit of {RUN_TEST_IMAGES} images a split and the initial checkpoint "
-            f"({os.path.getsize(init) / 2**20:.1f} MiB) written in "
-            f"{time.perf_counter() - t0:.1f} s")
+    return launches
 
-        def run(out, *flags, opts=()):
-            DatasetCatalog.clear()
-            made.clear()
-            args = runner.default_argument_parser().parse_args([
-                "--config-file", str(FLAGSHIP), "--data-root", devkit, "--device", RUN_DEVICE,
-                *flags,
-                "MODEL.WEIGHTS", init, "OUTPUT_DIR", out,
-                "MODEL.ROI_HEADS.EMBEDDING_PATH", str(ROOT / cfg.MODEL.ROI_HEADS.EMBEDDING_PATH),
-                "DATASETS.CLASSIFIER_DATAROOT", devkit, "SEED", str(seed),
-                "SOLVER.IMS_PER_BATCH", "2", "SOLVER.MAX_ITER", str(RUN_STEPS),
-                "SOLVER.CHECKPOINT_PERIOD", str(RUN_PERIOD), "TEST.EVAL_PERIOD", str(RUN_PERIOD),
-                "SOLVER.CLIP_GRADIENTS.ENABLED", "True",
-                "SOLVER.CLIP_GRADIENTS.CLIP_TYPE", "norm", *RUN_EXTRA_OPTS, *opts])
-            t = time.perf_counter()
-            results = runner.run(args, image_loader=seeded_image_loader)
-            if dev.type == "cuda":
-                torch.cuda.synchronize()
-            trainer = made[-1]
-            first = trainer.state.step - len(trainer.metrics_history)
-            losses = {first + 1 + k: m for k, m in enumerate(trainer.metrics_history)}
-            return results, losses, trainer, time.perf_counter() - t
 
-        real_trainer, runner.TrainerNoMeta = runner.TrainerNoMeta, Recording
-        try:
-            # (a) 6 steps, checkpoints and evaluations at 3 and 6, a final evaluation
-            reset_launch_counts()
-            results_a, losses_a, trainer, secs = run(out_a)
-            launches = read_launch_counts()
-            log(f"[10] run of {RUN_STEPS} steps with 2 in-run evaluations and the final one "
-                f"over {RUN_TEST_IMAGES} images: {secs:.1f} s; launches {launches}")
-            for step, m in losses_a.items():
-                log(f"[10]   step {step}: " + ", ".join(f"{k} {v:.4g}" for k, v in m.items()))
-            files = sorted(os.listdir(out_a))
-            bbox = results_a["bbox"]
-            log(f"[10] output directory: {files}; AP {bbox['AP']:.4g}, AP50 {bbox['AP50']:.4g}, "
-                f"AP75 {bbox['AP75']:.4g}, novel_mean {bbox['novel_mean']:.4g}; "
-                f"{results_a['inference_seconds_per_image']:.4f} s per evaluated image (host "
-                f"clock, after one warm-up image); data time per step, median "
-                f"{1e3 * np.median([m['data_time'] for m in losses_a.values()]):.2f} ms")
-            need = {"step_3.pt", "step_6.pt", "best", "best_info.json", "log.txt"}
-            ok = (need <= set(files) and sorted(losses_a) == list(range(1, RUN_STEPS + 1))
-                  and all(np.isfinite(v) for m in losses_a.values() for v in m.values())
-                  and all(np.isfinite(bbox[k]) for k in ("AP", "AP50", "AP75", "novel_mean"))
-                  and np.isfinite(results_a["inference_seconds_per_image"])
-                  and all(launches[k] > 0 for k in ("roi_align_fwd", "roi_align_bwd",
-                                                    "nms_mask", "bn_act_fwd", "bn_act_bwd")))
-            if not ok:
-                raise AssertionError("the run loop left out a checkpoint, a step, a finite "
-                                     "result or a kernel")
-            t = time.perf_counter()
-            path = Checkpointer(os.path.join(tmp, "timed")).save(RUN_STEPS, trainer.state)
-            log(f"[10] checkpoint (model, momentum, schedule, step): "
-                f"{os.path.getsize(path) / 2**20:.1f} MiB, written and renamed in "
-                f"{time.perf_counter() - t:.2f} s")
-            del trainer
+def phase_finetune(cfg, seed, workdir):
+    """Phase 11: k-shot fine-tuning from phase 10's run in ``workdir``.
+    (a) engine.runner.run on the shipped 10-shot split1 fine-tune recipe,
+    warm-started from ``run_a/best/model`` as the recipe spells it; (b) timed
+    fine-tune steps at the recipe's 8 images; (c) the fine-tune path in f32
+    with the kernels vs their plain versions.  Returns (a)'s launch counts."""
+    import torch
 
-            # (b) resume from a copy that holds only step 3
-            os.makedirs(out_b)
-            shutil.copy(os.path.join(out_a, "step_3.pt"), out_b)
-            results_b, losses_b, trainer, secs = run(out_b, "--resume")
-            del trainer
-            rel = max(abs(losses_b[s][k] - losses_a[s][k]) / max(abs(losses_a[s][k]), 1e-12)
-                      for s in losses_b for k in losses_b[s] if k != "data_time")
-            same = all(losses_b[s][k] == losses_a[s][k] for s in losses_b
-                       for k in losses_b[s] if k != "data_time")
-            ma = read_checkpoint(os.path.join(out_a, "step_6.pt"))["model"]
-            mb = read_checkpoint(os.path.join(out_b, "step_6.pt"))["model"]
-            same_params = all(torch.equal(ma[k], mb[k]) for k in ma)
-            log(f"[10] resumed from step 3 in {secs:.1f} s: steps {sorted(losses_b)}, losses "
-                f"bit-identical to the uninterrupted run's {same} (max rel diff {rel:.3g}, "
-                f"tol {RESUME_LOSS_RTOL}), final parameters bit-identical {same_params}, "
-                f"final AP equal {strip_time(results_b) == strip_time(results_a)}")
-            if sorted(losses_b) != list(range(RUN_PERIOD + 1, RUN_STEPS + 1)) \
-                    or not rel <= RESUME_LOSS_RTOL:
-                raise AssertionError("the resumed run does not reproduce steps 4-6")
+    from unit_tpu_torch.checkpoint import read_checkpoint
+    from unit_tpu_torch.config import get_cfg
+    from unit_tpu_torch.data import DatasetCatalog
+    from unit_tpu_torch.engine import runner
+    from unit_tpu_torch.engine.train import TrainerFineTune
+    from unit_tpu_torch.solver import build_optimizer
 
-            # (c) --eval-only from the step-6 checkpoint equals the in-run evaluation
-            results_c, losses_c, trainer, secs = run(out_a, "--eval-only", "--resume")
-            del trainer
-            log(f"[10] --eval-only from step 6 in {secs:.1f} s: results equal to the in-run "
-                f"evaluation bit for bit {strip_time(results_c) == strip_time(results_a)}")
-            if losses_c or strip_time(results_c) != strip_time(results_a):
-                raise AssertionError("--eval-only does not reproduce the in-run evaluation")
+    dev = torch.device(RUN_DEVICE)
+    devkit = os.path.join(workdir, "VOCdevkit")
+    base = os.path.join(workdir, "run_a", "best", "model")  # the port wrote model.pt there
+    opts = ["MODEL.WEIGHTS", base, "OUTPUT_DIR", os.path.join(workdir, "ft"),
+            "MODEL.ROI_HEADS.EMBEDDING_PATH", str(ROOT / cfg.MODEL.ROI_HEADS.EMBEDDING_PATH),
+            "SEED", str(seed), "SOLVER.MAX_ITER", str(RUN_STEPS),
+            "SOLVER.CHECKPOINT_PERIOD", str(RUN_PERIOD), "TEST.EVAL_PERIOD", str(RUN_PERIOD),
+            # random base weights: the gradients are clipped as in phases 7 and 10
+            "SOLVER.CLIP_GRADIENTS.ENABLED", "True", "SOLVER.CLIP_GRADIENTS.CLIP_TYPE", "norm",
+            *RUN_EXTRA_OPTS]
+    ft_cfg = get_cfg()
+    ft_cfg.merge_from_file(str(FT_RECIPE))
+    ft_cfg.merge_from_list(opts)
+    made, warm = [], []
 
-            # (d) one evaluation with FrozenBN folded into the convolutions
-            results_d, _, trainer, secs = run(out_a, "--eval-only", "--resume",
-                                              opts=["TPU.FOLD_BN_AT_EVAL", "True"])
-            net = trainer.model
-            del trainer
-            s = prepare_test_image(seeded_image_loader(
-                {"image_id": "fold", "height": 600, "width": 800}),
-                TransformConfig.test_from_cfg(cfg))
-            img = torch.as_tensor(s["image"][None], device=dev)
-            size = torch.as_tensor(s["image_size"][None], device=dev)
-            cfg32 = cfg.clone()
-            cfg32.TPU.COMPUTE_DTYPE = "float32"
-            net32 = WSRCNN(ModelConfig.from_cfg(cfg32)).to(dev).eval()
-            net32.load_state_dict(net.state_dict())
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_tf32 = False
-            with torch.inference_mode():
-                feats = {name: m.predict_raw(img, size)[3].float()
-                         for name, m in (("bf16", net), ("bf16 folded", fold_frozen_bn(net)),
-                                         ("f32", net32), ("f32 folded", fold_frozen_bn(net32)))}
-            ref = feats["f32"]
-            rel32 = float((feats["f32 folded"] - ref).abs().max() / ref.abs().max())
-            far = {k: float((feats[k] - ref).abs().mean() / ref.abs().mean())
-                   for k in ("bf16", "bf16 folded")}
-            log(f"[10] TPU.FOLD_BN_AT_EVAL evaluation in {secs:.1f} s: AP50 "
-                f"{results_d['bbox']['AP50']:.4g} (unfolded {bbox['AP50']:.4g}), "
-                f"{results_d['inference_seconds_per_image']:.4f} s per image; res4 features of "
-                f"one image, folded vs unfolded in f32: max|diff|/max {rel32:.3g} (tol "
-                f"{FOLD_F32_REL}); mean|diff|/mean|f32| from the f32 features: bf16 "
-                f"{far['bf16']:.3g}, bf16 folded {far['bf16 folded']:.3g} (tol "
-                f"{FOLD_BF16_FACTOR} x the unfolded)")
-            if not (np.isfinite(results_d["bbox"]["AP50"]) and rel32 <= FOLD_F32_REL
-                    and far["bf16 folded"] <= FOLD_BF16_FACTOR * far["bf16"]):
-                raise AssertionError("the folded evaluation is not finite or not close")
-            del net, net32, feats
-            torch.backends.cudnn.allow_tf32 = True
-            torch.backends.cuda.matmul.allow_tf32 = True
+    class Recording(TrainerFineTune):
+        """TrainerFineTune that keeps itself, so the script can read its state."""
 
-            # (e) the loader's steady rate: more steps, no checkpoint or evaluation
-            # between them, so the prefetch queues drain to what the host can make
-            _, losses_e, trainer, secs = run(
-                os.path.join(tmp, "run_e"),
-                opts=["SOLVER.MAX_ITER", str(RUN_STEADY_STEPS), "SOLVER.CHECKPOINT_PERIOD", "0",
-                      "TEST.EVAL_PERIOD", "0"])
-            half = RUN_STEADY_STEPS // 2
-            waits = [1e3 * losses_e[s]["data_time"] for s in sorted(losses_e)[half:]]
-            steps = trainer.step_ms[half:]
-            del trainer
-            log(f"[10] {RUN_STEADY_STEPS} steps without hooks in {secs:.1f} s; over the last "
-                f"{len(steps)}: step median {np.median(steps):.2f} ms "
-                f"({4e3 / np.median(steps):.2f} images/s), of which waiting for the two "
-                f"prefetched streams {np.median(waits):.2f} ms (median; min {min(waits):.2f}, "
-                f"max {max(waits):.2f})")
-            if len(losses_e) != RUN_STEADY_STEPS:
-                raise AssertionError("the steady run did not take its steps")
-        finally:
-            runner.TrainerNoMeta = real_trainer
-            made.clear()
-            torch.cuda.empty_cache()
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    real_trainer, real_merge = runner.TrainerFineTune, runner.merge_params_from_checkpoint
+
+    def merge(model, path):
+        out = real_merge(model, path)
+        warm.append((path, out[1], out[2]))
+        return out
+
+    # (a) the run: 6 steps, checkpoints and evaluations every 3, the final one
+    DatasetCatalog.clear()
+    args = runner.default_argument_parser().parse_args(
+        ["--config-file", str(FT_RECIPE), "--data-root", devkit, "--device", RUN_DEVICE, *opts])
+    runner.TrainerFineTune, runner.merge_params_from_checkpoint = Recording, merge
+    try:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        results = runner.run(args, image_loader=seeded_image_loader)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read_launch_counts()
+    finally:
+        runner.TrainerFineTune, runner.merge_params_from_checkpoint = real_trainer, real_merge
+    trainer = made[-1]
+    model = trainer.model
+    (path, loaded, skipped), = warm
+    snapshot = read_checkpoint(path)["model"]
+    final = {k: v.cpu() for k, v in model.state_dict().items()}
+    new = sorted(k for k in final if k not in snapshot)
+    trainable = {n for n, p in model.named_parameters() if p.requires_grad}
+    log(f"[11] {FT_RECIPE.relative_to(ROOT)}: warm start from {path}: {loaded} tensors "
+        f"loaded, {len(skipped)} of the snapshot skipped, {len(new)} new ones kept at their "
+        f"zero initialisation {new}; trainable {len(trainable)} tensors "
+        f"({sorted({n.rsplit('.', 1)[0] for n in trainable})}), "
+        f"{ft_cfg.SOLVER.IMS_PER_BATCH} images a step, weak stream {trainer.weak_iter}")
+    log(f"[11] run of {RUN_STEPS} steps with 2 in-run evaluations and the final one: "
+        f"{secs:.1f} s; launches {launches}")
+    for step, m in enumerate(trainer.metrics_history, 1):
+        log(f"[11]   step {step}: " + ", ".join(f"{k} {v:.4g}" for k, v in m.items()))
+    bbox = results["bbox"]
+    log(f"[11] AP {bbox['AP']:.4g}, AP50 {bbox['AP50']:.4g}, novel_mean "
+        f"{bbox['novel_mean']:.4g}; {results['inference_seconds_per_image']:.4f} s per "
+        f"evaluated image")
+    want_trainable = {n for n in final if n.startswith(("rpn_head.", "supervised.cls_score_ft.",
+                                                        "supervised.bbox_pred_ft."))}
+    changed = [k for k in snapshot if k not in trainable and not torch.equal(final[k], snapshot[k])]
+    unmoved = [k for k in trainable
+               if torch.equal(final[k], snapshot[k] if k in snapshot else torch.zeros_like(final[k]))]
+    log(f"[11] frozen tensors bit-identical to the base snapshot: "
+        f"{len(snapshot) - len(trainable & set(snapshot)) - len(changed)}/"
+        f"{len(snapshot) - len(trainable & set(snapshot))}; trainable tensors moved: "
+        f"{len(trainable) - len(unmoved)}/{len(trainable)}")
+    if not (path == base + ".pt" and trainer.weak_iter is None and not skipped
+            and set(new) == {n for n in want_trainable if "_ft." in n}
+            and trainable == want_trainable and not changed and not unmoved
+            and len(trainer.metrics_history) == RUN_STEPS
+            and all(np.isfinite(v) for m in trainer.metrics_history for v in m.values())
+            and all(np.isfinite(bbox[k]) for k in ("AP", "AP50", "novel_mean"))):
+        raise AssertionError(f"the fine-tune run: warm start {path}, new {new}, trainable "
+                             f"{sorted(trainable ^ want_trainable)} off the recipe, frozen "
+                             f"tensors changed {changed[:5]}, trainable unmoved {unmoved[:5]}")
+    # the freeze lists reach autograd: no backward through ROIAlign or an epilogue
+    if not (launches["roi_align_fwd"] > 0 and launches["nms_mask"] > 0
+            and launches["bn_act_fwd"] > 0 and launches["roi_align_bwd"] == 0
+            and launches["bn_act_bwd"] == 0):
+        raise AssertionError(f"the fine-tune run's launches: {launches}")
+    del trainer, made[:]
+
+    # (b) timed steps from pre-made batches of the recipe's 8 images
+    solver = build_optimizer(ft_cfg, model)
+    strong, _ = synthetic_train_batches(ft_cfg, seed, per_stream=FT_IMAGES)
+    ft = TrainerFineTune(model, solver, itertools.cycle(strong), seed=seed)
+    ft.init_state()
+
+    def step(label):
+        t = time.perf_counter()
+        m = ft.run_step()  # ends in one device-to-host copy of the losses
+        ms = (time.perf_counter() - t) * 1e3
+        log(f"[11] step {ft.state.step} ({label}) {ms:.1f} ms: "
+            + ", ".join(f"{k} {v:.4g}" for k, v in m.items() if k != "data_time"))
+        return ms
+
+    for _ in range(TRAIN_WARMUP):
+        step("warm-up")
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    times = [step("timed") for _ in range(TRAIN_STEPS)]
+    steps = read_launch_counts()
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+    med = float(np.median(times))
+    log(f"[11] {TRAIN_STEPS} timed fine-tune steps ({model.mc.compute_dtype}, "
+        f"{FT_IMAGES} strong images a step): median {med:.2f} ms (min {min(times):.2f}, max "
+        f"{max(times):.2f}), {1e3 * FT_IMAGES / med:.2f} images/s, peak device memory "
+        f"{peak / 2**20:.1f} MiB")
+    n_backbone, n_res5, _ = frozen_bn_counts(model)
+    k4 = n_backbone + (2 if model.mc.multi_box_head else 1) * n_res5
+    per_step = {k: v / TRAIN_STEPS for k, v in steps.items()}
+    log(f"[11] launches a step: {per_step}")
+    want = {"roi_align_fwd": TRAIN_STEPS, "roi_align_bwd": 0, "nms_mask": TRAIN_STEPS,
+            "nms_mask_images": FT_IMAGES * TRAIN_STEPS, "bn_act_fwd": k4 * TRAIN_STEPS,
+            "bn_act_bwd": 0, "bn_act_layout_copies": 0}
+    if steps != want:
+        raise AssertionError(f"a fine-tune step did not run K1 x1, K3 x1 ({FT_IMAGES} images), "
+                             f"K4 x{k4} forward and no K2 or K4 backward: {steps}")
+    profile_run(ft.run_step, "[11]", "fine-tune step", top=15)
+    del ft, solver, model, strong
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # (c) the whole fine-tune path in f32 with non-zero *_ft heads
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    cfg32 = ft_cfg.clone()
+    cfg32.TPU.COMPUTE_DTYPE = "float32"
+    model = flagship_model(cfg32, seed, dev)
+    gen = torch.Generator().manual_seed(seed + 3)
+    with torch.no_grad():
+        for head in (model.supervised.cls_score_ft, model.supervised.bbox_pred_ft):
+            for p in (head.weight, head.bias):
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.01)
+    build_optimizer(cfg32, model)  # the recipe's freeze lists
+    strong, _ = synthetic_train_batches(cfg32, seed + 1, n_batches=1, per_stream=FT_IMAGES)
+    strong = {k: torch.as_tensor(v, device=dev) for k, v in strong[0].items()}
+    kernels = train_path_kernels_vs_plain(model, strong, None, seed, "[11]")
+    log(f"[11] launches of the f32 pass with kernels: {kernels}")
+    if (kernels["roi_align_fwd"], kernels["roi_align_bwd"], kernels["nms_mask"],
+            kernels["bn_act_bwd"]) != (1, 0, 1, 0):
+        raise AssertionError(f"the f32 fine-tune pass's launches: {kernels}")
+    del model
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
     return launches
 
 
@@ -1541,19 +1751,26 @@ def main():
     by_path["train"] = phase_train(cfg, args.seed)
     phase_train_whole_path(cfg, args.seed)
     k4 = phase_k4(rng)
-    by_path["run_loop"] = launches = phase_run_loop(cfg, args.seed)
+    with tempfile.TemporaryDirectory(prefix="unit_tpu_torch_run_") as workdir:
+        by_path["run_loop"] = launches = phase_run_loop(cfg, args.seed, workdir)
+        by_path["finetune"] = phase_finetune(cfg, args.seed, workdir)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     def per_path(*names):
         return {path: sum(counts[n] for n in names) for path, counts in by_path.items()}
 
-    # every kernel of a path was launched on it (K2 and K4's backward are not
-    # on the serving path)
+    # every kernel of a path was launched on it; serving and fine-tuning run
+    # no backward through ROIAlign or an epilogue, so K2 and K4's backward
+    # must not have been launched there
     for path, counts in by_path.items():
         for name, count in counts.items():
-            on_path = not (path == "serving" and name.endswith("_bwd")) \
-                and name != "bn_act_layout_copies"
-            if on_path and count <= 0:
+            if name == "bn_act_layout_copies":
+                continue
+            if name.endswith("_bwd") and path in ("serving", "finetune"):
+                if count != 0:
+                    raise AssertionError(f"{name} was launched {count} times on the {path} "
+                                         "path, which has no backward through it")
+            elif count <= 0:
                 raise AssertionError(f"{name} was not launched on the {path} path")
 
     kernels = [

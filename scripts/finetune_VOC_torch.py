@@ -1,0 +1,26 @@
+#!/usr/bin/env python
+"""k-shot fine-tuning CLI of the PyTorch/CUDA port (twin of scripts/finetune_VOC.py).
+
+Usage:
+  python scripts/finetune_VOC_torch.py \
+      --config-file configs/VOC/FT/10_shot/VOC-RCNN-101-C4-split1-ft.yaml \
+      [--eval-only] [--resume] [--device cuda|cpu] [--data-root DIR] \
+      MODEL.WEIGHTS <base run>/best/model ...
+
+The config's SupervisedDetectorOutputsFineTune head selects TrainerFineTune
+(the k-shot strong stream alone, the base->novel transfer applied in
+training); MODEL.WEIGHTS names a base run's best snapshot, which the port
+writes as ``best/model.pt``.  The model runs on one NVIDIA GPU; ``--device
+cpu`` asks for the CPU on purpose.
+"""
+
+import os
+import sys
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+
+from unit_tpu_torch.engine.runner import default_argument_parser, run  # noqa: E402
+
+if __name__ == "__main__":
+    args = default_argument_parser().parse_args()
+    run(args)

@@ -166,6 +166,9 @@ def k1_cases():
         ("sampling_ratio_3", (2, 13, 17, 64), 40, "piled", 17, 3, 0),
         ("more_than_48_kb_of_sums", (1, 20, 200, 256), 30, "piled", 40, 2, 0),
         ("slice_halved_to_fit", (1, 6, 300, 256), 12, "piled", 80, 2, 0),
+        # a fine-tune step's 8 images: 822 M output elements, 3.3 GB in f32,
+        # beyond 32-bit byte offsets (the kernel's in-image offsets stay 32-bit)
+        ("fine_tune_step_8_images", (8, 50, 84, 1024), 512, "piled", 14, 2, 0),
     ]
 
 
@@ -180,8 +183,9 @@ def test_kernel_matches_plain(cuda_device, dtype, case, monkeypatch):
     pointer off 16 bytes (the channel-pair path); piled ROIs; every ROI
     outside (all zeros); one ROI; a last slice narrower than the others;
     another sampling ratio; a P whose sums need more than 48 KB of shared
-    memory, and one where the slice is halved to fit the card's limit.  The
-    tunables do not change a bit of the result."""
+    memory, and one where the slice is halved to fit the card's limit; a
+    fine-tune step's 8 images x 512 ROIs (an output beyond 2^31 bytes in
+    f32).  The tunables do not change a bit of the result."""
     name, shape, n, layout, p, s, shift = case
     rng = np.random.RandomState(3)
     b, h, w, c = shape

@@ -192,9 +192,7 @@ def test_missing_weights_and_device_raise(devkit, tmp_path):
     (["TEST.AUG.ENABLED", "True"], "item 24"),
     (["TEST.PRECISE_BN.ENABLED", "True"], "item 26"),
     (["TPU.PROFILE_START_STEP", "2"], "item 31"),
-    (["TPU.GRAD_ACCUM", "2"], "item 12"),
     (["TPU.TP", "2"], "items 27 and 29"),
-    (["ENGINE.TRAINER", "TrainerFineTune"], "item 19"),
     (["ENGINE.TRAINER", "TrainerOnlyWeak"], "item 20"),
     (["ENGINE.TRAINER", "Trainer"], "item 23"),
 ])

@@ -153,8 +153,6 @@ def test_unported_paths_raise(pair):
     with pytest.raises(NotImplementedError, match="item 21"):
         WSRCNN(ModelConfig.from_cfg(cfg)).train_losses(None, None, None)
     for key, value, item in [("MODEL.MASK_ON", "True", "item 22"),
-                             ("MODEL.ROI_HEADS.FAST_RCNN.NAME",
-                              "SupervisedDetectorOutputsFineTune", "item 19"),
                              ("MODEL.ROI_HEADS.FAST_RCNN.WEAK_DETECTOR.REGRESSION_BRANCH",
                               "True", "item 25"),
                              ("MODEL.META_ARCHITECTURE", "WeakRCNN", "item 20")]:
@@ -162,6 +160,13 @@ def test_unported_paths_raise(pair):
         cfg.merge_from_list([key, value])
         with pytest.raises(NotImplementedError, match=item):
             WSRCNN(ModelConfig.from_cfg(cfg))
+    # fine-tuning is ported (tests/test_torch_finetune.py): its heads build
+    cfg = small_flagship_cfg()
+    cfg.merge_from_list(["MODEL.ROI_HEADS.FAST_RCNN.NAME", "SupervisedDetectorOutputsFineTune",
+                         "MODEL.ROI_HEADS.FAST_RCNN.WEAK_DETECTOR.NAME", "WeakDetectorOutputsFT"])
+    ft = WSRCNN(ModelConfig.from_cfg(cfg))
+    assert ft.mc.finetune and ft.mc.weak_detector_finetune
+    assert not ft.supervised.cls_score_ft.weight.any()
     # TPU.FOLD_BN_AT_EVAL is ported (tests/test_torch_bn_fold.py); the uint8 wire is not
     cfg = small_flagship_cfg()
     cfg.TPU.HOST_TRANSFER_UINT8 = True

@@ -195,7 +195,6 @@ def test_train_losses_selects_proposals_once_for_a_fused_batch(monkeypatch, same
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    ({"grad_accum": 2}, "item 12"),
     ({"meta_iter": iter(())}, "item 23"),
     ({"train_only_weak": True}, "item 20"),
     ({"mesh": object()}, "items 27 and 29"),

@@ -8,6 +8,7 @@ from .checkpointer import (
     load_torch_resnet,
     merge_params_from_checkpoint,
     read_checkpoint,
+    resolve_own_checkpoint,
 )
 from .embeddings import load_glove_embeddings
 from .jax_params import flax_leaves, flax_path, load_jax_params, load_jax_train_state
@@ -16,4 +17,5 @@ __all__ = [
     "Checkpointer", "PeriodicCheckpointerWithEval", "d2_resnet_key_to_torch", "flax_leaves",
     "flax_path", "load_glove_embeddings", "load_jax_params", "load_jax_train_state",
     "load_torch_resnet", "merge_params_from_checkpoint", "read_checkpoint",
+    "resolve_own_checkpoint",
 ]

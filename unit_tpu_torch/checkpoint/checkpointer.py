@@ -13,12 +13,16 @@ plain containers only, no pickled code).  Layout under the output directory:
     best_info.json       {"AP50", "iteration"} of it, warm-started on resume
 
 orbax's background write is not ported: ``save`` returns when the file is in
-place and ``wait()`` is a no-op kept so the runner reads the same.
+place and ``wait()`` is a no-op kept so the runner reads the same.  unit_tpu
+keeps its best snapshot in the orbax directory ``best/model``, and the
+fine-tune recipes name it so (``MODEL.WEIGHTS: <run>/best/model``):
+``resolve_own_checkpoint`` maps that name to the port's ``best/model.pt``.
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import os
 import re
 from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
@@ -29,6 +33,7 @@ from torch import nn
 
 FORMAT = "unit_tpu_torch/1"
 _STEP_FILE = re.compile(r"^step_(\d+)\.pt$")
+logger = logging.getLogger("unit_tpu_torch")
 
 
 def state_payload(state, best_info: Optional[Mapping] = None) -> Dict[str, Any]:
@@ -47,6 +52,15 @@ def _write(path: str, payload: Dict[str, Any]) -> None:
     tmp = f"{path}.tmp.{os.getpid()}"
     torch.save(payload, tmp)
     os.replace(tmp, path)
+
+
+def resolve_own_checkpoint(path: str) -> str:
+    """``path``, or ``path + ".pt"`` where only that exists: the port's file
+    behind a name spelled for unit_tpu's orbax layout (``<run>/best/model``).
+    A path that names neither is returned as it is (the caller raises)."""
+    if not os.path.exists(path) and os.path.isfile(path + ".pt"):
+        return path + ".pt"
+    return path
 
 
 def read_checkpoint(path: str) -> Dict[str, Any]:
@@ -137,7 +151,9 @@ def merge_params_from_checkpoint(model: nn.Module, path: str) -> Tuple[nn.Module
     """Warm-start ``model`` from one of this package's checkpoints (e.g. the
     ``best`` snapshot of a base-training run), tolerant of missing and new
     keys: tensors whose name and shape match are copied, everything else keeps
-    its fresh initialisation.  Returns (model, n_loaded, skipped names)."""
+    its fresh initialisation (a fine-tune model's zero ``*_ft`` heads, which a
+    base snapshot lacks: logged as skipped).  Returns (model, n_loaded, names
+    of the checkpoint's tensors not loaded)."""
     src = read_checkpoint(path)["model"]
     targets = dict(model.named_parameters())
     targets.update(dict(model.named_buffers()))
@@ -152,6 +168,10 @@ def merge_params_from_checkpoint(model: nn.Module, path: str) -> Tuple[nn.Module
             else:
                 dst.copy_(value)
                 loaded += 1
+    new = [name for name in targets if name not in src]
+    if new:
+        logger.info("skipped %d tensors that %s lacks, kept at their initialisation: %s",
+                    len(new), path, new)
     return model, loaded, skipped
 
 

@@ -284,7 +284,7 @@ def build_support_loader(*args, **kwargs):
 
 def build_classifier_strong_loader(*args, **kwargs):
     raise _not_ported("the boxed classifier stream of TrainerOnlyWeakFineTune",
-                      "ROADMAP Queue 1 item 19")
+                      "ROADMAP Queue 1 item 20")
 
 
 def pin_batch(batch):

@@ -13,11 +13,15 @@ What differs from unit_tpu, on purpose:
     (record -> float BGR array), threaded to every loader as ``make_eval_fn``
     already takes one, so a run needs no image files;
   * the training streams hand out batches in pinned memory when the model is
-    on a card (``data.loader.pin_batch``).
-Not ported, each raising with its ROADMAP item: the other trainers (items 19,
-20, 23), TTA (24), precomputed proposals (25), PreciseBN (26), more than one
-device, ``--dist``, TP and PP (27, 29), ``TPU.GRAD_ACCUM`` > 1 (12) and the
-profile hook (31).
+    on a card (``data.loader.pin_batch``);
+  * ``MODEL.WEIGHTS`` naming ``<run>/best/model`` (unit_tpu's orbax
+    directory, as the fine-tune recipes spell it) reads the port's
+    ``<run>/best/model.pt``.
+Trainers: ``TrainerNoMeta`` (base training) and ``TrainerFineTune`` (k-shot
+fine-tuning, warm-started from a base run's snapshot).  Not ported, each
+raising with its ROADMAP item: the other trainers (items 20, 23), TTA (24),
+precomputed proposals (25), PreciseBN (26), more than one device, ``--dist``,
+TP and PP (27, 29) and the profile hook (31).
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from ..checkpoint import (
     load_glove_embeddings,
     load_torch_resnet,
     merge_params_from_checkpoint,
+    resolve_own_checkpoint,
 )
 from ..config import get_cfg, validate_registry_names
 from ..data import (
@@ -56,7 +61,7 @@ from ..solver import build_optimizer
 from ..solver.build import warmup_multistep
 from ..utils.events import MetricsHook, print_csv_format
 from .predict import make_predict_fn
-from .train import TrainerNoMeta
+from .train import TrainerFineTune, TrainerNoMeta
 
 logger = logging.getLogger("unit_tpu_torch")
 
@@ -174,19 +179,19 @@ def setup(args):
 # trainer name -> the ROADMAP item it waits for
 _UNPORTED_TRAINERS = {
     "Trainer": "ROADMAP Queue 1 item 23",
-    "TrainerFineTune": "ROADMAP Queue 1 item 19",
     "TrainerOnlyWeak": "ROADMAP Queue 1 item 20",
-    "TrainerOnlyWeakFineTune": "ROADMAP Queue 1 items 19 and 20",
+    "TrainerOnlyWeakFineTune": "ROADMAP Queue 1 item 20",
 }
+_PORTED_TRAINERS = ("TrainerNoMeta", "TrainerFineTune")
 
 
 def trainer_name_for(cfg) -> str:
     """The trainer unit_tpu picks for ``cfg`` (runner.py:182), by name."""
     explicit = getattr(cfg, "ENGINE", None) and cfg.ENGINE.TRAINER
     if explicit:
-        if explicit != "TrainerNoMeta" and explicit not in _UNPORTED_TRAINERS:
+        if explicit not in _PORTED_TRAINERS and explicit not in _UNPORTED_TRAINERS:
             raise KeyError(f"unknown ENGINE.TRAINER {explicit!r}; one of "
-                           f"{sorted(['TrainerNoMeta', *_UNPORTED_TRAINERS])}")
+                           f"{sorted([*_PORTED_TRAINERS, *_UNPORTED_TRAINERS])}")
         return explicit
     if cfg.MODEL.META_ARCHITECTURE == "WeakRCNN":
         return "TrainerOnlyWeak"
@@ -201,7 +206,7 @@ def trainer_class_for(cfg):
     name = trainer_name_for(cfg)
     if name in _UNPORTED_TRAINERS:
         raise _not_ported(name, _UNPORTED_TRAINERS[name])
-    return TrainerNoMeta
+    return TrainerFineTune if name == "TrainerFineTune" else TrainerNoMeta
 
 
 def build_everything(cfg, device: Optional[torch.device] = None, seed: int = 0,
@@ -209,8 +214,10 @@ def build_everything(cfg, device: Optional[torch.device] = None, seed: int = 0,
     """(model, solver, trainer) for a config, the model on ``device``.
 
     ``start_step`` > 0 (--resume): every training stream is fast-forwarded
-    past the batches the preempted run already consumed, so the resumed run
-    sees exactly the data an uninterrupted run would have."""
+    past the batches the preempted run already consumed (``TPU.GRAD_ACCUM``
+    a step), so the resumed run sees exactly the data an uninterrupted run
+    would have.  The weak (image-labelled) stream is built for base training
+    only: fine-tuning reads the k-shot strong stream alone."""
     device = device if device is not None else resolve_device(None)
     if int(getattr(cfg.TPU, "TP", 1) or 1) > 1 or bool(getattr(cfg.TPU, "PP", False)) \
             or cfg.TPU.FSDP:
@@ -222,7 +229,7 @@ def build_everything(cfg, device: Optional[torch.device] = None, seed: int = 0,
     pin = pin_batch if device.type == "cuda" else None
 
     def stream(loader):
-        # exact resume: each train step consumes one batch from this stream
+        # exact resume: each train step consumes grad_accum batches from this stream
         if start_step > 0:
             loader.fast_forward(start_step * grad_accum)
         return Prefetcher(iter(loader), transform=pin)
@@ -230,14 +237,18 @@ def build_everything(cfg, device: Optional[torch.device] = None, seed: int = 0,
     if not cfg.DATASETS.TRAIN:
         raise ValueError("DATASETS.TRAIN is empty")
     strong_iter = stream(build_strong_loader(cfg, seed=seed, image_loader=image_loader))
-    weak_iter = stream(build_classifier_loader(cfg, seed=seed + 1, image_loader=image_loader))
+    weak_iter = None
+    if trainer_name_for(cfg) == "TrainerNoMeta":
+        weak_iter = stream(build_classifier_loader(cfg, seed=seed + 1,
+                                                   image_loader=image_loader))
     solver = build_optimizer(cfg, model)
     try:
         trainer = trainer_cls(model, solver, strong_iter=strong_iter, weak_iter=weak_iter,
                               seed=seed, grad_accum=grad_accum)
     except BaseException:
-        strong_iter.close()
-        weak_iter.close()
+        for it in (strong_iter, weak_iter):
+            if it is not None:
+                it.close()
         raise
     return model, solver, trainer
 
@@ -246,15 +257,18 @@ def load_initial_weights(cfg, model):
     """MODEL.WEIGHTS (one of this package's checkpoints, .npz, .pkl or .pth)
     and the GloVe embeddings into ``model``, in place."""
     weights = cfg.MODEL.WEIGHTS
-    own = weights and (os.path.isdir(weights) or weights.endswith(".pt"))
+    if weights:
+        # <run>/best/model, as the fine-tune recipes name unit_tpu's snapshot,
+        # is the port's <run>/best/model.pt
+        weights = resolve_own_checkpoint(weights)
     if weights and not os.path.exists(weights):
         # silently evaluating a random-init model is far worse than failing
         raise FileNotFoundError(f"MODEL.WEIGHTS points at {weights!r}, which does not exist")
-    if own:
-        # a snapshot of one of our own runs (e.g. <base_run>/best): the
-        # fine-tune warm start, tolerant of missing and new tensors
+    if weights and (os.path.isdir(weights) or weights.endswith(".pt")):
+        # a snapshot of one of our own runs (e.g. <base_run>/best/model.pt):
+        # the fine-tune warm start, tolerant of missing and new tensors
         _, loaded, skipped = merge_params_from_checkpoint(model, weights)
-        logger.info("warm-started %d tensors from %s (%d new/skipped)",
+        logger.info("warm-started %d tensors from %s (%d skipped)",
                     loaded, weights, len(skipped))
     elif weights:
         if weights.endswith(".npz"):

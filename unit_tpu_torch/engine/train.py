@@ -1,10 +1,14 @@
 """Training engine: the train step and the trainer loop.
 
-Port of unit_tpu/engine/train.py:38-191,579-814 for one device.  PyTorch
+Port of unit_tpu/engine/train.py:38-191,579-827 for one device.  PyTorch
 runs eagerly, so the step is a plain closure (zero_grad -> train_losses ->
 sum -> backward -> clip -> SGD step -> LR step) and the trainer moves each
 step's batches to the model's device (numpy arrays, or tensors in pinned
-memory from a ``data.Prefetcher`` with ``pin_batch``).
+memory from a ``data.Prefetcher`` with ``pin_batch``).  With
+``TPU.GRAD_ACCUM`` = A > 1 a step takes A micro-batches of each stream that
+share a canvas, backpropagates each one's total / A (one micro-batch's
+activations live at a time), clips the summed gradient once and updates once;
+the losses it reports are the means (unit_tpu's scan over micro-batches).
 
 What differs from unit_tpu, on purpose:
   * the randomness of step k is one ``torch.Generator`` on the device,
@@ -15,9 +19,9 @@ What differs from unit_tpu, on purpose:
     could save a corrupt state: fault R3 of the reference);
   * ``LazyMetrics``, the remote-TPU fetch pipelining, is not ported
     (ROADMAP Queue 1 item 29).
-``GRAD_ACCUM`` > 1 (ROADMAP item 12's follow-up), the meta stream (item 23),
-TRAIN_ONLY_WEAK (item 20) and mesh, FSDP, TP and pipeline parallelism (items
-27 and 29) raise ``NotImplementedError``.
+The meta stream (ROADMAP Queue 1 item 23), TRAIN_ONLY_WEAK (item 20) and
+mesh, FSDP, TP and pipeline parallelism (items 27 and 29) raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -48,29 +52,48 @@ def make_train_step(
     optimizer: torch.optim.Optimizer,
     scheduler: torch.optim.lr_scheduler.LRScheduler,
     clip: Optional[Callable[[], None]],
+    grad_accum: int = 1,
 ) -> Callable[..., Dict[str, torch.Tensor]]:
     """(strong, weak, generator) -> detached loss dict with ``total_loss``,
-    after one update of ``model``'s parameters."""
+    after one update of ``model``'s parameters.  With ``grad_accum`` A > 1
+    each argument is a list of A (the micro-batches and their generators;
+    ``weak`` may be None): each micro-batch backpropagates its total / A, so
+    the update uses the mean of their gradients, and the dict holds the mean
+    of their losses (A = 1 divides by one: exact)."""
+    accum = int(grad_accum)
+    trainable = [p for group in optimizer.param_groups for p in group["params"]]
 
     def step(strong, weak, generator) -> Dict[str, torch.Tensor]:
+        if accum == 1:
+            strong, weak, generator = [strong], [weak], [generator]
         optimizer.zero_grad(set_to_none=True)
-        losses = model.train_losses(generator, strong, weak)
-        total = torch.stack(list(losses.values())).sum()
-        total.backward()
+        sums: Dict[str, torch.Tensor] = {}
+        for s, w, g in zip(strong, weak if weak is not None else [None] * accum, generator,
+                           strict=True):
+            losses = model.train_losses(g, s, w)
+            total = torch.stack(list(losses.values())).sum()
+            (total / accum).backward()
+            losses["total_loss"] = total
+            for k, v in losses.items():
+                sums[k] = sums[k] + v.detach() if k in sums else v.detach()
+        # a trainable tensor outside this step's graph (the weak detector in a
+        # strong-only step) still decays: unit_tpu's gradient for it is zero
+        for p in trainable:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         if clip is not None:
             clip()
         optimizer.step()
         scheduler.step()
-        metrics = {k: v.detach() for k, v in losses.items()}
-        metrics["total_loss"] = total.detach()
-        return metrics
+        return {k: v / accum for k, v in sums.items()}
 
     return step
 
 
-def step_seed(seed: int, step: int) -> int:
-    """The generator seed of step ``step`` (fold_in's counterpart)."""
-    return (int(seed) << 32) + int(step)
+def step_seed(seed: int, step: int, micro: int = 0, grad_accum: int = 1) -> int:
+    """The generator seed of micro-batch ``micro`` of step ``step`` (fold_in's
+    counterpart); without accumulation, (seed, step) alone."""
+    return (int(seed) << 32) + int(step) * int(grad_accum) + int(micro)
 
 
 class TrainerBase:
@@ -97,8 +120,8 @@ class TrainerBase:
             raise _not_ported("the meta (support) stream", "ROADMAP Queue 1 item 23")
         if train_only_weak:
             raise _not_ported("TRAIN_ONLY_WEAK training", "ROADMAP Queue 1 item 20")
-        if int(grad_accum) > 1:
-            raise _not_ported("TPU.GRAD_ACCUM > 1", "ROADMAP Queue 1 item 12, follow-up")
+        if int(grad_accum) < 1:
+            raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
         if mesh is not None or fsdp or tp or pp:
             raise _not_ported("mesh, FSDP, TP and pipeline parallelism",
                               "ROADMAP Queue 1 items 27 and 29")
@@ -107,9 +130,12 @@ class TrainerBase:
         self.strong_iter = strong_iter
         self.weak_iter = weak_iter
         self.seed = int(seed)
+        self.grad_accum = int(grad_accum)
+        # micro-batches waiting for A of their canvas, per stream and canvas
+        self._accum_buf: Dict[str, Dict[tuple, list]] = {"strong": {}, "weak": {}}
         self.device = model.embeddings.device
         self.train_step = make_train_step(model, optimizer.optimizer, optimizer.scheduler,
-                                          optimizer.clip)
+                                          optimizer.clip, self.grad_accum)
         self.state: Optional[TrainState] = None
         self.stop_requested = False
         self.metrics_history: List[Dict[str, float]] = []
@@ -129,15 +155,35 @@ class TrainerBase:
         return {k: (v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v)))
                 .to(self.device, non_blocking=True) for k, v in batch.items()}
 
+    def _next_group(self, it, buffers) -> list:
+        """Pull micro-batches until ``grad_accum`` of them share one canvas (the
+        same image shape); batches of another canvas wait in ``buffers`` for a
+        later group (unit_tpu's ``_next_stacked``, unstacked).  With A = 1,
+        the next batch."""
+        while True:
+            batch = next(it)
+            group = buffers.setdefault(tuple(batch["image"].shape), [])
+            group.append(batch)
+            if len(group) == self.grad_accum:
+                return buffers.pop(tuple(batch["image"].shape))
+
+    def _generator(self, micro: int) -> torch.Generator:
+        generator = torch.Generator(device=self.device)
+        generator.manual_seed(step_seed(self.seed, self.state.step, micro, self.grad_accum))
+        return generator
+
     def run_step(self) -> Dict[str, float]:
         assert self.state is not None, "call init_state() first"
         t0 = time.perf_counter()
-        strong = next(self.strong_iter) if self.strong_iter is not None else None
-        weak = next(self.weak_iter) if self.weak_iter is not None else None
+        strong, weak = (None if it is None else self._next_group(it, self._accum_buf[name])
+                        for name, it in (("strong", self.strong_iter), ("weak", self.weak_iter)))
         data_time = time.perf_counter() - t0
-        generator = torch.Generator(device=self.device)
-        generator.manual_seed(step_seed(self.seed, self.state.step))
-        losses = self.train_step(self._to_device(strong), self._to_device(weak), generator)
+        strong, weak = (None if group is None else [self._to_device(b) for b in group]
+                        for group in (strong, weak))
+        generators = [self._generator(i) for i in range(self.grad_accum)]
+        if self.grad_accum == 1:  # make_train_step's arguments without accumulation
+            strong, weak, generators = strong and strong[0], weak and weak[0], generators[0]
+        losses = self.train_step(strong, weak, generators)
         self.state.step += 1
         # one device-to-host fetch per step
         metrics = dict(zip(losses, torch.stack(list(losses.values())).tolist()))
@@ -175,3 +221,11 @@ class TrainerBase:
 
 class TrainerNoMeta(TrainerBase):
     """Base training: strong (box-labelled) and weak (image-labelled) streams."""
+
+
+class TrainerFineTune(TrainerBase):
+    """k-shot fine-tuning: the strong stream only (unit_tpu train.py:822-827)."""
+
+    def __init__(self, *args, **kwargs):
+        kwargs.setdefault("weak_iter", None)
+        super().__init__(*args, **kwargs)

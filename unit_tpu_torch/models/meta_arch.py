@@ -7,9 +7,12 @@ heads + OICR weak detector -> lingual/visual base->novel transfer -> softmax
 -> per-class NMS (K3).  Training (``train_losses``): one fused backbone + RPN
 pass over both streams, RPN losses, proposal sampling, ROIAlignV2 with its
 backward (K1 + K2), supervised Fast R-CNN losses on top of the frozen weak
-scores, MIL + OICR losses on the weak stream.  TTA, the weak-only path,
-masks, the meta stream, PCL, fine-tuning and the other training options
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+scores, MIL + OICR losses on the weak stream.  Fine-tuning
+(``*FineTune`` supervised heads, ``WeakDetectorOutputsFT``) adds the
+zero-initialised residual heads and applies the base->novel transfer in
+training too.  TTA, the weak-only path, masks, the meta stream, PCL and the
+other training options raise ``NotImplementedError`` naming the ROADMAP item
+that ports them.
 
 Precision mirrors ``TPU.COMPUTE_DTYPE``: backbone, RPN convs and Res5 run in
 the compute dtype; RPN outputs, box features and all predictor, transfer and
@@ -86,8 +89,9 @@ class ModelConfig:
     oicr_iter: int = 3
     weak_detector_type: str = "OICR"  # OICR | PCL
     rpn_self_training: bool = False
-    finetune: bool = False
-    weak_detector_finetune: bool = False
+    finetune: bool = False              # *_ft residual heads + train-time transfer
+    weak_finetune_detach: bool = False  # SupervisedDetectorOutputsWeakFineTune
+    weak_detector_finetune: bool = False  # WeakDetectorOutputsFT delta streams
     pixel_mean: Tuple[float, ...] = (103.53, 116.28, 123.675)
     pixel_std: Tuple[float, ...] = (1.0, 1.0, 1.0)
     normalize_images: bool = False
@@ -149,7 +153,8 @@ class ModelConfig:
             oicr_iter=wd.OICR_ITER,
             weak_detector_type=wd.TYPE,
             rpn_self_training=cfg.MODEL.META_ARCHITECTURE == "WeaklySupervisedRCNNRPN",
-            finetune="FineTune" in fast_name,
+            finetune="FineTune" in fast_name and "Weak" not in fast_name,
+            weak_finetune_detach=fast_name == "SupervisedDetectorOutputsWeakFineTune",
             weak_detector_finetune=wd.NAME == "WeakDetectorOutputsFT",
             pixel_mean=tuple(cfg.MODEL.PIXEL_MEAN),
             pixel_std=tuple(cfg.MODEL.PIXEL_STD),
@@ -186,8 +191,6 @@ def _check_supported(mc: ModelConfig) -> None:
         raise _not_ported("precomputed proposals", "ROADMAP Queue 1 item 25")
     if mc.meta_architecture == "WeakRCNN":
         raise _not_ported("the weak-only WeakRCNN", "ROADMAP Queue 1 item 20")
-    if mc.finetune or mc.weak_detector_finetune:
-        raise _not_ported("fine-tune heads", "ROADMAP Queue 1 item 19")
     if mc.regression_branch or mc.oicr_regression_branch or mc.oicr_iter < 1:
         raise _not_ported("weak regression branches and OICR_ITER 0",
                           "ROADMAP Queue 1 item 25")
@@ -224,10 +227,12 @@ class WSRCNN(nn.Module):
             self.weak_box_head = Res5(depth=mc.depth, res2_out_channels=mc.res2_out_channels,
                                       dtype=dt, generator=g)
         d = self.box_head.out_channels
-        self.supervised = SupervisedPredictor(d, mc.num_classes, generator=g)
+        self.supervised = SupervisedPredictor(d, mc.num_classes, finetune=mc.finetune,
+                                              generator=g)
         self.weak_detector = WeakDetectorPredictor(
             d, mc.num_classes, oicr_iter=mc.oicr_iter, detector_temp=mc.detector_temp,
-            classifier_temp=mc.classifier_temp, generator=g)
+            classifier_temp=mc.classifier_temp, finetune=mc.weak_detector_finetune,
+            novel_ids=mc.novel_ids, generator=g)
         emb = torch.empty(80, 300)
         with torch.no_grad():
             emb.normal_(0.0, 0.02, generator=g)
@@ -272,7 +277,7 @@ class WSRCNN(nn.Module):
     # ---------------------------------------------------------------- training
     def _check_trainable(self, train_only_weak, meta) -> None:
         """Training options beyond those _check_supported refuses at
-        construction (masks, precomputed proposals, fine-tuning)."""
+        construction (masks, precomputed proposals)."""
         mc = self.mc
         if train_only_weak:
             raise _not_ported("TRAIN_ONLY_WEAK training", "ROADMAP Queue 1 item 20")
@@ -362,9 +367,19 @@ class WSRCNN(nn.Module):
                 sup_weak_feats = (self.box_features(pooled, "weak") if mc.multi_box_head
                                   else box_feats)
                 weak_scores, weak_box_deltas = self.weak_detector.evaluation(sup_weak_feats)
-            scores = combine_cls_logits(sup["delta_scores"], weak_scores)
-            scores = frcnn.mask_novel_scores(scores, mc.novel_ids)
-            bbox = sup["proposal_deltas"] + weak_box_deltas
+            delta_scores, proposal_deltas = sup["delta_scores"], sup["proposal_deltas"]
+            if mc.finetune or mc.weak_finetune_detach:
+                # fine-tuning applies the transfer in training too, from the
+                # box head's features (unit_tpu meta_arch.py:556-568)
+                delta_scores, proposal_deltas = self._transfer(
+                    delta_scores, proposal_deltas, box_feats, detach=mc.weak_finetune_detach)
+            scores = combine_cls_logits(delta_scores, weak_scores)
+            bbox = proposal_deltas + weak_box_deltas
+            if mc.finetune:
+                scores = scores + sup["ft_scores"]
+                bbox = bbox + sup["ft_deltas"]
+            elif not mc.weak_finetune_detach:
+                scores = frcnn.mask_novel_scores(scores, mc.novel_ids)
             flat = SampledProposals(**{
                 f.name: getattr(sampled, f.name).flatten(0, 1)
                 for f in dataclasses.fields(SampledProposals)})
@@ -385,6 +400,7 @@ class WSRCNN(nn.Module):
 
     # ---------------------------------------------------------------- not ported
     def predict_tta(self, *args, **kwargs):
+        # with it goes its fine-tune branch (unit_tpu meta_arch.py:999-1001)
         raise _not_ported("test-time augmentation", "ROADMAP Queue 1 item 24")
 
     def predict_weak_only(self, *args, **kwargs):
@@ -392,8 +408,10 @@ class WSRCNN(nn.Module):
 
     # ---------------------------------------------------------------- inference
     def inference_similarity(self, box_feats: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """Similarity matrices for the base->novel transfer."""
-        weak_eval_scores, _ = self.weak_detector.evaluation(box_feats)
+        """Similarity matrices for the base->novel transfer; the weak scores
+        they read carry no gradient (unit_tpu stops it)."""
+        with torch.no_grad():
+            weak_eval_scores, _ = self.weak_detector.evaluation(box_feats)
         needs_weights = any(
             t.split("-")[0] in ("TopK", "WTopK", "LSDA")
             for _, ts in self.mc.sim.terms for t in ts
@@ -404,6 +422,15 @@ class WSRCNN(nn.Module):
             weak_eval_scores=weak_eval_scores,
             oicr_weight_mean=self.oicr_weight_mean() if needs_weights else None,
         )
+
+    def _transfer(self, delta_scores, proposal_deltas, box_feats, detach: bool = False):
+        """The base->novel transfer of the supervised scores and deltas."""
+        mc = self.mc
+        sims = self.inference_similarity(box_feats)
+        return (transfer_scores(delta_scores, sims["cls"], mc.base_ids, mc.novel_ids,
+                                detach=detach),
+                transfer_deltas(proposal_deltas, sims["bbox"], mc.base_ids, mc.novel_ids,
+                                mc.num_classes, detach=detach))
 
     def predict_raw(self, images: torch.Tensor, image_sizes: torch.Tensor):
         """Everything of :meth:`predict` before the final NMS:
@@ -426,13 +453,13 @@ class WSRCNN(nn.Module):
         delta_scores = sup["delta_scores"]
         proposal_deltas = sup["proposal_deltas"]
         if len(mc.novel_ids):
-            sims = self.inference_similarity(box_feats)
-            delta_scores = transfer_scores(delta_scores, sims["cls"], mc.base_ids,
-                                           mc.novel_ids)
-            proposal_deltas = transfer_deltas(proposal_deltas, sims["bbox"], mc.base_ids,
-                                              mc.novel_ids, mc.num_classes)
+            delta_scores, proposal_deltas = self._transfer(delta_scores, proposal_deltas,
+                                                           box_feats)
         scores = combine_cls_logits(delta_scores, weak_scores)
         bbox = proposal_deltas + weak_box_deltas
+        if mc.finetune:
+            scores = scores + sup["ft_scores"]
+            bbox = bbox + sup["ft_deltas"]
         probs = torch.softmax(scores, dim=-1).reshape(b, p, -1)
         return probs, bbox.reshape(b, p, -1), proposals, feats
 

@@ -1,11 +1,14 @@
 """Box predictors (weak detector streams, supervised delta heads) and the
 base -> novel transfer.
 
-Port of unit_tpu/models/predictors.py for the base-training and inference
-paths of the shipped configs.  The heads are f32 ``nn.Linear`` layers named
-after the flax parameters; the transfer math is plain functions on tensors.
-The fine-tune (``*_ft`` / delta stream) variants belong to ROADMAP Queue 1
-item 19, the weak regression branches (set by no shipped config) to item 25.
+Port of unit_tpu/models/predictors.py for the base-training, fine-tuning
+and inference paths of the shipped configs.  The heads are f32 ``nn.Linear``
+layers named after the flax parameters; the transfer math is plain functions
+on tensors.  The fine-tune variants add zero-initialised heads (``*_ft`` on
+the supervised branch, ``*_delta`` streams on the weak detector), which draw
+nothing from the generator, so a base model's seeded weights are the same
+with or without them.  The weak regression branches (set by no shipped
+config) belong to ROADMAP Queue 1 item 25.
 """
 
 from __future__ import annotations
@@ -35,56 +38,96 @@ class WeakDetectorPredictor(nn.Module):
 
     ``forward`` gives the training streams (raw logits; the losses are in
     models/weak_losses.py), ``evaluation`` the inference scores, which read
-    only the OICR heads.
+    only the OICR heads.  With ``finetune`` (WeakDetectorOutputsFT) every
+    stream is its base head with the ``novel_ids`` columns zeroed plus a
+    zero-initialised ``*_delta`` head (unit_tpu predictors.py:77-108).
     """
 
     def __init__(self, in_features: int, num_classes: int, oicr_iter: int = 3,
                  detector_temp: float = 1.0, classifier_temp: float = 1.0,
-                 box_dim: int = 4, generator: Optional[torch.Generator] = None):
+                 box_dim: int = 4, finetune: bool = False, novel_ids: Sequence[int] = (),
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         c = num_classes
         self.num_classes, self.box_dim, self.oicr_iter = c, box_dim, oicr_iter
         self.detector_temp, self.classifier_temp = detector_temp, classifier_temp
+        self.finetune, self.novel_ids = finetune, tuple(novel_ids)
         self.classifier_stream = _dense(in_features, c, 0.01, generator)
         self.detection_stream = _dense(in_features, c, 0.01, generator)
         for i in range(oicr_iter):
             self.add_module(f"oicr_predictor_{i}",
                             _dense(in_features, c + 1, 0.01, generator))
+        if finetune:
+            self.classifier_stream_delta = _dense(in_features, c, None, generator)
+            self.detection_stream_delta = _dense(in_features, c, None, generator)
+            for i in range(oicr_iter):
+                self.add_module(f"oicr_predictor_delta_{i}",
+                                _dense(in_features, c + 1, None, generator))
 
     def oicr_predictors(self) -> List[nn.Linear]:
         return [getattr(self, f"oicr_predictor_{i}") for i in range(self.oicr_iter)]
 
+    def _mask_novel(self, x: torch.Tensor) -> torch.Tensor:
+        """x with its novel-class columns multiplied by zero (unit_tpu's mask)."""
+        if not self.novel_ids:
+            return x
+        mask = torch.ones(x.shape[-1], device=x.device)
+        mask[list(self.novel_ids)] = 0.0
+        return x * mask
+
+    def _oicr_logits(self, x: torch.Tensor) -> List[torch.Tensor]:
+        outs = []
+        for i, m in enumerate(self.oicr_predictors()):
+            o = m(x)
+            if self.finetune:
+                o = self._mask_novel(o) + getattr(self, f"oicr_predictor_delta_{i}")(x)
+            outs.append(o)
+        return outs
+
     def forward(self, x: torch.Tensor) -> Dict[str, object]:
         """Training streams: MIL classifier and detection logits divided by
         their temperatures [N, C], and the OICR logits [N, C+1] per iteration."""
-        return {
-            "classifier_stream": self.classifier_stream(x) / self.classifier_temp,
-            "detection_stream": self.detection_stream(x) / self.detector_temp,
-            "oicr_scores": [m(x) for m in self.oicr_predictors()],
-        }
+        cls = self.classifier_stream(x) / self.classifier_temp
+        det = self.detection_stream(x) / self.detector_temp
+        if self.finetune:
+            cls = self.classifier_stream_delta(x) / self.classifier_temp + self._mask_novel(cls)
+            det = self.detection_stream_delta(x) / self.detector_temp + self._mask_novel(det)
+        return {"classifier_stream": cls, "detection_stream": det,
+                "oicr_scores": self._oicr_logits(x)}
 
     def evaluation(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Inference-time weak scores: (OICR logits stacked over iterations
         [K, N, C+1], bbox deltas [N, C*4], zero without a regression branch)."""
-        cls = torch.stack([m(x) for m in self.oicr_predictors()])
+        cls = torch.stack(self._oicr_logits(x))
         return cls, x.new_zeros((x.shape[0], self.num_classes * self.box_dim))
 
 
 class SupervisedPredictor(nn.Module):
-    """Zero-initialised delta heads of the supervised branch."""
+    """Zero-initialised delta heads of the supervised branch; with
+    ``finetune`` (SupervisedDetectorOutputsFineTune) also the zero-initialised
+    ``cls_score_ft`` / ``bbox_pred_ft`` residuals, whose outputs the model adds
+    after the transfer."""
 
     def __init__(self, in_features: int, num_classes: int, box_dim: int = 4,
-                 generator: Optional[torch.Generator] = None):
+                 finetune: bool = False, generator: Optional[torch.Generator] = None):
         super().__init__()
         c = num_classes
+        self.finetune = finetune
         self.cls_score_delta = _dense(in_features, c + 1, None, generator)
         self.bbox_pred_delta = _dense(in_features, c * box_dim, 0.001, generator)
+        if finetune:
+            self.cls_score_ft = _dense(in_features, c + 1, None, generator)
+            self.bbox_pred_ft = _dense(in_features, c * box_dim, None, generator)
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        return {
+        out = {
             "delta_scores": self.cls_score_delta(x),
             "proposal_deltas": self.bbox_pred_delta(x),
         }
+        if self.finetune:
+            out["ft_scores"] = self.cls_score_ft(x)
+            out["ft_deltas"] = self.bbox_pred_ft(x)
+        return out
 
 
 def _ids(ids: Sequence[int], device) -> torch.Tensor:
@@ -96,13 +139,17 @@ def transfer_scores(
     similarity_cls: torch.Tensor,  # [V, B] or [N, V, B]
     base_ids: Sequence[int],
     novel_ids: Sequence[int],
+    detach: bool = False,
 ) -> torch.Tensor:
-    """Novel score columns get the similarity-weighted base columns added."""
+    """Novel score columns get the similarity-weighted base columns added;
+    ``detach`` stops the gradient of that term (WeakFineTune)."""
     base = delta_scores[:, _ids(base_ids, delta_scores.device)]
     if similarity_cls.dim() > 2:
         tr = torch.einsum("nvb,nb->nv", similarity_cls, base)
     else:
         tr = base @ similarity_cls.T
+    if detach:
+        tr = tr.detach()
     out = delta_scores.clone()
     out[:, _ids(novel_ids, delta_scores.device)] += tr
     return out
@@ -115,9 +162,11 @@ def transfer_deltas(
     novel_ids: Sequence[int],
     num_classes: int,
     box_dim: int = 4,
+    detach: bool = False,
 ) -> torch.Tensor:
     """Novel box deltas are replaced by the similarity combination of base
-    deltas; base deltas are kept; every other class gets zeros."""
+    deltas; base deltas are kept; every other class gets zeros.  ``detach``
+    stops the gradient of the combination (WeakFineTune)."""
     n = proposal_deltas.shape[0]
     d4 = proposal_deltas.reshape(n, num_classes, box_dim)
     base_idx = _ids(base_ids, d4.device)
@@ -126,6 +175,8 @@ def transfer_deltas(
         tr = torch.einsum("nvb,nbd->nvd", similarity_bbox, base)
     else:
         tr = torch.einsum("vb,nbd->nvd", similarity_bbox, base)
+    if detach:
+        tr = tr.detach()
     out = torch.zeros_like(d4)
     out[:, _ids(novel_ids, d4.device)] = tr
     out[:, base_idx] = base

@@ -61,6 +61,19 @@ Phases (any failure raises and the script exits non-zero):
      8 timed steps with launch counts (K1 x1, K3 x1 for 8 images, K4 forward
      only) and one profiled step; the f32 fine-tune path with the kernels vs
      the plain versions
+ 12  COCO detection and instance segmentation: the R-50-C4 segm recipe at
+     full width (80 classes, the mask head): 4 served requests (K1 x2 with
+     the mask path's pass over the final detections, K3 x2, K4 x63 each), K1
+     against its plain version at the mask path's own input, one profiled
+     request; the f32 predict with masks, kernels vs plain; 2 + 6 timed
+     train steps with gt_masks (K1 2, K2 2, K3 1, K4 63 + 52) and one
+     profiled; the f32 train path (loss_mask included) kernels vs plain;
+     engine.runner.run on a shapes-COCO devkit (JPEGs and polygons from
+     scripts/make_shapes_coco_torch.py): the segm recipe 4 steps with
+     checkpoints and evaluations every 2 (bbox and segm AP), the segm-ft
+     recipe from its best/model 4 steps (frozen tensors and the absent
+     weak_box_head bit-identical, K2 0, K4 backward > 0), 1 + 3 timed
+     fine-tune steps (K1 1, K3 1 for 8 images, K4 63 + 10) and one profiled
 The last three lines are the card (nvidia-smi), one JSON object describing
 the kernels (launches counted on the run loop of phase 10, and per path under
 launches_by_path), and {"ok": true, "device": {...}}.  Without a CUDA device, or without the
@@ -142,7 +155,10 @@ F32_FLOPS = 67e12
 K4_MAX_ABS_ERR = 0.0
 # K4 shapes [N, H, W, C], (residual, relu): the stem, res2's and res4's conv3
 # epilogue at one served image, a shortcut, res4 at a train step's 4 images,
-# Res5 over 1024 ROIs, and two narrow ones (C = 4 and 130 take the scalar path).
+# Res5 over 1024 ROIs, over a request's 100 final detections (the mask path)
+# and over a fine-tune step's 4096 ROIs (backward in the COCO segm-ft step),
+# and two narrow ones (C = 4 and 130 take the scalar path).  R-50 and R-101
+# share every per-layer shape; they differ in how many layers have it.
 K4_SHAPES = (
     ((1, 400, 672, 64), (False, True)),
     ((1, 50, 84, 256), (True, True)),
@@ -150,6 +166,8 @@ K4_SHAPES = (
     ((1, 50, 84, 1024), (False, False)),
     ((4, 50, 84, 1024), (True, True)),
     ((1024, 7, 7, 2048), (True, True)),
+    ((100, 7, 7, 2048), (True, True)),
+    ((4096, 7, 7, 2048), (True, True)),
     ((3, 5, 7, 4), (True, True)),
     ((2, 9, 11, 130), (True, True)),
 )
@@ -179,6 +197,24 @@ FOLD_F32_REL = 1e-3
 FOLD_BF16_FACTOR = 2.0
 # Fine-tuning (phase 11): the recipe's batch of 8 strong images a step.
 FT_IMAGES = 8
+# COCO segm (phase 12): the R-50-C4 segm recipe and its fine-tune twin, with
+# the mask head; served requests, timed steps, and the run loop on a
+# shapes-COCO devkit (scripts/make_shapes_coco_torch.py: JPEGs and polygons).
+COCO_SEGM = ROOT / "configs" / "COCO" / "COCO-RCNN-50-C4-split1-segm.yaml"
+COCO_SEGM_FT = ROOT / "configs" / "COCO" / "COCO-RCNN-50-C4-split1-segm-ft.yaml"
+COCO_REQUESTS = 4
+COCO_TRAIN_STEPS = 6
+COCO_FT_STEPS = 3
+COCO_RUN_STEPS = 4
+COCO_RUN_PERIOD = 2
+COCO_TRAIN_IMAGES, COCO_VAL_IMAGES, COCO_IMAGE_SIZE = 8, 4, 320
+# The f32 serving path with masks, kernels vs plain versions: classes and
+# valid flags identical; the final boxes are decoded from deltas that differ
+# by E2E_BBOX_RTOL, so they agree to 0.05 px (tests/test_torch_slice.py's
+# bound); scores and mask probabilities are bounded by 1 and agree as the
+# probabilities of phase 5 do.
+MASK_BOX_ATOL = 0.05
+MASK_PROBS_ATOL = 1e-4
 
 
 def log(*parts):
@@ -319,75 +355,83 @@ def flagship_rois(rng, n, h_img=800, w_img=1344):
     return rois.astype(np.float32)
 
 
+def k1_check(feat, rois, label, tag="[2]"):
+    """K1 vs its plain version in f32 (the algorithm) and in bf16 (the
+    working type, in ulps of the output); two launches bit-identical.
+    Returns the bf16 max|diff|."""
+    import torch
+
+    from unit_tpu_torch.ops import roi_align as ra
+
+    f32 = feat.float()
+    got = ra.roi_align_batched(f32, rois, impl="cuda")
+    want = ra.roi_align_batched(f32, rois, impl="plain")
+    torch.cuda.synchronize()
+    err32 = float((got - want).abs().max())
+    del got, want, f32
+    got16 = ra.roi_align_batched(feat, rois, impl="cuda")
+    same = torch.equal(got16, ra.roi_align_batched(feat, rois, impl="cuda"))
+    got16 = got16.float()
+    want16 = ra.roi_align_batched(feat, rois, impl="plain").float()
+    diff = (got16 - want16).abs()
+    ulp = torch.maximum(got16.abs(), want16.abs()) * 2.0 ** -7
+    ulps = float(((diff - K1_F32_ATOL).clamp_min(0.0) / ulp.clamp_min(1e-30)).max())
+    err16 = float(diff.max())
+    log(f"{tag} K1 {label}: f32 max|diff| {err32:.3g} (tol {K1_F32_ATOL}), bf16 max|diff| "
+        f"{err16:.3g} = {ulps:.2f} ulp beyond the f32 tol (tol {K1_BF16_ULPS} ulp), two "
+        f"launches bit-identical {same}")
+    if not np.isfinite(err32) or err32 > K1_F32_ATOL:
+        raise AssertionError(f"K1 f32 disagrees with its plain version ({label}): {err32}")
+    if not np.isfinite(ulps) or ulps > K1_BF16_ULPS:
+        raise AssertionError(f"K1 bf16 disagrees with its plain version ({label}): "
+                             f"{ulps} ulp")
+    if not same:
+        raise AssertionError(f"two launches of K1 differ ({label})")
+    return err16
+
+
+def k1_timed(feat, rois, label, tag="[2]"):
+    """K1's kernel, plain and bound ms; the wrapper's host time a call."""
+    from unit_tpu_torch.ops import roi_align as ra
+    from unit_tpu_torch.ops.roi_align_cuda import roi_align_cuda
+
+    k_ms = cuda_ms(lambda: roi_align_cuda(feat, rois), 20)
+    q_ms, host_ms = cuda_ms_queued(lambda: roi_align_cuda(feat, rois), 20)
+    p_ms = cuda_ms(lambda: ra.roi_align_batched(feat, rois, impl="plain"), 3)
+    out_elems = rois.shape[0] * rois.shape[1] * 14 * 14 * feat.shape[-1]
+    least = bound(nbytes(feat, rois) + out_elems * feat.element_size(),
+                  out_elems * ROI_ALIGN_FLOPS)
+    log(f"{tag} K1 {label}: kernel {k_ms:.4f} ms ({q_ms:.4f} queued), plain {p_ms:.4f} ms "
+        f"(median, CUDA events); wrapper host {1e3 * host_ms:.1f} us a call; bound "
+        f"{least['bound_ms']:.4f} ms by {least['bound_by']}")
+    return k_ms, p_ms, least
+
+
 def phase_k1(rng):
     import torch
 
     from unit_tpu_torch.ops import roi_align as ra
-    from unit_tpu_torch.ops.roi_align_cuda import roi_align_cuda
 
     dev = torch.device("cuda")
-
-    def check(feat, rois, label):
-        """Kernel vs plain version in f32 (the algorithm) and in bf16 (the
-        working type, in ulps of the output); two launches bit-identical."""
-        f32 = feat.float()
-        got = ra.roi_align_batched(f32, rois, impl="cuda")
-        want = ra.roi_align_batched(f32, rois, impl="plain")
-        torch.cuda.synchronize()
-        err32 = float((got - want).abs().max())
-        del got, want, f32
-        got16 = ra.roi_align_batched(feat, rois, impl="cuda")
-        same = torch.equal(got16, ra.roi_align_batched(feat, rois, impl="cuda"))
-        got16 = got16.float()
-        want16 = ra.roi_align_batched(feat, rois, impl="plain").float()
-        diff = (got16 - want16).abs()
-        ulp = torch.maximum(got16.abs(), want16.abs()) * 2.0 ** -7
-        ulps = float(((diff - K1_F32_ATOL).clamp_min(0.0) / ulp.clamp_min(1e-30)).max())
-        err16 = float(diff.max())
-        log(f"[2] K1 {label}: f32 max|diff| {err32:.3g} (tol {K1_F32_ATOL}), bf16 max|diff| "
-            f"{err16:.3g} = {ulps:.2f} ulp beyond the f32 tol (tol {K1_BF16_ULPS} ulp), two "
-            f"launches bit-identical {same}")
-        if not np.isfinite(err32) or err32 > K1_F32_ATOL:
-            raise AssertionError(f"K1 f32 disagrees with its plain version ({label}): {err32}")
-        if not np.isfinite(ulps) or ulps > K1_BF16_ULPS:
-            raise AssertionError(f"K1 bf16 disagrees with its plain version ({label}): "
-                                 f"{ulps} ulp")
-        if not same:
-            raise AssertionError(f"two launches of K1 differ ({label})")
-        return err16
-
-    def timed(feat, rois, label):
-        """Kernel, plain and bound ms; the wrapper's host time a call."""
-        k_ms = cuda_ms(lambda: roi_align_cuda(feat, rois), 20)
-        q_ms, host_ms = cuda_ms_queued(lambda: roi_align_cuda(feat, rois), 20)
-        p_ms = cuda_ms(lambda: ra.roi_align_batched(feat, rois, impl="plain"), 3)
-        out_elems = rois.shape[0] * rois.shape[1] * 14 * 14 * feat.shape[-1]
-        least = bound(nbytes(feat, rois) + out_elems * feat.element_size(),
-                      out_elems * ROI_ALIGN_FLOPS)
-        log(f"[2] K1 {label}: kernel {k_ms:.4f} ms ({q_ms:.4f} queued), plain {p_ms:.4f} ms "
-            f"(median, CUDA events); wrapper host {1e3 * host_ms:.1f} us a call; bound "
-            f"{least['bound_ms']:.4f} ms by {least['bound_by']}")
-        return k_ms, p_ms, least
-
     worst, times = 0.0, {}
     for b in (1, 2):
         feat = torch.as_tensor(rng.randn(b, 50, 84, 1024).astype(np.float32), device=dev)
         feat = feat.to(torch.bfloat16)
         rois = torch.as_tensor(np.stack([flagship_rois(rng, 1000) for _ in range(b)]), device=dev)
-        worst = max(worst, check(feat, rois, f"[{b},50,84,1024] x 1000 ROIs"))
-        times[b] = timed(feat, rois, f"B={b} x 1000 bf16")
+        worst = max(worst, k1_check(feat, rois, f"[{b},50,84,1024] x 1000 ROIs"))
+        times[b] = k1_timed(feat, rois, f"B={b} x 1000 bf16")
     # the train step's shape, [2,50,84,1024] x 512, in the layouts of phase 6
     for name, make in (("piled", piled_rois), ("one band", one_band_rois)):
         rois = torch.as_tensor(np.stack([make(rng, 512) for _ in range(2)]), device=dev)
-        worst = max(worst, check(feat, rois, f"[2,50,84,1024] x 512 {name} ROIs"))
-        timed(feat, rois, f"B=2 x 512 bf16 {name} ROIs")
+        worst = max(worst, k1_check(feat, rois, f"[2,50,84,1024] x 512 {name} ROIs"))
+        k1_timed(feat, rois, f"B=2 x 512 bf16 {name} ROIs")
     # a fine-tune step's shape (phase 11): 8 images, an f32 output of 3.3 GB
     local = np.random.RandomState(80)  # leaves rng, and K3's inputs, as they were
     feat = torch.as_tensor(local.randn(8, 50, 84, 1024).astype(np.float32), device=dev)
     feat = feat.to(torch.bfloat16)
     rois = torch.as_tensor(np.stack([piled_rois(local, 512) for _ in range(8)]), device=dev)
-    worst = max(worst, check(feat, rois, "[8,50,84,1024] x 512 piled ROIs"))
-    timed(feat, rois, "B=8 x 512 bf16 piled ROIs")
+    worst = max(worst, k1_check(feat, rois, "[8,50,84,1024] x 512 piled ROIs"))
+    k1_timed(feat, rois, "B=8 x 512 bf16 piled ROIs")
     del feat
     # tiny shapes: odd sizes, H = 1 and W = 1 maps; C = 6 and 130 take the
     # channel-pair path
@@ -976,7 +1020,9 @@ def synthetic_train_batches(cfg, seed, n_batches=4, per_stream=2, max_gt=5):
 
     Random BGR content fills the content size, zero padding the rest; strong
     images carry 1..max_gt base-class boxes (padded to TPU.MAX_GT_BOXES),
-    weak images a multi-hot label over all classes."""
+    weak images a multi-hot label over all classes.  Under MODEL.MASK_ON
+    the strong images also carry each box's 28 x 28 mask in its frame (an
+    ellipse), drawn after everything else."""
     rng = np.random.RandomState(seed + 7)
     base = np.asarray(cfg.DATASETS.FEWSHOT.BASE_CLASSES_ID)
     n_cls = cfg.MODEL.ROI_HEADS.NUM_CLASSES
@@ -1008,6 +1054,13 @@ def synthetic_train_batches(cfg, seed, n_batches=4, per_stream=2, max_gt=5):
         strong.append(dict(image=images(), gt_boxes=boxes, gt_classes=classes,
                            gt_valid=valid, image_size=sizes))
         weak.append(dict(image=images(), labels=labels, image_size=sizes))
+    if cfg.MODEL.MASK_ON:
+        yy, xx = (np.mgrid[:28, :28] + 0.5) / 28.0
+        for batch in strong:
+            c = rng.uniform(0.35, 0.65, (2, per_stream, g_cap, 1, 1))
+            r = rng.uniform(0.25, 0.5, (2, per_stream, g_cap, 1, 1))
+            inside = ((yy - c[0]) / r[0]) ** 2 + ((xx - c[1]) / r[1]) ** 2 < 1
+            batch["gt_masks"] = (inside & batch["gt_valid"][..., None, None]).astype(np.float32)
     return strong, weak
 
 
@@ -1195,6 +1248,8 @@ def train_path_kernels_vs_plain(model, strong, weak, seed, tag):
     if not (same and set(gk) == set(gp) and loss_rel <= TRAIN_LOSS_RTOL
             and max(over.values()) <= 1.0):
         raise AssertionError("the train path with kernels disagrees with the plain path")
+    if "gt_masks" in strong and not np.isfinite(lk.get("loss_mask", np.nan)):
+        raise AssertionError(f"the train path with masks has no finite loss_mask: {lk}")
     return launches
 
 
@@ -1724,6 +1779,390 @@ def phase_finetune(cfg, seed, workdir):
     return launches
 
 
+def phase_coco_segm(seed, workdir):
+    """Phase 12: COCO detection and instance segmentation on the card, the
+    R-50-C4 segm recipe at full width and depth (80 classes, the mask head,
+    seeded weights, calibrated FrozenBN, GloVe, bf16).  (a) served requests;
+    (b) the f32 serving path with masks, kernels vs plain versions, and K1 at
+    the mask path's own input; (c) timed train steps with gt_masks, one
+    profiled, and the f32 train path kernels vs plain; (d) engine.runner.run
+    on a shapes-COCO devkit: the segm recipe, then the segm-ft recipe from
+    its best/model, and timed fine-tune steps.  Returns ({path: launch
+    counts}, K1's mask-path numbers)."""
+    import runpy
+
+    import torch
+
+    from unit_tpu_torch.checkpoint import Checkpointer, read_checkpoint
+    from unit_tpu_torch.config import get_cfg
+    from unit_tpu_torch.data import DatasetCatalog
+    from unit_tpu_torch.data.transforms import TransformConfig, prepare_test_image
+    from unit_tpu_torch.engine import runner
+    from unit_tpu_torch.engine.train import TrainerFineTune, TrainerNoMeta, TrainState
+    from unit_tpu_torch.models import WSRCNN, ModelConfig
+    from unit_tpu_torch.models.resnet import set_bn_act_impl
+    from unit_tpu_torch.models.similarity import COCO_CLASSES
+    from unit_tpu_torch.serving import DetectionService
+    from unit_tpu_torch.solver import build_optimizer
+
+    dev = torch.device(RUN_DEVICE)
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def peak_mib():
+        return torch.cuda.max_memory_allocated() / 2**20 if on_card else 0.0
+
+    def reset_peak():
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+
+    cfg = get_cfg()
+    cfg.merge_from_file(str(COCO_SEGM))
+    cfg.merge_from_list(list(RUN_EXTRA_OPTS))
+    by_path = {}
+
+    # (a) served requests
+    t0 = time.perf_counter()
+    model = flagship_model(cfg, seed, dev)
+    mc = model.mc
+    log(f"[12] {COCO_SEGM.relative_to(ROOT)}: R-{mc.depth}-C4 built in "
+        f"{time.perf_counter() - t0:.1f} s: {sum(p.numel() for p in model.parameters()) / 1e6:.1f}"
+        f" M params, {mc.num_classes} classes ({len(mc.novel_ids)} novel), mask head "
+        f"{type(model.mask_head).__name__} (delta {mc.mask_head_finetune}), compute "
+        f"{mc.compute_dtype}, multi_box_head {mc.multi_box_head}, transfer {mc.sim.terms}")
+    svc = DetectionService(cfg, model, class_names=COCO_CLASSES)
+    t0 = time.perf_counter()
+    svc.warmup()
+    sync()
+    log(f"[12] warm-up, one request per orientation: {time.perf_counter() - t0:.2f} s")
+    rng = np.random.RandomState(seed + 12)
+    shapes = [(480, 640), (640, 480)]
+    images = [rng.uniform(0, 255, shapes[i % 2] + (3,)).astype(np.float32)
+              for i in range(COCO_REQUESTS)]
+    reset_peak()
+    reset_launch_counts()
+    lat, results = [], []
+    for img in images:
+        t0 = time.perf_counter()
+        results.append(svc.detect_array(img))  # ends in a device-to-host copy
+        lat.append((time.perf_counter() - t0) * 1e3)
+    launches = read_launch_counts()
+    log(f"[12] {COCO_REQUESTS} requests, latency ms {[round(v, 2) for v in lat]}, median "
+        f"{np.median(lat):.2f}, peak device memory {peak_mib():.1f} MiB; detections per "
+        f"request {[len(r) for r in results]}")
+    n_backbone, n_res5, n_trainable = frozen_bn_counts(model)
+    # the backbone, the box head (and the weak one) over the proposals, and
+    # Res5 again over the final detections for the mask head
+    k4 = n_backbone + (2 if mc.multi_box_head else 1) * n_res5 + n_res5
+    log(f"[12] launches during the requests: {launches}; FrozenBN modules: backbone "
+        f"{n_backbone}, one Res5 {n_res5} -> {k4} K4 launches a request")
+    want = {"roi_align_fwd": 2 * COCO_REQUESTS, "roi_align_bwd": 0,
+            "nms_mask": 2 * COCO_REQUESTS, "nms_mask_images": 2 * COCO_REQUESTS,
+            "bn_act_fwd": k4 * COCO_REQUESTS, "bn_act_bwd": 0, "bn_act_layout_copies": 0}
+    if launches != want:
+        raise AssertionError(f"a segm request did not run K1 x2 (proposals, final boxes), K3 "
+                             f"x2 and K4 x{k4}: {launches}")
+    by_path["coco_segm"] = launches
+    for img, dets in zip(images, results):
+        h, w = img.shape[:2]
+        for d in dets:
+            x1, y1, x2, y2 = d["box"]
+            if not (np.isfinite(d["box"]).all() and 0 <= x1 <= x2 <= w and 0 <= y1 <= y2 <= h
+                    and 0 < d["score"] <= 1 and 0 <= d["class_id"] < mc.num_classes):
+                raise AssertionError(f"a detection outside the image or range: {d}")
+    # K1 at the mask path's own input: the res4 map of one request and its
+    # final boxes, the padded rows of invalid detections among them
+    s = prepare_test_image(images[0], svc.tcfg)
+    img = torch.as_tensor(s["image"][None], device=dev)
+    size = torch.as_tensor(s["image_size"][None], device=dev)
+    with torch.inference_mode():
+        feats = model.predict_raw(img, size)[3]
+        dets = model.predict(img, size)
+    n_valid = int(dets.valid.sum())
+    masks_ok = bool(torch.isfinite(dets.masks).all() and dets.masks.min() >= 0
+                    and dets.masks.max() <= 1)
+    log(f"[12] one request's masks {tuple(dets.masks.shape)} {dets.masks.dtype}, in [0, 1] and "
+        f"finite {masks_ok}; {n_valid} valid detections of {dets.boxes.shape[1]}")
+    if not masks_ok:
+        raise AssertionError("mask probabilities out of range")
+    k1_mask = {}
+    if on_card:
+        boxes = dets.boxes.float()
+        label = (f"mask path {list(feats.shape)} x {boxes.shape[1]} final boxes "
+                 f"({n_valid} valid)")
+        err = k1_check(feats, boxes, label, tag="[12]")
+        k_ms, p_ms, least = k1_timed(feats, boxes, label, tag="[12]")
+        # the rows of invalid detections hold whatever box their slot points
+        # at; all-zero rows as well, whether or not this request had any
+        padded = boxes.clone()
+        padded[:, boxes.shape[1] // 2:] = 0.0
+        err = max(err, k1_check(feats, padded, f"mask path, the last {boxes.shape[1] // 2} "
+                                f"rows zero boxes", tag="[12]"))
+        k1_mask = {"mask_path_ms": k_ms, "mask_path_plain_ms": p_ms,
+                   "mask_path_bound_ms": least["bound_ms"], "mask_path_max_abs_err": err}
+    profile_run(lambda: svc.detect_array(images[0]), "[12]", "segm request")
+    ckpt_model = model
+    del svc, feats, dets
+
+    # (b) the f32 serving path with masks, kernels vs plain versions
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg32 = cfg.clone()
+    cfg32.TPU.COMPUTE_DTYPE = "float32"
+    # random heads spread their probability over 81 classes and few scores
+    # pass the recipe's 0.05: compare the detections above 0.01 instead
+    cfg32.MODEL.ROI_HEADS.SCORE_THRESH_TEST = 0.01
+    model32 = flagship_model(cfg32, seed, dev)
+    s = prepare_test_image(images[1], TransformConfig.test_from_cfg(cfg32))
+    img = torch.as_tensor(s["image"][None], device=dev)
+    size = torch.as_tensor(s["image_size"][None], device=dev)
+    outs = {}
+    for impl in ("cuda", "plain"):
+        model32.mc = dataclasses.replace(model32.mc, roi_align_impl=impl, nms_impl=impl)
+        set_bn_act_impl(model32, impl)
+        with torch.inference_mode():
+            outs[impl] = model32.predict(img, size)
+    set_bn_act_impl(model32, "cuda")
+    dk, dp = outs["cuda"], outs["plain"]
+    same = torch.equal(dk.classes, dp.classes) and torch.equal(dk.valid, dp.valid)
+    dbox = float((dk.boxes - dp.boxes).abs().max())
+    dscore = float((dk.scores - dp.scores).abs().max())
+    dmask = float((dk.masks - dp.masks).abs().max())
+    log(f"[12] f32, TF32 off, predict with masks: classes and valid identical {same} "
+        f"({int(dk.valid.sum())} valid); boxes max|diff| {dbox:.3g} px (tol {MASK_BOX_ATOL}), "
+        f"scores {dscore:.3g}, mask probabilities {dmask:.3g} (tol {MASK_PROBS_ATOL})")
+    if not (same and int(dk.valid.sum()) > 0 and dbox <= MASK_BOX_ATOL
+            and dscore <= MASK_PROBS_ATOL and dmask <= MASK_PROBS_ATOL):
+        raise AssertionError("the segm serving path with kernels disagrees with the plain path")
+    del model32, outs, dk, dp
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+
+    # (c) train steps with gt_masks: 2 strong + 2 weak images, clipped as phase 7
+    cfg_t = cfg.clone()
+    cfg_t.SOLVER.CLIP_GRADIENTS.ENABLED = True
+    cfg_t.SOLVER.CLIP_GRADIENTS.CLIP_TYPE = "norm"
+    model = flagship_model(cfg_t, seed, dev)
+    solver = build_optimizer(cfg_t, model)
+    strong, weak = synthetic_train_batches(cfg_t, seed + 12)
+    trainer = TrainerNoMeta(model, solver, itertools.cycle(strong), itertools.cycle(weak),
+                            seed=seed)
+    trainer.init_state()
+    n_backbone, n_res5, n_trainable = frozen_bn_counts(model)  # after the freezes
+
+    def step(tr, label):
+        t = time.perf_counter()
+        m = tr.run_step()  # ends in one device-to-host copy of the losses
+        ms = (time.perf_counter() - t) * 1e3
+        log(f"[12] step {tr.state.step} ({label}) {ms:.1f} ms: "
+            + ", ".join(f"{k} {v:.4g}" for k, v in m.items() if k != "data_time"))
+        return ms
+
+    for _ in range(TRAIN_WARMUP):
+        step(trainer, "warm-up")
+    sync()
+    reset_peak()
+    reset_launch_counts()
+    times = [step(trainer, "timed") for _ in range(COCO_TRAIN_STEPS)]
+    launches = read_launch_counts()
+    med = float(np.median(times))
+    imgs = 2 * strong[0]["image"].shape[0]
+    log(f"[12] {COCO_TRAIN_STEPS} timed segm train steps: median {med:.2f} ms (min "
+        f"{min(times):.2f}, max {max(times):.2f}), {1e3 * imgs / med:.2f} images/s ({imgs} "
+        f"per step), peak device memory {peak_mib():.1f} MiB")
+    # K4 forward: the fused backbone pass, Res5 over the strong ROIs (its map
+    # feeds the mask head and, averaged, the predictors) and over the weak
+    # ROIs; backward: the trainable backbone and both Res5 passes
+    k4_fwd = n_backbone + (2 if mc.multi_box_head else 1) * n_res5 + n_res5
+    k4_bwd = n_trainable + 2 * n_res5
+    per_step = {k: v / COCO_TRAIN_STEPS for k, v in launches.items()}
+    log(f"[12] launches a step: {per_step} (want K1 2, K2 2, K3 1 for 4 images, K4 "
+        f"{k4_fwd} forward and {k4_bwd} backward, 1 layout copy)")
+    # one layout copy: the spatial mean after the weak stream's Res5 hands its
+    # last epilogue an NCHW-contiguous gradient (phase 7 has two such means);
+    # the strong stream's map reaches the mean and the mask head through a
+    # permute, and its gradient comes back channels-last
+    want = {"roi_align_fwd": 2, "roi_align_bwd": 2, "nms_mask": 1, "nms_mask_images": 4,
+            "bn_act_fwd": k4_fwd, "bn_act_bwd": k4_bwd, "bn_act_layout_copies": 1}
+    if per_step != want:
+        raise AssertionError(f"a segm train step's launches: {per_step}")
+    by_path["coco_segm_train"] = launches
+    if not all(np.isfinite(m.get("loss_mask", np.nan)) and all(np.isfinite(v) for v in m.values())
+               for m in trainer.metrics_history):
+        raise AssertionError("a segm train step without a finite loss_mask")
+    profile_run(trainer.run_step, "[12]", "segm train step", top=15)
+    del trainer, model, solver, strong, weak
+    if on_card:
+        torch.cuda.empty_cache()
+    # the f32 segm train path with the kernels vs with the plain versions
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    model32 = flagship_model(cfg32, seed, dev)
+    build_optimizer(cfg32, model32)  # freezes the stem and res2
+    strong, weak = synthetic_train_batches(cfg32, seed + 13, n_batches=1)
+    strong = {k: torch.as_tensor(v, device=dev) for k, v in strong[0].items()}
+    weak = {k: torch.as_tensor(v, device=dev) for k, v in weak[0].items()}
+    train_path_kernels_vs_plain(model32, strong, weak, seed, "[12]")
+    del model32, strong, weak
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (d) the run loop on a shapes-COCO devkit
+    t0 = time.perf_counter()
+    root = os.path.join(workdir, "shapes_coco")
+    written = runpy.run_path(str(ROOT / "scripts" / "make_shapes_coco_torch.py"))[
+        "write_shapes_coco"](root, COCO_TRAIN_IMAGES, COCO_VAL_IMAGES, COCO_IMAGE_SIZE, seed)
+    init = Checkpointer(os.path.join(workdir, "coco_init")).save(
+        0, TrainState(ckpt_model, build_optimizer(cfg, ckpt_model), 0))
+    del ckpt_model
+    log(f"[12] shapes-COCO devkit {written} and the initial checkpoint written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    emb = str(ROOT / cfg.MODEL.ROI_HEADS.EMBEDDING_PATH)
+    made, warm = [], []
+
+    def recording(cls):
+        class Recording(cls):
+            """The runner's trainer, kept so that the script can read it."""
+
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                made.append(self)
+        return Recording
+
+    real = (runner.TrainerNoMeta, runner.TrainerFineTune, runner.merge_params_from_checkpoint)
+
+    def merge(model, path):
+        out = real[2](model, path)
+        warm.append((path, out[1], out[2]))
+        return out
+
+    def run(config, out, *opts):
+        DatasetCatalog.clear()
+        made.clear()
+        args = runner.default_argument_parser().parse_args([
+            "--config-file", str(config), "--data-root", root, "--device", RUN_DEVICE,
+            "OUTPUT_DIR", out, "MODEL.ROI_HEADS.EMBEDDING_PATH", emb,
+            "DATASETS.CLASSIFIER_DATAROOT", root, "SEED", str(seed),
+            "SOLVER.MAX_ITER", str(COCO_RUN_STEPS),
+            "SOLVER.CLIP_GRADIENTS.ENABLED", "True", "SOLVER.CLIP_GRADIENTS.CLIP_TYPE", "norm",
+            *RUN_EXTRA_OPTS, *opts])
+        t = time.perf_counter()
+        results = runner.run(args)
+        sync()
+        return results, made[-1], time.perf_counter() - t
+
+    def report(name, results, trainer, secs):
+        for k, m in enumerate(trainer.metrics_history, 1):
+            log(f"[12]   {name} step {k}: " + ", ".join(f"{n} {v:.4g}" for n, v in m.items()))
+        aps = {task: {k: results[task][k] for k in ("AP", "AP50", "AP75", "novel_mean")}
+               for task in ("bbox", "segm")}
+        log(f"[12] {name}: {len(trainer.metrics_history)} steps in {secs:.1f} s; "
+            + "; ".join(f"{task} " + ", ".join(f"{k} {v:.4g}" for k, v in r.items())
+                        for task, r in aps.items()))
+        if not (len(trainer.metrics_history) == COCO_RUN_STEPS
+                and all(np.isfinite(v) for r in aps.values() for v in r.values())
+                and all(np.isfinite(m.get("loss_mask", np.nan))
+                        and all(np.isfinite(v) for v in m.values())
+                        for m in trainer.metrics_history)):
+            raise AssertionError(f"the {name} run: a step, a loss or an AP is missing or not "
+                                 "finite")
+
+    base = os.path.join(workdir, "coco_segm_base")
+    runner.TrainerNoMeta, runner.TrainerFineTune = recording(TrainerNoMeta), recording(
+        TrainerFineTune)
+    runner.merge_params_from_checkpoint = merge
+    try:
+        results, trainer, secs = run(
+            COCO_SEGM, base, "MODEL.WEIGHTS", init, "SOLVER.IMS_PER_BATCH", "2",
+            "SOLVER.CHECKPOINT_PERIOD", str(COCO_RUN_PERIOD),
+            "TEST.EVAL_PERIOD", str(COCO_RUN_PERIOD))
+        report("segm base run", results, trainer, secs)
+        del trainer
+        best = os.path.join(base, "best", "model")  # the port wrote model.pt there
+        warm.clear()
+        reset_launch_counts()
+        results, trainer, secs = run(
+            COCO_SEGM_FT, os.path.join(workdir, "coco_segm_ft"), "MODEL.WEIGHTS", best,
+            "SOLVER.CHECKPOINT_PERIOD", str(COCO_RUN_STEPS),
+            "TEST.EVAL_PERIOD", str(COCO_RUN_STEPS))
+        launches = read_launch_counts()
+    finally:
+        runner.TrainerNoMeta, runner.TrainerFineTune, runner.merge_params_from_checkpoint = real
+    report("segm-ft run", results, trainer, secs)
+    log(f"[12] segm-ft run launches {launches}")
+    by_path["coco_segm_ft"] = launches
+    model = trainer.model
+    (path, loaded, skipped), = warm
+    snapshot = read_checkpoint(path)["model"]
+    final = {k: v.cpu() for k, v in model.state_dict().items()}
+    trainable = {n for n, p in model.named_parameters() if p.requires_grad}
+    new = sorted(k for k in final if k not in snapshot)
+    changed = [k for k in snapshot if k not in trainable and not torch.equal(final[k], snapshot[k])]
+    heads = [k for k in trainable if k.startswith(("box_head.", "mask_head."))
+             or "_ft." in k]
+    unmoved = [k for k in heads
+               if torch.equal(final[k], snapshot[k] if k in snapshot else torch.zeros_like(final[k]))]
+    ft_cfg = get_cfg()
+    ft_cfg.merge_from_file(str(COCO_SEGM_FT))
+    ft_cfg.merge_from_list(list(RUN_EXTRA_OPTS))
+    fresh = WSRCNN(ModelConfig.from_cfg(ft_cfg),
+                   generator=torch.Generator().manual_seed(seed)).state_dict()
+    weak_head = [k for k in final if k.startswith("weak_box_head.")]
+    weak_at_init = all(torch.equal(final[k], fresh[k]) for k in weak_head)
+    log(f"[12] segm-ft warm start from {path}: {loaded} tensors loaded, {len(skipped)} of the "
+        f"snapshot skipped, {len(new)} new ({sorted({k.rsplit('.', 1)[0] for k in new})}); "
+        f"frozen tensors of the snapshot bit-identical "
+        f"{len([k for k in snapshot if k not in trainable]) - len(changed)}/"
+        f"{len([k for k in snapshot if k not in trainable])}; weak_box_head ({len(weak_head)} "
+        f"tensors) bit-identical to its own initialisation {weak_at_init}; box_head, mask_head "
+        f"and *_ft tensors moved {len(heads) - len(unmoved)}/{len(heads)}")
+    if not (path == best + ".pt" and not skipped and not changed and weak_head and weak_at_init
+            and not any(k in trainable for k in weak_head) and heads and not unmoved
+            and any("predictor_delta" in k for k in heads)):
+        raise AssertionError(f"the segm-ft warm start: changed {changed[:5]}, unmoved "
+                             f"{unmoved[:5]}, skipped {skipped[:5]}")
+    # the FT recipe freezes the backbone but not box_head: K4 runs backward
+    # through the box head's Res5, and nothing runs backward through ROIAlign
+    if not (launches["roi_align_bwd"] == 0 and launches["bn_act_bwd"] > 0
+            and launches["roi_align_fwd"] > 0 and launches["nms_mask"] > 0):
+        raise AssertionError(f"the segm-ft run's launches: {launches}")
+
+    # timed fine-tune steps of the recipe's 8 images, from pre-made batches
+    solver = build_optimizer(ft_cfg, model)
+    strong, _ = synthetic_train_batches(ft_cfg, seed + 14, per_stream=FT_IMAGES)
+    ft = TrainerFineTune(model, solver, itertools.cycle(strong), seed=seed)
+    ft.init_state()
+    step(ft, "fine-tune warm-up")
+    sync()
+    reset_peak()
+    reset_launch_counts()
+    times = [step(ft, "fine-tune timed") for _ in range(COCO_FT_STEPS)]
+    steps = read_launch_counts()
+    med = float(np.median(times))
+    n_backbone, n_res5, _ = frozen_bn_counts(model)
+    k4_fwd = n_backbone + (2 if model.mc.multi_box_head else 1) * n_res5
+    per_step = {k: v / COCO_FT_STEPS for k, v in steps.items()}
+    log(f"[12] {COCO_FT_STEPS} timed segm-ft steps ({FT_IMAGES} strong images): median "
+        f"{med:.2f} ms, {1e3 * FT_IMAGES / med:.2f} images/s, peak device memory "
+        f"{peak_mib():.1f} MiB; launches a step {per_step} (want K1 1, K2 0, K3 1 for "
+        f"{FT_IMAGES} images, K4 {k4_fwd} forward and {n_res5} backward)")
+    want = {"roi_align_fwd": 1, "roi_align_bwd": 0, "nms_mask": 1, "nms_mask_images": FT_IMAGES,
+            "bn_act_fwd": k4_fwd, "bn_act_bwd": n_res5, "bn_act_layout_copies": 0}
+    if per_step != want:
+        raise AssertionError(f"a segm-ft step's launches: {per_step}")
+    profile_run(ft.run_step, "[12]", "segm-ft step", top=15)
+    del ft, solver, model, trainer, strong
+    if on_card:
+        torch.cuda.empty_cache()
+    return by_path, k1_mask
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1754,19 +2193,26 @@ def main():
     with tempfile.TemporaryDirectory(prefix="unit_tpu_torch_run_") as workdir:
         by_path["run_loop"] = launches = phase_run_loop(cfg, args.seed, workdir)
         by_path["finetune"] = phase_finetune(cfg, args.seed, workdir)
+        coco_paths, k1_mask = phase_coco_segm(args.seed, workdir)
+        by_path.update(coco_paths)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     def per_path(*names):
         return {path: sum(counts[n] for n in names) for path, counts in by_path.items()}
 
-    # every kernel of a path was launched on it; serving and fine-tuning run
-    # no backward through ROIAlign or an epilogue, so K2 and K4's backward
-    # must not have been launched there
+    # every kernel of a path was launched on it, but for the backward kernels
+    # a path has no backward through: serving none, the VOC fine-tune recipe
+    # neither (its freeze lists hold the backbone and box_head), the COCO one
+    # none through ROIAlign (it trains box_head behind a frozen backbone)
+    no_backward = {"serving": ("roi_align_bwd", "bn_act_bwd"),
+                   "finetune": ("roi_align_bwd", "bn_act_bwd"),
+                   "coco_segm": ("roi_align_bwd", "bn_act_bwd"),
+                   "coco_segm_ft": ("roi_align_bwd",)}
     for path, counts in by_path.items():
         for name, count in counts.items():
             if name == "bn_act_layout_copies":
                 continue
-            if name.endswith("_bwd") and path in ("serving", "finetune"):
+            if name in no_backward.get(path, ()):
                 if count != 0:
                     raise AssertionError(f"{name} was launched {count} times on the {path} "
                                          "path, which has no backward through it")
@@ -1777,7 +2223,7 @@ def main():
         dict(name="roi_align_fwd", route="cuda", source="unit_tpu_torch/csrc/roi_align_fwd.cu",
              replaces="unit_tpu/ops/roi_align_pallas.py:230",
              launches=launches["roi_align_fwd"],
-             launches_by_path=per_path("roi_align_fwd"), **k1),
+             launches_by_path=per_path("roi_align_fwd"), **k1, **k1_mask),
         dict(name="roi_align_bwd", route="cuda", source="unit_tpu_torch/csrc/roi_align_bwd.cu",
              replaces="unit_tpu/ops/roi_align_pallas_bwd.py:564",
              launches=launches["roi_align_bwd"],

@@ -1,0 +1,23 @@
+#!/usr/bin/env python
+"""Generic training CLI of the PyTorch/CUDA port (twin of scripts/train_net.py):
+any recipe, VOC or COCO, base training or fine-tuning, since the datasets are
+registered by DATASETS.FEWSHOT.TYPE and the trainer is picked from the config.
+
+Usage:
+  python scripts/train_net_torch.py --config-file configs/COCO/COCO-RCNN-50-C4-split1-segm.yaml \
+      --data-root COCO_ROOT [--eval-only] [--resume] [--device cuda|cpu] SOLVER.BASE_LR 0.02 ...
+
+``--data-root`` is a COCO-layout root (annotations/instances_<split>.json and
+<split>/ image directories).  The model runs on one NVIDIA GPU; ``--device
+cpu`` asks for the CPU on purpose.
+"""
+
+import os
+import sys
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+
+from unit_tpu_torch.engine.runner import default_argument_parser, run  # noqa: E402
+
+if __name__ == "__main__":
+    run(default_argument_parser().parse_args())

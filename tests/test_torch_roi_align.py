@@ -221,6 +221,39 @@ def test_kernel_matches_plain(cuda_device, dtype, case, monkeypatch):
         assert torch.equal(roi_align_cuda(feats, rois, p, 1 / 16.0, s), got)
 
 
+def mask_path_boxes(rng, n=100, valid=63, h=800, w=1344):
+    """A served image's final detections as the mask path pools them: boxes
+    inside the canvas in the first ``valid`` rows, the padded rows of the
+    invalid detections all zero."""
+    xy = rng.uniform(0, 1, (valid, 2)) * [w - 40, h - 40]
+    wh = rng.uniform(8, 600, (valid, 2))
+    boxes = np.zeros((n, 4), np.float32)
+    boxes[:valid] = np.concatenate([xy, np.minimum(xy + wh, [w, h])], 1)
+    return boxes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_matches_plain_on_the_mask_paths_boxes(cuda_device, dtype):
+    """K1 at the mask path's input: a request's res4 map [1, 50, 84, 1024]
+    and its 100 final boxes, padded rows of zeros among them, P = 14; the
+    bounds of test_kernel_matches_plain.  A zero box pools the top-left
+    corner cell as the plain version does."""
+    rng = np.random.RandomState(9)
+    feats = torch.as_tensor(rng.randn(1, 50, 84, 1024).astype(np.float32),
+                            device=cuda_device).to(dtype)
+    rois = torch.as_tensor(mask_path_boxes(rng)[None], device=cuda_device)
+    before = roi_align_cuda.launches
+    got = roi_align_cuda(feats, rois, 14, 1 / 16.0, 2)
+    assert roi_align_cuda.launches == before + 1
+    assert got.dtype == dtype and got.shape == (1, 100, 14, 14, 1024)
+    want = ra.roi_align_plain(feats, rois, 14, 1 / 16.0, 2).float()
+    tol = 2e-5 + (torch.maximum(got.float().abs(), want.abs()) * 2.0 ** -7
+                  if dtype == torch.bfloat16 else 0.0)
+    assert bool(((got.float() - want).abs() <= tol).all())
+    assert bool(got[0, 63:].float().abs().amax(dim=(1, 2, 3)).gt(0).all())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernels_pair_through_the_function(cuda_device, dtype):

@@ -145,14 +145,17 @@ def test_unported_paths_raise(pair):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             fn()
     # training options that are not ported yet: TRAIN_ONLY_WEAK and PCL here,
-    # masks (MODEL.MASK_ON) at construction below
+    # the note and dock suites' models (their backbones, precomputed
+    # proposals) at construction below
     with pytest.raises(NotImplementedError, match="item 20"):
         tmodel.train_losses(None, None, None, train_only_weak=True)
     cfg = small_flagship_cfg()
     cfg.MODEL.ROI_HEADS.FAST_RCNN.WEAK_DETECTOR.TYPE = "PCL"
     with pytest.raises(NotImplementedError, match="item 21"):
         WSRCNN(ModelConfig.from_cfg(cfg)).train_losses(None, None, None)
-    for key, value, item in [("MODEL.MASK_ON", "True", "item 22"),
+    for key, value, item in [("MODEL.BACKBONE.NAME", "InceptionResNetV2", "item 25"),
+                             ("MODEL.BACKBONE.NAME", "VGG_CNN_F", "item 25"),
+                             ("MODEL.LOAD_PROPOSALS", "True", "item 25"),
                              ("MODEL.ROI_HEADS.FAST_RCNN.WEAK_DETECTOR.REGRESSION_BRANCH",
                               "True", "item 25"),
                              ("MODEL.META_ARCHITECTURE", "WeakRCNN", "item 20")]:
@@ -160,6 +163,11 @@ def test_unported_paths_raise(pair):
         cfg.merge_from_list([key, value])
         with pytest.raises(NotImplementedError, match=item):
             WSRCNN(ModelConfig.from_cfg(cfg))
+    # masks are ported (tests/test_torch_mask.py, tests/test_torch_coco_slice.py)
+    cfg = small_flagship_cfg()
+    cfg.merge_from_list(["MODEL.MASK_ON", "True",
+                         "MODEL.ROI_BOX_HEAD.NAME", "Res5BoxHeadWithMask"])
+    assert isinstance(WSRCNN(ModelConfig.from_cfg(cfg)).mask_head.deconv, torch.nn.ConvTranspose2d)
     # fine-tuning is ported (tests/test_torch_finetune.py): its heads build
     cfg = small_flagship_cfg()
     cfg.merge_from_list(["MODEL.ROI_HEADS.FAST_RCNN.NAME", "SupervisedDetectorOutputsFineTune",

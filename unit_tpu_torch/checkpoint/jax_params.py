@@ -5,6 +5,8 @@
 Module paths in the port follow the flax tree, so the mapping is by name:
 
     <path>/kernel (4-D, HWIO)   -> <path>.weight  (OIHW)
+    deconv/kernel (4-D, HWIO)   -> deconv.weight  ([in, out, kh, kw], both
+                                   spatial axes flipped: see below)
     <path>/kernel (2-D, [in,out]) -> <path>.weight ([out, in])
     <path>/bias                 -> <path>.bias
     <path>_bn/{weight,bias,mean,var} -> FrozenBN buffers of the same names
@@ -16,6 +18,15 @@ model is set, and any shape mismatch raises.  ``flax_path`` and
 parameters can be compared with unit_tpu's leaf by leaf.
 ``load_jax_train_state`` carries a whole unit_tpu train state across: the
 parameters, the optax momentum trace and the step.
+
+A transposed convolution (the mask head's ``deconv``) needs its own rule.
+flax's ``ConvTranspose`` (``transpose_kernel=False``) correlates the
+dilated input with its HWIO kernel as it stands; ``torch.nn.ConvTranspose2d``
+scatters each input through its [in, out, kh, kw] weight, which is a
+correlation with the kernel flipped in both spatial axes.  So the torch
+weight is the flax kernel flipped in H and W and laid out [in, out, kh, kw];
+the generic rule would give [out, in, kh, kw] unflipped: the wrong shape when
+in != out and silently wrong values when in == out.
 """
 
 from __future__ import annotations
@@ -39,11 +50,22 @@ def flatten_tree(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
+# flax module names of transposed convolutions
+_TRANSPOSED = ("deconv",)
+
+
+def _transposed(path: str) -> bool:
+    parts = path.replace(".", "/").split("/")
+    return len(parts) > 1 and parts[-2] in _TRANSPOSED
+
+
 def _to_torch_name_and_value(path: str, leaf: np.ndarray):
     parts = path.split("/")
     if parts[-1] == "kernel":
         parts[-1] = "weight"
-        if leaf.ndim == 4:
+        if leaf.ndim == 4 and _transposed(path):
+            leaf = leaf[::-1, ::-1].transpose(2, 3, 0, 1)
+        elif leaf.ndim == 4:
             leaf = leaf.transpose(3, 2, 0, 1)
         elif leaf.ndim == 2:
             leaf = leaf.T
@@ -84,8 +106,12 @@ def flax_path(name: str, value: torch.Tensor) -> str:
     return "/".join(parts)
 
 
-def to_flax_layout(value: np.ndarray) -> np.ndarray:
-    """A torch weight in the flax layout: OIHW -> HWIO, [out, in] -> [in, out]."""
+def to_flax_layout(value: np.ndarray, path: str = "") -> np.ndarray:
+    """A torch weight in the flax layout: OIHW -> HWIO, [out, in] -> [in, out];
+    the weight of a transposed convolution (``path`` names it: a flax path or
+    a torch name) [in, out, kh, kw] -> HWIO flipped in both spatial axes."""
+    if value.ndim == 4 and _transposed(path):
+        return value.transpose(2, 3, 0, 1)[::-1, ::-1]
     if value.ndim == 4:
         return value.transpose(2, 3, 1, 0)
     if value.ndim == 2:
@@ -101,7 +127,7 @@ def flax_leaves(model: nn.Module, grads: bool = False) -> Dict[str, Optional[np.
         t = param.grad if grads else param
         out[flax_path(name, param)] = (
             None if t is None
-            else np.array(to_flax_layout(t.detach().float().cpu().numpy()), copy=True))
+            else np.array(to_flax_layout(t.detach().float().cpu().numpy(), name), copy=True))
     return out
 
 

@@ -211,9 +211,10 @@ def build_strong_loader(cfg, dataset_names=None, seed=0, image_loader=None,
     names = dataset_names or cfg.DATASETS.TRAIN
     records = list(itertools.chain.from_iterable(DatasetCatalog.get(n) for n in names))
     _check_no_proposals(cfg, cfg.DATASETS.PROPOSAL_FILES_TRAIN)
+    keys = _STRONG_KEYS + (("gt_masks",) if cfg.MODEL.MASK_ON else ())
     return StreamLoader(
         records, TransformConfig.train_from_cfg(cfg),
-        batch_size or cfg.SOLVER.IMS_PER_BATCH, _STRONG_KEYS, seed=seed,
+        batch_size or cfg.SOLVER.IMS_PER_BATCH, keys, seed=seed,
         image_loader=image_loader,
     )
 

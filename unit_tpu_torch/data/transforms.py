@@ -2,10 +2,11 @@
 
 Port of unit_tpu/data/transforms.py (numpy only): resize the shortest edge,
 cap the longest, random flip when training, paste into a zero canvas of one
-shape per orientation, and pad the annotations to fixed shapes.  Images are
-float32 BGR (INPUT.FORMAT=BGR).  Masks, precomputed proposals, the uint8
-wire and the native loader's ``preprocessed`` input are not ported; each
-raises with its ROADMAP item.
+shape per orientation, and pad the annotations to fixed shapes (under
+MODEL.MASK_ON with them each GT instance's bitmask in its box's frame).
+Images are float32 BGR (INPUT.FORMAT=BGR).  Precomputed proposals, the
+uint8 wire and the native loader's ``preprocessed`` input are not ported;
+each raises with its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -28,11 +29,11 @@ class TransformConfig:
     flip: bool = True
     max_gt: int = 100
     num_classes: int = 20
+    with_masks: bool = False
+    mask_size: int = 28                    # GT-box-frame mask resolution
 
     @classmethod
     def train_from_cfg(cls, cfg) -> "TransformConfig":
-        if cfg.MODEL.MASK_ON:
-            raise _not_ported("the mask head's data side", "ROADMAP Queue 1 item 22")
         if cfg.TPU.HOST_TRANSFER_UINT8:
             raise _not_ported("TPU.HOST_TRANSFER_UINT8", "ROADMAP Queue 1 item 29")
         min_sizes = cfg.INPUT.MIN_SIZE_TRAIN
@@ -43,7 +44,7 @@ class TransformConfig:
         return cls(
             min_sizes=tuple(min_sizes), max_size=max_size, canvas=canvas,
             flip=cfg.INPUT.RANDOM_FLIP != "none", max_gt=cfg.TPU.MAX_GT_BOXES,
-            num_classes=cfg.MODEL.ROI_HEADS.NUM_CLASSES,
+            num_classes=cfg.MODEL.ROI_HEADS.NUM_CLASSES, with_masks=cfg.MODEL.MASK_ON,
         )
 
     @classmethod
@@ -134,7 +135,10 @@ def prepare_detection_record(
 ) -> dict:
     """record dict -> fixed-shape arrays for one image:
     {image [Hc, Wc, 3], image_size [2], gt_boxes [G, 4], gt_classes [G],
-    gt_valid [G], labels [C], scale, image_id, orig_size}.
+    gt_valid [G], labels [C], scale, image_id, orig_size}, and with
+    ``tcfg.with_masks`` gt_masks [G, M, M] f32: each annotation's
+    ``box_mask`` in its GT box's frame (zeros where it has none), mirrored
+    along x when the image is flipped.
 
     ``aug=(min_size, flip)``: the caller already drew the augmentation
     parameters (StreamLoader draws them once per record, so that
@@ -174,7 +178,7 @@ def prepare_detection_record(
         if 0 <= c < tcfg.num_classes:
             labels[c] = 1.0
 
-    return {
+    out = {
         "image": canvas,
         "image_size": np.asarray([new_h, new_w], np.float32),
         "gt_boxes": gt_boxes,
@@ -185,6 +189,18 @@ def prepare_detection_record(
         "image_id": record.get("image_id", ""),
         "orig_size": np.asarray([h, w], np.float32),
     }
+    if tcfg.with_masks:
+        m = tcfg.mask_size
+        gt_masks = np.zeros((g, m, m), np.float32)
+        for i, ann in enumerate(annotations[:g]):
+            bm = ann.get("box_mask")
+            if bm is not None:
+                # a GT-box-frame mask does not change with the resize; the
+                # flip mirrors it along x
+                bm = bm.astype(np.float32)
+                gt_masks[i] = bm[:, ::-1] if flipped else bm
+        out["gt_masks"] = gt_masks
+    return out
 
 
 def collate(samples: List[dict], keys: Sequence[str]) -> dict:

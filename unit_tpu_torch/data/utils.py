@@ -1,15 +1,17 @@
 """Dataset registration dispatch + evaluator factory (port of
-unit_tpu/data/utils.py for the VOC suites; COCO waits for ROADMAP Queue 1
-item 22).
+unit_tpu/data/utils.py).  ``register_datasets`` dispatches on
+DATASETS.FEWSHOT.TYPE (VOC, COCO and the COCO note and dock suites);
+``get_evaluator`` returns a dataset's evaluator by its ``evaluator_type``:
+PASCAL VOC, or COCO bbox (plus segm under MODEL.MASK_ON).
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+from ..evaluation.coco_eval import COCOEvaluator
 from ..evaluation.voc_eval import PascalVOCEvaluator
 from .catalog import MetadataCatalog
-from .transforms import _not_ported
 
 
 def register_datasets(cfg, devkit_root: Optional[str] = None):
@@ -19,7 +21,11 @@ def register_datasets(cfg, devkit_root: Optional[str] = None):
 
         RegisterVOC(cfg, devkit_root).register_all()
     elif ds_type in ("COCO", "COCO_NOTE", "COCO_DOCK"):
-        raise _not_ported(f"the {ds_type} datasets", "ROADMAP Queue 1 items 22 and 25")
+        from . import coco
+
+        suite = {"COCO": coco.RegisterCOCO, "COCO_NOTE": coco.RegisterCOCONote,
+                 "COCO_DOCK": coco.RegisterCOCODock}[ds_type]
+        suite(cfg, devkit_root).register_all()
     else:
         raise ValueError(f"Unknown FEWSHOT.TYPE: {ds_type}")
 
@@ -34,7 +40,14 @@ def get_evaluator(cfg, dataset_name: str):
             use_07_metric=int(meta.get("year", 2007)) == 2007,
         )
     if ev_type == "coco":
-        raise _not_ported("the COCO evaluator", "ROADMAP Queue 1 item 22")
+        def coco(iou_type):
+            return COCOEvaluator(class_names=meta.get("thing_classes"),
+                                 novel_class_ids=cfg.DATASETS.FEWSHOT.NOVEL_CLASSES_ID,
+                                 iou_type=iou_type)
+
+        if not cfg.MODEL.MASK_ON:
+            return coco("bbox")
+        return MultiEvaluator([coco("bbox"), coco("segm")])
     raise ValueError(f"Unknown evaluator type {ev_type} for {dataset_name}")
 
 

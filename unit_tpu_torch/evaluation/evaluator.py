@@ -7,10 +7,11 @@ to original-image coordinates here.
 
 One batch stays in flight.  Right after batch k is dispatched, its four
 output fields are packed into one [B, D, 7] f32 tensor on the device and one
-asynchronous copy into pinned host memory is enqueued behind it, with an
+asynchronous copy into pinned host memory is enqueued behind it (under
+MODEL.MASK_ON a second one beside it for the [B, D, M, M] masks), with one
 event.  The host then handles batch k - 1 (event wait, rescale, evaluator)
-while the device works on batch k.  On the CPU the packed tensor is read
-directly.
+while the device works on batch k: one host sync per batch.  On the CPU the
+tensors are read directly.
 
 The multi-process merge of unit_tpu (:96-105) and the meta evaluation loop are not
 ported (ROADMAP Queue 1 items 27 and 23).
@@ -29,20 +30,25 @@ logger = logging.getLogger("unit_tpu_torch")
 
 
 def _start_fetch(det):
-    """Detections -> (host tensor [B, D, 7], event or None): boxes, score,
-    class and valid in one device-to-host copy (classes and flags are exact
-    in f32)."""
+    """Detections -> (host tensor [B, D, 7], host masks [B, D, M, M] or None,
+    event or None): boxes, score, class and valid in one device-to-host copy
+    (classes and flags are exact in f32), the masks in a second."""
     packed = torch.cat([
         det.boxes.float(), det.scores.float().unsqueeze(-1),
         det.classes.float().unsqueeze(-1), det.valid.float().unsqueeze(-1),
     ], dim=-1)
+    masks = None if det.masks is None else det.masks.float()
     if not packed.is_cuda:
-        return packed, None
-    host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
-    host.copy_(packed, non_blocking=True)
+        return packed, masks, None
+
+    def fetch(t):
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        return host.copy_(t, non_blocking=True)
+
+    host, host_masks = fetch(packed), None if masks is None else fetch(masks)
     event = torch.cuda.Event()
     event.record()
-    return host, event
+    return host, host_masks, event
 
 
 def inference_on_dataset(
@@ -59,11 +65,12 @@ def inference_on_dataset(
     timed_base = 0
     total_time = 0.0
 
-    def collect(batch, host, event):
+    def collect(batch, host, host_masks, event):
         nonlocal num_done
         if event is not None:
             event.synchronize()
         out = host.numpy()
+        masks = None if host_masks is None else host_masks.numpy()
         for i, image_id in enumerate(batch["image_id"]):
             if image_id is None:  # padding of the final partial batch
                 continue
@@ -72,8 +79,9 @@ def inference_on_dataset(
             b = out[i, :, :4] / scale
             b[:, 0::2] = np.clip(b[:, 0::2], 0, ow)
             b[:, 1::2] = np.clip(b[:, 1::2], 0, oh)
+            extra = {} if masks is None else {"masks": masks[i]}
             evaluator.process(image_id, b, out[i, :, 4], out[i, :, 5].astype(np.int32),
-                              out[i, :, 6] > 0)
+                              out[i, :, 6] > 0, **extra)
             num_done += 1
 
     pending = None

@@ -10,9 +10,13 @@ backward (K1 + K2), supervised Fast R-CNN losses on top of the frozen weak
 scores, MIL + OICR losses on the weak stream.  Fine-tuning
 (``*FineTune`` supervised heads, ``WeakDetectorOutputsFT``) adds the
 zero-initialised residual heads and applies the base->novel transfer in
-training too.  TTA, the weak-only path, masks, the meta stream, PCL and the
-other training options raise ``NotImplementedError`` naming the ROADMAP item
-that ports them.
+training too.  Under MODEL.MASK_ON (``Res5BoxHeadWithMask``) the box head keeps
+its 4-D map in training, the predictors take its spatial mean, and the mask
+head learns on the foreground slots (``loss_mask``, through the mask
+transfer when fine-tuning); ``predict`` runs ROIAlignV2 (K1), Res5 and the
+mask head again over the final detections.  TTA, the weak-only path, the
+meta stream, PCL and the other training options raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 
 Precision mirrors ``TPU.COMPUTE_DTYPE``: backbone, RPN convs and Res5 run in
 the compute dtype; RPN outputs, box features and all predictor, transfer and
@@ -38,6 +42,7 @@ from ..structures.instances import (
     stack_fields,
 )
 from . import fast_rcnn as frcnn
+from . import mask_head as mask_lib
 from . import rpn as rpn_lib
 from . import similarity as sim_lib
 from . import weak_losses as weak_lib
@@ -100,6 +105,9 @@ class ModelConfig:
     nms_impl: str = "auto"        # auto | cuda | plain
     bn_act_impl: str = "auto"     # auto | cuda | plain (no YAML key: auto)
     mask_on: bool = False
+    mask_head_finetune: bool = False  # MaskRCNNConvUpsampleHeadWithFineTune
+    mask_num_conv: int = 0
+    mask_fg_slots: int = 128  # foreground capacity of the mask loss (= S * pos_frac)
     load_proposals: bool = False
     use_meta: bool = False
     rpn: rpn_lib.RPNConfig = rpn_lib.RPNConfig()
@@ -163,6 +171,9 @@ class ModelConfig:
             roi_align_impl=_IMPLS.get(cfg.TPU.ROI_ALIGN_IMPL, cfg.TPU.ROI_ALIGN_IMPL),
             nms_impl=_IMPLS.get(cfg.TPU.NMS_IMPL, cfg.TPU.NMS_IMPL),
             mask_on=cfg.MODEL.MASK_ON,
+            mask_head_finetune="FineTune" in cfg.MODEL.ROI_MASK_HEAD.NAME,
+            mask_num_conv=cfg.MODEL.ROI_MASK_HEAD.NUM_CONV,
+            mask_fg_slots=int(roi.BATCH_SIZE_PER_IMAGE * roi.POSITIVE_FRACTION),
             load_proposals=cfg.MODEL.LOAD_PROPOSALS,
             use_meta=cfg.MODEL.ROI_HEADS.NAME in ("WSROIHead", "WSROIHeadFineTuneMeta"),
             rpn=rpn_lib.RPNConfig.from_cfg(cfg),
@@ -183,7 +194,7 @@ class ModelConfig:
 def _check_supported(mc: ModelConfig) -> None:
     if mc.backbone_name != "build_resnet_backbone":
         raise _not_ported(f"backbone {mc.backbone_name}", "ROADMAP Queue 1 item 25")
-    if mc.box_head_name not in ("Res5BoxHead", "Res5BoxHeadNOTE", ""):
+    if mc.box_head_name not in ("Res5BoxHead", "Res5BoxHeadNOTE", "Res5BoxHeadWithMask", ""):
         raise _not_ported(f"box head {mc.box_head_name}", "ROADMAP Queue 1 item 25")
     if mc.pooler_type != "ROIAlignV2":
         raise _not_ported(f"pooler {mc.pooler_type}", "ROADMAP Queue 1 item 25")
@@ -194,8 +205,6 @@ def _check_supported(mc: ModelConfig) -> None:
     if mc.regression_branch or mc.oicr_regression_branch or mc.oicr_iter < 1:
         raise _not_ported("weak regression branches and OICR_ITER 0",
                           "ROADMAP Queue 1 item 25")
-    if mc.mask_on:
-        raise _not_ported("the mask head", "ROADMAP Queue 1 item 22")
     if mc.use_meta:
         raise _not_ported("the meta (support) stream", "ROADMAP Queue 1 item 23")
     for impl in (mc.roi_align_impl, mc.nms_impl, mc.bn_act_impl):
@@ -209,7 +218,8 @@ class WSRCNN(nn.Module):
     ``generator`` seeds the port's own initialisation, which follows flax's
     initialisers: lecun_normal convs, normal(0.01) RPN convs, the predictors'
     normal/zero Dense inits, identity FrozenBN, normal(0.02) embeddings (the
-    GloVe table replaces them: checkpoint.embeddings).
+    GloVe table replaces them: checkpoint.embeddings), and under MODEL.MASK_ON
+    the mask head's (mask_head.MaskRCNNConvUpsampleHead).
     """
 
     def __init__(self, mc: ModelConfig, generator: Optional[torch.Generator] = None):
@@ -237,6 +247,10 @@ class WSRCNN(nn.Module):
         with torch.no_grad():
             emb.normal_(0.0, 0.02, generator=g)
         self.register_buffer("embeddings", emb)
+        if mc.mask_on:
+            self.mask_head = mask_lib.MaskRCNNConvUpsampleHead(
+                d, mc.num_classes, num_conv=mc.mask_num_conv,
+                finetune=mc.mask_head_finetune, dtype=dt, generator=g)
         set_bn_act_impl(self, mc.bn_act_impl)
 
     # ---------------------------------------------------------------- pieces
@@ -309,7 +323,8 @@ class WSRCNN(nn.Module):
         """One training step's loss dict (unit_tpu meta_arch.py:429-651).
 
         strong: {image [B,H,W,3], gt_boxes [B,G,4], gt_classes [B,G],
-                 gt_valid [B,G], image_size [B,2]}
+                 gt_valid [B,G], image_size [B,2], and under MODEL.MASK_ON
+                 gt_masks [B,G,M,M]}
         weak:   {image [Bw,H',W',3], labels [Bw,C], image_size [Bw,2]}
         ``generator`` (on the batches' device) draws every random choice:
         the RPN's anchor subsampling and the ROI heads' proposal sampling.
@@ -359,7 +374,13 @@ class WSRCNN(nn.Module):
             ], SampledProposals)
 
             pooled = self.pooled_rois(feats, sampled.boxes)
-            box_feats = self.box_features(pooled, "box")
+            if mc.mask_on:
+                # Res5BoxHeadWithMask keeps the 4-D map for the mask head;
+                # the predictors take its spatial mean
+                feats4d = self.box_head(pooled, spatial_mean=False)
+                box_feats = feats4d.mean(dim=(1, 2)).to(torch.float32)
+            else:
+                box_feats = self.box_features(pooled, "box")
             sup = self.supervised(box_feats)
             # Frozen weak scores on top of the deltas: no graph (unit_tpu
             # stops the gradient here), so Res5 keeps no activations for it.
@@ -368,11 +389,13 @@ class WSRCNN(nn.Module):
                                   else box_feats)
                 weak_scores, weak_box_deltas = self.weak_detector.evaluation(sup_weak_feats)
             delta_scores, proposal_deltas = sup["delta_scores"], sup["proposal_deltas"]
+            sims = None
             if mc.finetune or mc.weak_finetune_detach:
                 # fine-tuning applies the transfer in training too, from the
                 # box head's features (unit_tpu meta_arch.py:556-568)
+                sims = self.inference_similarity(box_feats)
                 delta_scores, proposal_deltas = self._transfer(
-                    delta_scores, proposal_deltas, box_feats, detach=mc.weak_finetune_detach)
+                    delta_scores, proposal_deltas, sims, detach=mc.weak_finetune_detach)
             scores = combine_cls_logits(delta_scores, weak_scores)
             bbox = proposal_deltas + weak_box_deltas
             if mc.finetune:
@@ -384,6 +407,8 @@ class WSRCNN(nn.Module):
                 f.name: getattr(sampled, f.name).flatten(0, 1)
                 for f in dataclasses.fields(SampledProposals)})
             losses.update(frcnn.fast_rcnn_losses(scores, bbox, flat, mc.frcnn))
+            if mc.mask_on and "gt_masks" in strong:
+                losses["loss_mask"] = self._mask_loss(feats4d, sampled, strong["gt_masks"], sims)
 
         if weak is not None:
             if feats_w is None:
@@ -397,6 +422,33 @@ class WSRCNN(nn.Module):
             losses.update(weak_lib.weak_detector_losses(
                 self.weak_detector(weak_feats), w_boxes, w_valid, weak["labels"], mc.weak))
         return losses
+
+    def _mask_loss(self, feats4d, sampled: SampledProposals, gt_masks, sims) -> torch.Tensor:
+        """The mask loss over the first ``mask_fg_slots`` slots of each image,
+        which hold all its foreground (the sampler puts it first); under
+        fine-tuning through the mask transfer (``sims``: the box path's
+        similarity matrices), the delta head added after it."""
+        mc = self.mc
+        b, s = sampled.boxes.shape[:2]
+        k = min(mc.mask_fg_slots, s)
+
+        def first_k(x):  # [B * S, ...] -> [B * k, ...]
+            return x.unflatten(0, (b, s))[:, :k].flatten(0, 1)
+
+        def slots(x):  # [B, S, ...] -> [B * k, ...]
+            return x[:, :k].flatten(0, 1)
+
+        logits, delta = self.mask_head(first_k(feats4d))
+        if sims is not None:
+            seg = sims["seg"]
+            logits = mask_lib.transfer_mask_logits(
+                logits, first_k(seg) if seg.dim() > 2 else seg, mc.base_ids, mc.novel_ids)
+        if delta is not None:
+            logits = logits + delta
+        rows = torch.arange(b, device=gt_masks.device).repeat_interleave(k)
+        return mask_lib.mask_rcnn_loss(
+            logits, slots(sampled.gt_classes), gt_masks[rows, slots(sampled.gt_index)],
+            slots(sampled.gt_boxes), slots(sampled.boxes), slots(sampled.is_fg))
 
     # ---------------------------------------------------------------- not ported
     def predict_tta(self, *args, **kwargs):
@@ -423,10 +475,10 @@ class WSRCNN(nn.Module):
             oicr_weight_mean=self.oicr_weight_mean() if needs_weights else None,
         )
 
-    def _transfer(self, delta_scores, proposal_deltas, box_feats, detach: bool = False):
-        """The base->novel transfer of the supervised scores and deltas."""
+    def _transfer(self, delta_scores, proposal_deltas, sims, detach: bool = False):
+        """The base->novel transfer of the supervised scores and deltas by the
+        similarity matrices ``sims`` (``inference_similarity``)."""
         mc = self.mc
-        sims = self.inference_similarity(box_feats)
         return (transfer_scores(delta_scores, sims["cls"], mc.base_ids, mc.novel_ids,
                                 detach=detach),
                 transfer_deltas(proposal_deltas, sims["bbox"], mc.base_ids, mc.novel_ids,
@@ -453,8 +505,8 @@ class WSRCNN(nn.Module):
         delta_scores = sup["delta_scores"]
         proposal_deltas = sup["proposal_deltas"]
         if len(mc.novel_ids):
-            delta_scores, proposal_deltas = self._transfer(delta_scores, proposal_deltas,
-                                                           box_feats)
+            delta_scores, proposal_deltas = self._transfer(
+                delta_scores, proposal_deltas, self.inference_similarity(box_feats))
         scores = combine_cls_logits(delta_scores, weak_scores)
         bbox = proposal_deltas + weak_box_deltas
         if mc.finetune:
@@ -464,9 +516,10 @@ class WSRCNN(nn.Module):
         return probs, bbox.reshape(b, p, -1), proposals, feats
 
     def predict(self, images: torch.Tensor, image_sizes: torch.Tensor) -> Detections:
-        """Batched inference -> Detections [B, D] in canvas coordinates."""
+        """Batched inference -> Detections [B, D] in canvas coordinates, with
+        their masks under MODEL.MASK_ON."""
         mc = self.mc
-        probs, bbox, proposals, _ = self.predict_raw(images, image_sizes)
+        probs, bbox, proposals, feats = self.predict_raw(images, image_sizes)
         dets = [
             frcnn.fast_rcnn_inference_single(
                 probs[i], bbox[i], proposals.boxes[i], proposals.valid[i],
@@ -474,4 +527,25 @@ class WSRCNN(nn.Module):
             )
             for i in range(probs.shape[0])
         ]
-        return stack_fields(dets, Detections)
+        dets = stack_fields(dets, Detections)
+        if mc.mask_on:
+            dets.masks = self._predict_masks(feats, dets)
+        return dets
+
+    def _predict_masks(self, feats: torch.Tensor, dets: Detections) -> torch.Tensor:
+        """Mask probabilities [B, D, M, M] of the final detections, padded
+        rows included: ROIAlignV2 (K1) over their boxes, Res5 without the
+        mean, the mask head, the transfer (from the similarity of these
+        boxes' own features) and the delta head."""
+        mc = self.mc
+        b, d = dets.boxes.shape[:2]
+        feats4d = self.box_head(self.pooled_rois(feats, dets.boxes), spatial_mean=False)
+        logits, delta = self.mask_head(feats4d)
+        if len(mc.novel_ids):
+            sims = self.inference_similarity(feats4d.mean(dim=(1, 2)).to(torch.float32))
+            logits = mask_lib.transfer_mask_logits(logits, sims["seg"], mc.base_ids,
+                                                   mc.novel_ids)
+        if delta is not None:
+            logits = logits + delta
+        masks = mask_lib.mask_rcnn_inference(logits, dets.classes.reshape(-1))
+        return masks.reshape(b, d, *masks.shape[1:])

@@ -44,6 +44,8 @@ class DetectionService:
     def _detect_prepared(self, image, image_size, scale, h, w):
         size = np.asarray(image_size, np.float32)
         with self._lock:
+            # under MODEL.MASK_ON the device computes the masks too (predict
+            # does), but a response carries none, as unit_tpu's does not
             det = self._predict(image[None], size[None])
             out = {
                 "boxes": det.boxes[0].cpu().numpy(),

@@ -8,6 +8,8 @@ plus a boolean ``valid`` mask.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
+
 import torch
 
 
@@ -50,15 +52,19 @@ class Proposals:
 @dataclasses.dataclass
 class Detections:
     """boxes [..., D, 4]; scores [..., D]; classes [..., D] int64;
-    valid [..., D] bool."""
+    valid [..., D] bool; masks [..., D, M, M] f32 mask probabilities in each
+    box's frame (under MODEL.MASK_ON, else None)."""
 
     boxes: torch.Tensor
     scores: torch.Tensor
     classes: torch.Tensor
     valid: torch.Tensor
+    masks: Optional[torch.Tensor] = None
 
 
 def stack_fields(items, cls):
-    """Stack per-image containers of one type into a batched one."""
-    return cls(**{f.name: torch.stack([getattr(x, f.name) for x in items])
+    """Stack per-image containers of one type into a batched one (a field
+    that is None in the first is None in the result)."""
+    return cls(**{f.name: None if getattr(items[0], f.name) is None
+                  else torch.stack([getattr(x, f.name) for x in items])
                   for f in dataclasses.fields(cls)})

@@ -74,6 +74,17 @@ Phases (any failure raises and the script exits non-zero):
      recipe from its best/model 4 steps (frozen tensors and the absent
      weak_box_head bit-identical, K2 0, K4 backward > 0), 1 + 3 timed
      fine-tune steps (K1 1, K3 1 for 8 images, K4 63 + 10) and one profiled
+ 13  the weak detector's alternatives at the flagship's full width: the PCL
+     recipe (2 + 6 timed train steps, K1 2, K2 2, K3 1, K4 124 + 103 a step;
+     the PCL losses alone against the OICR losses on one step's inputs, under
+     CUDA sync debug mode "error"; the f32 PCL train path kernels vs plain);
+     WeakRCNN served through make_predict_fn (predict_weak_only: K1 1, K3 2,
+     K4 104 a request) and its f32 request path kernels vs plain;
+     TrainerOnlyWeak 2 + 4 steps (K1 1, K2 1, K3 1 for the 2 weak images);
+     WeaklySupervisedRCNNRPN 2 + 4 steps (K1 3, K2 2, K3 4 launches for 8
+     images) and K3 against its plain version at the self-training
+     predict's 2 x 6000 -> 1000; engine.runner.run with
+     TrainerOnlyWeakFineTune on phase 10's devkit, 3 steps and an evaluation
 The last three lines are the card (nvidia-smi), one JSON object describing
 the kernels (launches counted on the run loop of phase 10, and per path under
 launches_by_path), and {"ok": true, "device": {...}}.  Without a CUDA device, or without the
@@ -215,6 +226,14 @@ COCO_TRAIN_IMAGES, COCO_VAL_IMAGES, COCO_IMAGE_SIZE = 8, 4, 320
 # probabilities of phase 5 do.
 MASK_BOX_ATOL = 0.05
 MASK_PROBS_ATOL = 1e-4
+# The weak detector's alternatives (phase 13): the PCL recipe's timed train
+# steps, WeakRCNN's requests, TrainerOnlyWeak's and WeaklySupervisedRCNNRPN's
+# timed steps, and TrainerOnlyWeakFineTune's run on phase 10's devkit.
+PCL_RECIPE = ROOT / "configs" / "VOC" / "VOC-RCNN-101-C4-split1-pcl.yaml"
+WEAK_TRAIN_STEPS = 6
+WEAK_REQUESTS = 4
+WEAK_ONLY_STEPS = 4
+WEAK_RUN_STEPS = 3
 
 
 def log(*parts):
@@ -887,6 +906,7 @@ def profile_run(fn, tag, what, top=15):
     for ms, count, key in sorted(rows, reverse=True)[:top]:
         log(f"{tag}   {ms:9.3f} ms  x{count:<5d} {key[:110]}")
     torch.cuda.synchronize()
+    return {"wall_ms": wall, "busy_ms": busy, "device_ops": n_ops}
 
 
 def phase_whole_path(cfg, seed):
@@ -2163,6 +2183,433 @@ def phase_coco_segm(seed, workdir):
     return by_path, k1_mask
 
 
+def phase_weak_variants(seed, workdir):
+    """Phase 13: the weak detector's alternatives at full width and depth
+    (R-101, bf16, the flagship canvases, seeded weights, calibrated FrozenBN).
+    (a) the PCL recipe: timed train steps with launch counts, one profiled,
+    the PCL losses alone against the OICR losses on the same inputs (device
+    time, device ops, no host sync), the f32 train path kernels vs plain;
+    (b) WeakRCNN: served requests through make_predict_fn (predict_weak_only),
+    the f32 request path kernels vs plain, TrainerOnlyWeak steps; then
+    WeaklySupervisedRCNNRPN steps, and K3 against its plain version at the
+    self-training predict's shape (2 weak images, 6000 -> 1000, one launch);
+    (c) engine.runner.run with TrainerOnlyWeakFineTune on phase 10's devkit
+    (the classifier split, with its boxes, as the strong stream).  Returns
+    ({path: launch counts}, K3's numbers at the self-training shape)."""
+    import torch
+
+    from unit_tpu_torch.config import get_cfg
+    from unit_tpu_torch.data import DatasetCatalog
+    from unit_tpu_torch.data.transforms import TransformConfig, prepare_test_image
+    from unit_tpu_torch.engine import runner
+    from unit_tpu_torch.engine.train import (
+        TrainerNoMeta,
+        TrainerOnlyWeak,
+        TrainerOnlyWeakFineTune,
+    )
+    from unit_tpu_torch.models import pcl as pcl_lib
+    from unit_tpu_torch.models import weak_losses as weak_lib
+    from unit_tpu_torch.models.resnet import set_bn_act_impl
+    from unit_tpu_torch.models.similarity import VOC_CLASSES
+    from unit_tpu_torch.ops import nms as nms_ops
+    from unit_tpu_torch.serving import DetectionService
+    from unit_tpu_torch.solver import build_optimizer
+
+    dev = torch.device(RUN_DEVICE)
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def recipe(path, *opts):
+        cfg = get_cfg()
+        cfg.merge_from_file(str(path))
+        cfg.merge_from_list([*RUN_EXTRA_OPTS, *opts])
+        cfg.SOLVER.CLIP_GRADIENTS.ENABLED = True  # random weights: clipped as in phase 7
+        cfg.SOLVER.CLIP_GRADIENTS.CLIP_TYPE = "norm"
+        return cfg
+
+    def steps(trainer, label, timed):
+        """TRAIN_WARMUP + ``timed`` steps -> (timed step ms, launches a timed step)."""
+        def one(kind):
+            t = time.perf_counter()
+            m = trainer.run_step()  # ends in one device-to-host copy of the losses
+            ms = (time.perf_counter() - t) * 1e3
+            log(f"[13] {label} step {trainer.state.step} ({kind}) {ms:.1f} ms: "
+                + ", ".join(f"{k} {v:.4g}" for k, v in m.items() if k != "data_time"))
+            return ms
+
+        for _ in range(TRAIN_WARMUP):
+            one("warm-up")
+        sync()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        times = [one("timed") for _ in range(timed)]
+        launches = read_launch_counts()
+        med = float(np.median(times))
+        peak = torch.cuda.max_memory_allocated() / 2**20 if on_card else 0.0
+        log(f"[13] {label}: {timed} timed steps, median {med:.2f} ms (min {min(times):.2f}, "
+            f"max {max(times):.2f}), {4e3 / med:.2f} images/s (2 strong + 2 weak), peak "
+            f"device memory {peak:.1f} MiB, launches a step "
+            f"{ {k: v / timed for k, v in launches.items()} }")
+        if not all(np.isfinite(v) for m in trainer.metrics_history for v in m.values()):
+            raise AssertionError(f"{label}: a non-finite loss")
+        return times, launches
+
+    def want_per_step(k1, k2, k3, k3_images, k4_fwd, k4_bwd, copies, n):
+        return {"roi_align_fwd": k1 * n, "roi_align_bwd": k2 * n, "nms_mask": k3 * n,
+                "nms_mask_images": k3_images * n, "bn_act_fwd": k4_fwd * n,
+                "bn_act_bwd": k4_bwd * n, "bn_act_layout_copies": copies * n}
+
+    by_path = {}
+
+    # (a) the PCL recipe: 2 strong + 2 weak images a step, as phase 7
+    cfg = recipe(PCL_RECIPE)
+    t0 = time.perf_counter()
+    model = flagship_model(cfg, seed, dev)
+    mc = model.mc
+    solver = build_optimizer(cfg, model)
+    strong, weak = synthetic_train_batches(cfg, seed + 13)
+    trainer = TrainerNoMeta(model, solver, itertools.cycle(strong), itertools.cycle(weak),
+                            seed=seed)
+    trainer.init_state()
+    n_backbone, n_res5, n_trainable = frozen_bn_counts(model)
+    log(f"[13] {PCL_RECIPE.relative_to(ROOT)}: R-{mc.depth}-C4 set up in "
+        f"{time.perf_counter() - t0:.1f} s; weak detector {mc.weak_detector_type} "
+        f"(k-means {mc.num_kmeans_cluster}, graph IoU {mc.graph_iou_threshold}, "
+        f"{mc.max_pc_num} centers a class), {mc.weak_proposal_count} proposals a weak image, "
+        f"compute {mc.compute_dtype}")
+    captured = []
+    real_pcl = pcl_lib.pcl_detector_losses
+
+    def capture(*a, **kw):
+        captured[:] = [(a, kw)]
+        return real_pcl(*a, **kw)
+
+    pcl_lib.pcl_detector_losses = capture
+    try:
+        _, launches = steps(trainer, "PCL train", WEAK_TRAIN_STEPS)
+    finally:
+        pcl_lib.pcl_detector_losses = real_pcl
+    want = want_per_step(2, 2, 1, 4, n_backbone + 3 * n_res5, n_trainable + 2 * n_res5, 2,
+                         WEAK_TRAIN_STEPS)
+    if launches != want:
+        raise AssertionError(f"a PCL train step did not run K1 x2, K2 x2, K3 x1 (4 images), K4 "
+                             f"x{n_backbone + 3 * n_res5} + x{n_trainable + 2 * n_res5} with 2 "
+                             f"layout copies: {launches}")
+    by_path["pcl_train"] = launches
+    if on_card:
+        step_profile = profile_run(trainer.run_step, "[13]", "PCL train step", top=12)
+
+    # the PCL losses alone against the OICR losses, on one step's inputs
+    (args, kwargs), = captured
+    streams = {k: [x.detach().requires_grad_() for x in v] if isinstance(v, list)
+               else v.detach().requires_grad_() for k, v in args[0].items()}
+    rest = args[1:]
+
+    def pcl_only():
+        losses = real_pcl(streams, *rest, **kwargs)
+        torch.stack(list(losses.values())).sum().backward()
+
+    def oicr_only():
+        losses = weak_lib.weak_detector_losses(streams, *rest[:4])
+        torch.stack(list(losses.values())).sum().backward()
+
+    present = rest[4]
+    log(f"[13] PCL inputs: {tuple(rest[0].shape)} proposals, classes present {list(present)}")
+    if on_card:
+        torch.cuda.set_sync_debug_mode("error")  # any host sync raises
+        try:
+            pcl_only()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        pcl_ms, oicr_ms = cuda_ms(pcl_only, 5), cuda_ms(oicr_only, 5)
+        pcl_prof = profile_run(pcl_only, "[13]", "PCL losses + backward", top=6)
+        oicr_prof = profile_run(oicr_only, "[13]", "OICR losses + backward", top=6)
+        log(f"[13] PCL mining + losses + backward ran under sync debug mode 'error' (no host "
+            f"sync); by CUDA events {pcl_ms:.2f} ms against OICR's {oicr_ms:.2f} ms on the same "
+            f"inputs; device ops {pcl_prof['device_ops']} against {oicr_prof['device_ops']}: "
+            f"+{pcl_prof['device_ops'] - oicr_prof['device_ops']} a step "
+            f"({step_profile['device_ops']} in the profiled PCL step)")
+    else:
+        pcl_only()
+        oicr_only()
+    del trainer, model, solver, streams, captured[:]
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # the f32 PCL train path with the kernels vs with the plain versions
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    cfg32 = cfg.clone()
+    cfg32.TPU.COMPUTE_DTYPE = "float32"
+    model32 = flagship_model(cfg32, seed, dev)
+    build_optimizer(cfg32, model32)
+    strong, weak = synthetic_train_batches(cfg32, seed + 14, n_batches=1)
+    strong = {k: torch.as_tensor(v, device=dev) for k, v in strong[0].items()}
+    weak = dict({k: torch.as_tensor(v, device=dev) for k, v in weak[0].items()},
+                labels_host=torch.as_tensor(weak[0]["labels"]))
+    train_path_kernels_vs_plain(model32, strong, weak, seed, "[13]")
+    del model32, strong, weak
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (b) WeakRCNN: requests through make_predict_fn, which serves predict_weak_only
+    cfg = recipe(FLAGSHIP, "MODEL.META_ARCHITECTURE", "WeakRCNN")
+    model = flagship_model(cfg, seed, dev)
+    svc = DetectionService(cfg, model, class_names=VOC_CLASSES)
+    svc.warmup()
+    rng = np.random.RandomState(seed + 13)
+    shapes = [(375, 500), (500, 375)]
+    images = [rng.uniform(0, 255, shapes[i % 2] + (3,)).astype(np.float32)
+              for i in range(WEAK_REQUESTS)]
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    lat, results = [], []
+    for img in images:
+        t0 = time.perf_counter()
+        results.append(svc.detect_array(img))  # ends in a device-to-host copy
+        lat.append((time.perf_counter() - t0) * 1e3)
+    launches = read_launch_counts()
+    head = n_res5  # the weak head alone scores the proposals
+    log(f"[13] WeakRCNN: {WEAK_REQUESTS} requests, latency ms {[round(v, 2) for v in lat]}, "
+        f"median {np.median(lat):.2f}, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20 if on_card else 0.0:.1f} MiB; detections "
+        f"{[len(r) for r in results]}; launches {launches}")
+    if launches != want_per_step(1, 0, 2, 2, n_backbone + head, 0, 0, WEAK_REQUESTS):
+        raise AssertionError(f"a WeakRCNN request did not run K1 x1, K3 x2 and K4 "
+                             f"x{n_backbone + head}: {launches}")
+    by_path["weak_rcnn_serving"] = launches
+    for img, dets in zip(images, results):
+        h, w = img.shape[:2]
+        for d in dets:
+            x1, y1, x2, y2 = d["box"]
+            # a score is a sum of OICR_ITER softmax probabilities
+            if not (np.isfinite(d["box"]).all() and 0 <= x1 <= x2 <= w and 0 <= y1 <= y2 <= h
+                    and 0 < d["score"] <= mc.oicr_iter):
+                raise AssertionError(f"a WeakRCNN detection outside the image or range: {d}")
+    if on_card:
+        profile_run(lambda: svc.detect_array(images[0]), "[13]", "WeakRCNN request", top=8)
+    del svc
+
+    # TrainerOnlyWeak on the same model: the RPN on the strong images, the
+    # weak branch on the weak ones
+    solver = build_optimizer(cfg, model)
+    strong, weak = synthetic_train_batches(cfg, seed + 15)
+    trainer = runner.trainer_class_for(cfg)(model, solver, itertools.cycle(strong),
+                                            itertools.cycle(weak), seed=seed)
+    if not isinstance(trainer, TrainerOnlyWeak):
+        raise AssertionError(f"WeakRCNN trains with {type(trainer).__name__}")
+    trainer.init_state()
+    _, launches = steps(trainer, "TrainerOnlyWeak", WEAK_ONLY_STEPS)
+    if set(trainer.metrics_history[-1]) != {"loss_rpn_cls", "loss_rpn_loc", "loss_im_cls",
+                                            "loss_oicr_1", "loss_oicr_2", "loss_oicr_3",
+                                            "total_loss", "data_time"}:
+        raise AssertionError(f"TrainerOnlyWeak's losses: {sorted(trainer.metrics_history[-1])}")
+    want = want_per_step(1, 1, 1, 2, n_backbone + n_res5, n_trainable + n_res5, 1,
+                         WEAK_ONLY_STEPS)
+    if launches != want:
+        raise AssertionError(f"a TrainerOnlyWeak step did not run K1 x1, K2 x1, K3 x1 (the 2 "
+                             f"weak images), K4 x{n_backbone + n_res5} + "
+                             f"x{n_trainable + n_res5}: {launches}")
+    by_path["weak_only_train"] = launches
+    if on_card:
+        profile_run(trainer.run_step, "[13]", "TrainerOnlyWeak step", top=8)
+    del trainer, solver
+
+    # the f32 request path with the kernels vs with the plain versions: the
+    # proposals identical, the summed probabilities within OICR_ITER times
+    # phase 5's bound
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg32 = cfg.clone()
+    cfg32.TPU.COMPUTE_DTYPE = "float32"
+    model32 = flagship_model(cfg32, seed, dev)
+    s = prepare_test_image(images[1], TransformConfig.test_from_cfg(cfg32))
+    img = torch.as_tensor(s["image"][None], device=dev)
+    size = torch.as_tensor(s["image_size"][None], device=dev)
+    recorded, real_final = {}, model32._final_detections
+
+    def recording_final(impl):
+        def final(probs, bbox, props, sizes):
+            recorded[impl] = (probs, bbox, props)
+            return real_final(probs, bbox, props, sizes)
+        return final
+
+    outs = {}
+    for impl in ("cuda", "plain"):
+        model32.mc = dataclasses.replace(model32.mc, roi_align_impl=impl, nms_impl=impl)
+        set_bn_act_impl(model32, impl)
+        model32._final_detections = recording_final(impl)
+        with torch.inference_mode():
+            outs[impl] = model32.predict_weak_only(img, size)
+    del model32._final_detections
+    set_bn_act_impl(model32, "cuda")
+    (pk, bk, prk), (pp, bp, prp) = recorded["cuda"], recorded["plain"]
+    same_props = torch.equal(prk.boxes, prp.boxes) and torch.equal(prk.valid, prp.valid)
+    dprobs = float((pk - pp).abs().max())
+    same_dets = all(torch.equal(getattr(outs["cuda"], f), getattr(outs["plain"], f))
+                    for f in ("classes", "valid"))
+    log(f"[13] f32, TF32 off, WeakRCNN request: proposals identical {same_props} "
+        f"({int(prk.valid.sum())} valid); summed probabilities max|diff| {dprobs:.3g} (tol "
+        f"{mc.oicr_iter * E2E_PROBS_ATOL}); box deltas equal {torch.equal(bk, bp)}; final "
+        f"classes and valid identical {same_dets} ({int(outs['cuda'].valid.sum())} valid)")
+    if not (same_props and dprobs <= mc.oicr_iter * E2E_PROBS_ATOL and torch.equal(bk, bp)):
+        raise AssertionError("the WeakRCNN request path with kernels disagrees with the plain "
+                             "path")
+    del model32, recorded, outs
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # WeaklySupervisedRCNNRPN: RPN losses on the weak images against the weak
+    # detector's confident detections (threshold 0: a random detector never
+    # reaches the recipe's 0.99, and its pseudo boxes would be none)
+    cfg = recipe(FLAGSHIP, "MODEL.META_ARCHITECTURE", "WeaklySupervisedRCNNRPN",
+                 "MODEL.PROPOSAL_GENERATOR.WEAK_RPN_SCORE_TRESHOLD", "0.0")
+    model = flagship_model(cfg, seed, dev)
+    solver = build_optimizer(cfg, model)
+    strong, weak = synthetic_train_batches(cfg, seed + 16)
+    trainer = TrainerNoMeta(model, solver, itertools.cycle(strong), itertools.cycle(weak),
+                            seed=seed)
+    trainer.init_state()
+    k3_inputs = []
+    real_k3 = nms_ops.nms_sorted_mask_cuda
+
+    def record_k3(boxes, thr, cap=None, n_valid=None):
+        # the one launch for 2 images: the predict's RPN NMS (the training
+        # selection takes 4 images, the final NMS one)
+        if boxes.dim() == 3 and boxes.shape[0] == 2 and not k3_inputs:
+            k3_inputs.append((boxes.clone(), thr, cap,
+                              None if n_valid is None else n_valid.clone()))
+        return real_k3(boxes, thr, cap, n_valid=n_valid)
+
+    nms_ops.nms_sorted_mask_cuda = record_k3
+    try:
+        _, launches = steps(trainer, "WeaklySupervisedRCNNRPN", WEAK_ONLY_STEPS)
+    finally:
+        nms_ops.nms_sorted_mask_cuda = real_k3
+    # K1: the strong and weak ROIs and the predict's proposals; K3: the
+    # training selection (4 images), the predict's RPN NMS (2 images) and
+    # its final NMS (one launch an image); K4: the fused backbone, three
+    # Res5 passes and the predict's weak head
+    want = want_per_step(3, 2, 4, 8, n_backbone + 4 * n_res5, n_trainable + 2 * n_res5, 2,
+                         WEAK_ONLY_STEPS)
+    last = trainer.metrics_history[-1]
+    if launches != want or not last.get("loss_rpn_loc_weak", 0.0) > 0.0:
+        raise AssertionError(f"a WeaklySupervisedRCNNRPN step did not run K1 x3, K2 x2, K3 x4 "
+                             f"(8 images), K4 x{n_backbone + 4 * n_res5} + "
+                             f"x{n_trainable + 2 * n_res5}, or had no pseudo box: {launches}, "
+                             f"{last}")
+    by_path["self_training_train"] = launches
+    if on_card:
+        profile_run(trainer.run_step, "[13]", "WeaklySupervisedRCNNRPN step", top=8)
+    del trainer, solver, model
+
+    # K3 at the self-training predict's shape: 2 images x 6000 -> 1000 in ONE launch
+    (boxes, thr, cap, n_valid), = k3_inputs
+    got = real_k3(boxes, thr, cap, n_valid=n_valid)
+    again = real_k3(boxes, thr, cap, n_valid=n_valid)
+    plain = nms_ops.nms_sorted_mask_plain(boxes, thr, cap)
+    err = float((got.float() - plain.float()).abs().max())
+    k3_b2 = {}
+    label = f"{list(boxes.shape)} -> {cap} at IoU {thr} (the self-training predict's RPN NMS)"
+    if on_card:
+        k_ms = cuda_ms(lambda: real_k3(boxes, thr, cap, n_valid=n_valid), 20)
+        p_ms = cuda_ms(lambda: nms_ops.nms_sorted_mask_plain(boxes, thr, cap), 2)
+        least = bound(nbytes(boxes, got), nms_pair_tests(got, cap) * IOU_FLOPS)
+        k3_b2 = {"self_training_b2_ms": k_ms, "self_training_b2_plain_ms": p_ms,
+                 "self_training_b2_bound_ms": least["bound_ms"],
+                 "self_training_b2_max_abs_err": err}
+        log(f"[13] K3 {label}: {got.sum(1).tolist()} keeps, kernel {k_ms:.4f} ms, plain "
+            f"{p_ms:.4f} ms, bound {least['bound_ms']:.5f} ms by {least['bound_by']}; max|diff| "
+            f"{err}, two launches bit-identical {torch.equal(got, again)}")
+    if err != 0.0 or not torch.equal(got, again):
+        raise AssertionError(f"K3 differs from its plain version at {label}")
+    # the same shape in phase 3's clustered RPN layout, where the cap is reached
+    # (a random-weight RPN on white-noise training images decodes most anchors
+    # onto a few boxes: few keeps above)
+    n = boxes.shape[1]
+    rng3 = np.random.RandomState(seed + 17)
+    clustered = torch.as_tensor(np.stack([clustered_boxes(rng3, n) for _ in range(2)]),
+                                device=dev)
+    order = torch.argsort(torch.as_tensor(rng3.rand(2, n).astype(np.float32), device=dev),
+                          dim=1, stable=True)
+    clustered = clustered.gather(1, order[..., None].expand(-1, -1, 4)).contiguous()
+    got = real_k3(clustered, thr, cap)
+    if not torch.equal(got, nms_ops.nms_sorted_mask_plain(clustered, thr, cap)):
+        raise AssertionError(f"K3 differs from its plain version at {label}, clustered boxes")
+    if on_card:
+        k_ms = cuda_ms(lambda: real_k3(clustered, thr, cap), 20)
+        log(f"[13] K3 the same shape, clustered boxes: {got.sum(1).tolist()} keeps, identical to "
+            f"the plain version, kernel {k_ms:.4f} ms")
+    del k3_inputs[:], boxes, clustered
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (c) TrainerOnlyWeakFineTune: run on phase 10's devkit, the classifier split
+    made = []
+
+    class Recording(TrainerOnlyWeakFineTune):
+        """The runner's trainer, kept so that the script can read it."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    devkit = os.path.join(workdir, "VOCdevkit")
+    DatasetCatalog.clear()
+    args = runner.default_argument_parser().parse_args([
+        "--config-file", str(FLAGSHIP), "--data-root", devkit, "--device", RUN_DEVICE,
+        "MODEL.WEIGHTS", os.path.join(workdir, "run_a", "best", "model"),
+        "OUTPUT_DIR", os.path.join(workdir, "only_weak_ft"),
+        "MODEL.ROI_HEADS.EMBEDDING_PATH", str(ROOT / cfg.MODEL.ROI_HEADS.EMBEDDING_PATH),
+        "DATASETS.CLASSIFIER_DATAROOT", devkit, "SEED", str(seed),
+        "ENGINE.TRAINER", "TrainerOnlyWeakFineTune", "DATASETS.TRAIN", "()",
+        "SOLVER.IMS_PER_BATCH", "2", "SOLVER.MAX_ITER", str(WEAK_RUN_STEPS),
+        "SOLVER.CHECKPOINT_PERIOD", "0", "TEST.EVAL_PERIOD", "0",
+        "SOLVER.CLIP_GRADIENTS.ENABLED", "True", "SOLVER.CLIP_GRADIENTS.CLIP_TYPE", "norm",
+        *RUN_EXTRA_OPTS])
+    real_trainer, runner.TrainerOnlyWeakFineTune = runner.TrainerOnlyWeakFineTune, Recording
+    try:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        results = runner.run(args, image_loader=seeded_image_loader)
+        sync()
+        secs = time.perf_counter() - t0
+        launches = read_launch_counts()
+    finally:
+        runner.TrainerOnlyWeakFineTune = real_trainer
+    (trainer,) = made
+    bbox = results["bbox"]
+    for k, m in enumerate(trainer.metrics_history, 1):
+        log(f"[13]   TrainerOnlyWeakFineTune step {k}: "
+            + ", ".join(f"{n} {v:.4g}" for n, v in m.items()))
+    log(f"[13] TrainerOnlyWeakFineTune run: {len(trainer.metrics_history)} steps and the "
+        f"evaluation in {secs:.1f} s, AP {bbox['AP']:.4g}, AP50 {bbox['AP50']:.4g}; weak stream "
+        f"{trainer.weak_iter}; launches {launches}")
+    m = trainer.metrics_history[-1] if trainer.metrics_history else {}
+    if not (trainer.weak_iter is None and len(trainer.metrics_history) == WEAK_RUN_STEPS
+            and {"loss_rpn_cls", "loss_cls", "loss_box_reg"} <= set(m)
+            and not any(k.startswith(("loss_oicr", "loss_im_cls")) for k in m)
+            and all(np.isfinite(v) for mm in trainer.metrics_history for v in mm.values())
+            and all(np.isfinite(bbox[k]) for k in ("AP", "AP50"))):
+        raise AssertionError("the TrainerOnlyWeakFineTune run: a step, a loss or an AP is "
+                             "missing, or a weak stream was built")
+    by_path["only_weak_ft_run"] = launches
+    del trainer, made[:]
+    if on_card:
+        torch.cuda.empty_cache()
+    return by_path, k3_b2
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2195,19 +2642,23 @@ def main():
         by_path["finetune"] = phase_finetune(cfg, args.seed, workdir)
         coco_paths, k1_mask = phase_coco_segm(args.seed, workdir)
         by_path.update(coco_paths)
+        weak_paths, k3_b2 = phase_weak_variants(args.seed, workdir)
+        by_path.update(weak_paths)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     def per_path(*names):
         return {path: sum(counts[n] for n in names) for path, counts in by_path.items()}
 
     # every kernel of a path was launched on it, but for the backward kernels
-    # a path has no backward through: serving none, the VOC fine-tune recipe
-    # neither (its freeze lists hold the backbone and box_head), the COCO one
-    # none through ROIAlign (it trains box_head behind a frozen backbone)
+    # a path has no backward through: serving none (VOC, COCO and WeakRCNN
+    # requests), the VOC fine-tune recipe neither (its freeze lists hold the
+    # backbone and box_head), the COCO one none through ROIAlign (it trains
+    # box_head behind a frozen backbone)
     no_backward = {"serving": ("roi_align_bwd", "bn_act_bwd"),
                    "finetune": ("roi_align_bwd", "bn_act_bwd"),
                    "coco_segm": ("roi_align_bwd", "bn_act_bwd"),
-                   "coco_segm_ft": ("roi_align_bwd",)}
+                   "coco_segm_ft": ("roi_align_bwd",),
+                   "weak_rcnn_serving": ("roi_align_bwd", "bn_act_bwd")}
     for path, counts in by_path.items():
         for name, count in counts.items():
             if name == "bn_act_layout_copies":
@@ -2230,7 +2681,8 @@ def main():
              launches_by_path=per_path("roi_align_bwd"), **k2),
         dict(name="nms_mask", route="cuda", source="unit_tpu_torch/csrc/nms_mask.cu",
              replaces="unit_tpu/ops/nms_pallas.py:115",
-             launches=launches["nms_mask"], launches_by_path=per_path("nms_mask"), **k3),
+             launches=launches["nms_mask"], launches_by_path=per_path("nms_mask"), **k3,
+             **k3_b2),
         dict(name="bn_act", route="cuda", source="unit_tpu_torch/csrc/bn_act.cu",
              replaces="scripts/bench_backbone_epilogue.py:155",
              launches=launches["bn_act_fwd"] + launches["bn_act_bwd"],

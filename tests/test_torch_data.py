@@ -240,7 +240,8 @@ def test_prefetcher_pins_closes_and_forwards_errors():
 @pytest.mark.parametrize("call,item", [
     (lambda cfg: tloader.build_tta_test_loader(cfg, "x"), "item 24"),
     (lambda cfg: tloader.build_support_loader(cfg, "x"), "item 23"),
-    (lambda cfg: tloader.build_classifier_strong_loader(cfg), "item 20"),
+    (lambda cfg: (setattr(cfg.MODEL, "LOAD_PROPOSALS", True),
+                  tdata.build_classifier_loader(cfg))[1], "item 25"),
     (lambda cfg: (setattr(cfg.TPU, "HOST_TRANSFER_UINT8", True),
                   tdata.build_strong_loader(cfg))[1], "item 29"),
     (lambda cfg: (setattr(cfg.MODEL, "LOAD_PROPOSALS", True),

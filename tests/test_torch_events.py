@@ -5,6 +5,7 @@ at construction and a step count that ignores the resume step).
 
 import json
 import logging
+import types
 
 import pytest
 
@@ -40,14 +41,18 @@ def test_storage_matches_unit_tpu():
     assert j.median("absent") != j.median("absent")
 
 
-def test_console_prints_no_rate_before_two_samples(lines):
+def test_console_prints_no_rate_before_two_samples(lines, monkeypatch):
+    # the writer's clock, stepped by the test: the real one also counts the
+    # time between the two writes, which a loaded host stretches
+    now = [100.0]
+    monkeypatch.setattr(tevents, "time", types.SimpleNamespace(perf_counter=lambda: now[0]))
     w = tevents.ConsoleWriter(max_iter=1000)
     st = tevents.EventStorage()
     st.put_scalars(total_loss=2.5)
     w.write(520, st)  # a resumed run: the first logged step is 520
     assert lines[-1].startswith("iter 520  total_loss 2.5") and "s/it" not in lines[-1]
     assert "eta" not in lines[-1]
-    w._t0 -= 8.0  # 20 steps took 8 s
+    now[0] += 8.0  # 20 steps took 8 s
     w.write(540, st)
     assert "0.4 s/it" in lines[-1] and "eta 3.1m" in lines[-1]  # (1000 - 540) * 0.4 s
 

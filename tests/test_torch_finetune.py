@@ -52,7 +52,7 @@ from unit_tpu_torch.checkpoint import (
 )
 from unit_tpu_torch.checkpoint.jax_params import flatten_tree, flax_path, to_flax_layout
 from unit_tpu_torch.config import get_cfg
-from unit_tpu_torch.engine import TrainerFineTune, TrainerNoMeta, runner
+from unit_tpu_torch.engine import TrainerFineTune, TrainerNoMeta, TrainerOnlyWeakFineTune, runner
 from unit_tpu_torch.models import WSRCNN, ModelConfig
 from unit_tpu_torch.models import predictors as tpred
 from unit_tpu_torch.solver import build_optimizer
@@ -109,10 +109,12 @@ def test_fine_tune_flags_and_trainer_follow_unit_tpu(path, opts):
 
 
 def test_only_weak_fine_tune_trainer_still_waits_for_item_20():
+    """Named when ENGINE.TRAINER TrainerOnlyWeakFineTune was not ported; it
+    now holds that the explicit name wins over the recipe's fine-tune head
+    (tests/test_torch_weak_only.py runs that trainer)."""
     cfg = small_cfg()
     cfg.ENGINE.TRAINER = "TrainerOnlyWeakFineTune"
-    with pytest.raises(NotImplementedError, match="item 20"):
-        runner.trainer_class_for(cfg)
+    assert runner.trainer_class_for(cfg) is TrainerOnlyWeakFineTune
     assert runner.trainer_class_for(small_cfg()) is TrainerFineTune
 
 

@@ -193,7 +193,7 @@ def test_missing_weights_and_device_raise(devkit, tmp_path):
     (["TEST.PRECISE_BN.ENABLED", "True"], "item 26"),
     (["TPU.PROFILE_START_STEP", "2"], "item 31"),
     (["TPU.TP", "2"], "items 27 and 29"),
-    (["ENGINE.TRAINER", "TrainerOnlyWeak"], "item 20"),
+    (["MODEL.BACKBONE.NAME", "VGG_CNN_F"], "item 25"),
     (["ENGINE.TRAINER", "Trainer"], "item 23"),
 ])
 def test_unported_run_options_raise(devkit, tmp_path, opts, item):

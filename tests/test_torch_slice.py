@@ -141,28 +141,32 @@ def test_detection_service_matches(pair, shape):
 
 def test_unported_paths_raise(pair):
     _, _, _, tmodel = pair
-    for fn in (tmodel.predict_tta, tmodel.predict_weak_only):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn()
-    # training options that are not ported yet: TRAIN_ONLY_WEAK and PCL here,
-    # the note and dock suites' models (their backbones, precomputed
-    # proposals) at construction below
-    with pytest.raises(NotImplementedError, match="item 20"):
-        tmodel.train_losses(None, None, None, train_only_weak=True)
-    cfg = small_flagship_cfg()
-    cfg.MODEL.ROI_HEADS.FAST_RCNN.WEAK_DETECTOR.TYPE = "PCL"
-    with pytest.raises(NotImplementedError, match="item 21"):
-        WSRCNN(ModelConfig.from_cfg(cfg)).train_losses(None, None, None)
+    with pytest.raises(NotImplementedError, match="item 24"):
+        tmodel.predict_tta()
+    # training options that are not ported yet: the meta stream here, the
+    # note and dock suites' models (their backbones, precomputed proposals)
+    # and the meta heads at construction below
+    with pytest.raises(NotImplementedError, match="item 23"):
+        tmodel.train_losses(None, None, None, meta={})
     for key, value, item in [("MODEL.BACKBONE.NAME", "InceptionResNetV2", "item 25"),
                              ("MODEL.BACKBONE.NAME", "VGG_CNN_F", "item 25"),
                              ("MODEL.LOAD_PROPOSALS", "True", "item 25"),
                              ("MODEL.ROI_HEADS.FAST_RCNN.WEAK_DETECTOR.REGRESSION_BRANCH",
                               "True", "item 25"),
-                             ("MODEL.META_ARCHITECTURE", "WeakRCNN", "item 20")]:
+                             ("MODEL.ROI_HEADS.NAME", "WSROIHead", "item 23")]:
         cfg = small_flagship_cfg()
         cfg.merge_from_list([key, value])
         with pytest.raises(NotImplementedError, match=item):
             WSRCNN(ModelConfig.from_cfg(cfg))
+    # PCL and the weak-only family are ported (tests/test_torch_pcl.py,
+    # tests/test_torch_weak_only.py): they build
+    for key, value in [("MODEL.ROI_HEADS.FAST_RCNN.WEAK_DETECTOR.TYPE", "PCL"),
+                       ("MODEL.META_ARCHITECTURE", "WeakRCNN"),
+                       ("MODEL.META_ARCHITECTURE", "WeaklySupervisedRCNNRPN")]:
+        cfg = small_flagship_cfg()
+        cfg.merge_from_list([key, value])
+        assert WSRCNN(ModelConfig.from_cfg(cfg)).mc.meta_architecture in (
+            "WeaklySupervisedRCNNNoMeta", "WeakRCNN", "WeaklySupervisedRCNNRPN")
     # masks are ported (tests/test_torch_mask.py, tests/test_torch_coco_slice.py)
     cfg = small_flagship_cfg()
     cfg.merge_from_list(["MODEL.MASK_ON", "True",

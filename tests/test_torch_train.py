@@ -196,7 +196,7 @@ def test_train_losses_selects_proposals_once_for_a_fused_batch(monkeypatch, same
 
 @pytest.mark.parametrize("kwargs,item", [
     ({"meta_iter": iter(())}, "item 23"),
-    ({"train_only_weak": True}, "item 20"),
+    ({"tp": True}, "items 27 and 29"),
     ({"mesh": object()}, "items 27 and 29"),
     ({"fsdp": True}, "items 27 and 29"),
     ({"pp": True}, "items 27 and 29"),

@@ -1,4 +1,5 @@
-"""Host-side data loaders: strong query stream, weak classifier stream, test set.
+"""Host-side data loaders: strong query stream, weak classifier stream (and the
+classifier datasets as a boxed strong stream), test set.
 
 Port of unit_tpu/data/loader.py for one process: seeded numpy iterators that
 emit fixed-shape batches.  Every random draw comes from the loader's own
@@ -233,6 +234,24 @@ def build_classifier_loader(cfg, seed=1, image_loader=None, batch_size=None) -> 
     )
 
 
+def build_classifier_strong_loader(cfg, seed=0, image_loader=None,
+                                   batch_size=None) -> StreamLoader:
+    """The classifier datasets served as a boxed strong stream
+    (TrainerOnlyWeakFineTune): sampled as the weak stream is, then only the
+    records with annotations, with the strong stream's keys."""
+    names = cfg.DATASETS.CLASSIFIER_TRAIN
+    if isinstance(names, str):
+        names = (names,)
+    records = list(itertools.chain.from_iterable(DatasetCatalog.get(n) for n in names))
+    records = [r for r in sample_classifier_dataset(cfg, records) if r.get("annotations")]
+    keys = _STRONG_KEYS + (("gt_masks",) if cfg.MODEL.MASK_ON else ())
+    return StreamLoader(
+        records, TransformConfig.train_from_cfg(cfg),
+        batch_size or cfg.SOLVER.IMS_PER_BATCH, keys, seed=seed,
+        image_loader=image_loader,
+    )
+
+
 def build_test_loader(cfg, dataset_name: str, image_loader=None, batch_size=1):
     """Finite iterator over a test dataset and its length; yields per-batch
     dicts plus metadata (image_id, scale, orig_size) for the evaluator.  The
@@ -281,11 +300,6 @@ def build_tta_test_loader(*args, **kwargs):
 
 def build_support_loader(*args, **kwargs):
     raise _not_ported("the support (meta) loader", "ROADMAP Queue 1 item 23")
-
-
-def build_classifier_strong_loader(*args, **kwargs):
-    raise _not_ported("the boxed classifier stream of TrainerOnlyWeakFineTune",
-                      "ROADMAP Queue 1 item 20")
 
 
 def pin_batch(batch):

@@ -2,7 +2,15 @@
 and the CLI runner in ``engine.runner``)."""
 
 from .predict import make_predict_fn
-from .train import TrainerBase, TrainerFineTune, TrainerNoMeta, TrainState, make_train_step
+from .train import (
+    TrainerBase,
+    TrainerFineTune,
+    TrainerNoMeta,
+    TrainerOnlyWeak,
+    TrainerOnlyWeakFineTune,
+    TrainState,
+    make_train_step,
+)
 
-__all__ = ["TrainState", "TrainerBase", "TrainerFineTune", "TrainerNoMeta", "make_predict_fn",
-           "make_train_step"]
+__all__ = ["TrainState", "TrainerBase", "TrainerFineTune", "TrainerNoMeta", "TrainerOnlyWeak",
+           "TrainerOnlyWeakFineTune", "make_predict_fn", "make_train_step"]

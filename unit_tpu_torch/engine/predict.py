@@ -1,7 +1,10 @@
 """The predict entry point (port of unit_tpu/engine/train.py:470-503).
 
 PyTorch runs eagerly, so there is nothing to compile: the function moves the
-batch to the model's device and runs ``WSRCNN.predict`` without autograd.
+batch to the model's device and runs ``WSRCNN.predict`` without autograd, or
+``WSRCNN.predict_weak_only`` for a ``WeakRCNN`` model (the weak detector
+alone scores).  The server and the run loop's evaluation both predict
+through it.
 """
 
 from __future__ import annotations
@@ -20,11 +23,13 @@ def make_predict_fn(model: WSRCNN) -> Callable[[np.ndarray, np.ndarray], Detecti
     model's device.  Inputs may be numpy arrays or tensors."""
     device = model.embeddings.device
     model.eval()
+    predict = (model.predict_weak_only if model.mc.meta_architecture == "WeakRCNN"
+               else model.predict)
 
     def predict_fn(images, image_sizes) -> Detections:
         with torch.inference_mode():
             imgs = torch.as_tensor(images, dtype=torch.float32).to(device, non_blocking=True)
             sizes = torch.as_tensor(image_sizes, dtype=torch.float32).to(device)
-            return model.predict(imgs, sizes)
+            return predict(imgs, sizes)
 
     return predict_fn

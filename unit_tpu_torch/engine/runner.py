@@ -17,9 +17,12 @@ What differs from unit_tpu, on purpose:
   * ``MODEL.WEIGHTS`` naming ``<run>/best/model`` (unit_tpu's orbax
     directory, as the fine-tune recipes spell it) reads the port's
     ``<run>/best/model.pt``.
-Trainers: ``TrainerNoMeta`` (base training) and ``TrainerFineTune`` (k-shot
-fine-tuning, warm-started from a base run's snapshot).  Not ported, each
-raising with its ROADMAP item: the other trainers (items 20, 23), TTA (24),
+Trainers: ``TrainerNoMeta`` (base training), ``TrainerFineTune`` (k-shot
+fine-tuning, warm-started from a base run's snapshot), ``TrainerOnlyWeak``
+(the weak branch and the RPN; ``WeakRCNN`` configs) and
+``TrainerOnlyWeakFineTune`` (the classifier datasets with their boxes as the
+strong stream).  Not ported, each raising with its ROADMAP item: the meta
+``Trainer`` (item 23), TTA (24),
 precomputed proposals (25), PreciseBN (26), more than one device, ``--dist``,
 TP and PP (27, 29) and the profile hook (31).
 """
@@ -49,6 +52,7 @@ from ..data import (
     DatasetCatalog,
     Prefetcher,
     build_classifier_loader,
+    build_classifier_strong_loader,
     build_strong_loader,
     build_test_loader,
 )
@@ -61,7 +65,7 @@ from ..solver import build_optimizer
 from ..solver.build import warmup_multistep
 from ..utils.events import MetricsHook, print_csv_format
 from .predict import make_predict_fn
-from .train import TrainerFineTune, TrainerNoMeta
+from .train import TrainerFineTune, TrainerNoMeta, TrainerOnlyWeak, TrainerOnlyWeakFineTune
 
 logger = logging.getLogger("unit_tpu_torch")
 
@@ -177,12 +181,9 @@ def setup(args):
 
 
 # trainer name -> the ROADMAP item it waits for
-_UNPORTED_TRAINERS = {
-    "Trainer": "ROADMAP Queue 1 item 23",
-    "TrainerOnlyWeak": "ROADMAP Queue 1 item 20",
-    "TrainerOnlyWeakFineTune": "ROADMAP Queue 1 item 20",
-}
-_PORTED_TRAINERS = ("TrainerNoMeta", "TrainerFineTune")
+_UNPORTED_TRAINERS = {"Trainer": "ROADMAP Queue 1 item 23"}
+_PORTED_TRAINERS = ("TrainerNoMeta", "TrainerFineTune", "TrainerOnlyWeak",
+                    "TrainerOnlyWeakFineTune")
 
 
 def trainer_name_for(cfg) -> str:
@@ -206,7 +207,11 @@ def trainer_class_for(cfg):
     name = trainer_name_for(cfg)
     if name in _UNPORTED_TRAINERS:
         raise _not_ported(name, _UNPORTED_TRAINERS[name])
-    return TrainerFineTune if name == "TrainerFineTune" else TrainerNoMeta
+    # looked up when called: chip_smoke.py and the tests substitute recording
+    # trainers for these names
+    return {"TrainerNoMeta": TrainerNoMeta, "TrainerFineTune": TrainerFineTune,
+            "TrainerOnlyWeak": TrainerOnlyWeak,
+            "TrainerOnlyWeakFineTune": TrainerOnlyWeakFineTune}[name]
 
 
 def build_everything(cfg, device: Optional[torch.device] = None, seed: int = 0,
@@ -216,8 +221,9 @@ def build_everything(cfg, device: Optional[torch.device] = None, seed: int = 0,
     ``start_step`` > 0 (--resume): every training stream is fast-forwarded
     past the batches the preempted run already consumed (``TPU.GRAD_ACCUM``
     a step), so the resumed run sees exactly the data an uninterrupted run
-    would have.  The weak (image-labelled) stream is built for base training
-    only: fine-tuning reads the k-shot strong stream alone."""
+    would have.  The weak (image-labelled) stream is built for base and
+    weak-only training: fine-tuning reads the k-shot strong stream alone, and
+    TrainerOnlyWeakFineTune the classifier datasets as its strong stream."""
     device = device if device is not None else resolve_device(None)
     if int(getattr(cfg.TPU, "TP", 1) or 1) > 1 or bool(getattr(cfg.TPU, "PP", False)) \
             or cfg.TPU.FSDP:
@@ -234,11 +240,16 @@ def build_everything(cfg, device: Optional[torch.device] = None, seed: int = 0,
             loader.fast_forward(start_step * grad_accum)
         return Prefetcher(iter(loader), transform=pin)
 
-    if not cfg.DATASETS.TRAIN:
+    name = trainer_name_for(cfg)
+    if name == "TrainerOnlyWeakFineTune":
+        strong_iter = stream(build_classifier_strong_loader(cfg, seed=seed,
+                                                            image_loader=image_loader))
+    elif not cfg.DATASETS.TRAIN:
         raise ValueError("DATASETS.TRAIN is empty")
-    strong_iter = stream(build_strong_loader(cfg, seed=seed, image_loader=image_loader))
+    else:
+        strong_iter = stream(build_strong_loader(cfg, seed=seed, image_loader=image_loader))
     weak_iter = None
-    if trainer_name_for(cfg) == "TrainerNoMeta":
+    if name in ("TrainerNoMeta", "TrainerOnlyWeak"):
         weak_iter = stream(build_classifier_loader(cfg, seed=seed + 1,
                                                    image_loader=image_loader))
     solver = build_optimizer(cfg, model)

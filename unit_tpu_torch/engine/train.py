@@ -1,6 +1,6 @@
 """Training engine: the train step and the trainer loop.
 
-Port of unit_tpu/engine/train.py:38-191,579-827 for one device.  PyTorch
+Port of unit_tpu/engine/train.py:38-191,579-849 for one device.  PyTorch
 runs eagerly, so the step is a plain closure (zero_grad -> train_losses ->
 sum -> backward -> clip -> SGD step -> LR step) and the trainer moves each
 step's batches to the model's device (numpy arrays, or tensors in pinned
@@ -19,9 +19,8 @@ What differs from unit_tpu, on purpose:
     could save a corrupt state: fault R3 of the reference);
   * ``LazyMetrics``, the remote-TPU fetch pipelining, is not ported
     (ROADMAP Queue 1 item 29).
-The meta stream (ROADMAP Queue 1 item 23), TRAIN_ONLY_WEAK (item 20) and
-mesh, FSDP, TP and pipeline parallelism (items 27 and 29) raise
-``NotImplementedError``.
+The meta stream (ROADMAP Queue 1 item 23) and mesh, FSDP, TP and pipeline
+parallelism (items 27 and 29) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -53,13 +52,15 @@ def make_train_step(
     scheduler: torch.optim.lr_scheduler.LRScheduler,
     clip: Optional[Callable[[], None]],
     grad_accum: int = 1,
+    train_only_weak: bool = False,
 ) -> Callable[..., Dict[str, torch.Tensor]]:
     """(strong, weak, generator) -> detached loss dict with ``total_loss``,
     after one update of ``model``'s parameters.  With ``grad_accum`` A > 1
     each argument is a list of A (the micro-batches and their generators;
     ``weak`` may be None): each micro-batch backpropagates its total / A, so
     the update uses the mean of their gradients, and the dict holds the mean
-    of their losses (A = 1 divides by one: exact)."""
+    of their losses (A = 1 divides by one: exact).  ``train_only_weak`` goes
+    to ``train_losses`` (TrainerOnlyWeak)."""
     accum = int(grad_accum)
     trainable = [p for group in optimizer.param_groups for p in group["params"]]
 
@@ -70,7 +71,7 @@ def make_train_step(
         sums: Dict[str, torch.Tensor] = {}
         for s, w, g in zip(strong, weak if weak is not None else [None] * accum, generator,
                            strict=True):
-            losses = model.train_losses(g, s, w)
+            losses = model.train_losses(g, s, w, train_only_weak=train_only_weak)
             total = torch.stack(list(losses.values())).sum()
             (total / accum).backward()
             losses["total_loss"] = total
@@ -118,8 +119,6 @@ class TrainerBase:
     ):
         if meta_iter is not None:
             raise _not_ported("the meta (support) stream", "ROADMAP Queue 1 item 23")
-        if train_only_weak:
-            raise _not_ported("TRAIN_ONLY_WEAK training", "ROADMAP Queue 1 item 20")
         if int(grad_accum) < 1:
             raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
         if mesh is not None or fsdp or tp or pp:
@@ -134,8 +133,9 @@ class TrainerBase:
         # micro-batches waiting for A of their canvas, per stream and canvas
         self._accum_buf: Dict[str, Dict[tuple, list]] = {"strong": {}, "weak": {}}
         self.device = model.embeddings.device
+        self.train_only_weak = bool(train_only_weak)
         self.train_step = make_train_step(model, optimizer.optimizer, optimizer.scheduler,
-                                          optimizer.clip, self.grad_accum)
+                                          optimizer.clip, self.grad_accum, self.train_only_weak)
         self.state: Optional[TrainState] = None
         self.stop_requested = False
         self.metrics_history: List[Dict[str, float]] = []
@@ -152,8 +152,12 @@ class TrainerBase:
         # a Prefetcher with data.loader.pin_batch hands out tensors in pinned
         # memory, from which the copy is asynchronous; numpy arrays (pageable)
         # are copied synchronously whatever the flag says
-        return {k: (v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v)))
-                .to(self.device, non_blocking=True) for k, v in batch.items()}
+        host = {k: v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
+                for k, v in batch.items()}
+        out = {k: v.to(self.device, non_blocking=True) for k, v in host.items()}
+        if "labels" in host:  # the PCL losses read the classes present from the host
+            out["labels_host"] = host["labels"]
+        return out
 
     def _next_group(self, it, buffers) -> list:
         """Pull micro-batches until ``grad_accum`` of them share one canvas (the
@@ -228,4 +232,23 @@ class TrainerFineTune(TrainerBase):
 
     def __init__(self, *args, **kwargs):
         kwargs.setdefault("weak_iter", None)
+        super().__init__(*args, **kwargs)
+
+
+class TrainerOnlyWeak(TrainerBase):
+    """Weak-branch-only training: the RPN on the strong stream, the weak
+    branch on the weak one, nothing else (unit_tpu train.py:830-835)."""
+
+    def __init__(self, *args, **kwargs):
+        kwargs["train_only_weak"] = True
+        super().__init__(*args, **kwargs)
+
+
+class TrainerOnlyWeakFineTune(TrainerBase):
+    """The classifier datasets, with their boxes, as the strong stream and no
+    weak stream (unit_tpu train.py:838-849); the runner builds that stream
+    with ``data.loader.build_classifier_strong_loader``."""
+
+    def __init__(self, *args, **kwargs):
+        kwargs["weak_iter"] = None
         super().__init__(*args, **kwargs)

@@ -1,7 +1,8 @@
 """The weakly-supervised R-CNN detector: base training and serving.
 
-Port of unit_tpu/models/meta_arch.py:43-336,429-651,699-797 for
-``WeaklySupervisedRCNNNoMeta`` configs.  Inference: ResNet-C4 -> RPN (+ NMS
+Port of unit_tpu/models/meta_arch.py:43-336,429-876 for the
+``WeaklySupervisedRCNNNoMeta``, ``WeakRCNN`` and ``WeaklySupervisedRCNNRPN``
+meta-architectures.  Inference: ResNet-C4 -> RPN (+ NMS
 kernel K3) -> ROIAlignV2 (K1) -> one or two Res5 heads -> supervised delta
 heads + OICR weak detector -> lingual/visual base->novel transfer -> softmax
 -> per-class NMS (K3).  Training (``train_losses``): one fused backbone + RPN
@@ -14,9 +15,14 @@ training too.  Under MODEL.MASK_ON (``Res5BoxHeadWithMask``) the box head keeps
 its 4-D map in training, the predictors take its spatial mean, and the mask
 head learns on the foreground slots (``loss_mask``, through the mask
 transfer when fine-tuning); ``predict`` runs ROIAlignV2 (K1), Res5 and the
-mask head again over the final detections.  TTA, the weak-only path, the
-meta stream, PCL and the other training options raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+mask head again over the final detections.  WEAK_DETECTOR.TYPE PCL
+replaces the OICR losses by PCL's (models/pcl.py).  ``train_only_weak``
+(TrainerOnlyWeak) trains the RPN on the strong batch and the weak branch on
+the weak one, nothing else.  ``WeakRCNN`` serves with the weak detector alone
+(``predict_weak_only``); ``WeaklySupervisedRCNNRPN`` adds RPN losses on the
+weak images against the weak detector's own confident detections
+(``rpn_self_training_losses``).  TTA, the meta stream and the other training
+options raise ``NotImplementedError`` naming the ROADMAP item that ports them.
 
 Precision mirrors ``TPU.COMPUTE_DTYPE``: backbone, RPN convs and Res5 run in
 the compute dtype; RPN outputs, box features and all predictor, transfer and
@@ -43,6 +49,7 @@ from ..structures.instances import (
 )
 from . import fast_rcnn as frcnn
 from . import mask_head as mask_lib
+from . import pcl as pcl_lib
 from . import rpn as rpn_lib
 from . import similarity as sim_lib
 from . import weak_losses as weak_lib
@@ -93,7 +100,11 @@ class ModelConfig:
     oicr_regression_branch: bool = False
     oicr_iter: int = 3
     weak_detector_type: str = "OICR"  # OICR | PCL
-    rpn_self_training: bool = False
+    num_kmeans_cluster: int = 3
+    graph_iou_threshold: float = 0.4
+    max_pc_num: int = 5
+    rpn_self_training: bool = False   # WeaklySupervisedRCNNRPN
+    weak_rpn_score_threshold: float = 0.99
     finetune: bool = False              # *_ft residual heads + train-time transfer
     weak_finetune_detach: bool = False  # SupervisedDetectorOutputsWeakFineTune
     weak_detector_finetune: bool = False  # WeakDetectorOutputsFT delta streams
@@ -160,7 +171,11 @@ class ModelConfig:
             oicr_regression_branch=wd.OICR_REGRESSION_BRANCH,
             oicr_iter=wd.OICR_ITER,
             weak_detector_type=wd.TYPE,
+            num_kmeans_cluster=wd.NUM_KMEANS_CLUSTER,
+            graph_iou_threshold=wd.GRAPH_IOU_THRESHOLD,
+            max_pc_num=wd.MAX_PC_NUM,
             rpn_self_training=cfg.MODEL.META_ARCHITECTURE == "WeaklySupervisedRCNNRPN",
+            weak_rpn_score_threshold=cfg.MODEL.PROPOSAL_GENERATOR.WEAK_RPN_SCORE_TRESHOLD,
             finetune="FineTune" in fast_name and "Weak" not in fast_name,
             weak_finetune_detach=fast_name == "SupervisedDetectorOutputsWeakFineTune",
             weak_detector_finetune=wd.NAME == "WeakDetectorOutputsFT",
@@ -200,8 +215,6 @@ def _check_supported(mc: ModelConfig) -> None:
         raise _not_ported(f"pooler {mc.pooler_type}", "ROADMAP Queue 1 item 25")
     if mc.load_proposals:
         raise _not_ported("precomputed proposals", "ROADMAP Queue 1 item 25")
-    if mc.meta_architecture == "WeakRCNN":
-        raise _not_ported("the weak-only WeakRCNN", "ROADMAP Queue 1 item 20")
     if mc.regression_branch or mc.oicr_regression_branch or mc.oicr_iter < 1:
         raise _not_ported("weak regression branches and OICR_ITER 0",
                           "ROADMAP Queue 1 item 25")
@@ -289,18 +302,9 @@ class WSRCNN(nn.Module):
         return torch.stack([m.weight for m in self.weak_detector.oicr_predictors()]).mean(0)
 
     # ---------------------------------------------------------------- training
-    def _check_trainable(self, train_only_weak, meta) -> None:
+    def _check_trainable(self, meta) -> None:
         """Training options beyond those _check_supported refuses at
-        construction (masks, precomputed proposals)."""
-        mc = self.mc
-        if train_only_weak:
-            raise _not_ported("TRAIN_ONLY_WEAK training", "ROADMAP Queue 1 item 20")
-        if mc.rpn_self_training:
-            raise _not_ported("RPN self-training (WeaklySupervisedRCNNRPN)",
-                              "ROADMAP Queue 1 item 20")
-        if mc.weak_detector_type != "OICR":
-            raise _not_ported(f"the {mc.weak_detector_type} weak detector",
-                              "ROADMAP Queue 1 item 21")
+        construction."""
         if meta is not None:
             raise _not_ported("the meta (support) stream", "ROADMAP Queue 1 item 23")
 
@@ -325,33 +329,41 @@ class WSRCNN(nn.Module):
         strong: {image [B,H,W,3], gt_boxes [B,G,4], gt_classes [B,G],
                  gt_valid [B,G], image_size [B,2], and under MODEL.MASK_ON
                  gt_masks [B,G,M,M]}
-        weak:   {image [Bw,H',W',3], labels [Bw,C], image_size [Bw,2]}
+        weak:   {image [Bw,H',W',3], labels [Bw,C], image_size [Bw,2], and
+                 optionally labels_host: a CPU copy of labels, from which the
+                 PCL losses read the classes present without waiting for the
+                 device}
         ``generator`` (on the batches' device) draws every random choice:
         the RPN's anchor subsampling and the ROI heads' proposal sampling.
+        With ``train_only_weak`` (TrainerOnlyWeak) the strong batch trains
+        the RPN alone: no proposals, sampling or supervised heads for it.
         """
-        self._check_trainable(train_only_weak, meta)
+        self._check_trainable(meta)
         mc = self.mc
         losses: Dict[str, torch.Tensor] = {}
 
         # Both streams on one canvas: one fused backbone + RPN pass over
         # cat(strong, weak), and one proposal selection (one launch of K3) for
-        # all images; the gradients are those of two passes, and the proposals
-        # those of one selection a stream (images are independent).
-        feats = feats_w = logits = deltas = proposals = props_w = None
+        # all images that need proposals; the gradients are those of two
+        # passes, and the proposals those of one selection a stream (images
+        # are independent).
+        feats = feats_w = logits = deltas = logits_w = deltas_w = proposals = props_w = None
         if (strong is not None and weak is not None
                 and strong["image"].shape[1:] == weak["image"].shape[1:]):
             bs = strong["image"].shape[0]
             all_feats = self.features(torch.cat([strong["image"], weak["image"]]))
             feats, feats_w = all_feats[:bs], all_feats[bs:]
             all_logits, all_deltas = self.rpn(all_feats)
-            logits, deltas = all_logits[:bs], all_deltas[:bs]
-            both = self._train_proposals(
-                all_feats, all_logits, all_deltas,
-                torch.cat([strong["image_size"], weak["image_size"]]))
-            proposals, props_w = (
-                Proposals(**{f.name: getattr(both, f.name)[part]
-                             for f in dataclasses.fields(Proposals)})
-                for part in (slice(0, bs), slice(bs, None)))
+            logits, logits_w = all_logits[:bs], all_logits[bs:]
+            deltas, deltas_w = all_deltas[:bs], all_deltas[bs:]
+            if not train_only_weak:
+                both = self._train_proposals(
+                    all_feats, all_logits, all_deltas,
+                    torch.cat([strong["image_size"], weak["image_size"]]))
+                proposals, props_w = (
+                    Proposals(**{f.name: getattr(both, f.name)[part]
+                                 for f in dataclasses.fields(Proposals)})
+                    for part in (slice(0, bs), slice(bs, None)))
 
         if strong is not None:
             gt = GTInstances(boxes=strong["gt_boxes"], classes=strong["gt_classes"].long(),
@@ -359,9 +371,11 @@ class WSRCNN(nn.Module):
             if feats is None:
                 feats = self.features(strong["image"])
                 logits, deltas = self.rpn(feats)
+            # the RPN trains on the strong batch under train_only_weak too
             anchors = rpn_lib.get_anchors(feats.shape[1], feats.shape[2], mc.rpn,
                                           device=feats.device)
             losses.update(rpn_lib.rpn_losses(generator, logits, deltas, anchors, gt, mc.rpn))
+        if strong is not None and not train_only_weak:
             if proposals is None:
                 proposals = self._train_proposals(feats, logits, deltas, strong["image_size"])
             sampled = stack_fields([
@@ -413,15 +427,56 @@ class WSRCNN(nn.Module):
         if weak is not None:
             if feats_w is None:
                 feats_w = self.features(weak["image"])
-                props_w = self._train_proposals(feats_w, *self.rpn(feats_w), weak["image_size"])
+                logits_w, deltas_w = self.rpn(feats_w)
+            if props_w is None:
+                props_w = self._train_proposals(feats_w, logits_w, deltas_w, weak["image_size"])
             # the top (BATCH_SIZE_PER_IMAGE // WEAK_CLASSIFIER_PROPOSAL_DIVISOR)
             w_boxes = props_w.boxes[:, :mc.weak_proposal_count].contiguous()
             w_valid = props_w.valid[:, :mc.weak_proposal_count]
             pooled_w = self.pooled_rois(feats_w, w_boxes)
             weak_feats = self.box_features(pooled_w, "weak" if mc.multi_box_head else "box")
-            losses.update(weak_lib.weak_detector_losses(
-                self.weak_detector(weak_feats), w_boxes, w_valid, weak["labels"], mc.weak))
+            streams = self.weak_detector(weak_feats)
+            if mc.weak_detector_type == "PCL":
+                present = pcl_lib.present_classes(weak.get("labels_host", weak["labels"]))
+                losses.update(pcl_lib.pcl_detector_losses(
+                    streams, w_boxes, w_valid, weak["labels"], mc.weak, present,
+                    mc.num_kmeans_cluster, mc.graph_iou_threshold, mc.max_pc_num))
+            else:
+                losses.update(weak_lib.weak_detector_losses(
+                    streams, w_boxes, w_valid, weak["labels"], mc.weak))
+            if mc.rpn_self_training:
+                losses.update(self.rpn_self_training_losses(weak, feats_w, logits_w, deltas_w))
         return losses
+
+    def rpn_self_training_losses(self, weak: Dict[str, torch.Tensor], feats_w=None,
+                                 logits_w=None, deltas_w=None) -> Dict[str, torch.Tensor]:
+        """WeaklySupervisedRCNNRPN: the weak detector's detections on the weak
+        images scoring above WEAK_RPN_SCORE_TRESHOLD, of classes present in
+        their labels, are the RPN's pseudo-GT there; the RPN losses against
+        them, keys suffixed ``_weak``, with a fixed generator seeded 0 (unit_tpu
+        uses PRNGKey(0)).
+
+        ``feats_w``, ``logits_w``, ``deltas_w``: the weak images' features and
+        RPN outputs of the training pass, reused (unit_tpu runs the backbone
+        on them twice more: the same values, so the same losses; the gradient
+        differs only in summation order).  The detections are made without
+        autograd from detached features."""
+        mc = self.mc
+        if feats_w is None:
+            feats_w = self.features(weak["image"])
+            logits_w, deltas_w = self.rpn(feats_w)
+        with torch.no_grad():
+            dets = self._predict_weak_only(feats_w.detach(), logits_w.detach(),
+                                           deltas_w.detach(), weak["image_size"])
+        in_image = weak["labels"].gather(1, dets.classes) > 0.5
+        keep = dets.valid & in_image & (dets.scores > mc.weak_rpn_score_threshold)
+        pseudo = GTInstances(boxes=dets.boxes, classes=dets.classes, valid=keep)
+        anchors = rpn_lib.get_anchors(feats_w.shape[1], feats_w.shape[2], mc.rpn,
+                                      device=feats_w.device)
+        generator = torch.Generator(device=logits_w.device)
+        generator.manual_seed(0)
+        losses = rpn_lib.rpn_losses(generator, logits_w, deltas_w, anchors, pseudo, mc.rpn)
+        return {f"{k}_weak": v for k, v in losses.items()}
 
     def _mask_loss(self, feats4d, sampled: SampledProposals, gt_masks, sims) -> torch.Tensor:
         """The mask loss over the first ``mask_fg_slots`` slots of each image,
@@ -454,9 +509,6 @@ class WSRCNN(nn.Module):
     def predict_tta(self, *args, **kwargs):
         # with it goes its fine-tune branch (unit_tpu meta_arch.py:999-1001)
         raise _not_ported("test-time augmentation", "ROADMAP Queue 1 item 24")
-
-    def predict_weak_only(self, *args, **kwargs):
-        raise _not_ported("the weak-only predict path", "ROADMAP Queue 1 item 20")
 
     # ---------------------------------------------------------------- inference
     def inference_similarity(self, box_feats: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -518,19 +570,47 @@ class WSRCNN(nn.Module):
     def predict(self, images: torch.Tensor, image_sizes: torch.Tensor) -> Detections:
         """Batched inference -> Detections [B, D] in canvas coordinates, with
         their masks under MODEL.MASK_ON."""
-        mc = self.mc
         probs, bbox, proposals, feats = self.predict_raw(images, image_sizes)
-        dets = [
+        dets = self._final_detections(probs, bbox, proposals, image_sizes)
+        if self.mc.mask_on:
+            dets.masks = self._predict_masks(feats, dets)
+        return dets
+
+    def _final_detections(self, probs, bbox, proposals: Proposals, image_sizes) -> Detections:
+        """Per-class NMS of each image's scored proposals -> Detections [B, D]."""
+        mc = self.mc
+        return stack_fields([
             frcnn.fast_rcnn_inference_single(
                 probs[i], bbox[i], proposals.boxes[i], proposals.valid[i],
                 (image_sizes[i, 0], image_sizes[i, 1]), mc.frcnn, nms_impl=mc.nms_impl,
             )
             for i in range(probs.shape[0])
-        ]
-        dets = stack_fields(dets, Detections)
-        if mc.mask_on:
-            dets.masks = self._predict_masks(feats, dets)
-        return dets
+        ], Detections)
+
+    def predict_weak_only(self, images: torch.Tensor, image_sizes: torch.Tensor) -> Detections:
+        """WeakRCNN inference: the weak detector alone scores the RPN's
+        proposals.  Its class probabilities are the SUM of the softmaxes of
+        the OICR heads (padded with a zero background column for a head
+        without one), its box deltas those of ``weak_detector.evaluation``;
+        then per-class NMS as in :meth:`predict`."""
+        feats = self.features(images)
+        return self._predict_weak_only(feats, *self.rpn(feats), image_sizes)
+
+    def _predict_weak_only(self, feats, logits, deltas, image_sizes) -> Detections:
+        mc = self.mc
+        anchors = rpn_lib.get_anchors(feats.shape[1], feats.shape[2], mc.rpn,
+                                      device=feats.device)
+        proposals = rpn_lib.select_proposals(logits, deltas, anchors, image_sizes, mc.rpn,
+                                             nms_impl=mc.nms_impl)
+        b, p = proposals.boxes.shape[:2]
+        pooled = self.pooled_rois(feats, proposals.boxes)
+        weak_feats = self.box_features(pooled, "weak" if mc.multi_box_head else "box")
+        weak_scores, weak_box_deltas = self.weak_detector.evaluation(weak_feats)
+        probs = torch.softmax(weak_scores, dim=-1).sum(0)
+        if probs.shape[-1] == mc.num_classes:  # no background column
+            probs = torch.nn.functional.pad(probs, (0, 1))
+        return self._final_detections(probs.reshape(b, p, -1),
+                                      weak_box_deltas.reshape(b, p, -1), proposals, image_sizes)
 
     def _predict_masks(self, feats: torch.Tensor, dets: Detections) -> torch.Tensor:
         """Mask probabilities [B, D, M, M] of the final detections, padded

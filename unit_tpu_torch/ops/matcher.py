@@ -28,17 +28,18 @@ def match(
 ) -> MatchResult:
     """Match N predictions against M padded GT rows.
 
-    quality [M, N] (>= 0, e.g. IoU); gt_valid [M]; ascending ``thresholds``
-    band the max quality into ``labels`` (len(thresholds) + 1 values from
-    {-1, 0, 1}); ``allow_low_quality_matches`` is the RPN rescue: every
-    prediction tied with a valid gt's best quality gets label 1.  Without a
-    valid gt: matches 0, labels labels[0], vals 0.
+    quality [..., M, N] (>= 0, e.g. IoU); gt_valid [..., M]; ascending
+    ``thresholds`` band the max quality into ``labels`` (len(thresholds) + 1
+    values from {-1, 0, 1}); ``allow_low_quality_matches`` is the RPN rescue:
+    every prediction tied with a valid gt's best quality gets label 1.
+    Without a valid gt: matches 0, labels labels[0], vals 0.  Leading
+    dimensions are independent problems (unit_tpu's ``vmap``).
     """
     assert len(labels) == len(thresholds) + 1
-    masked_q = torch.where(gt_valid[:, None], quality, -1.0)
-    matched_vals, matches = masked_q.max(dim=0)  # first index among ties
+    masked_q = torch.where(gt_valid[..., :, None], quality, -1.0)
+    matched_vals, matches = masked_q.max(dim=-2)  # first index among ties
 
-    any_gt = gt_valid.any()
+    any_gt = gt_valid.any(dim=-1, keepdim=True)
     matched_vals = torch.where(any_gt, matched_vals.clamp_min(0.0), 0.0)
     matches = torch.where(any_gt, matches, 0)
 
@@ -48,9 +49,9 @@ def match(
         out = torch.where((matched_vals >= low) & (matched_vals < high), lbl, out)
 
     if allow_low_quality_matches:
-        highest_per_gt = masked_q.max(dim=1).values
-        is_best = (quality == highest_per_gt[:, None]) & gt_valid[:, None]
-        out = torch.where(is_best.any(dim=0), 1, out)
+        highest_per_gt = masked_q.max(dim=-1).values
+        is_best = (quality == highest_per_gt[..., None]) & gt_valid[..., :, None]
+        out = torch.where(is_best.any(dim=-2), 1, out)
 
     out = torch.where(any_gt, out, labels[0])
     return MatchResult(matches=matches, labels=out, vals=matched_vals)

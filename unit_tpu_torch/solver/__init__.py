@@ -1,5 +1,13 @@
 """The optimizer (port of unit_tpu.solver: SGD, schedule, LR groups, freezing)."""
 
-from .build import Solver, build_optimizer, is_frozen, lr_factor_for, warmup_multistep
+from .build import (
+    Solver,
+    build_optimizer,
+    is_frozen,
+    lr_factor_for,
+    modify_for_weak_only,
+    warmup_multistep,
+)
 
-__all__ = ["Solver", "build_optimizer", "is_frozen", "lr_factor_for", "warmup_multistep"]
+__all__ = ["Solver", "build_optimizer", "is_frozen", "lr_factor_for", "modify_for_weak_only",
+           "warmup_multistep"]

@@ -1,7 +1,7 @@
 """Optimizer construction: SGD + warmup multistep LR + per-group LR factors +
 freezing + gradient clipping.
 
-Port of unit_tpu/solver/build.py:21-208.  unit_tpu builds one optax chain
+Port of unit_tpu/solver/build.py:21-215.  unit_tpu builds one optax chain
 (zero the frozen gradients -> clip -> weight decay -> momentum trace -> LR
 schedule -> per-leaf factor); here the same update is a ``torch.optim.SGD``:
 
@@ -19,12 +19,13 @@ schedule -> per-leaf factor); here the same update is a ``torch.optim.SGD``:
 
 Names are the flax paths of the parameters (checkpoint.jax_params.flax_path),
 so the path rules are those of unit_tpu verbatim.  ``modify_for_weak_only``
-waits for ROADMAP Queue 1 item 20.
+is the optimizer of the reference's weak-only phase (everything but the weak
+branch frozen); as in unit_tpu, no trainer builds it.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, NamedTuple, Optional, Sequence
+from typing import Callable, Iterable, List, NamedTuple, Optional, Sequence
 
 import torch
 from torch import nn
@@ -81,10 +82,10 @@ def lr_factor_for(path: str, cfg) -> float:
     return 1.0
 
 
-def is_frozen(path: str, cfg) -> bool:
+def is_frozen(path: str, cfg, extra_frozen: Iterable[str] = ()) -> bool:
     """Whether a parameter never updates: frozen BN statistics, the GloVe
-    embeddings, frozen backbone stages and MODEL.FREEZE_LAYERS entries.
-    (unit_tpu's extra_frozen list serves modify_for_weak_only: item 20.)"""
+    embeddings, frozen backbone stages, MODEL.FREEZE_LAYERS entries and the
+    path fragments of ``extra_frozen`` (``modify_for_weak_only``)."""
     if "_bn/" in path or path.endswith("_bn") or "/bn/" in path:
         return True
     if "embeddings" in path:
@@ -124,6 +125,17 @@ def is_frozen(path: str, cfg) -> bool:
         frag = alias.get(name, name)
         if frag and seg_match(frag):
             return True
+    bounded = "/" + path + "/"
+    for frag in extra_frozen:
+        if not frag:
+            continue
+        if "/" in frag:
+            # contained at segment boundaries: 'box_head/' must not catch
+            # 'weak_box_head/...'
+            if "/" + frag.strip("/") + "/" in bounded:
+                return True
+        elif seg_match(frag):
+            return True
     return False
 
 
@@ -158,15 +170,17 @@ def _clip_fn(cfg, params: List[nn.Parameter]) -> Optional[Callable[[], None]]:
     return by_norm
 
 
-def build_optimizer(cfg, model: nn.Module) -> Solver:
+def build_optimizer(cfg, model: nn.Module, extra_frozen: Iterable[str] = ()) -> Solver:
     """SGD(momentum, nesterov, weight decay) with per-group LR factors, the
-    freeze list applied as ``requires_grad_(False)``, the warm-up multistep
-    schedule and the configured gradient clipping."""
+    freeze list (and ``extra_frozen``'s path fragments) applied as
+    ``requires_grad_(False)``, the warm-up multistep schedule and the
+    configured gradient clipping."""
+    extra_frozen = tuple(extra_frozen)
     groups = {}
     trainable = []
     for name, param in model.named_parameters():
         path = flax_path(name, param)
-        if is_frozen(path, cfg):
+        if is_frozen(path, cfg, extra_frozen):
             param.requires_grad_(False)
             continue
         param.requires_grad_(True)
@@ -184,3 +198,11 @@ def build_optimizer(cfg, model: nn.Module) -> Solver:
                                 cfg.SOLVER.WARMUP_FACTOR, cfg.SOLVER.WARMUP_ITERS)
     scheduler = torch.optim.lr_scheduler.LambdaLR(optimizer, schedule)
     return Solver(optimizer, scheduler, _clip_fn(cfg, trainable))
+
+
+def modify_for_weak_only(cfg, model: nn.Module) -> Solver:
+    """modify_optimizer_C4: the reference's TRAIN_ONLY_WEAK phase freezes the
+    supervised branch, the box head, the RPN and the backbone; the weak
+    detector and its box head train."""
+    return build_optimizer(cfg, model,
+                           extra_frozen=["supervised", "box_head/", "rpn_head", "backbone"])

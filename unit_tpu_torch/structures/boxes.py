@@ -23,17 +23,18 @@ def area(boxes: torch.Tensor) -> torch.Tensor:
 
 
 def pairwise_intersection(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
-    """[M, N] intersection areas between two sets of XYXY boxes."""
-    lt = torch.maximum(boxes1[:, None, :2], boxes2[None, :, :2])
-    rb = torch.minimum(boxes1[:, None, 2:], boxes2[None, :, 2:])
+    """[..., M, N] intersection areas between two sets of XYXY boxes [..., M, 4]
+    and [..., N, 4] (leading dimensions broadcast)."""
+    lt = torch.maximum(boxes1[..., :, None, :2], boxes2[..., None, :, :2])
+    rb = torch.minimum(boxes1[..., :, None, 2:], boxes2[..., None, :, 2:])
     wh = (rb - lt).clamp_min(0.0)
     return wh[..., 0] * wh[..., 1]
 
 
 def pairwise_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
-    """[M, N] IoU; 0 where the union is empty (degenerate boxes)."""
+    """[..., M, N] IoU; 0 where the union is empty (degenerate boxes)."""
     inter = pairwise_intersection(boxes1, boxes2)
-    union = area(boxes1)[:, None] + area(boxes2)[None, :] - inter
+    union = area(boxes1)[..., :, None] + area(boxes2)[..., None, :] - inter
     pos = union > 0
     return torch.where(pos, inter / torch.where(pos, union, 1.0), 0.0)
 

@@ -85,6 +85,16 @@ Phases (any failure raises and the script exits non-zero):
      images) and K3 against its plain version at the self-training
      predict's 2 x 6000 -> 1000; engine.runner.run with
      TrainerOnlyWeakFineTune on phase 10's devkit, 3 steps and an evaluation
+ 14  the meta recipe (VOC-RCNN-101-C4-split1-meta.yaml) at the flagship's
+     full width: Trainer 2 + 6 timed steps of 2 strong + 2 weak images and
+     15 classes x 5 support shots at 224, all in pinned memory (K1 3, K2 2,
+     K3 1, K4 238 + 123 a step), the rank losses' underflow constants exact,
+     one profiled step; the f32 meta train path kernels vs plain; K1 against
+     its plain version at the support shapes ([75,14,14,1024] x 1 ROI, the
+     step's own shots, and an evaluation's [750,14,14,1024] x 1);
+     engine.runner.run with Trainer on phase 10's devkit: 4 steps, a
+     checkpoint at 2, the evaluation with its support precompute (50 shots a
+     class), and a resume from step 2
 The last three lines are the card (nvidia-smi), one JSON object describing
 the kernels (launches counted on the run loop of phase 10, and per path under
 launches_by_path), and {"ok": true, "device": {...}}.  Without a CUDA device, or without the
@@ -168,7 +178,9 @@ K4_MAX_ABS_ERR = 0.0
 # epilogue at one served image, a shortcut, res4 at a train step's 4 images,
 # Res5 over 1024 ROIs, over a request's 100 final detections (the mask path)
 # and over a fine-tune step's 4096 ROIs (backward in the COCO segm-ft step),
-# and two narrow ones (C = 4 and 130 take the scalar path).  R-50 and R-101
+# the meta step's res4 over its 75 support shots at 224 and its meta head
+# over the 75 shots and the 200 query slots, and two narrow ones (C = 4 and
+# 130 take the scalar path).  R-50 and R-101
 # share every per-layer shape; they differ in how many layers have it.
 K4_SHAPES = (
     ((1, 400, 672, 64), (False, True)),
@@ -179,6 +191,9 @@ K4_SHAPES = (
     ((1024, 7, 7, 2048), (True, True)),
     ((100, 7, 7, 2048), (True, True)),
     ((4096, 7, 7, 2048), (True, True)),
+    ((75, 14, 14, 1024), (True, True)),
+    ((75, 7, 7, 2048), (True, True)),
+    ((200, 7, 7, 2048), (True, True)),
     ((3, 5, 7, 4), (True, True)),
     ((2, 9, 11, 130), (True, True)),
 )
@@ -234,6 +249,14 @@ WEAK_TRAIN_STEPS = 6
 WEAK_REQUESTS = 4
 WEAK_ONLY_STEPS = 4
 WEAK_RUN_STEPS = 3
+# The meta recipe (phase 14): Trainer's timed steps and its run on phase 10's
+# devkit.  The Gaussian likelihood of the rank losses underflows to 0 at
+# D = 2048 (docs/DEVIATIONS.md), so the margin loss is exactly
+# (S - 1) * 0.5 / S over S = 16 slots and the regression loss exactly 1.
+META_RECIPE = ROOT / "configs" / "VOC" / "VOC-RCNN-101-C4-split1-meta.yaml"
+META_TRAIN_STEPS = 6
+META_RUN_STEPS = 4
+RANK_MARGIN_UNDERFLOW = 15 * 0.5 / 16
 
 
 def log(*parts):
@@ -1199,12 +1222,14 @@ def phase_train(cfg, seed):
     return launches
 
 
-def train_path_kernels_vs_plain(model, strong, weak, seed, tag):
+def train_path_kernels_vs_plain(model, strong, weak, seed, tag, meta=None):
     """train_losses + backward with the kernels and with their plain versions
-    (same weights, same generator seed): the proposals and sampled slots must
-    be identical, the losses within TRAIN_LOSS_RTOL and every gradient within
-    TRAIN_GRAD_REL of its leaf's largest element + TRAIN_GRAD_FLOOR of the
-    network's.  Returns the launch counts of the kernels' pass."""
+    (same weights, same generator seed, the support batch ``meta`` of a meta
+    model): the proposals and sampled slots must be identical, the losses
+    within TRAIN_LOSS_RTOL and every gradient within TRAIN_GRAD_REL of its
+    leaf's largest element + TRAIN_GRAD_FLOOR of the network's; a meta
+    model's margin and regression rank losses are exactly the underflow's
+    constants.  Returns the launch counts of the kernels' pass."""
     import torch
 
     from unit_tpu_torch.models import rpn as rpn_lib
@@ -1236,7 +1261,7 @@ def train_path_kernels_vs_plain(model, strong, weak, seed, tag):
             reset_launch_counts()
             gen = torch.Generator(device=strong["image"].device)
             gen.manual_seed(seed)
-            losses = model.train_losses(gen, strong, weak)
+            losses = model.train_losses(gen, strong, weak, meta=meta)
             torch.stack(list(losses.values())).sum().backward()
             grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
                      if p.grad is not None}
@@ -1270,6 +1295,12 @@ def train_path_kernels_vs_plain(model, strong, weak, seed, tag):
         raise AssertionError("the train path with kernels disagrees with the plain path")
     if "gt_masks" in strong and not np.isfinite(lk.get("loss_mask", np.nan)):
         raise AssertionError(f"the train path with masks has no finite loss_mask: {lk}")
+    if meta is not None:
+        for impl, losses in (("kernels", lk), ("plain", lp)):
+            if not (losses["loss_rank_margin"] == RANK_MARGIN_UNDERFLOW
+                    and losses["loss_rank_reg"] == 1.0 and losses["loss_rank_cls"] > 0):
+                raise AssertionError(f"the rank losses ({impl}) are not the likelihood "
+                                     f"underflow's constants: {losses}")
     return launches
 
 
@@ -2610,6 +2641,297 @@ def phase_weak_variants(seed, workdir):
     return by_path, k3_b2
 
 
+def synthetic_support_batches(cfg, seed, n_batches=2, shots=None):
+    """Support batches made from ``seed``: C base classes x ``shots`` (the
+    recipe's NUM_SHOTS) shots of random BGR content on the square meta canvas,
+    one GT box a shot, one shot in seven on the whole canvas (the loader's
+    box for a record without one of its class)."""
+    rng = np.random.RandomState(seed + 9)
+    c = len(cfg.DATASETS.FEWSHOT.BASE_CLASSES_ID)
+    k = shots or cfg.DATASETS.FEWSHOT.NUM_SHOTS
+    m = cfg.INPUT.META_MIN_SIZE
+    out = []
+    for _ in range(n_batches):
+        wh = rng.uniform(0.1, 0.9, (c, k, 2)) * m
+        xy = rng.uniform(0, 1, (c, k, 2)) * (m - wh)
+        boxes = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+        boxes.reshape(-1, 4)[::7] = [0, 0, m, m]
+        out.append({"image": rng.uniform(0, 255, (c, k, m, m, 3)).astype(np.float32),
+                    "boxes": boxes, "class_valid": np.ones(c, bool)})
+    return out
+
+
+def phase_meta(seed, workdir):
+    """Phase 14: the meta recipe (VOC-RCNN-101-C4-split1-meta.yaml) at full
+    width and depth (R-101, bf16, the flagship canvases, 15 base classes x 5
+    shots at 224, seeded weights, calibrated FrozenBN).  (a) Trainer's timed
+    steps with launch counts, all three streams in pinned memory, one
+    profiled; (b) the f32 meta train path kernels vs plain, the rank losses'
+    underflow constants exact; (c) K1 against its plain version at the
+    support shapes: the step's own shots [75,14,14,1024] x 1 ROI and an
+    evaluation's [750,14,14,1024] x 1; (d) engine.runner.run with Trainer on
+    phase 10's devkit: 4 steps with a checkpoint at 2 and an evaluation with
+    the support precompute, then a resume from step 2.  Returns ({path:
+    launch counts}, K1's numbers at the support shapes)."""
+    import torch
+
+    from unit_tpu_torch.config import get_cfg
+    from unit_tpu_torch.data import DatasetCatalog
+    from unit_tpu_torch.data.loader import pin_batch
+    from unit_tpu_torch.engine import runner
+    from unit_tpu_torch.engine.train import Trainer
+    from unit_tpu_torch.ops import roi_align as ra
+    from unit_tpu_torch.solver import build_optimizer
+
+    dev = torch.device(RUN_DEVICE)
+    on_card = dev.type == "cuda"
+    torch.backends.cudnn.deterministic = True
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    cfg = get_cfg()
+    cfg.merge_from_file(str(META_RECIPE))
+    cfg.merge_from_list(list(RUN_EXTRA_OPTS))
+    cfg.SOLVER.CLIP_GRADIENTS.ENABLED = True  # random weights: clipped as in phase 7
+    cfg.SOLVER.CLIP_GRADIENTS.CLIP_TYPE = "norm"
+    by_path = {}
+
+    # (a) timed meta steps: 2 strong + 2 weak images and 15 x 5 shots a step
+    t0 = time.perf_counter()
+    model = flagship_model(cfg, seed, dev)
+    mc = model.mc
+    solver = build_optimizer(cfg, model)
+    strong, weak = synthetic_train_batches(cfg, seed + 20)
+    support = synthetic_support_batches(cfg, seed + 21)
+    if on_card:  # the runner's Prefetcher pins every stream: no pageable upload in a step
+        strong, weak, support = ([pin_batch(b) for b in s] for s in (strong, weak, support))
+    trainer = Trainer(model, solver, itertools.cycle(strong), itertools.cycle(weak),
+                      meta_iter=itertools.cycle(support), seed=seed)
+    trainer.init_state()
+    n_backbone, n_res5, n_trainable = frozen_bn_counts(model)
+    shots = support[0]["image"].shape
+    log(f"[14] {META_RECIPE.relative_to(ROOT)}: R-{mc.depth}-C4 set up in "
+        f"{time.perf_counter() - t0:.1f} s; attention {mc.attention_mode}, support "
+        f"{list(shots)} ({shots[0] * shots[1]} shots a step), rank-loss slots "
+        f"{mc.rank_loss_slots} an image, compute {mc.compute_dtype}")
+    k1_inputs = []
+    real_k1 = ra.roi_align_cuda
+
+    def record_k1(feats, rois, *a):
+        # the support stream's launch: one ROI for each of the C * K shots
+        if rois.shape[1] == 1 and feats.shape[0] == shots[0] * shots[1] and not k1_inputs:
+            k1_inputs.append((feats.clone(), rois.clone()))
+        return real_k1(feats, rois, *a)
+
+    def one(label):
+        t = time.perf_counter()
+        m = trainer.run_step()  # ends in one device-to-host copy of the losses
+        ms = (time.perf_counter() - t) * 1e3
+        log(f"[14] meta step {trainer.state.step} ({label}) {ms:.1f} ms: "
+            + ", ".join(f"{k} {v:.4g}" for k, v in m.items() if k != "data_time"))
+        return ms
+
+    ra.roi_align_cuda = record_k1
+    try:
+        for _ in range(TRAIN_WARMUP):
+            one("warm-up")
+        sync()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        times = [one("timed") for _ in range(META_TRAIN_STEPS)]
+        launches = read_launch_counts()
+    finally:
+        ra.roi_align_cuda = real_k1
+    med = float(np.median(times))
+    peak = torch.cuda.max_memory_allocated() / 2**20 if on_card else 0.0
+    log(f"[14] {META_TRAIN_STEPS} timed meta steps: median {med:.2f} ms (min {min(times):.2f}, "
+        f"max {max(times):.2f}), {4e3 / med:.2f} images/s (2 strong + 2 weak, and "
+        f"{shots[0] * shots[1]} shots), peak device memory {peak:.1f} MiB; launches a step "
+        f"{ {k: v / META_TRAIN_STEPS for k, v in launches.items()} }")
+    # K1: the strong and weak ROIs and the shots; K4: the fused backbone, the
+    # shots' backbone (no graph), three Res5 passes and the meta head over the
+    # shots and the query slots, each of those two with a backward
+    k4_fwd, k4_bwd = 2 * n_backbone + 5 * n_res5, n_trainable + 4 * n_res5
+    want = {"roi_align_fwd": 3, "roi_align_bwd": 2, "nms_mask": 1, "nms_mask_images": 4,
+            "bn_act_fwd": k4_fwd, "bn_act_bwd": k4_bwd, "bn_act_layout_copies": 4}
+    if launches != {k: v * META_TRAIN_STEPS for k, v in want.items()}:
+        raise AssertionError(f"a meta step did not run K1 x3, K2 x2, K3 x1 (4 images), K4 "
+                             f"x{k4_fwd} + x{k4_bwd} with 4 layout copies: {launches}")
+    for m in trainer.metrics_history:
+        if not (all(np.isfinite(v) for v in m.values())
+                and m["loss_rank_margin"] == RANK_MARGIN_UNDERFLOW
+                and m["loss_rank_reg"] == 1.0 and m["loss_rank_cls"] > 0):
+            raise AssertionError(f"a meta step's losses are not finite or not the likelihood "
+                                 f"underflow's constants: {m}")
+    by_path["meta"] = launches
+    if on_card:
+        profile_run(trainer.run_step, "[14]", "meta train step", top=12)
+    del trainer, solver, model
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (b) the f32 meta train path with the kernels vs with the plain versions
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg32 = cfg.clone()
+    cfg32.TPU.COMPUTE_DTYPE = "float32"
+    model32 = flagship_model(cfg32, seed, dev)
+    build_optimizer(cfg32, model32)
+    strong, weak = synthetic_train_batches(cfg32, seed + 22, n_batches=1)
+    strong = {k: torch.as_tensor(v, device=dev) for k, v in strong[0].items()}
+    weak = {k: torch.as_tensor(v, device=dev) for k, v in weak[0].items()}
+    meta = {k: torch.as_tensor(v, device=dev)
+            for k, v in synthetic_support_batches(cfg32, seed + 23, n_batches=1)[0].items()}
+    launches32 = train_path_kernels_vs_plain(model32, strong, weak, seed, "[14]", meta=meta)
+    log(f"[14] f32 meta step launches with the kernels: {launches32}")
+    del model32, strong, weak, meta
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (c) K1 at the support shapes: the step's own shots, and an evaluation's
+    k1_support = {}
+    if on_card:
+        (feats, rois), = k1_inputs
+        # K1's f32 bound is for features of order 1: the step's res4 maps are
+        # scaled by the power of two nearest their RMS, which is exact and
+        # leaves every rounding of the kernel and the plain version as it was
+        rms = float(feats.float().square().mean().sqrt())
+        feats = feats * 2.0 ** -round(np.log2(rms))
+        label = (f"support {list(feats.shape)} x 1 ROI (a meta step's shots, RMS {rms:.4g} "
+                 f"scaled to {float(feats.float().square().mean().sqrt()):.4g})")
+        err = k1_check(feats, rois, label, tag="[14]")
+        k_ms, p_ms, least = k1_timed(feats, rois, label, tag="[14]")
+        rng = np.random.RandomState(seed + 24)
+        big = synthetic_support_batches(cfg, seed + 25, n_batches=1,
+                                        shots=cfg.DATASETS.BASE_META_SHOTS)[0]["boxes"]
+        n = big.shape[0] * big.shape[1]
+        feats = torch.as_tensor(rng.randn(n, *feats.shape[1:]).astype(np.float32),
+                                device=dev).to(torch.bfloat16)
+        rois = torch.as_tensor(big.reshape(n, 1, 4), device=dev)
+        label = f"support {list(feats.shape)} x 1 ROI (an evaluation's shots)"
+        err = max(err, k1_check(feats, rois, label, tag="[14]"))
+        k_big, p_big, least_big = k1_timed(feats, rois, label, tag="[14]")
+        k1_support = {"support_b75_ms": k_ms, "support_b75_plain_ms": p_ms,
+                      "support_b75_bound_ms": least["bound_ms"],
+                      "support_b750_ms": k_big, "support_b750_plain_ms": p_big,
+                      "support_b750_bound_ms": least_big["bound_ms"],
+                      "support_max_abs_err": err}
+        del feats, rois
+        torch.cuda.empty_cache()
+    del k1_inputs[:]
+
+    # (d) engine.runner.run with Trainer on phase 10's devkit
+    made = []
+
+    class Recording(Trainer):
+        """The runner's trainer, kept so that the script can read it."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    devkit = os.path.join(workdir, "VOCdevkit")
+    out_a, out_b = os.path.join(workdir, "meta_a"), os.path.join(workdir, "meta_b")
+
+    def run(out, *flags, opts=()):
+        DatasetCatalog.clear()
+        made.clear()
+        args = runner.default_argument_parser().parse_args([
+            "--config-file", str(META_RECIPE), "--data-root", devkit, "--device", RUN_DEVICE,
+            *flags, "MODEL.WEIGHTS", os.path.join(workdir, "run_a", "best", "model"),
+            "OUTPUT_DIR", out,
+            "MODEL.ROI_HEADS.EMBEDDING_PATH", str(ROOT / cfg.MODEL.ROI_HEADS.EMBEDDING_PATH),
+            "DATASETS.CLASSIFIER_DATAROOT", devkit, "SEED", str(seed),
+            "SOLVER.IMS_PER_BATCH", "2", "SOLVER.MAX_ITER", str(META_RUN_STEPS),
+            "SOLVER.CHECKPOINT_PERIOD", str(META_RUN_STEPS // 2), "TEST.EVAL_PERIOD", "0",
+            "SOLVER.CLIP_GRADIENTS.ENABLED", "True", "SOLVER.CLIP_GRADIENTS.CLIP_TYPE", "norm",
+            *RUN_EXTRA_OPTS, *opts])
+        t = time.perf_counter()
+        results = runner.run(args, image_loader=seeded_image_loader)
+        sync()
+        secs = time.perf_counter() - t
+        trainer = made[-1]
+        first = trainer.state.step - len(trainer.metrics_history)
+        losses = {first + 1 + k: {n: v for n, v in m.items() if n != "data_time"}
+                  for k, m in enumerate(trainer.metrics_history)}
+        return results, losses, trainer, secs
+
+    attention = []
+    real_attention = runner.meta_attention
+
+    def record_attention(*a, **kw):
+        t = time.perf_counter()
+        att = real_attention(*a, **kw)
+        sync()
+        attention.append((att, time.perf_counter() - t))
+        return att
+
+    real_trainer, runner.Trainer = runner.Trainer, Recording
+    runner.meta_attention = record_attention
+    try:
+        reset_launch_counts()
+        results_a, losses_a, trainer, secs = run(out_a)
+        launches = read_launch_counts()
+        (att, att_secs), = attention
+        bbox = results_a["bbox"]
+        for step, m in losses_a.items():
+            log(f"[14]   run step {step}: " + ", ".join(f"{k} {v:.4g}" for k, v in m.items()))
+        log(f"[14] Trainer run: {META_RUN_STEPS} steps, a checkpoint at {META_RUN_STEPS // 2} "
+            f"and the final evaluation in {secs:.1f} s (the support precompute, "
+            f"{cfg.DATASETS.BASE_META_SHOTS} shots a class, {att_secs:.1f} s of it); AP "
+            f"{bbox['AP']:.4g}, AP50 {bbox['AP50']:.4g}; prototypes "
+            f"{list(att.mean.shape)} with {int(torch.isfinite(att.logdet).sum())} finite "
+            f"slots; data wait a step, median "
+            f"{1e3 * np.median([m['data_time'] for m in trainer.metrics_history]):.2f} ms; "
+            f"launches {launches}")
+        if not (trainer.meta_iter is not None and sorted(losses_a)
+                == list(range(1, META_RUN_STEPS + 1))
+                and all(np.isfinite(v) for m in losses_a.values() for v in m.values())
+                and all({"loss_rank_margin", "loss_rank_reg", "loss_rank_cls"} <= set(m)
+                        for m in losses_a.values())
+                and all(np.isfinite(bbox[k]) for k in ("AP", "AP50"))
+                and att.mean.shape == (mc.num_classes + 1, 8 * mc.res2_out_channels)
+                and int(torch.isfinite(att.logdet).sum()) == len(mc.base_ids) + 1
+                and os.path.exists(os.path.join(out_a, f"step_{META_RUN_STEPS // 2}.pt"))):
+            raise AssertionError("the Trainer run left out a stream, a step, a checkpoint, "
+                                 "the prototypes or a finite loss or AP")
+        # K1: the meta steps' 3 each and the evaluation's shots and requests
+        by_path["meta_run"] = launches
+        del trainer
+
+        # the resume from the checkpoint at step 2; its evaluation binds
+        # prototypes of 5 shots a class, which inference does not read
+        os.makedirs(out_b)
+        shutil.copy(os.path.join(out_a, f"step_{META_RUN_STEPS // 2}.pt"), out_b)
+        results_b, losses_b, trainer, secs = run(
+            out_b, "--resume", opts=["DATASETS.BASE_META_SHOTS", "5"])
+        del trainer
+        same = all(losses_b[s][k] == losses_a[s][k] for s in losses_b for k in losses_b[s])
+        rel = max(abs(losses_b[s][k] - losses_a[s][k]) / max(abs(losses_a[s][k]), 1e-12)
+                  for s in losses_b for k in losses_b[s])
+        log(f"[14] resumed from step {META_RUN_STEPS // 2} in {secs:.1f} s: steps "
+            f"{sorted(losses_b)}, losses bit-identical to the uninterrupted run's {same} (max "
+            f"rel diff {rel:.3g}, tol {RESUME_LOSS_RTOL}); the evaluation with prototypes of 5 "
+            f"shots a class equal to the one with {cfg.DATASETS.BASE_META_SHOTS}: "
+            f"{results_b['bbox'] == results_a['bbox']}")
+        if sorted(losses_b) != list(range(META_RUN_STEPS // 2 + 1, META_RUN_STEPS + 1)) \
+                or not rel <= RESUME_LOSS_RTOL:
+            raise AssertionError("the resumed Trainer run does not reproduce its steps")
+    finally:
+        runner.Trainer = real_trainer
+        runner.meta_attention = real_attention
+        made.clear()
+        attention.clear()
+        if on_card:
+            torch.cuda.empty_cache()
+    return by_path, k1_support
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2644,6 +2966,8 @@ def main():
         by_path.update(coco_paths)
         weak_paths, k3_b2 = phase_weak_variants(args.seed, workdir)
         by_path.update(weak_paths)
+        meta_paths, k1_support = phase_meta(args.seed, workdir)
+        by_path.update(meta_paths)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     def per_path(*names):
@@ -2674,7 +2998,7 @@ def main():
         dict(name="roi_align_fwd", route="cuda", source="unit_tpu_torch/csrc/roi_align_fwd.cu",
              replaces="unit_tpu/ops/roi_align_pallas.py:230",
              launches=launches["roi_align_fwd"],
-             launches_by_path=per_path("roi_align_fwd"), **k1, **k1_mask),
+             launches_by_path=per_path("roi_align_fwd"), **k1, **k1_mask, **k1_support),
         dict(name="roi_align_bwd", route="cuda", source="unit_tpu_torch/csrc/roi_align_bwd.cu",
              replaces="unit_tpu/ops/roi_align_pallas_bwd.py:564",
              launches=launches["roi_align_bwd"],

@@ -254,6 +254,41 @@ def test_kernel_matches_plain_on_the_mask_paths_boxes(cuda_device, dtype):
     assert bool(got[0, 63:].float().abs().amax(dim=(1, 2, 3)).gt(0).all())
 
 
+def support_boxes(rng, n, m=224):
+    """One GT box a support shot on the m x m meta canvas, every seventh the
+    whole canvas (the support loader's box for a shot without one of its
+    class), whose samples reach the [-1, H] edge of the 14 x 14 map."""
+    wh = rng.uniform(0.1, 0.9, (n, 2)) * m
+    xy = rng.uniform(0, 1, (n, 2)) * (m - wh)
+    boxes = np.concatenate([xy, xy + wh], 1).astype(np.float32)
+    boxes[::7] = [0, 0, m, m]
+    return boxes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shots", [75, 750])
+def test_kernel_matches_plain_at_the_support_shapes(cuda_device, dtype, shots):
+    """K1 at the meta recipe's support stream: [C*K, 14, 14, 1024] res4 maps
+    of 224-pixel shots, one ROI each (a train step's 15 x 5 shots and an
+    evaluation's 15 x 50), P = 14; the bounds of test_kernel_matches_plain,
+    two launches bit-identical."""
+    rng = np.random.RandomState(11)
+    feats = torch.as_tensor(rng.randn(shots, 14, 14, 1024).astype(np.float32),
+                            device=cuda_device).to(dtype)
+    rois = torch.as_tensor(support_boxes(rng, shots)[:, None], device=cuda_device)
+    before = roi_align_cuda.launches
+    got = roi_align_cuda(feats, rois, 14, 1 / 16.0, 2)
+    again = roi_align_cuda(feats, rois, 14, 1 / 16.0, 2)
+    assert roi_align_cuda.launches == before + 2
+    assert got.dtype == dtype and got.shape == (shots, 1, 14, 14, 1024)
+    assert torch.equal(got, again)
+    want = ra.roi_align_plain(feats, rois, 14, 1 / 16.0, 2).float()
+    tol = 2e-5 + (torch.maximum(got.float().abs(), want.abs()) * 2.0 ** -7
+                  if dtype == torch.bfloat16 else 0.0)
+    assert bool(((got.float() - want).abs() <= tol).all())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernels_pair_through_the_function(cuda_device, dtype):

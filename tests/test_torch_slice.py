@@ -143,21 +143,22 @@ def test_unported_paths_raise(pair):
     _, _, _, tmodel = pair
     with pytest.raises(NotImplementedError, match="item 24"):
         tmodel.predict_tta()
-    # training options that are not ported yet: the meta stream here, the
-    # note and dock suites' models (their backbones, precomputed proposals)
-    # and the meta heads at construction below
-    with pytest.raises(NotImplementedError, match="item 23"):
-        tmodel.train_losses(None, None, None, meta={})
+    # training options that are not ported yet: the note and dock suites'
+    # models (their backbones, precomputed proposals)
     for key, value, item in [("MODEL.BACKBONE.NAME", "InceptionResNetV2", "item 25"),
                              ("MODEL.BACKBONE.NAME", "VGG_CNN_F", "item 25"),
                              ("MODEL.LOAD_PROPOSALS", "True", "item 25"),
                              ("MODEL.ROI_HEADS.FAST_RCNN.WEAK_DETECTOR.REGRESSION_BRANCH",
-                              "True", "item 25"),
-                             ("MODEL.ROI_HEADS.NAME", "WSROIHead", "item 23")]:
+                              "True", "item 25")]:
         cfg = small_flagship_cfg()
         cfg.merge_from_list([key, value])
         with pytest.raises(NotImplementedError, match=item):
             WSRCNN(ModelConfig.from_cfg(cfg))
+    # the meta ROI heads are ported (tests/test_torch_meta.py): they build
+    # the visual attention head
+    cfg = small_flagship_cfg()
+    cfg.merge_from_list(["MODEL.ROI_HEADS.NAME", "WSROIHead"])
+    assert WSRCNN(ModelConfig.from_cfg(cfg)).visual_attention.mode == "mean"
     # PCL and the weak-only family are ported (tests/test_torch_pcl.py,
     # tests/test_torch_weak_only.py): they build
     for key, value in [("MODEL.ROI_HEADS.FAST_RCNN.WEAK_DETECTOR.TYPE", "PCL"),

@@ -50,6 +50,7 @@ from unit_tpu_torch.checkpoint import flax_leaves, load_jax_params
 from unit_tpu_torch.checkpoint.jax_params import flatten_tree, flax_path
 from unit_tpu_torch.engine import runner
 from unit_tpu_torch.engine.train import (
+    Trainer,
     TrainerFineTune,
     TrainerNoMeta,
     TrainerOnlyWeak,
@@ -272,7 +273,7 @@ def test_modify_for_weak_only_freezes_what_unit_tpu_freezes():
 @pytest.mark.parametrize("name,want", [
     ("TrainerNoMeta", TrainerNoMeta), ("TrainerFineTune", TrainerFineTune),
     ("TrainerOnlyWeak", TrainerOnlyWeak), ("TrainerOnlyWeakFineTune", TrainerOnlyWeakFineTune),
-    ("Trainer", None),
+    pytest.param("Trainer", Trainer, id="Trainer-None"),  # the meta trainer, ported
 ])
 def test_trainer_class_for_all_five_names(name, want):
     tcfg, jcfg = runner.get_cfg(), jget_cfg()
@@ -280,11 +281,7 @@ def test_trainer_class_for_all_five_names(name, want):
     jcfg.merge_from_file(FLAGSHIP)
     tcfg.ENGINE.TRAINER = jcfg.ENGINE.TRAINER = name
     assert runner.trainer_name_for(tcfg) == jrunner.trainer_class_for(jcfg).__name__ == name
-    if want is None:  # the meta trainer waits for its item
-        with pytest.raises(NotImplementedError, match="item 23"):
-            runner.trainer_class_for(tcfg)
-    else:
-        assert runner.trainer_class_for(tcfg) is want
+    assert runner.trainer_class_for(tcfg) is want
     tcfg.ENGINE.TRAINER = jcfg.ENGINE.TRAINER = ""
     tcfg.MODEL.META_ARCHITECTURE = jcfg.MODEL.META_ARCHITECTURE = "WeakRCNN"
     assert runner.trainer_class_for(tcfg) is TrainerOnlyWeak

@@ -5,9 +5,11 @@ from .catalog import DatasetCatalog, MetadataCatalog
 from .loader import (
     Prefetcher,
     StreamLoader,
+    SupportLoader,
     build_classifier_loader,
     build_classifier_strong_loader,
     build_strong_loader,
+    build_support_loader,
     build_test_loader,
     sample_classifier_dataset,
 )
@@ -16,8 +18,8 @@ from .voc import RegisterVOC, kshot_sample, load_voc_split, parse_voc_xml
 
 __all__ = [
     "DatasetCatalog", "MetadataCatalog", "Prefetcher", "RegisterVOC", "StreamLoader",
-    "TransformConfig", "build_classifier_loader", "build_classifier_strong_loader",
-    "build_strong_loader",
+    "SupportLoader", "TransformConfig", "build_classifier_loader",
+    "build_classifier_strong_loader", "build_strong_loader", "build_support_loader",
     "build_test_loader", "collate", "kshot_sample", "load_voc_split", "parse_voc_xml",
     "prepare_detection_record", "sample_classifier_dataset",
 ]

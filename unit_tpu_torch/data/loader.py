@@ -1,20 +1,20 @@
 """Host-side data loaders: strong query stream, weak classifier stream (and the
-classifier datasets as a boxed strong stream), test set.
+classifier datasets as a boxed strong stream), support stream, test set.
 
 Port of unit_tpu/data/loader.py for one process: seeded numpy iterators that
 emit fixed-shape batches.  Every random draw comes from the loader's own
 ``np.random.RandomState``, in unit_tpu's order, so a stream here equals
 unit_tpu's record for record (tests/test_torch_data.py).  The weak classifier
 stream reproduces the seeded per-class k-shot sampling with base/novel
-multipliers and oversampling modes.  ``Prefetcher`` overlaps host IO with the
+multipliers and oversampling modes; the support stream (``SupportLoader``)
+the per-class k-shot draws of the meta recipe.  ``Prefetcher`` overlaps host IO with the
 device's work and can hand out batches in pinned memory, from which the
 trainer's upload is asynchronous.
 
 Not ported, each raising with its ROADMAP item: the native C loader (Queue 1
 item 30; records always go through ``image_loader`` or PIL), the host-shard
 and synchronized-orientation paths of multi-process runs (item 27), TTA
-(item 24), the support stream (item 23), precomputed proposals (item 25) and
-the uint8 wire (item 29).
+(item 24), precomputed proposals (item 25) and the uint8 wire (item 29).
 """
 
 from __future__ import annotations
@@ -28,7 +28,8 @@ import numpy as np
 
 from .catalog import DatasetCatalog
 from .transforms import (
-    TransformConfig, _not_ported, collate, oriented_canvas, prepare_detection_record,
+    TransformConfig, _not_ported, collate, load_image_bgr, oriented_canvas,
+    prepare_detection_record, resize_image,
 )
 
 _STRONG_KEYS = ("image", "image_size", "gt_boxes", "gt_classes", "gt_valid")
@@ -298,8 +299,101 @@ def build_tta_test_loader(*args, **kwargs):
     raise _not_ported("the TTA test loader", "ROADMAP Queue 1 item 24")
 
 
-def build_support_loader(*args, **kwargs):
-    raise _not_ported("the support (meta) loader", "ROADMAP Queue 1 item 23")
+class SupportLoader:
+    """The per-class k-shot support stream of the meta recipe (unit_tpu
+    loader.py:613-698).
+
+    Train mode: ``shots`` random records of each class a batch, drawn with
+    ``randint`` class by class from one ``RandomState(seed)``; deterministic
+    mode (the evaluation's prototypes): each class's records in order, in
+    chunks of ``shots``, cycling.  A batch is
+    {image [C, K, m, m, 3], boxes [C, K, 4], class_valid [C]}: each shot
+    resized to the square meta canvas m (INPUT.META_MIN_SIZE) with the first
+    of its GT boxes of the class, or the whole canvas where it has none; a
+    class without records has zero shots and ``class_valid`` false.
+    """
+
+    def __init__(
+        self,
+        records_by_class: dict,
+        class_ids: Sequence[int],
+        shots: int,
+        meta_size: int = 224,
+        seed: int = 0,
+        deterministic: bool = False,
+        image_loader: Optional[Callable[[dict], np.ndarray]] = None,
+    ):
+        self.by_class = records_by_class
+        self.class_ids = list(class_ids)
+        self.shots = shots
+        self.meta_size = meta_size
+        self.rng = np.random.RandomState(seed)
+        self.deterministic = deterministic
+        self.image_loader = image_loader
+        self._det_pos = {c: 0 for c in self.class_ids}
+
+    def _prepare_shot(self, rec, class_id):
+        img = self.image_loader(rec) if self.image_loader else load_image_bgr(rec["file_name"])
+        h, w = img.shape[:2]
+        m = self.meta_size
+        out = resize_image(img.astype(np.float32), m, m)  # square meta resize
+        sy, sx = m / h, m / w
+        for ann in rec["annotations"]:
+            if ann["category_id"] == class_id:
+                b = ann["bbox"]
+                return out, np.asarray([b[0] * sx, b[1] * sy, b[2] * sx, b[3] * sy], np.float32)
+        return out, np.asarray([0, 0, m, m], np.float32)
+
+    def _draws(self, cls, pool):
+        """The pool indices of one class's shots in the next batch."""
+        if self.deterministic:
+            start = self._det_pos[cls]
+            self._det_pos[cls] = (start + self.shots) % len(pool)
+            return [(start + i) % len(pool) for i in range(self.shots)]
+        return self.rng.randint(0, len(pool), size=self.shots)
+
+    def __iter__(self):
+        while True:
+            yield self.next_batch()
+
+    def fast_forward(self, n_batches: int) -> None:
+        """Advance the stream past ``n_batches`` without loading a shot
+        (exact --resume, as StreamLoader.fast_forward)."""
+        for _ in range(max(0, n_batches)):
+            for cls in self.class_ids:
+                pool = self.by_class.get(cls, [])
+                if pool:
+                    self._draws(cls, pool)
+
+    def next_batch(self):
+        c, k, m = len(self.class_ids), self.shots, self.meta_size
+        images = np.zeros((c, k, m, m, 3), np.float32)
+        boxes = np.zeros((c, k, 4), np.float32)
+        valid = np.zeros((c,), bool)
+        for ci, cls in enumerate(self.class_ids):
+            pool = self.by_class.get(cls, [])
+            if not pool:
+                continue
+            valid[ci] = True
+            for ki, idx in enumerate(self._draws(cls, pool)):
+                images[ci, ki], boxes[ci, ki] = self._prepare_shot(pool[idx], cls)
+        return {"image": images, "boxes": boxes, "class_valid": valid}
+
+
+def build_support_loader(cfg, dataset_name: str = "voc_base_training_support", seed=2,
+                         deterministic=False, image_loader=None) -> SupportLoader:
+    """The support stream of ``dataset_name`` (records by class): NUM_SHOTS
+    random shots a class for training, BASE_META_SHOTS in order with
+    ``deterministic`` (the evaluation's prototypes)."""
+    return SupportLoader(
+        DatasetCatalog.get(dataset_name),
+        class_ids=list(cfg.DATASETS.FEWSHOT.BASE_CLASSES_ID),
+        shots=cfg.DATASETS.BASE_META_SHOTS if deterministic else cfg.DATASETS.FEWSHOT.NUM_SHOTS,
+        meta_size=cfg.INPUT.META_MIN_SIZE,
+        seed=seed,
+        deterministic=deterministic,
+        image_loader=image_loader,
+    )
 
 
 def pin_batch(batch):

@@ -3,6 +3,7 @@ and the CLI runner in ``engine.runner``)."""
 
 from .predict import make_predict_fn
 from .train import (
+    Trainer,
     TrainerBase,
     TrainerFineTune,
     TrainerNoMeta,
@@ -12,5 +13,5 @@ from .train import (
     make_train_step,
 )
 
-__all__ = ["TrainState", "TrainerBase", "TrainerFineTune", "TrainerNoMeta", "TrainerOnlyWeak",
-           "TrainerOnlyWeakFineTune", "make_predict_fn", "make_train_step"]
+__all__ = ["TrainState", "Trainer", "TrainerBase", "TrainerFineTune", "TrainerNoMeta",
+           "TrainerOnlyWeak", "TrainerOnlyWeakFineTune", "make_predict_fn", "make_train_step"]

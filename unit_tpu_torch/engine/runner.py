@@ -17,12 +17,14 @@ What differs from unit_tpu, on purpose:
   * ``MODEL.WEIGHTS`` naming ``<run>/best/model`` (unit_tpu's orbax
     directory, as the fine-tune recipes spell it) reads the port's
     ``<run>/best/model.pt``.
-Trainers: ``TrainerNoMeta`` (base training), ``TrainerFineTune`` (k-shot
+Trainers: ``TrainerNoMeta`` (base training), ``Trainer`` (the meta recipe:
+a third, support stream for the visual attention head; its evaluations
+first compute the support prototypes, which inference does not read, and
+run through ``inference_on_dataset_meta``), ``TrainerFineTune`` (k-shot
 fine-tuning, warm-started from a base run's snapshot), ``TrainerOnlyWeak``
 (the weak branch and the RPN; ``WeakRCNN`` configs) and
 ``TrainerOnlyWeakFineTune`` (the classifier datasets with their boxes as the
-strong stream).  Not ported, each raising with its ROADMAP item: the meta
-``Trainer`` (item 23), TTA (24),
+strong stream).  Not ported, each raising with its ROADMAP item: TTA (24),
 precomputed proposals (25), PreciseBN (26), more than one device, ``--dist``,
 TP and PP (27, 29) and the profile hook (31).
 """
@@ -54,18 +56,25 @@ from ..data import (
     build_classifier_loader,
     build_classifier_strong_loader,
     build_strong_loader,
+    build_support_loader,
     build_test_loader,
 )
 from ..data.loader import pin_batch
 from ..data.utils import get_evaluator, register_datasets
-from ..evaluation import inference_on_dataset
+from ..evaluation import inference_on_dataset, inference_on_dataset_meta
 from ..models import WSRCNN, ModelConfig
 from ..models.meta_arch import _not_ported
 from ..solver import build_optimizer
 from ..solver.build import warmup_multistep
 from ..utils.events import MetricsHook, print_csv_format
 from .predict import make_predict_fn
-from .train import TrainerFineTune, TrainerNoMeta, TrainerOnlyWeak, TrainerOnlyWeakFineTune
+from .train import (
+    Trainer,
+    TrainerFineTune,
+    TrainerNoMeta,
+    TrainerOnlyWeak,
+    TrainerOnlyWeakFineTune,
+)
 
 logger = logging.getLogger("unit_tpu_torch")
 
@@ -180,19 +189,16 @@ def setup(args):
     return cfg
 
 
-# trainer name -> the ROADMAP item it waits for
-_UNPORTED_TRAINERS = {"Trainer": "ROADMAP Queue 1 item 23"}
-_PORTED_TRAINERS = ("TrainerNoMeta", "TrainerFineTune", "TrainerOnlyWeak",
-                    "TrainerOnlyWeakFineTune")
+_TRAINERS = ("Trainer", "TrainerNoMeta", "TrainerFineTune", "TrainerOnlyWeak",
+             "TrainerOnlyWeakFineTune")
 
 
 def trainer_name_for(cfg) -> str:
     """The trainer unit_tpu picks for ``cfg`` (runner.py:182), by name."""
     explicit = getattr(cfg, "ENGINE", None) and cfg.ENGINE.TRAINER
     if explicit:
-        if explicit not in _PORTED_TRAINERS and explicit not in _UNPORTED_TRAINERS:
-            raise KeyError(f"unknown ENGINE.TRAINER {explicit!r}; one of "
-                           f"{sorted([*_PORTED_TRAINERS, *_UNPORTED_TRAINERS])}")
+        if explicit not in _TRAINERS:
+            raise KeyError(f"unknown ENGINE.TRAINER {explicit!r}; one of {sorted(_TRAINERS)}")
         return explicit
     if cfg.MODEL.META_ARCHITECTURE == "WeakRCNN":
         return "TrainerOnlyWeak"
@@ -205,11 +211,10 @@ def trainer_name_for(cfg) -> str:
 
 def trainer_class_for(cfg):
     name = trainer_name_for(cfg)
-    if name in _UNPORTED_TRAINERS:
-        raise _not_ported(name, _UNPORTED_TRAINERS[name])
     # looked up when called: chip_smoke.py and the tests substitute recording
     # trainers for these names
-    return {"TrainerNoMeta": TrainerNoMeta, "TrainerFineTune": TrainerFineTune,
+    return {"Trainer": Trainer, "TrainerNoMeta": TrainerNoMeta,
+            "TrainerFineTune": TrainerFineTune,
             "TrainerOnlyWeak": TrainerOnlyWeak,
             "TrainerOnlyWeakFineTune": TrainerOnlyWeakFineTune}[name]
 
@@ -220,10 +225,12 @@ def build_everything(cfg, device: Optional[torch.device] = None, seed: int = 0,
 
     ``start_step`` > 0 (--resume): every training stream is fast-forwarded
     past the batches the preempted run already consumed (``TPU.GRAD_ACCUM``
-    a step), so the resumed run sees exactly the data an uninterrupted run
-    would have.  The weak (image-labelled) stream is built for base and
-    weak-only training: fine-tuning reads the k-shot strong stream alone, and
-    TrainerOnlyWeakFineTune the classifier datasets as its strong stream."""
+    a step; one support batch a step), so the resumed run sees exactly the
+    data an uninterrupted run would have.  The weak (image-labelled) stream
+    is built for base, meta and weak-only training: fine-tuning reads the
+    k-shot strong stream alone, and TrainerOnlyWeakFineTune the classifier
+    datasets as its strong stream.  ``Trainer`` also reads the support
+    stream, seeded ``seed + 2``."""
     device = device if device is not None else resolve_device(None)
     if int(getattr(cfg.TPU, "TP", 1) or 1) > 1 or bool(getattr(cfg.TPU, "PP", False)) \
             or cfg.TPU.FSDP:
@@ -234,10 +241,12 @@ def build_everything(cfg, device: Optional[torch.device] = None, seed: int = 0,
     grad_accum = int(getattr(cfg.TPU, "GRAD_ACCUM", 1) or 1)
     pin = pin_batch if device.type == "cuda" else None
 
-    def stream(loader):
-        # exact resume: each train step consumes grad_accum batches from this stream
+    def stream(loader, per_step=grad_accum):
+        # exact resume: each train step consumes per_step batches from this
+        # stream; the Prefetcher's thread makes them (the support stream's
+        # C * K resized shots too) while the device works, in the same order
         if start_step > 0:
-            loader.fast_forward(start_step * grad_accum)
+            loader.fast_forward(start_step * per_step)
         return Prefetcher(iter(loader), transform=pin)
 
     name = trainer_name_for(cfg)
@@ -248,20 +257,47 @@ def build_everything(cfg, device: Optional[torch.device] = None, seed: int = 0,
         raise ValueError("DATASETS.TRAIN is empty")
     else:
         strong_iter = stream(build_strong_loader(cfg, seed=seed, image_loader=image_loader))
-    weak_iter = None
-    if name in ("TrainerNoMeta", "TrainerOnlyWeak"):
+    weak_iter = meta_iter = None
+    if name in ("TrainerNoMeta", "TrainerOnlyWeak", "Trainer"):
         weak_iter = stream(build_classifier_loader(cfg, seed=seed + 1,
                                                    image_loader=image_loader))
+    if name == "Trainer":
+        meta_iter = stream(build_support_loader(cfg, support_dataset_name(cfg), seed=seed + 2,
+                                                image_loader=image_loader), per_step=1)
     solver = build_optimizer(cfg, model)
     try:
         trainer = trainer_cls(model, solver, strong_iter=strong_iter, weak_iter=weak_iter,
-                              seed=seed, grad_accum=grad_accum)
+                              meta_iter=meta_iter, seed=seed, grad_accum=grad_accum)
     except BaseException:
-        for it in (strong_iter, weak_iter):
+        for it in (strong_iter, weak_iter, meta_iter):
             if it is not None:
                 it.close()
         raise
     return model, solver, trainer
+
+
+def support_dataset_name(cfg) -> str:
+    """The registered support dataset (records by class) of the few-shot suite."""
+    return {"VOC": "voc_base_training_support",
+            "COCO": "coco_base_training_support"}.get(cfg.DATASETS.FEWSHOT.TYPE,
+                                                      "voc_base_training_support")
+
+
+def meta_attention(cfg, model, image_loader: Optional[Callable] = None):
+    """The prototypes a meta model's evaluation binds (unit_tpu runner.py:
+    338-357): one deterministic batch of BASE_META_SHOTS shots a class through
+    ``compute_meta_attention``, without autograd; None, with a warning, where
+    the support dataset is not registered."""
+    name = support_dataset_name(cfg)
+    if name not in DatasetCatalog:
+        logger.warning("meta eval: support dataset %s not registered; skipping the "
+                       "attention precompute", name)
+        return None
+    batch = next(iter(build_support_loader(cfg, name, deterministic=True,
+                                           image_loader=image_loader)))
+    support = {k: torch.from_numpy(v).to(model.embeddings.device) for k, v in batch.items()}
+    with torch.no_grad():
+        return model.compute_meta_attention(support)
 
 
 def load_initial_weights(cfg, model):
@@ -316,6 +352,9 @@ def make_eval_fn(cfg, model, image_loader: Optional[Callable] = None):
 
             eval_net = fold_frozen_bn(net)  # a copy: training goes on unfolded
         predict = make_predict_fn(eval_net)
+        # a meta model's prototypes, once an evaluation; inference does not read them
+        attention = (meta_attention(cfg, eval_net, image_loader)
+                     if eval_net.mc.use_meta else None)
         all_results = {}
         try:
             for name in cfg.DATASETS.TEST:
@@ -327,7 +366,12 @@ def make_eval_fn(cfg, model, image_loader: Optional[Callable] = None):
                     batch_size=int(getattr(cfg.TPU, "EVAL_BATCH_SIZE", 1)),
                 )
                 try:
-                    all_results[name] = inference_on_dataset(predict, loader, evaluator, n)
+                    if attention is None:
+                        all_results[name] = inference_on_dataset(predict, loader, evaluator, n)
+                    else:
+                        all_results[name] = inference_on_dataset_meta(
+                            lambda _attention, *a: predict(*a), loader, attention,
+                            evaluator, n)
                 finally:
                     loader.close()
         finally:

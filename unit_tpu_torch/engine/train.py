@@ -9,6 +9,8 @@ memory from a ``data.Prefetcher`` with ``pin_batch``).  With
 share a canvas, backpropagates each one's total / A (one micro-batch's
 activations live at a time), clips the summed gradient once and updates once;
 the losses it reports are the means (unit_tpu's scan over micro-batches).
+``Trainer``, the meta recipe's, adds a third stream: the support batch of
+the visual attention head, one a step, shared by all micro-batches.
 
 What differs from unit_tpu, on purpose:
   * the randomness of step k is one ``torch.Generator`` on the device,
@@ -19,8 +21,8 @@ What differs from unit_tpu, on purpose:
     could save a corrupt state: fault R3 of the reference);
   * ``LazyMetrics``, the remote-TPU fetch pipelining, is not ported
     (ROADMAP Queue 1 item 29).
-The meta stream (ROADMAP Queue 1 item 23) and mesh, FSDP, TP and pipeline
-parallelism (items 27 and 29) raise ``NotImplementedError``.
+Mesh, FSDP, TP and pipeline parallelism (ROADMAP Queue 1 items 27 and 29)
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -54,24 +56,26 @@ def make_train_step(
     grad_accum: int = 1,
     train_only_weak: bool = False,
 ) -> Callable[..., Dict[str, torch.Tensor]]:
-    """(strong, weak, generator) -> detached loss dict with ``total_loss``,
-    after one update of ``model``'s parameters.  With ``grad_accum`` A > 1
-    each argument is a list of A (the micro-batches and their generators;
-    ``weak`` may be None): each micro-batch backpropagates its total / A, so
-    the update uses the mean of their gradients, and the dict holds the mean
-    of their losses (A = 1 divides by one: exact).  ``train_only_weak`` goes
-    to ``train_losses`` (TrainerOnlyWeak)."""
+    """(strong, weak, generator, meta=None) -> detached loss dict with
+    ``total_loss``, after one update of ``model``'s parameters.  With
+    ``grad_accum`` A > 1 each of the first three arguments is a list of A
+    (the micro-batches and their generators; ``weak`` may be None): each
+    micro-batch backpropagates its total / A, so the update uses the mean of
+    their gradients, and the dict holds the mean of their losses (A = 1
+    divides by one: exact).  ``meta``, the support batch (``Trainer``), is
+    one for the step: every micro-batch reads it, as in unit_tpu.
+    ``train_only_weak`` goes to ``train_losses`` (TrainerOnlyWeak)."""
     accum = int(grad_accum)
     trainable = [p for group in optimizer.param_groups for p in group["params"]]
 
-    def step(strong, weak, generator) -> Dict[str, torch.Tensor]:
+    def step(strong, weak, generator, meta=None) -> Dict[str, torch.Tensor]:
         if accum == 1:
             strong, weak, generator = [strong], [weak], [generator]
         optimizer.zero_grad(set_to_none=True)
         sums: Dict[str, torch.Tensor] = {}
         for s, w, g in zip(strong, weak if weak is not None else [None] * accum, generator,
                            strict=True):
-            losses = model.train_losses(g, s, w, train_only_weak=train_only_weak)
+            losses = model.train_losses(g, s, w, train_only_weak=train_only_weak, meta=meta)
             total = torch.stack(list(losses.values())).sum()
             (total / accum).backward()
             losses["total_loss"] = total
@@ -98,8 +102,9 @@ def step_seed(seed: int, step: int, micro: int = 0, grad_accum: int = 1) -> int:
 
 
 class TrainerBase:
-    """The loop: pull a strong and a weak batch, take one step, check the
-    losses, call the hooks.  ``optimizer`` is ``solver.build_optimizer``'s
+    """The loop: pull a strong and a weak batch (and a support batch where
+    there is a ``meta_iter``), take one step, check the losses, call the
+    hooks.  ``optimizer`` is ``solver.build_optimizer``'s
     Solver (SGD, schedule and clipping: what unit_tpu's optax chain holds)."""
 
     def __init__(
@@ -117,8 +122,6 @@ class TrainerBase:
         grad_accum: int = 1,
         pp: bool = False,
     ):
-        if meta_iter is not None:
-            raise _not_ported("the meta (support) stream", "ROADMAP Queue 1 item 23")
         if int(grad_accum) < 1:
             raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
         if mesh is not None or fsdp or tp or pp:
@@ -128,6 +131,7 @@ class TrainerBase:
         self.optimizer = optimizer
         self.strong_iter = strong_iter
         self.weak_iter = weak_iter
+        self.meta_iter = meta_iter
         self.seed = int(seed)
         self.grad_accum = int(grad_accum)
         # micro-batches waiting for A of their canvas, per stream and canvas
@@ -181,13 +185,16 @@ class TrainerBase:
         t0 = time.perf_counter()
         strong, weak = (None if it is None else self._next_group(it, self._accum_buf[name])
                         for name, it in (("strong", self.strong_iter), ("weak", self.weak_iter)))
+        # one support batch a step, shared by the micro-batches
+        meta = None if self.meta_iter is None else next(self.meta_iter)
         data_time = time.perf_counter() - t0
         strong, weak = (None if group is None else [self._to_device(b) for b in group]
                         for group in (strong, weak))
+        meta = self._to_device(meta)  # pinned by the runner's Prefetcher: asynchronous
         generators = [self._generator(i) for i in range(self.grad_accum)]
         if self.grad_accum == 1:  # make_train_step's arguments without accumulation
             strong, weak, generators = strong and strong[0], weak and weak[0], generators[0]
-        losses = self.train_step(strong, weak, generators)
+        losses = self.train_step(strong, weak, generators, meta)
         self.state.step += 1
         # one device-to-host fetch per step
         metrics = dict(zip(losses, torch.stack(list(losses.values())).tolist()))
@@ -218,13 +225,19 @@ class TrainerBase:
 
     def close(self):
         """Close the data iterators that can be closed (prefetch threads)."""
-        for it in (self.strong_iter, self.weak_iter):
+        for it in (self.strong_iter, self.weak_iter, self.meta_iter):
             if it is not None and hasattr(it, "close"):
                 it.close()
 
 
 class TrainerNoMeta(TrainerBase):
     """Base training: strong (box-labelled) and weak (image-labelled) streams."""
+
+
+class Trainer(TrainerBase):
+    """The meta recipe's trainer: strong, weak and support streams; the
+    support batch feeds the visual attention head's prototypes and rank
+    losses each step (unit_tpu train.py:816-819)."""
 
 
 class TrainerFineTune(TrainerBase):

@@ -1,6 +1,6 @@
 """Inference loop: run a model over a test loader and feed an evaluator.
 
-Port of unit_tpu/evaluation/evaluator.py:21-109 for one process: warmup-aware
+Port of unit_tpu/evaluation/evaluator.py:21-142 for one process: warmup-aware
 timing, progress logging, the evaluator's process/evaluate protocol.
 Detections come back as padded arrays; boxes are rescaled from network-input
 to original-image coordinates here.
@@ -13,8 +13,10 @@ event.  The host then handles batch k - 1 (event wait, rescale, evaluator)
 while the device works on batch k: one host sync per batch.  On the CPU the
 tensors are read directly.
 
-The multi-process merge of unit_tpu (:96-105) and the meta evaluation loop are not
-ported (ROADMAP Queue 1 items 27 and 23).
+``inference_on_dataset_meta`` is the meta models' loop: it binds the
+support prototypes to the predict call and delegates here.  The
+multi-process merge of unit_tpu (:96-105) is not ported (ROADMAP Queue 1
+item 27).
 """
 
 from __future__ import annotations
@@ -110,3 +112,26 @@ def inference_on_dataset(
     if t_start is not None and num_done > timed_base:
         results["inference_seconds_per_image"] = total_time / (num_done - timed_base)
     return results
+
+
+def inference_on_dataset_meta(
+    predict_fn: Callable,          # (attention, images, image_sizes) -> Detections
+    loader: Iterator,
+    attention,                     # the support prototypes (compute_meta_attention)
+    evaluator,
+    total_images: Optional[int] = None,
+    warmup: int = 1,
+) -> dict:
+    """The meta models' evaluation loop (unit_tpu evaluator.py:112-142):
+    the prototypes, computed once before the evaluation, are bound as the
+    predict call's first argument, and the loop is ``inference_on_dataset``'s.
+
+    The attention is dead at inference, by the reference's own code: its meta
+    ROI heads derive the visual similarity from the weak detector's
+    posteriors, and the attention-driven branch is commented out
+    (docs/DEVIATIONS.md, the meta-head row).  So the results equal those of
+    ``inference_on_dataset`` and do not depend on ``attention``."""
+    def bound(images, image_sizes):
+        return predict_fn(attention, images, image_sizes)
+
+    return inference_on_dataset(bound, loader, evaluator, total_images, warmup)

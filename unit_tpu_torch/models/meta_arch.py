@@ -1,12 +1,13 @@
 """The weakly-supervised R-CNN detector: base training and serving.
 
-Port of unit_tpu/models/meta_arch.py:43-336,429-876 for the
-``WeaklySupervisedRCNNNoMeta``, ``WeakRCNN`` and ``WeaklySupervisedRCNNRPN``
-meta-architectures.  Inference: ResNet-C4 -> RPN (+ NMS
-kernel K3) -> ROIAlignV2 (K1) -> one or two Res5 heads -> supervised delta
-heads + OICR weak detector -> lingual/visual base->novel transfer -> softmax
--> per-class NMS (K3).  Training (``train_losses``): one fused backbone + RPN
-pass over both streams, RPN losses, proposal sampling, ROIAlignV2 with its
+Port of unit_tpu/models/meta_arch.py:43-336,346-361,429-876 for the
+``WeaklySupervisedRCNNNoMeta``, ``WeaklySupervisedRCNN`` (the meta recipe),
+``WeakRCNN`` and ``WeaklySupervisedRCNNRPN`` meta-architectures.
+Inference: ResNet-C4 -> RPN (+ NMS kernel K3) -> ROIAlignV2 (K1) -> one or
+two Res5 heads -> supervised delta heads + OICR weak detector ->
+lingual/visual base->novel transfer -> softmax -> per-class NMS (K3).
+Training (``train_losses``): one fused backbone + RPN pass over both
+streams, RPN losses, proposal sampling, ROIAlignV2 with its
 backward (K1 + K2), supervised Fast R-CNN losses on top of the frozen weak
 scores, MIL + OICR losses on the weak stream.  Fine-tuning
 (``*FineTune`` supervised heads, ``WeakDetectorOutputsFT``) adds the
@@ -21,8 +22,14 @@ replaces the OICR losses by PCL's (models/pcl.py).  ``train_only_weak``
 the weak one, nothing else.  ``WeakRCNN`` serves with the weak detector alone
 (``predict_weak_only``); ``WeaklySupervisedRCNNRPN`` adds RPN losses on the
 weak images against the weak detector's own confident detections
-(``rpn_self_training_losses``).  TTA, the meta stream and the other training
-options raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+(``rpn_self_training_losses``).  Under the meta ROI heads (``WSROIHead``,
+``WSROIHeadFineTuneMeta``) the model holds a visual attention head
+(models/visual_attention.py): ``compute_meta_attention`` turns a support
+batch into class prototypes through a backbone pass without gradient and K1
+over the shots, and ``train_losses(meta=...)`` adds the rank losses over the
+first ``rank_loss_slots`` sampled slots of each strong image.  The attention
+does not feed inference, as in unit_tpu.  TTA and the other training options
+raise ``NotImplementedError`` naming the ROADMAP item that ports them.
 
 Precision mirrors ``TPU.COMPUTE_DTYPE``: backbone, RPN convs and Res5 run in
 the compute dtype; RPN outputs, box features and all predictor, transfer and
@@ -61,10 +68,20 @@ from .predictors import (
     transfer_scores,
 )
 from .resnet import Res5, ResNetC4, set_bn_act_impl
+from .visual_attention import MetaAttention, VisualAttentionHead
 
 # TPU.ROI_ALIGN_IMPL / TPU.NMS_IMPL keep their meaning: the hand-written CUDA
 # kernel takes the Pallas kernel's place, the plain PyTorch version XLA's.
 _IMPLS = {"auto": "auto", "pallas": "cuda", "xla": "plain"}
+
+
+# MODEL.ROI_HEADS.VISUAL_ATTENTION_HEAD.NAME -> VisualAttentionHead mode
+_ATTENTION_MODES = {
+    "MahalanobisSimilarity": "mahalanobis",
+    "MeanSimilarity": "mean",
+    "MeanMatrixSimilarity": "matrix",
+    "MeanMatrixSimilarityLocatron": "locatron",
+}
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -120,7 +137,9 @@ class ModelConfig:
     mask_num_conv: int = 0
     mask_fg_slots: int = 128  # foreground capacity of the mask loss (= S * pos_frac)
     load_proposals: bool = False
-    use_meta: bool = False
+    use_meta: bool = False            # WSROIHead: the support stream and rank losses
+    attention_mode: str = "mean"      # VISUAL_ATTENTION_HEAD.NAME -> visual_attention.MODES
+    rank_loss_slots: int = 100        # sampled slots of a strong image in the rank losses
     rpn: rpn_lib.RPNConfig = rpn_lib.RPNConfig()
     frcnn: frcnn.FastRCNNConfig = frcnn.FastRCNNConfig(num_classes=20)
     weak: weak_lib.WeakLossConfig = weak_lib.WeakLossConfig(num_classes=20)
@@ -191,6 +210,7 @@ class ModelConfig:
             mask_fg_slots=int(roi.BATCH_SIZE_PER_IMAGE * roi.POSITIVE_FRACTION),
             load_proposals=cfg.MODEL.LOAD_PROPOSALS,
             use_meta=cfg.MODEL.ROI_HEADS.NAME in ("WSROIHead", "WSROIHeadFineTuneMeta"),
+            attention_mode=_ATTENTION_MODES.get(roi.VISUAL_ATTENTION_HEAD.NAME, "mean"),
             rpn=rpn_lib.RPNConfig.from_cfg(cfg),
             frcnn=frcnn.FastRCNNConfig.from_cfg(cfg),
             weak=weak_lib.WeakLossConfig(
@@ -218,8 +238,6 @@ def _check_supported(mc: ModelConfig) -> None:
     if mc.regression_branch or mc.oicr_regression_branch or mc.oicr_iter < 1:
         raise _not_ported("weak regression branches and OICR_ITER 0",
                           "ROADMAP Queue 1 item 25")
-    if mc.use_meta:
-        raise _not_ported("the meta (support) stream", "ROADMAP Queue 1 item 23")
     for impl in (mc.roi_align_impl, mc.nms_impl, mc.bn_act_impl):
         if impl not in ("auto", "cuda", "plain"):
             raise ValueError(f"unknown kernel impl {impl!r} (auto | cuda | plain)")
@@ -264,6 +282,12 @@ class WSRCNN(nn.Module):
             self.mask_head = mask_lib.MaskRCNNConvUpsampleHead(
                 d, mc.num_classes, num_conv=mc.mask_num_conv,
                 finetune=mc.mask_head_finetune, dtype=dt, generator=g)
+        if mc.use_meta:
+            self.visual_attention = VisualAttentionHead(
+                mc.num_classes, depth=mc.depth, res2_out_channels=mc.res2_out_channels,
+                mode=mc.attention_mode, pooler_resolution=mc.pooler_resolution,
+                pooler_scale=mc.pooler_scale, sampling_ratio=mc.sampling_ratio,
+                roi_align_impl=mc.roi_align_impl, dtype=dt, generator=g)
         set_bn_act_impl(self, mc.bn_act_impl)
 
     # ---------------------------------------------------------------- pieces
@@ -302,11 +326,21 @@ class WSRCNN(nn.Module):
         return torch.stack([m.weight for m in self.weak_detector.oicr_predictors()]).mean(0)
 
     # ---------------------------------------------------------------- training
-    def _check_trainable(self, meta) -> None:
-        """Training options beyond those _check_supported refuses at
-        construction."""
-        if meta is not None:
-            raise _not_ported("the meta (support) stream", "ROADMAP Queue 1 item 23")
+    def compute_meta_attention(self, support: Dict[str, torch.Tensor]) -> MetaAttention:
+        """Support batch -> class prototypes (unit_tpu meta_arch.py:346-361).
+
+        support: {image [C, K, h, w, 3], boxes [C, K, 4], class_valid [C]}.
+        The backbone pass over the C * K shots runs without autograd (the
+        reference wraps it in torch.no_grad()); the meta box head after the
+        pooler keeps its graph, which the prototype classification loss
+        trains."""
+        image = support["image"]
+        c, k = image.shape[:2]
+        with torch.no_grad():
+            feats = self.features(image.reshape((c * k,) + image.shape[2:]))
+        return self.visual_attention.support_prototypes(
+            feats.reshape((c, k) + feats.shape[1:]), support["boxes"], support["class_valid"],
+            self.mc.base_ids)
 
     def _train_proposals(self, feats, logits, deltas, image_sizes) -> Proposals:
         """Training-time proposals (no gradient) of the images behind ``feats``."""
@@ -337,8 +371,12 @@ class WSRCNN(nn.Module):
         the RPN's anchor subsampling and the ROI heads' proposal sampling.
         With ``train_only_weak`` (TrainerOnlyWeak) the strong batch trains
         the RPN alone: no proposals, sampling or supervised heads for it.
+        meta:   {image [C,K,h,w,3], boxes [C,K,4], class_valid [C]}, the
+                support batch of a meta model (``Trainer``): it adds the rank
+                losses of the first ``rank_loss_slots`` sampled slots of each
+                strong image against the batch's prototypes; ignored by a
+                model without the meta ROI heads, as in unit_tpu.
         """
-        self._check_trainable(meta)
         mc = self.mc
         losses: Dict[str, torch.Tensor] = {}
 
@@ -423,6 +461,16 @@ class WSRCNN(nn.Module):
             losses.update(frcnn.fast_rcnn_losses(scores, bbox, flat, mc.frcnn))
             if mc.mask_on and "gt_masks" in strong:
                 losses["loss_mask"] = self._mask_loss(feats4d, sampled, strong["gt_masks"], sims)
+            if mc.use_meta and meta is not None:
+                # the rank losses over the first slots the sampler emitted
+                # (fewer than roi_batch_size on a small RPN top-k); they read
+                # the strong stream's pooled maps detached: no K1 of their own
+                b, n_slots = sampled.boxes.shape[:2]
+                ks = min(mc.rank_loss_slots, n_slots)
+                losses.update(self.visual_attention.rank_loss(
+                    pooled.unflatten(0, (b, n_slots))[:, :ks].flatten(0, 1),
+                    sampled.gt_classes[:, :ks].flatten(), sampled.valid[:, :ks].flatten(),
+                    self.compute_meta_attention(meta), mc.base_ids))
 
         if weak is not None:
             if feats_w is None:

@@ -95,6 +95,17 @@ Phases (any failure raises and the script exits non-zero):
      engine.runner.run with Trainer on phase 10's devkit: 4 steps, a
      checkpoint at 2, the evaluation with its support precompute (50 shots a
      class), and a resume from step 2
+ 15  test-time augmentation (TEST.AUG at its defaults: scales 480-1200,
+     MAX_SIZE 2000, flip) on the flagship at full width: one 600x800 image's
+     f32 path kernels vs plain (identical proposals, phase 5's bounds); in
+     bf16 its launches (K1 5, one a group of a scale's flip pair; K3 2; K4
+     94 + 5 x (94 + 20)), time, memory and profile; K1 at the five group
+     shapes and K3 at the final NMS on that image's own inputs;
+     engine.runner.run --eval-only with TTA on phase 10's devkit (seconds per
+     image, the loader's wait apart); precise_bn over 4 pre-made batches with
+     K4 and with the plain epilogue (bit-identical buffers), then run with
+     TEST.PRECISE_BN (NUM_ITER 4): the checkpoint holds the refreshed
+     statistics; run with TPU.PROFILE_START_STEP 2: its trace names K1-K4
 The last three lines are the card (nvidia-smi), one JSON object describing
 the kernels (launches counted on the run loop of phase 10, and per path under
 launches_by_path), and {"ok": true, "device": {...}}.  Without a CUDA device, or without the
@@ -257,6 +268,14 @@ META_RECIPE = ROOT / "configs" / "VOC" / "VOC-RCNN-101-C4-split1-meta.yaml"
 META_TRAIN_STEPS = 6
 META_RUN_STEPS = 4
 RANK_MARGIN_UNDERFLOW = 15 * 0.5 / 16
+# Test-time augmentation (phase 15): TEST.AUG at its defaults on the flagship
+# (scales 480-1200, MAX_SIZE 2000, flip: 10 variants in 5 groups); one image
+# of the devkit's 600x800, timed TTA_TIMED times after one warm-up.
+# PreciseBN's run cuts the recipe's TEST.PRECISE_BN.NUM_ITER of 200 to 4.
+TTA_IMAGE = (600, 800)
+TTA_TIMED = 3
+PRECISE_BN_ITERS = 4
+PRECISE_BN_PERIOD = 3
 
 
 def log(*parts):
@@ -553,18 +572,35 @@ def nms_train_layouts(rng, images=4, n=12000, h=800, w=1344):
             for name, make in makers.items()}
 
 
-def nms_pair_tests(keep, cap):
+def nms_rows_walked(keep, cap, n_valid=None):
+    """Rows exact greedy NMS must walk, per image of these keep masks [B, N]:
+    up to the cap-th keep, or every valid row where fewer are kept (the
+    first ``n_valid`` of them where that is given, else all N)."""
+    masks = keep.reshape(-1, keep.shape[-1])
+    valid = ([masks.shape[-1]] * len(masks) if n_valid is None
+             else [int(v) for v in n_valid.reshape(-1)])
+    return [int(mask.nonzero()[cap - 1]) + 1 if cap is not None and int(mask.sum()) >= cap
+            else n for mask, n in zip(masks, valid)]
+
+
+def nms_pair_tests(keep, cap, n_valid=None):
     """IoU tests exact greedy NMS needs for these keep masks [B, N]: each row
-    it walks (up to the cap-th keep, or every row where fewer are kept)
-    against the boxes kept before it."""
+    it walks (``nms_rows_walked``) against the boxes kept before it."""
     import torch
 
     total = 0
-    for mask in keep.reshape(-1, keep.shape[-1]):
-        kept = int(mask.sum())
-        last = int(mask.nonzero().max()) if kept >= cap else mask.numel() - 1
-        total += int(torch.cumsum(mask[: last + 1].long(), 0).sum()) - kept
+    for mask, rows in zip(keep.reshape(-1, keep.shape[-1]), nms_rows_walked(keep, cap, n_valid)):
+        total += int(torch.cumsum(mask[:rows].long(), 0).sum()) - int(mask.sum())
     return total
+
+
+def nms_bytes(sorted_boxes, keep, cap, n_valid=None):
+    """Bytes exact greedy NMS must move for these keep masks: the box rows it
+    walks (``nms_rows_walked``), ``n_valid`` where given, and the whole keep
+    mask written."""
+    row_bytes = sorted_boxes.shape[-1] * sorted_boxes.element_size()
+    return (sum(nms_rows_walked(keep, cap, n_valid)) * row_bytes + nbytes(keep)
+            + (0 if n_valid is None else nbytes(n_valid)))
 
 
 def phase_k3(rng):
@@ -605,7 +641,7 @@ def phase_k3(rng):
     # the row of the last keep it returns, against the boxes kept before it.
     kept, last = int(keep.sum()), int(keep.nonzero().max())
     tests = nms_pair_tests(keep, 1000)
-    rpn_bound = bound(nbytes(sb, keep), tests * IOU_FLOPS)
+    rpn_bound = bound(nms_bytes(sb, keep, 1000), tests * IOU_FLOPS)
     log(f"[3] K3 RPN mask: kernel {rpn_ms:.4f} ms, plain {rpn_plain:.4f} ms; {kept} keeps, "
         f"the last at row {last}: {tests} IoU tests of a box against an earlier keep, "
         f"bound {rpn_bound['bound_ms']:.5f} ms by {rpn_bound['bound_by']} (the serial chain "
@@ -676,7 +712,7 @@ def phase_k3(rng):
         q_ms, host_ms = cuda_ms_queued(
             lambda: nms_ops.nms_sorted_mask(sb, 0.7, 2000, impl="cuda"), 20)
         tests = nms_pair_tests(keep, 2000)
-        lay_bound = bound(nbytes(sb, keep), tests * IOU_FLOPS)
+        lay_bound = bound(nms_bytes(sb, keep, 2000), tests * IOU_FLOPS)
         last = [int(m.nonzero().max()) for m in keep]
         log(f"[3] K3 train shape, {name}: kernel {k_ms:.4f} ms ({q_ms:.4f} queued), plain "
             f"{p_ms:.4f} ms; {keep.sum(1).tolist()} keeps, the last at rows {last}: {tests} "
@@ -2555,7 +2591,8 @@ def phase_weak_variants(seed, workdir):
     if on_card:
         k_ms = cuda_ms(lambda: real_k3(boxes, thr, cap, n_valid=n_valid), 20)
         p_ms = cuda_ms(lambda: nms_ops.nms_sorted_mask_plain(boxes, thr, cap), 2)
-        least = bound(nbytes(boxes, got), nms_pair_tests(got, cap) * IOU_FLOPS)
+        least = bound(nms_bytes(boxes, got, cap, n_valid),
+                      nms_pair_tests(got, cap, n_valid) * IOU_FLOPS)
         k3_b2 = {"self_training_b2_ms": k_ms, "self_training_b2_plain_ms": p_ms,
                  "self_training_b2_bound_ms": least["bound_ms"],
                  "self_training_b2_max_abs_err": err}
@@ -2932,6 +2969,377 @@ def phase_meta(seed, workdir):
     return by_path, k1_support
 
 
+def tta_batch(cfg, seed, shape=TTA_IMAGE):
+    """(TTA batch, host ms): one seeded image of ``shape`` prepared as
+    build_tta_test_loader prepares a record under ``cfg``'s TEST.AUG (the
+    canonical image and its resized and flipped variants)."""
+    from unit_tpu_torch.data.loader import prepare_tta_batch, tta_variant_configs
+    from unit_tpu_torch.data.transforms import TransformConfig
+
+    image = np.random.RandomState(seed).uniform(0, 255, shape + (3,)).astype(np.float32)
+    variant_cfgs = tta_variant_configs(cfg, max(shape) / min(shape))
+    t0 = time.perf_counter()
+    batch = prepare_tta_batch({"image_id": "tta"}, image, TransformConfig.test_from_cfg(cfg),
+                              variant_cfgs)
+    return batch, (time.perf_counter() - t0) * 1e3
+
+
+def tta_args(batch, dev):
+    """A TTA batch as WSRCNN.predict_tta's arguments on ``dev``."""
+    import torch
+
+    def up(x):
+        return torch.as_tensor(x).to(dev)
+
+    variants = [{"image": up(v["image"]), "image_size": up(v["image_size"]),
+                 "scale": v["scale"], "flip": v["flip"]} for v in batch["variants"]]
+    return up(batch["image"]), up(batch["image_size"]), variants
+
+
+def phase_tta(cfg, seed, workdir):
+    """Phase 15: test-time augmentation (TEST.AUG at its defaults: scales
+    480-1200, MAX_SIZE 2000, flip) on the flagship at full width, PreciseBN
+    and the profile hook, in the directory phase 10 left.  (a) one 600x800
+    image: the f32 path with the kernels vs the plain versions; in bf16 its
+    launches, time, memory and profile; (b) K1 at the five group shapes and
+    K3 at the final NMS, on the inputs of (a); (c) engine.runner.run
+    --eval-only with TTA on phase 10's devkit; (d) precise_bn over 4
+    pre-made batches with K4 and with the plain epilogue, then run with
+    TEST.PRECISE_BN; (e) run with the profile hook.  Returns ({path: launch
+    counts}, K1's numbers at the largest group, K3's at the final NMS)."""
+    import glob
+    import torch
+
+    from unit_tpu_torch.checkpoint import read_checkpoint
+    from unit_tpu_torch.data import DatasetCatalog
+    from unit_tpu_torch.engine import runner
+    from unit_tpu_torch.evaluation.evaluator import _start_fetch
+    from unit_tpu_torch.models.resnet import set_bn_act_impl
+    from unit_tpu_torch.ops import nms as nms_ops
+    from unit_tpu_torch.ops import roi_align as ra
+    from unit_tpu_torch.utils.precise_bn import precise_bn
+
+    dev = torch.device(RUN_DEVICE)
+    on_card = dev.type == "cuda"
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    cfg = cfg.clone()
+    cfg.merge_from_list(list(RUN_EXTRA_OPTS))
+    cfg.TEST.AUG.ENABLED = True
+    batch, _ = tta_batch(cfg, seed + 30)
+    n_var = len(batch["variants"])
+    groups = len({v["image"].shape for v in batch["variants"]})
+    log(f"[15] TEST.AUG: scales {tuple(cfg.TEST.AUG.MIN_SIZES)}, MAX_SIZE "
+        f"{cfg.TEST.AUG.MAX_SIZE}, flip {cfg.TEST.AUG.FLIP}: a {TTA_IMAGE[0]}x{TTA_IMAGE[1]} "
+        f"image -> canonical {tuple(batch['image'].shape[1:3])} and {n_var} variants in "
+        f"{groups} groups: " + ", ".join(
+            f"{tuple(v['image'].shape[1:3])}{' flipped' if v['flip'] else ''}"
+            for v in batch["variants"]))
+
+    # (a) f32, TF32 off: the path with the kernels vs with the plain versions
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg32 = cfg.clone()
+    cfg32.TPU.COMPUTE_DTYPE = "float32"
+    model = flagship_model(cfg32, seed, dev)
+    args = tta_args(batch, dev)
+    outs = {}
+    for impl in ("cuda", "plain"):
+        model.mc = dataclasses.replace(model.mc, roi_align_impl=impl, nms_impl=impl)
+        set_bn_act_impl(model, impl)
+        with torch.inference_mode():
+            outs[impl] = model.predict_tta_raw(*args)
+    (pk, dk, prk), (pp, dp, prp) = outs["cuda"], outs["plain"]
+    same_props = torch.equal(prk.valid, prp.valid) and torch.equal(prk.boxes, prp.boxes)
+    # probabilities are summed over the variants: their mean is bounded by 1
+    dprobs = float((pk - pp).abs().max()) / n_var
+    dbbox = float((dk - dp).abs().max()) / max(1.0, float(dp.abs().max()))
+    log(f"[15] f32 TTA path: proposals identical {same_props} ({int(prk.valid.sum())} valid); "
+        f"summed probs max|diff| / {n_var} variants {dprobs:.3g} (tol {E2E_PROBS_ATOL}); mean "
+        f"deltas max|diff|/max {dbbox:.3g} (tol {E2E_BBOX_RTOL})")
+    if not (same_props and dprobs <= E2E_PROBS_ATOL and dbbox <= E2E_BBOX_RTOL):
+        raise AssertionError("the TTA path with kernels disagrees with the plain path")
+    del model, outs, pk, dk, prk, pp, dp, prp
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (a) bf16: launches, time, memory; the K1 and final K3 inputs kept for (b)
+    model = flagship_model(cfg, seed, dev)
+    n_backbone, n_res5, _ = frozen_bn_counts(model)
+    k4_per_image = n_backbone + groups * (n_backbone + 2 * n_res5)
+    k1_inputs, k3_inputs = [], []
+    real_k1, real_k3 = ra.roi_align_cuda, nms_ops.nms_sorted_mask_cuda
+
+    def record_k1(feats, rois, *a):
+        k1_inputs.append((tuple(feats.shape), rois.clone()))
+        return real_k1(feats, rois, *a)
+
+    def record_k3(sorted_boxes, thr, cap=None, n_valid=None):
+        if cap == model.mc.frcnn.topk_per_image:  # the final NMS, not the RPN's
+            k3_inputs.append((sorted_boxes.clone(), thr, cap, n_valid))
+        return real_k3(sorted_boxes, thr, cap, n_valid=n_valid)
+
+    def one_image():
+        with torch.inference_mode():
+            dets = model.predict_tta(*args)
+            host, _, event = _start_fetch(dets)  # the evaluator's packed copy
+        if event is not None:
+            event.synchronize()
+        return host
+
+    ra.roi_align_cuda, nms_ops.nms_sorted_mask_cuda = record_k1, record_k3
+    try:
+        t0 = time.perf_counter()
+        host = one_image()  # first call: cuDNN picks the five groups' algorithms
+        first = time.perf_counter() - t0
+    finally:
+        ra.roi_align_cuda, nms_ops.nms_sorted_mask_cuda = real_k1, real_k3
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    times = []
+    for _ in range(TTA_TIMED):
+        t0 = time.perf_counter()
+        host = one_image()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = read_launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**20 if on_card else 0.0
+    out = host.numpy()[0]
+    valid = out[:, 6] > 0
+    boxes, scores = out[valid, :4], out[valid, 4]
+    h, w = batch["image_size"][0]
+    ok = (np.isfinite(out).all() and valid.any() and (boxes >= 0).all()
+          and (boxes[:, 0::2] <= w).all() and (boxes[:, 1::2] <= h).all()
+          and (scores > 0).all() and (scores <= n_var).all())
+    host_ms = [tta_batch(cfg, seed + 30)[1] for _ in range(3)]
+    log(f"[15] bf16 TTA image: first {first:.2f} s, then {[round(v, 2) for v in times]} ms "
+        f"(median {np.median(times):.2f}); {int(valid.sum())} detections, scores up to "
+        f"{out[valid, 4].max():.4g} (summed over {n_var}); peak device memory {peak:.1f} MiB; "
+        f"host preparation ({n_var + 1} numpy resizes) median {np.median(host_ms):.1f} ms; "
+        f"launches "
+        f"{launches}")
+    want = {"roi_align_fwd": groups, "roi_align_bwd": 0, "nms_mask": 2, "nms_mask_images": 2,
+            "bn_act_fwd": k4_per_image, "bn_act_bwd": 0, "bn_act_layout_copies": 0}
+    if launches != {k: v * TTA_TIMED for k, v in want.items()}:
+        raise AssertionError(f"a TTA image did not run K1 x{groups}, K3 x2 and K4 "
+                             f"x{k4_per_image}: {launches}")
+    if not ok:
+        raise AssertionError("the TTA detections are not finite, not in the image or not in "
+                             "(0, variants]")
+    if on_card:
+        profile_run(one_image, "[15]", "TTA image", top=12)
+
+    # (b) K1 at the five group shapes and K3 at the final NMS, on (a)'s inputs
+    k1_tta, k3_tta = {}, {}
+    if on_card:
+        rng = np.random.RandomState(seed + 32)
+        worst = 0.0
+        largest = max((s for s, _ in k1_inputs), key=lambda s: s[1] * s[2])
+        for shape, rois in k1_inputs:  # one launch a group; the canonical pass has none
+            feat = torch.as_tensor(rng.randn(*shape).astype(np.float32),
+                                   device=dev).to(torch.bfloat16)
+            label = f"TTA group {list(shape)} x {rois.shape[1]} ROIs an image"
+            worst = max(worst, k1_check(feat, rois, label, tag="[15]"))
+            if shape == largest:
+                k_ms, p_ms, least = k1_timed(feat, rois, label, tag="[15]")
+                q_ms, _ = cuda_ms_queued(lambda: real_k1(feat, rois), 20)
+                k1_tta = {"tta_ms": k_ms, "tta_queued_ms": q_ms, "tta_plain_ms": p_ms,
+                          "tta_bound_ms": least["bound_ms"], "tta_shape": list(shape)}
+        k1_tta["tta_max_abs_err"] = worst
+        sb, thr, cap, n_valid = k3_inputs[0]
+        got = real_k3(sb, thr, cap, n_valid=n_valid)
+        same = torch.equal(got, real_k3(sb, thr, cap, n_valid=n_valid))
+        want_mask = nms_ops.nms_sorted_mask_plain(sb, thr, cap)
+        keeps = int(got.sum())
+        k_ms, _ = cuda_ms_queued(lambda: real_k3(sb, thr, cap, n_valid=n_valid), 20)
+        p_ms = cuda_ms(lambda: nms_ops.nms_sorted_mask_plain(sb, thr, cap), 3)
+        least = bound(nms_bytes(sb, got, cap, n_valid),
+                      nms_pair_tests(got, cap, n_valid) * IOU_FLOPS)
+        walked = sum(nms_rows_walked(got, cap, n_valid))
+        log(f"[15] K3 final NMS of the TTA image: {sb.shape[-2]} candidates, "
+            f"{int(n_valid.sum())} valid, IoU {thr}, cap {cap}: {keeps} kept, {walked} rows "
+            f"walked, {int((got != want_mask).sum())} rows differ from the plain version, two launches "
+            f"bit-identical {same}; kernel {k_ms:.4f} ms queued, plain {p_ms:.4f} ms, bound "
+            f"{least['bound_ms']:.5f} ms by {least['bound_by']}")
+        if not (torch.equal(got, want_mask) and same and keeps <= cap):
+            raise AssertionError("K3 at the TTA final NMS differs from its plain version")
+        k3_tta = {"tta_final_ms": k_ms, "tta_final_plain_ms": p_ms,
+                  "tta_final_bound_ms": least["bound_ms"], "tta_final_candidates": sb.shape[-2],
+                  "tta_final_valid": int(n_valid.sum()), "tta_final_rows_walked": walked}
+    del model, args, k1_inputs[:], k3_inputs[:]
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (c) engine.runner.run --eval-only with TTA on phase 10's devkit
+    devkit = os.path.join(workdir, "VOCdevkit")
+    waits = []
+    real_loader = runner.build_tta_test_loader
+
+    class Waited:
+        """The TTA loader, with the time each next() waits for the prefetch thread."""
+
+        def __init__(self, loader):
+            self.loader = loader
+
+        def __iter__(self):
+            return self
+
+        def __next__(self):
+            t = time.perf_counter()
+            item = next(self.loader)
+            waits.append(time.perf_counter() - t)
+            return item
+
+        def close(self):
+            self.loader.close()
+
+    def timed_loader(*a, **kw):
+        loader, n = real_loader(*a, **kw)
+        return Waited(loader), n
+
+    def run(out, *flags, opts=()):
+        DatasetCatalog.clear()
+        args = runner.default_argument_parser().parse_args([
+            "--config-file", str(FLAGSHIP), "--data-root", devkit, "--device", RUN_DEVICE,
+            *flags, "OUTPUT_DIR", out,
+            "MODEL.ROI_HEADS.EMBEDDING_PATH", str(ROOT / cfg.MODEL.ROI_HEADS.EMBEDDING_PATH),
+            "DATASETS.CLASSIFIER_DATAROOT", devkit, "SEED", str(seed),
+            "SOLVER.IMS_PER_BATCH", "2", "SOLVER.CLIP_GRADIENTS.ENABLED", "True",
+            "SOLVER.CLIP_GRADIENTS.CLIP_TYPE", "norm", *RUN_EXTRA_OPTS, *opts])
+        t = time.perf_counter()
+        results = runner.run(args, image_loader=seeded_image_loader)
+        sync()
+        return results, time.perf_counter() - t
+
+    by_path = {}
+    runner.build_tta_test_loader = timed_loader
+    try:
+        reset_launch_counts()
+        results, secs = run(os.path.join(workdir, "tta_eval"), "--eval-only",
+                            opts=["MODEL.WEIGHTS", os.path.join(workdir, "run_a", "best", "model"),
+                                  "TEST.AUG.ENABLED", "True"])
+        by_path["tta"] = launches = read_launch_counts()
+    finally:
+        runner.build_tta_test_loader = real_loader
+    per_image = results["inference_seconds_per_image"]
+    wait = float(np.mean(waits[1:])) if len(waits) > 1 else float("nan")
+    log(f"[15] run --eval-only with TTA over {RUN_TEST_IMAGES} images in {secs:.1f} s: AP50 "
+        f"{results['bbox']['AP50']:.4g}; {per_image:.4f} s per evaluated image (host clock, "
+        f"after one warm-up image), of which waiting for the loader {wait:.4f} s (mean of "
+        f"{len(waits) - 1}; first image {waits[0]:.3f} s) and the device's forward the rest; "
+        f"launches {launches}")
+    want = {"roi_align_fwd": groups, "roi_align_bwd": 0, "nms_mask": 2, "nms_mask_images": 2,
+            "bn_act_fwd": k4_per_image, "bn_act_bwd": 0, "bn_act_layout_copies": 0}
+    if not (np.isfinite(results["bbox"]["AP50"]) and np.isfinite(per_image)
+            and launches == {k: v * RUN_TEST_IMAGES for k, v in want.items()}):
+        raise AssertionError(f"the TTA evaluation is not finite or did not run K1 x{groups}, "
+                             f"K3 x2 and K4 x{k4_per_image} an image: {launches}")
+
+    # (d) precise_bn over 4 pre-made batches, with K4 and with the plain epilogue
+    model = flagship_model(cfg, seed, dev)
+    strong, _ = synthetic_train_batches(cfg, seed + 31)
+    images = [{"image": torch.as_tensor(b["image"], device=dev)} for b in strong]
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def is_stat(name):
+        return name.endswith(".mean") or name.endswith(".var")
+
+    refreshed = {}
+    for impl in ("cuda", "cuda", "plain"):  # the first run warms cuDNN up
+        model.load_state_dict(start)
+        set_bn_act_impl(model, impl)
+        sync()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        precise_bn(model, iter(images), len(images))
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3 / len(images)
+        counts = read_launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**20 if on_card else 0.0
+        refreshed[impl] = {k: v.clone() for k, v in model.state_dict().items() if is_stat(k)}
+        log(f"[15] precise_bn over {len(images)} batches of {list(images[0]['image'].shape)}, "
+            f"bn_act {impl}: {ms:.2f} ms a batch, peak device memory {peak:.1f} MiB, launches "
+            f"{counts}")
+        if impl == "cuda" and counts != {**{k: 0 for k in counts},
+                                         "bn_act_fwd": n_backbone * len(images)}:
+            raise AssertionError(f"precise_bn did not run K4 x{n_backbone} a batch alone")
+    same = all(torch.equal(refreshed["cuda"][k], refreshed["plain"][k]) for k in refreshed["cuda"])
+    moved = [k for k in refreshed["cuda"] if k.startswith("backbone.")
+             and not torch.equal(refreshed["cuda"][k], start[k])]
+    kept = all(torch.equal(v, start[k]) for k, v in model.state_dict().items()
+               if not (is_stat(k) and k.startswith("backbone.")))
+    log(f"[15] refreshed statistics with K4 and with the plain epilogue bit-identical {same}; "
+        f"{len(moved)} backbone buffers moved, every other tensor unchanged {kept}")
+    if not (same and kept and len(moved) == 2 * n_backbone):
+        raise AssertionError("precise_bn differs between K4 and the plain epilogue, or moved "
+                             "the wrong tensors")
+    del model, images, start, refreshed
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (d) run with TEST.PRECISE_BN: NUM_ITER cut from 200 to PRECISE_BN_ITERS
+    captured = []
+    real_precise_bn = runner.precise_bn
+
+    def recording(model, loader, num_iter):
+        out = real_precise_bn(model, loader, num_iter)
+        captured.append({k: v.clone() for k, v in model.state_dict().items() if is_stat(k)})
+        return out
+
+    init = glob.glob(os.path.join(workdir, "init", "step_*.pt"))[0]
+    out_bn = os.path.join(workdir, "precise_bn")
+    runner.precise_bn = recording
+    try:
+        results, secs = run(out_bn, opts=[
+            "MODEL.WEIGHTS", init, "SOLVER.MAX_ITER", str(PRECISE_BN_PERIOD),
+            "SOLVER.CHECKPOINT_PERIOD", str(PRECISE_BN_PERIOD),
+            "TEST.EVAL_PERIOD", str(PRECISE_BN_PERIOD), "TEST.PRECISE_BN.ENABLED", "True",
+            "TEST.PRECISE_BN.NUM_ITER", str(PRECISE_BN_ITERS)])
+    finally:
+        runner.precise_bn = real_precise_bn
+    saved = read_checkpoint(os.path.join(out_bn, f"step_{PRECISE_BN_PERIOD}.pt"))["model"]
+    first = read_checkpoint(init)["model"]
+    ok = (len(captured) == 1
+          and all(torch.equal(saved[k], v.cpu()) for k, v in captured[0].items())
+          and all(not torch.equal(saved[k], first[k]) for k in captured[0]
+                  if k.startswith("backbone.")))
+    log(f"[15] run with TEST.PRECISE_BN (NUM_ITER {PRECISE_BN_ITERS}, EVAL_PERIOD "
+        f"{PRECISE_BN_PERIOD}) in {secs:.1f} s: {len(captured)} refresh, the step-"
+        f"{PRECISE_BN_PERIOD} checkpoint holds the refreshed statistics {ok}; AP50 "
+        f"{results['bbox']['AP50']:.4g}")
+    if not ok:
+        raise AssertionError("the step's checkpoint does not hold the refreshed statistics")
+
+    # (e) run with the profile hook: the trace of steps 3 and 4
+    out_prof = os.path.join(workdir, "profiled")
+    results, secs = run(out_prof, opts=[
+        "MODEL.WEIGHTS", init, "SOLVER.MAX_ITER", "4", "SOLVER.CHECKPOINT_PERIOD", "0",
+        "TEST.EVAL_PERIOD", "0", "TPU.PROFILE_START_STEP", "2", "TPU.PROFILE_NUM_STEPS", "2"])
+    traces = glob.glob(os.path.join(out_prof, "trace", "*.pt.trace.json"))
+    names = set()
+    for path in traces:
+        with open(path) as f:
+            names |= {str(e.get("name", "")) for e in json.load(f)["traceEvents"]
+                      if e.get("cat") == "kernel"}
+    found = {kind: sorted(n for n in names if any(f in n for f in frags))[:1]
+             for kind, frags in KERNEL_KINDS[:4]}
+    log(f"[15] run with TPU.PROFILE_START_STEP 2, PROFILE_NUM_STEPS 2 in {secs:.1f} s: "
+        f"{len(traces)} trace ({sum(os.path.getsize(p) for p in traces) / 2**20:.1f} MiB), "
+        f"{len(names)} kernel names; " + ", ".join(f"{k}: {v}" for k, v in found.items()))
+    if len(traces) != 1 or (on_card and not all(found.values())):
+        raise AssertionError("the profile hook wrote no trace, or one without K1-K4")
+    return by_path, k1_tta, k3_tta
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2968,6 +3376,8 @@ def main():
         by_path.update(weak_paths)
         meta_paths, k1_support = phase_meta(args.seed, workdir)
         by_path.update(meta_paths)
+        tta_paths, k1_tta, k3_tta = phase_tta(cfg, args.seed, workdir)
+        by_path.update(tta_paths)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     def per_path(*names):
@@ -2982,7 +3392,8 @@ def main():
                    "finetune": ("roi_align_bwd", "bn_act_bwd"),
                    "coco_segm": ("roi_align_bwd", "bn_act_bwd"),
                    "coco_segm_ft": ("roi_align_bwd",),
-                   "weak_rcnn_serving": ("roi_align_bwd", "bn_act_bwd")}
+                   "weak_rcnn_serving": ("roi_align_bwd", "bn_act_bwd"),
+                   "tta": ("roi_align_bwd", "bn_act_bwd")}
     for path, counts in by_path.items():
         for name, count in counts.items():
             if name == "bn_act_layout_copies":
@@ -2998,7 +3409,8 @@ def main():
         dict(name="roi_align_fwd", route="cuda", source="unit_tpu_torch/csrc/roi_align_fwd.cu",
              replaces="unit_tpu/ops/roi_align_pallas.py:230",
              launches=launches["roi_align_fwd"],
-             launches_by_path=per_path("roi_align_fwd"), **k1, **k1_mask, **k1_support),
+             launches_by_path=per_path("roi_align_fwd"), **k1, **k1_mask, **k1_support,
+             **k1_tta),
         dict(name="roi_align_bwd", route="cuda", source="unit_tpu_torch/csrc/roi_align_bwd.cu",
              replaces="unit_tpu/ops/roi_align_pallas_bwd.py:564",
              launches=launches["roi_align_bwd"],
@@ -3006,7 +3418,7 @@ def main():
         dict(name="nms_mask", route="cuda", source="unit_tpu_torch/csrc/nms_mask.cu",
              replaces="unit_tpu/ops/nms_pallas.py:115",
              launches=launches["nms_mask"], launches_by_path=per_path("nms_mask"), **k3,
-             **k3_b2),
+             **k3_b2, **k3_tta),
         dict(name="bn_act", route="cuda", source="unit_tpu_torch/csrc/bn_act.cu",
              replaces="scripts/bench_backbone_epilogue.py:155",
              launches=launches["bn_act_fwd"] + launches["bn_act_bwd"],

@@ -238,7 +238,13 @@ def test_prefetcher_pins_closes_and_forwards_errors():
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda cfg: tloader.build_tta_test_loader(cfg, "x"), "item 24"),
+    # the TTA loader is ported (tests/test_torch_tta.py); the case keeps its
+    # name and holds the TTA loader's precomputed proposals instead
+    pytest.param(lambda cfg: (setattr(cfg.MODEL, "LOAD_PROPOSALS", True),
+                              setattr(cfg.DATASETS, "PROPOSAL_FILES_TEST", ("p.pkl",)),
+                              tloader.build_tta_test_loader(cfg, "voc_base_training_query_val"))[2],
+                 "item 25",
+                 id="<lambda>-item 24"),
     # the support loader is ported (tests/test_torch_meta.py); the case keeps
     # its name and holds the precomputed proposals of the test loader instead
     pytest.param(lambda cfg: (setattr(cfg.MODEL, "LOAD_PROPOSALS", True),

@@ -422,6 +422,43 @@ def test_kernel_n_valid_in_one_batch(cuda_device):
     assert nms_sorted_mask_cuda(sb[:0], 0.5, 100).shape == (0, 1000)
 
 
+def tta_final_layout(rng, p=1000, c=20, variants=10):
+    """The TTA evaluation's final NMS input: p proposals x c classes of
+    decoded boxes (each class's box near its proposal's) and their scores,
+    the probabilities SUMMED over the variants, so most pass 0.05."""
+    xy = rng.uniform(0, 1, (p, 1, 2)) * [1000, 740]
+    wh = rng.uniform(16, 400, (p, 1, 2))
+    jitter = rng.normal(0, 6, (p, c, 4))
+    boxes = (np.concatenate([xy, xy + wh], -1) + jitter).reshape(-1, 4)
+    probs = sum(rng.dirichlet(np.ones(c + 1) * 0.3, p)[:, :c] for _ in range(variants))
+    return boxes.astype(np.float32), probs.reshape(-1).astype(np.float32)
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_on_the_tta_final_layout(cuda_device):
+    """K3 at the TTA evaluation's final NMS: 20000 class-offset candidates,
+    most of them valid, IoU 0.5, cap 100: the survivor buffer stops at the
+    cap; masks bit-identical to the plain version, two launches alike."""
+    boxes, probs = (torch.as_tensor(v, device=cuda_device)
+                    for v in tta_final_layout(np.random.RandomState(12)))
+    classes = torch.arange(20, device=cuda_device).repeat(1000)
+    valid = probs > 0.05
+    assert int(valid.sum()) > 15000
+    ki, kv = tnms.batched_nms(boxes, probs, classes, 0.5, 100, valid=valid, impl="cuda")
+    pi, pv = tnms.batched_nms(boxes, probs, classes, 0.5, 100, valid=valid, impl="plain")
+    assert torch.equal(ki, pi) and torch.equal(kv, pv) and int(kv.sum()) == 100
+    shifted = boxes + (classes.float() * (boxes.max() + 1.0))[:, None]
+    order = torch.argsort(-torch.where(valid, probs, -1e30), stable=True)
+    sb = torch.where(valid[order][:, None], shifted[order], 0.0).contiguous()
+    n_valid = valid.sum(dtype=torch.int32)[None]
+    before = nms_sorted_mask_cuda.launches
+    got = nms_sorted_mask_cuda(sb, 0.5, 100, n_valid=n_valid)
+    again = nms_sorted_mask_cuda(sb, 0.5, 100, n_valid=n_valid)
+    assert nms_sorted_mask_cuda.launches == before + 2
+    want = tnms.nms_sorted_mask_plain(sb, 0.5, 100)
+    assert torch.equal(got, want) and torch.equal(got, again) and int(got.sum()) == 100
+
+
 @pytest.mark.cuda
 def test_kernel_wrapper_raises_on_the_card(cuda_device):
     sb = torch.zeros((nms_cuda.MAX_KEEP_LIMIT + 1, 4), device=cuda_device)

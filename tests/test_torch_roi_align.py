@@ -289,6 +289,51 @@ def test_kernel_matches_plain_at_the_support_shapes(cuda_device, dtype, shots):
     assert bool(((got.float() - want).abs() <= tol).all())
 
 
+# The TTA evaluation's groups (TEST.AUG's scales at MAX_SIZE 2000 on a 600 x
+# 800 image, canvases of divisibility 32): res4 map [h, w] of each scale's
+# flip pair, and one portrait (the transposed canvas of the largest scale).
+TTA_GROUPS = [(480, (30, 40)), (576, (36, 48)), (688, (44, 58)), (864, (54, 72)),
+              (1200, (76, 100)), (1200, (100, 76))]
+
+
+def tta_group_boxes(rng, min_size, hw, n=1000):
+    """[2, n, 4]: the canonical image's proposals (its 800-pixel frame, the
+    content 800 x 1067 or 1067 x 800) scaled into a variant of shortest edge
+    ``min_size``, as predict_tta lays them out: the plain variant, then its
+    flipped twin (x mirrored about the variant's true width)."""
+    h_c, w_c = (800, 1067) if hw[1] >= hw[0] else (1067, 800)
+    xy = rng.uniform(0, 1, (n, 2)) * [w_c - 16, h_c - 16]
+    wh = rng.uniform(8, 500, (n, 2))
+    boxes = np.concatenate([xy, np.minimum(xy + wh, [w_c, h_c])], 1) * (min_size / 800)
+    w_var = round(w_c * min_size / 800)
+    flipped = np.stack([w_var - boxes[:, 2], boxes[:, 1], w_var - boxes[:, 0], boxes[:, 3]], 1)
+    return np.stack([boxes, flipped]).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group", TTA_GROUPS, ids=lambda g: f"{g[0]}_{g[1][0]}x{g[1][1]}")
+def test_kernel_matches_plain_at_the_tta_groups(cuda_device, dtype, group):
+    """K1 at a TTA group: [2, h, w, 1024] (a scale's flip pair) x 1000 ROIs an
+    image, P = 14, the widest map 100 columns; the bounds of
+    test_kernel_matches_plain, two launches bit-identical."""
+    min_size, (h, w) = group
+    rng = np.random.RandomState(min_size + h)
+    feats = torch.as_tensor(rng.randn(2, h, w, 1024).astype(np.float32),
+                            device=cuda_device).to(dtype)
+    rois = torch.as_tensor(tta_group_boxes(rng, min_size, (h, w)), device=cuda_device)
+    before = roi_align_cuda.launches
+    got = roi_align_cuda(feats, rois, 14, 1 / 16.0, 2)
+    again = roi_align_cuda(feats, rois, 14, 1 / 16.0, 2)
+    assert roi_align_cuda.launches == before + 2
+    assert got.dtype == dtype and got.shape == (2, 1000, 14, 14, 1024)
+    assert torch.equal(got, again)
+    want = ra.roi_align_plain(feats, rois, 14, 1 / 16.0, 2).float()
+    tol = 2e-5 + (torch.maximum(got.float().abs(), want.abs()) * 2.0 ** -7
+                  if dtype == torch.bfloat16 else 0.0)
+    assert bool(((got.float() - want).abs() <= tol).all())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernels_pair_through_the_function(cuda_device, dtype):

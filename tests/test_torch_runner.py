@@ -189,9 +189,14 @@ def test_missing_weights_and_device_raise(devkit, tmp_path):
 
 
 @pytest.mark.parametrize("opts,item", [
-    (["TEST.AUG.ENABLED", "True"], "item 24"),
-    (["TEST.PRECISE_BN.ENABLED", "True"], "item 26"),
-    (["TPU.PROFILE_START_STEP", "2"], "item 31"),
+    # TTA, PreciseBN and the profile hook are ported (tests/test_torch_tta.py,
+    # test_torch_precise_bn.py, test_torch_profiling.py); the cases keep their
+    # names and hold TTA with precomputed proposals, FSDP and the uint8 wire
+    pytest.param(["TEST.AUG.ENABLED", "True", "MODEL.LOAD_PROPOSALS", "True",
+                  "DATASETS.PROPOSAL_FILES_TEST", "('p.pkl',)"], "item 25",
+                 id="opts0-item 24"),
+    pytest.param(["TPU.FSDP", "True"], "items 27 and 29", id="opts1-item 26"),
+    pytest.param(["TPU.HOST_TRANSFER_UINT8", "True"], "item 29", id="opts2-item 31"),
     (["TPU.TP", "2"], "items 27 and 29"),
     (["MODEL.BACKBONE.NAME", "VGG_CNN_F"], "item 25"),
     # the meta Trainer is ported (tests/test_torch_meta.py); the case keeps

@@ -141,8 +141,10 @@ def test_detection_service_matches(pair, shape):
 
 def test_unported_paths_raise(pair):
     _, _, _, tmodel = pair
-    with pytest.raises(NotImplementedError, match="item 24"):
-        tmodel.predict_tta()
+    # TTA is ported (tests/test_torch_tta.py): with precomputed proposals it is not
+    with pytest.raises(NotImplementedError, match="item 25"):
+        tmodel.predict_tta(torch.zeros(1, 160, 224, 3), torch.tensor([[160.0, 224.0]]), [],
+                           proposal_boxes=torch.zeros(1, 4, 4))
     # training options that are not ported yet: the note and dock suites'
     # models (their backbones, precomputed proposals)
     for key, value, item in [("MODEL.BACKBONE.NAME", "InceptionResNetV2", "item 25"),

@@ -329,9 +329,9 @@ def get_cfg() -> CN:
     #                                      off by default: the reference never folds,
     #                                      and folding reorders bf16 rounding)
     _C.TPU.DEBUG_NANS = False            # jax_debug_nans (device-side NaN traps)
-    _C.TPU.PROFILE_START_STEP = 0        # >0: jax.profiler trace of the live run
+    _C.TPU.PROFILE_START_STEP = 0        # >0: torch.profiler trace of the live run
     _C.TPU.PROFILE_NUM_STEPS = 3         # ... covering this many steps, written
-    #                                      to OUTPUT_DIR/trace (view in XProf)
+    #                                      to OUTPUT_DIR/trace (a Chrome trace)
 
     # ------------------------------------------------------------- ENGINE (new)
     # The reference selects trainer classes by editing the entry script

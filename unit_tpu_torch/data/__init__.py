@@ -11,6 +11,7 @@ from .loader import (
     build_strong_loader,
     build_support_loader,
     build_test_loader,
+    build_tta_test_loader,
     sample_classifier_dataset,
 )
 from .transforms import TransformConfig, collate, prepare_detection_record
@@ -20,6 +21,7 @@ __all__ = [
     "DatasetCatalog", "MetadataCatalog", "Prefetcher", "RegisterVOC", "StreamLoader",
     "SupportLoader", "TransformConfig", "build_classifier_loader",
     "build_classifier_strong_loader", "build_strong_loader", "build_support_loader",
-    "build_test_loader", "collate", "kshot_sample", "load_voc_split", "parse_voc_xml",
+    "build_test_loader", "build_tta_test_loader", "collate", "kshot_sample", "load_voc_split",
+    "parse_voc_xml",
     "prepare_detection_record", "sample_classifier_dataset",
 ]

@@ -7,14 +7,16 @@ emit fixed-shape batches.  Every random draw comes from the loader's own
 unit_tpu's record for record (tests/test_torch_data.py).  The weak classifier
 stream reproduces the seeded per-class k-shot sampling with base/novel
 multipliers and oversampling modes; the support stream (``SupportLoader``)
-the per-class k-shot draws of the meta recipe.  ``Prefetcher`` overlaps host IO with the
+the per-class k-shot draws of the meta recipe; the TTA test loader
+(``build_tta_test_loader``) the canonical image with its resized and flipped
+variants.  ``Prefetcher`` overlaps host IO with the
 device's work and can hand out batches in pinned memory, from which the
 trainer's upload is asynchronous.
 
 Not ported, each raising with its ROADMAP item: the native C loader (Queue 1
 item 30; records always go through ``image_loader`` or PIL), the host-shard
-and synchronized-orientation paths of multi-process runs (item 27), TTA
-(item 24), precomputed proposals (item 25) and the uint8 wire (item 29).
+and synchronized-orientation paths of multi-process runs (item 27),
+precomputed proposals (item 25) and the uint8 wire (item 29).
 """
 
 from __future__ import annotations
@@ -28,8 +30,8 @@ import numpy as np
 
 from .catalog import DatasetCatalog
 from .transforms import (
-    TransformConfig, _not_ported, collate, load_image_bgr, oriented_canvas,
-    prepare_detection_record, resize_image,
+    TransformConfig, _not_ported, collate, load_image_bgr, max_aspect_of, oriented_canvas,
+    prepare_detection_record, prepare_test_image, resize_image, tta_canvas_for,
 )
 
 _STRONG_KEYS = ("image", "image_size", "gt_boxes", "gt_classes", "gt_valid")
@@ -295,8 +297,69 @@ def _finalize_test_batch(batch):
     return out
 
 
-def build_tta_test_loader(*args, **kwargs):
-    raise _not_ported("the TTA test loader", "ROADMAP Queue 1 item 24")
+def tta_variant_configs(cfg, max_aspect: float) -> List[tuple]:
+    """[(TransformConfig, flip)] of TEST.AUG's variants in unit_tpu's order:
+    each of MIN_SIZES on its tight canvas (``tta_canvas_for`` at the
+    dataset's ``max_aspect``), then its flipped twin under FLIP."""
+    base_t = TransformConfig.test_from_cfg(cfg)
+    out = []
+    for ms in cfg.TEST.AUG.MIN_SIZES:
+        t = TransformConfig(
+            min_sizes=(ms,), max_size=cfg.TEST.AUG.MAX_SIZE,
+            canvas=tta_canvas_for(ms, cfg.TEST.AUG.MAX_SIZE, cfg.TPU.SIZE_DIVISIBILITY,
+                                  max_aspect),
+            flip=False, max_gt=base_t.max_gt, num_classes=base_t.num_classes)
+        out.append((t, False))
+        if cfg.TEST.AUG.FLIP:
+            out.append((t, True))
+    return out
+
+
+def prepare_tta_batch(record: dict, image: np.ndarray, base_t: TransformConfig,
+                      variant_cfgs: Sequence[tuple]) -> dict:
+    """One record's TTA batch (batch size 1): the canonical image, size,
+    scale and id as ``build_test_loader`` gives them, and ``variants``, a list
+    of {image [1, h, w, 3], image_size [1, 2], scale (over the canonical
+    scale), flip}.  A flipped variant mirrors its content region only, never
+    the padding."""
+    canonical = prepare_detection_record(record, base_t, None, image=image, training=False)
+    variants = []
+    for t, flip in variant_cfgs:
+        v = prepare_test_image(image, t)
+        vimg = v["image"]
+        if flip:
+            nh, nw = int(v["image_size"][0]), int(v["image_size"][1])
+            vimg[:nh, :nw] = vimg[:nh, :nw][:, ::-1].copy()
+        variants.append({"image": vimg[None], "image_size": v["image_size"][None],
+                         "scale": float(v["scale"] / canonical["scale"]), "flip": flip})
+    return {
+        "image": canonical["image"][None],
+        "image_size": canonical["image_size"][None],
+        "image_id": [canonical["image_id"]],
+        "scale": np.asarray([canonical["scale"]]),
+        "orig_size": canonical["orig_size"][None],
+        "variants": variants,
+    }
+
+
+def build_tta_test_loader(cfg, dataset_name: str, image_loader=None):
+    """Test loader for TTA inference (TEST.AUG; unit_tpu loader.py:532-610):
+    per image the canonical batch plus one resized (and flipped) variant per
+    TEST.AUG.MIN_SIZES entry, batch size 1.  The many resizes of an image are
+    heavy host work: a Prefetcher at depth 2 makes them while the device runs
+    the previous image.  Returns (loader, number of images); close the loader
+    when done."""
+    _check_no_proposals(cfg, cfg.DATASETS.PROPOSAL_FILES_TEST)
+    records = DatasetCatalog.get(dataset_name)
+    base_t = TransformConfig.test_from_cfg(cfg)
+    variant_cfgs = tta_variant_configs(cfg, max_aspect_of(records))
+
+    def gen():
+        for rec in records:
+            img = image_loader(rec) if image_loader else load_image_bgr(rec["file_name"])
+            yield prepare_tta_batch(rec, img, base_t, variant_cfgs)
+
+    return Prefetcher(gen(), depth=2), len(records)
 
 
 class SupportLoader:

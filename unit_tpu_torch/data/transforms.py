@@ -4,14 +4,16 @@ Port of unit_tpu/data/transforms.py (numpy only): resize the shortest edge,
 cap the longest, random flip when training, paste into a zero canvas of one
 shape per orientation, and pad the annotations to fixed shapes (under
 MODEL.MASK_ON with them each GT instance's bitmask in its box's frame).
-Images are float32 BGR (INPUT.FORMAT=BGR).  Precomputed proposals, the
-uint8 wire and the native loader's ``preprocessed`` input are not ported;
-each raises with its ROADMAP item.
+Images are float32 BGR (INPUT.FORMAT=BGR).  ``tta_canvas_for`` and
+``max_aspect_of`` size the test-time augmentation's per-scale canvases.
+Precomputed proposals, the uint8 wire and the native loader's
+``preprocessed`` input are not ported; each raises with its ROADMAP item.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -63,6 +65,29 @@ def _canvas_for(min_size: int, max_size: int, divisibility: int) -> Tuple[int, i
         return ((x + divisibility - 1) // divisibility) * divisibility
 
     return (rup(min_size), rup(max_size))
+
+
+def tta_canvas_for(min_size: int, max_size: int, divisibility: int,
+                   max_aspect: float) -> Tuple[int, int]:
+    """Tight per-scale TTA canvas: a shortest-edge resize to ``min_size`` has
+    a long side of at most ``min_size * max_aspect`` (capped at
+    ``max_size``), so the canvas stops there instead of at ``max_size``.  The
+    content and its zero padding are the same; only dead columns go."""
+    def rup(x):
+        return ((x + divisibility - 1) // divisibility) * divisibility
+
+    long_side = min(int(math.ceil(min_size * max_aspect)), max_size)
+    return (rup(min_size), rup(max(long_side, min_size)))
+
+
+def max_aspect_of(records) -> float:
+    """Max(long/short) aspect ratio over a dataset's records (TTA canvases)."""
+    ar = 1.0
+    for r in records:
+        w, h = float(r.get("width", 0) or 0), float(r.get("height", 0) or 0)
+        if w > 0 and h > 0:
+            ar = max(ar, w / h, h / w)
+    return ar
 
 
 def oriented_canvas(h: int, w: int, canvas: Tuple[int, int]) -> Tuple[int, int]:

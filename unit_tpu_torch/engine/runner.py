@@ -24,9 +24,12 @@ run through ``inference_on_dataset_meta``), ``TrainerFineTune`` (k-shot
 fine-tuning, warm-started from a base run's snapshot), ``TrainerOnlyWeak``
 (the weak branch and the RPN; ``WeakRCNN`` configs) and
 ``TrainerOnlyWeakFineTune`` (the classifier datasets with their boxes as the
-strong stream).  Not ported, each raising with its ROADMAP item: TTA (24),
-precomputed proposals (25), PreciseBN (26), more than one device, ``--dist``,
-TP and PP (27, 29) and the profile hook (31).
+strong stream).  Evaluations run the multi-scale + flip test-time
+augmentation under TEST.AUG.ENABLED; TEST.PRECISE_BN refreshes the FrozenBN
+statistics before each periodic evaluation (``PreciseBNHook``), and
+TPU.PROFILE_START_STEP traces a window of steps (``utils.profiling``).  Not
+ported, each raising with its ROADMAP item: precomputed proposals (25), more
+than one device, ``--dist``, TP, PP and FSDP (27, 29).
 """
 
 from __future__ import annotations
@@ -58,16 +61,23 @@ from ..data import (
     build_strong_loader,
     build_support_loader,
     build_test_loader,
+    build_tta_test_loader,
 )
 from ..data.loader import pin_batch
 from ..data.utils import get_evaluator, register_datasets
-from ..evaluation import inference_on_dataset, inference_on_dataset_meta
+from ..evaluation import (
+    inference_loop,
+    inference_on_dataset,
+    inference_on_dataset_meta,
+)
 from ..models import WSRCNN, ModelConfig
 from ..models.meta_arch import _not_ported
 from ..solver import build_optimizer
 from ..solver.build import warmup_multistep
 from ..utils.events import MetricsHook, print_csv_format
-from .predict import make_predict_fn
+from ..utils.precise_bn import precise_bn
+from ..utils.profiling import ProfileHook
+from .predict import make_predict_fn, make_tta_predict_fn
 from .train import (
     Trainer,
     TrainerFineTune,
@@ -335,11 +345,16 @@ def load_initial_weights(cfg, model):
 
 
 def make_eval_fn(cfg, model, image_loader: Optional[Callable] = None):
-    """state (or model) -> results of every dataset of DATASETS.TEST."""
-    if cfg.TEST.AUG.ENABLED:
-        raise _not_ported("test-time augmentation", "ROADMAP Queue 1 item 24")
+    """state (or model) -> results of every dataset of DATASETS.TEST.
+
+    Under TEST.AUG.ENABLED each image goes through the multi-scale + flip
+    test-time augmentation (``build_tta_test_loader``, ``predict_tta``), at
+    batch 1; a meta model then binds no prototypes, as in unit_tpu (its
+    ``_meta_attention`` runs on the other branch only)."""
+    use_tta = cfg.TEST.AUG.ENABLED
     if cfg.MODEL.LOAD_PROPOSALS and cfg.DATASETS.PROPOSAL_FILES_TEST:
-        raise _not_ported("precomputed proposals", "ROADMAP Queue 1 item 25")
+        what = "test-time augmentation with " if use_tta else ""
+        raise _not_ported(f"{what}precomputed proposals", "ROADMAP Queue 1 item 25")
 
     def eval_fn(state):
         # Accumulate per dataset; with a single test dataset return its
@@ -351,22 +366,30 @@ def make_eval_fn(cfg, model, image_loader: Optional[Callable] = None):
             from ..utils.bn_fold import fold_frozen_bn
 
             eval_net = fold_frozen_bn(net)  # a copy: training goes on unfolded
-        predict = make_predict_fn(eval_net)
+        if use_tta:
+            predict = make_tta_predict_fn(eval_net, tta_topk=cfg.TPU.TTA_PROPOSAL_TOPK)
+        else:
+            predict = make_predict_fn(eval_net)
         # a meta model's prototypes, once an evaluation; inference does not read them
         attention = (meta_attention(cfg, eval_net, image_loader)
-                     if eval_net.mc.use_meta else None)
+                     if eval_net.mc.use_meta and not use_tta else None)
         all_results = {}
         try:
             for name in cfg.DATASETS.TEST:
                 evaluator = get_evaluator(cfg, name)
                 for rec in DatasetCatalog.get(name):
                     evaluator.process_gt_record(rec)
-                loader, n = build_test_loader(
-                    cfg, name, image_loader=image_loader,
-                    batch_size=int(getattr(cfg.TPU, "EVAL_BATCH_SIZE", 1)),
-                )
+                if use_tta:
+                    loader, n = build_tta_test_loader(cfg, name, image_loader=image_loader)
+                else:
+                    loader, n = build_test_loader(
+                        cfg, name, image_loader=image_loader,
+                        batch_size=int(getattr(cfg.TPU, "EVAL_BATCH_SIZE", 1)),
+                    )
                 try:
-                    if attention is None:
+                    if use_tta:
+                        all_results[name] = inference_loop(predict, loader, evaluator, n)
+                    elif attention is None:
                         all_results[name] = inference_on_dataset(predict, loader, evaluator, n)
                     else:
                         all_results[name] = inference_on_dataset_meta(
@@ -383,14 +406,32 @@ def make_eval_fn(cfg, model, image_loader: Optional[Callable] = None):
     return eval_fn
 
 
+class PreciseBNHook:
+    """PreciseBN before each periodic evaluation (unit_tpu runner.py:486-510;
+    d2's ``hooks.PreciseBN`` runs right before the checkpointer, so the
+    refreshed statistics are both evaluated and saved).  ``loader_factory()``
+    gives a fresh training stream each period; it is closed after
+    ``num_iter`` batches."""
+
+    def __init__(self, loader_factory: Callable, eval_period: int, num_iter: int):
+        self.loader_factory = loader_factory
+        self.eval_period = eval_period
+        self.num_iter = num_iter
+
+    def __call__(self, step: int, metrics: dict, trainer):
+        if not self.eval_period or step % self.eval_period != 0:
+            return
+        loader = self.loader_factory()
+        try:
+            precise_bn(trainer.state.model, iter(loader), self.num_iter)
+        finally:
+            loader.close()
+        logger.info("PreciseBN: refreshed FrozenBN statistics over %d batches", self.num_iter)
+
+
 def run(args, image_loader: Optional[Callable] = None):
     cfg = setup(args)
     device = resolve_device(getattr(args, "device", None))
-    if cfg.TPU.PROFILE_START_STEP > 0:
-        raise _not_ported("the profile hook (TPU.PROFILE_START_STEP)",
-                          "ROADMAP Queue 1 item 31")
-    if cfg.TEST.PRECISE_BN.ENABLED:
-        raise _not_ported("PreciseBN", "ROADMAP Queue 1 item 26")
     seed = cfg.SEED if cfg.SEED >= 0 else 0
     ckpt = Checkpointer(cfg.OUTPUT_DIR, max_to_keep=3)
     resume_step = ckpt.latest_step() if args.resume else None
@@ -399,6 +440,7 @@ def run(args, image_loader: Optional[Callable] = None):
         start_step=0 if args.eval_only else int(resume_step or 0),
         image_loader=image_loader,
     )
+    profile_hook = None
     try:
         trainer.init_state()
         load_initial_weights(cfg, model)
@@ -419,13 +461,22 @@ def run(args, image_loader: Optional[Callable] = None):
         )
         metrics_hook = MetricsHook(cfg.OUTPUT_DIR, period=20, max_iter=cfg.SOLVER.MAX_ITER,
                                    lr_fn=lr_schedule)
-        hooks = [
-            metrics_hook,
-            PeriodicCheckpointerWithEval(
-                ckpt, eval_fn, cfg.TEST.EVAL_PERIOD, cfg.SOLVER.CHECKPOINT_PERIOD,
-                cfg.TEST.MIN_EVAL_PERIOD,
-            ),
-        ]
+        hooks = [metrics_hook]
+        if cfg.TPU.PROFILE_START_STEP > 0:
+            profile_hook = ProfileHook(os.path.join(cfg.OUTPUT_DIR, "trace"),
+                                       start=cfg.TPU.PROFILE_START_STEP,
+                                       num_steps=cfg.TPU.PROFILE_NUM_STEPS)
+            hooks.append(profile_hook)
+        if cfg.TEST.PRECISE_BN.ENABLED:
+            pin = pin_batch if device.type == "cuda" else None
+            hooks.append(PreciseBNHook(
+                lambda: Prefetcher(iter(build_strong_loader(cfg, image_loader=image_loader)),
+                                   transform=pin),
+                eval_period=cfg.TEST.EVAL_PERIOD, num_iter=cfg.TEST.PRECISE_BN.NUM_ITER))
+        hooks.append(PeriodicCheckpointerWithEval(
+            ckpt, eval_fn, cfg.TEST.EVAL_PERIOD, cfg.SOLVER.CHECKPOINT_PERIOD,
+            cfg.TEST.MIN_EVAL_PERIOD,
+        ))
         # Preemption safety: SIGTERM or SIGINT asks for a clean loop exit
         # after the step in flight, then the state is saved below so --resume
         # continues from the preempted step.
@@ -450,6 +501,8 @@ def run(args, image_loader: Optional[Callable] = None):
         finally:
             for sig, h in prev_handlers.items():
                 signal.signal(sig, h)
+            if profile_hook is not None:
+                profile_hook.close()  # training may have ended inside the window
             metrics_hook.close()
             ckpt.wait()
         if trainer.stop_requested:  # preempted: exit promptly, skip the final eval

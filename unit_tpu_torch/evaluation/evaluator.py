@@ -13,10 +13,13 @@ event.  The host then handles batch k - 1 (event wait, rescale, evaluator)
 while the device works on batch k: one host sync per batch.  On the CPU the
 tensors are read directly.
 
-``inference_on_dataset_meta`` is the meta models' loop: it binds the
-support prototypes to the predict call and delegates here.  The
-multi-process merge of unit_tpu (:96-105) is not ported (ROADMAP Queue 1
-item 27).
+``inference_loop`` is the loop itself, over a batch -> Detections call:
+the test-time augmentation runs it directly, since its predict call takes
+the whole batch (the canonical image and its variants).
+``inference_on_dataset`` binds it to an (images, image_sizes) predict call,
+and ``inference_on_dataset_meta``, the meta models' loop, binds the support
+prototypes to that call and delegates there.  The multi-process merge of
+unit_tpu (:96-105) is not ported (ROADMAP Queue 1 item 27).
 """
 
 from __future__ import annotations
@@ -60,6 +63,21 @@ def inference_on_dataset(
     total_images: Optional[int] = None,
     warmup: int = 1,
 ) -> dict:
+    return inference_loop(lambda batch: predict_fn(batch["image"], batch["image_size"]),
+                          loader, evaluator, total_images, warmup)
+
+
+def inference_loop(
+    run_batch: Callable,           # a loader's batch -> Detections [B, D]
+    loader: Iterator,
+    evaluator,
+    total_images: Optional[int] = None,
+    warmup: int = 1,
+) -> dict:
+    """Run ``run_batch`` over ``loader`` and feed ``evaluator``: boxes are
+    divided by each batch's ``scale`` and clipped to its ``orig_size``.  A
+    TTA batch (``build_tta_test_loader``) goes through it whole, as in
+    unit_tpu runner.py:467-484; the evaluator then gets no masks."""
     # NOTE: no evaluator.reset() here: callers (engine/runner.py eval_fn) feed
     # GT records before handing the evaluator over
     num_done = 0
@@ -90,7 +108,7 @@ def inference_on_dataset(
     if warmup <= 0:  # no warmup exclusion: time everything
         t_start = time.perf_counter()
     for batch_idx, batch in enumerate(loader):
-        fetch = _start_fetch(predict_fn(batch["image"], batch["image_size"]))
+        fetch = _start_fetch(run_batch(batch))
         if pending is not None:
             collect(*pending)
             if batch_idx == warmup:

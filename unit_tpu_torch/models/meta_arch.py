@@ -28,8 +28,10 @@ weak images against the weak detector's own confident detections
 batch into class prototypes through a backbone pass without gradient and K1
 over the shots, and ``train_losses(meta=...)`` adds the rank losses over the
 first ``rank_loss_slots`` sampled slots of each strong image.  The attention
-does not feed inference, as in unit_tpu.  TTA and the other training options
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+does not feed inference, as in unit_tpu.  ``predict_tta`` is the multi-scale +
+flip test-time augmentation: proposals from the canonical image, each scale's
+flip pair scored in one batch-2 pass.  The options still to port raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 
 Precision mirrors ``TPU.COMPUTE_DTYPE``: backbone, RPN convs and Res5 run in
 the compute dtype; RPN outputs, box features and all predictor, transfer and
@@ -553,11 +555,6 @@ class WSRCNN(nn.Module):
             logits, slots(sampled.gt_classes), gt_masks[rows, slots(sampled.gt_index)],
             slots(sampled.gt_boxes), slots(sampled.boxes), slots(sampled.is_fg))
 
-    # ---------------------------------------------------------------- not ported
-    def predict_tta(self, *args, **kwargs):
-        # with it goes its fine-tune branch (unit_tpu meta_arch.py:999-1001)
-        raise _not_ported("test-time augmentation", "ROADMAP Queue 1 item 24")
-
     # ---------------------------------------------------------------- inference
     def inference_similarity(self, box_feats: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Similarity matrices for the base->novel transfer; the weak scores
@@ -584,19 +581,23 @@ class WSRCNN(nn.Module):
                 transfer_deltas(proposal_deltas, sims["bbox"], mc.base_ids, mc.novel_ids,
                                 mc.num_classes, detach=detach))
 
-    def predict_raw(self, images: torch.Tensor, image_sizes: torch.Tensor):
-        """Everything of :meth:`predict` before the final NMS:
-        ``(probs [B,P,C+1], bbox [B,P,C*4], proposals, feats)``; images
-        [B, H, W, 3] f32 BGR, image_sizes [B, 2] (h, w) of the content."""
-        mc = self.mc
-        feats = self.features(images)
-        logits, deltas = self.rpn(feats)
-        anchors = rpn_lib.get_anchors(feats.shape[1], feats.shape[2], mc.rpn,
+    def _test_proposals(self, feats, logits, deltas, image_sizes) -> Proposals:
+        """Test-time proposals (RPN_TEST settings, K3) of the images behind
+        ``feats``."""
+        anchors = rpn_lib.get_anchors(feats.shape[1], feats.shape[2], self.mc.rpn,
                                       device=feats.device)
-        proposals = rpn_lib.select_proposals(logits, deltas, anchors, image_sizes, mc.rpn,
-                                             nms_impl=mc.nms_impl)
-        b, p = proposals.boxes.shape[:2]
-        pooled = self.pooled_rois(feats, proposals.boxes)
+        return rpn_lib.select_proposals(logits, deltas, anchors, image_sizes, self.mc.rpn,
+                                        nms_impl=self.mc.nms_impl)
+
+    def _score_rois(self, pooled, parts: int = 1, with_transfer: bool = True):
+        """Class probabilities [R, C+1] and box deltas [R, C*4] of pooled ROIs
+        [R, 14, 14, C]: the box (and under MULTI_BOX_HEAD the weak) Res5 head,
+        the supervised and weak predictors, the base->novel transfer, the
+        ``*_ft`` terms of a fine-tune model, and the softmax.  The rows are
+        ``parts`` equal blocks (TTA variants), and the transfer of each block
+        reads the similarity of its own rows (the reference computes it from
+        each variant's proposals)."""
+        mc = self.mc
         box_feats = self.box_features(pooled, "box")
         sup = self.supervised(box_feats)
         sup_weak_feats = self.box_features(pooled, "weak") if mc.multi_box_head else box_feats
@@ -604,16 +605,29 @@ class WSRCNN(nn.Module):
 
         delta_scores = sup["delta_scores"]
         proposal_deltas = sup["proposal_deltas"]
-        if len(mc.novel_ids):
-            delta_scores, proposal_deltas = self._transfer(
-                delta_scores, proposal_deltas, self.inference_similarity(box_feats))
+        if with_transfer and len(mc.novel_ids):
+            rows = box_feats.shape[0] // parts
+            blocks = [self._transfer(delta_scores[sl], proposal_deltas[sl],
+                                     self.inference_similarity(box_feats[sl]))
+                      for sl in (slice(i * rows, (i + 1) * rows) for i in range(parts))]
+            delta_scores = torch.cat([ds for ds, _ in blocks])
+            proposal_deltas = torch.cat([pd for _, pd in blocks])
         scores = combine_cls_logits(delta_scores, weak_scores)
         bbox = proposal_deltas + weak_box_deltas
         if mc.finetune:
             scores = scores + sup["ft_scores"]
             bbox = bbox + sup["ft_deltas"]
-        probs = torch.softmax(scores, dim=-1).reshape(b, p, -1)
-        return probs, bbox.reshape(b, p, -1), proposals, feats
+        return torch.softmax(scores, dim=-1), bbox
+
+    def predict_raw(self, images: torch.Tensor, image_sizes: torch.Tensor):
+        """Everything of :meth:`predict` before the final NMS:
+        ``(probs [B,P,C+1], bbox [B,P,C*4], proposals, feats)``; images
+        [B, H, W, 3] f32 BGR, image_sizes [B, 2] (h, w) of the content."""
+        feats = self.features(images)
+        proposals = self._test_proposals(feats, *self.rpn(feats), image_sizes)
+        b, p = proposals.boxes.shape[:2]
+        probs, bbox = self._score_rois(self.pooled_rois(feats, proposals.boxes))
+        return probs.reshape(b, p, -1), bbox.reshape(b, p, -1), proposals, feats
 
     def predict(self, images: torch.Tensor, image_sizes: torch.Tensor) -> Detections:
         """Batched inference -> Detections [B, D] in canvas coordinates, with
@@ -635,6 +649,90 @@ class WSRCNN(nn.Module):
             for i in range(probs.shape[0])
         ], Detections)
 
+    def predict_tta_raw(self, canonical_image: torch.Tensor,
+                        canonical_image_sizes: torch.Tensor, variants,
+                        with_transfer: bool = True, proposal_boxes=None,
+                        tta_topk: int = 0):
+        """Everything of :meth:`predict_tta` before the final NMS:
+        ``(probs [B, P, C+1] summed over the variants, mean deltas [B, P, C*4],
+        the canonical proposals)``."""
+        if proposal_boxes is not None:
+            raise _not_ported("test-time augmentation with precomputed proposals",
+                              "ROADMAP Queue 1 item 25")
+        feats0 = self.features(canonical_image)
+        proposals = self._test_proposals(feats0, *self.rpn(feats0), canonical_image_sizes)
+        del feats0
+        if tta_topk and tta_topk < proposals.boxes.shape[1]:
+            # TPU.TTA_PROPOSAL_TOPK: the top-K canonical proposals by
+            # objectness; a stable sort takes the lower index first among
+            # equal scores, as lax.top_k does (invalid slots tie at -inf)
+            score = torch.where(proposals.valid, proposals.objectness, -torch.inf)
+            idx = torch.sort(score, dim=1, descending=True, stable=True)[1][:, :tta_topk]
+            proposals = Proposals(
+                boxes=torch.gather(proposals.boxes, 1, idx[..., None].expand(-1, -1, 4)),
+                objectness=torch.gather(proposals.objectness, 1, idx),
+                valid=torch.gather(proposals.valid, 1, idx))
+        b, p = proposals.boxes.shape[:2]
+        n_rows = b * p
+
+        # each scale's flip pair shares an image shape: one batch-2 pass of
+        # the backbone, K1 and the heads; the group's rows are sliced back
+        # apart by variant for the transfer and the flip signs
+        groups: Dict[tuple, list] = {}
+        for vi, var in enumerate(variants):
+            groups.setdefault(tuple(var["image"].shape), []).append(vi)
+        sum_probs = sum_deltas = None
+        for idxs in groups.values():
+            g = len(idxs)
+            boxes_list = []
+            for i in idxs:
+                var = variants[i]
+                boxes_v = proposals.boxes * var["scale"]
+                if var["flip"]:
+                    w_img = var["image_size"][:, 1:2]  # the variant's true width
+                    boxes_v = torch.stack([w_img - boxes_v[..., 2], boxes_v[..., 1],
+                                           w_img - boxes_v[..., 0], boxes_v[..., 3]], -1)
+                boxes_list.append(boxes_v)
+            feats_g = self.features(torch.cat([variants[i]["image"] for i in idxs]))
+            pooled = self.pooled_rois(feats_g, torch.cat(boxes_list))  # [g*B*P, ...]
+            del feats_g
+            probs, bbox = self._score_rois(pooled, parts=g, with_transfer=with_transfer)
+            # dx mirrored back for the flipped variants, one sign a variant
+            sign = torch.tensor([[-1.0 if variants[i]["flip"] else 1.0, 1.0, 1.0, 1.0]
+                                 for i in idxs], device=bbox.device)
+            bbox4 = bbox.reshape(g, n_rows, -1, 4) * sign[:, None, None, :]
+            probs_sum = probs.reshape(g, n_rows, -1).sum(0)
+            deltas_sum = bbox4.reshape(g, n_rows, -1).sum(0)
+            sum_probs = probs_sum if sum_probs is None else sum_probs + probs_sum
+            sum_deltas = deltas_sum if sum_deltas is None else sum_deltas + deltas_sum
+        # probabilities summed, not normalised (the reference's rcnn.py:163)
+        mean_deltas = sum_deltas / float(len(variants))
+        return sum_probs.reshape(b, p, -1), mean_deltas.reshape(b, p, -1), proposals
+
+    def predict_tta(self, canonical_image: torch.Tensor, canonical_image_sizes: torch.Tensor,
+                    variants, with_transfer: bool = True, proposal_boxes=None,
+                    tta_topk: int = 0) -> Detections:
+        """Multi-scale + flip test-time augmentation (unit_tpu
+        meta_arch.py:878-1020; the reference's rcnn.py:136-185).
+
+        canonical_image [B, H, W, 3] in the MIN_SIZE_TEST frame with its
+        content sizes [B, 2]; ``variants``, a list of {image [B, h, w, 3],
+        image_size [B, 2], scale (a number: the variant's scale over the
+        canonical one), flip (a bool)}.  The RPN proposes once, on the
+        canonical image (K3); every variant scores those proposals, rescaled
+        (and mirrored) into its own frame.  Class probabilities are SUMMED
+        over the variants and box deltas AVERAGED, with dx mirrored back for
+        flipped variants (unit_tpu's fix: the reference averages the raw
+        flipped deltas); then the canonical proposals are decoded and go
+        through one per-class NMS (K3), in the canonical frame.
+        ``tta_topk`` > 0 keeps only the top-K canonical proposals by
+        objectness.  Precomputed proposals (``proposal_boxes``) are not
+        ported."""
+        probs, deltas, proposals = self.predict_tta_raw(
+            canonical_image, canonical_image_sizes, variants, with_transfer=with_transfer,
+            proposal_boxes=proposal_boxes, tta_topk=tta_topk)
+        return self._final_detections(probs, deltas, proposals, canonical_image_sizes)
+
     def predict_weak_only(self, images: torch.Tensor, image_sizes: torch.Tensor) -> Detections:
         """WeakRCNN inference: the weak detector alone scores the RPN's
         proposals.  Its class probabilities are the SUM of the softmaxes of
@@ -646,10 +744,7 @@ class WSRCNN(nn.Module):
 
     def _predict_weak_only(self, feats, logits, deltas, image_sizes) -> Detections:
         mc = self.mc
-        anchors = rpn_lib.get_anchors(feats.shape[1], feats.shape[2], mc.rpn,
-                                      device=feats.device)
-        proposals = rpn_lib.select_proposals(logits, deltas, anchors, image_sizes, mc.rpn,
-                                             nms_impl=mc.nms_impl)
+        proposals = self._test_proposals(feats, logits, deltas, image_sizes)
         b, p = proposals.boxes.shape[:2]
         pooled = self.pooled_rois(feats, proposals.boxes)
         weak_feats = self.box_features(pooled, "weak" if mc.multi_box_head else "box")

@@ -81,6 +81,11 @@ class FrozenBN(nn.Module):
     apart in bf16.  ``impl`` (auto | cuda | plain) picks the hand-written
     kernel or the plain version; ``set_bn_act_impl`` sets it for a whole model.
     Starts as the identity.
+
+    PreciseBN (utils/precise_bn.py) sets ``batch_stats`` to a list: each call
+    then appends the per-channel mean and population variance of its input
+    ``x`` (``input_stats``), taken before the current buffers apply.  None,
+    the default, captures nothing.
     """
 
     def __init__(self, features: int, eps: float = 1e-5,
@@ -93,6 +98,7 @@ class FrozenBN(nn.Module):
         self.register_buffer("bias", torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
+        self.batch_stats: Optional[list] = None
 
     def scale_shift(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """The affine form of the four buffers, f32 [C] each."""
@@ -101,8 +107,19 @@ class FrozenBN(nn.Module):
 
     def forward(self, x: torch.Tensor, residual: Optional[torch.Tensor] = None,
                 relu: bool = False) -> torch.Tensor:
+        if self.batch_stats is not None:
+            self.batch_stats.append(input_stats(x))
         scale, shift = self.scale_shift()
         return bn_act(x, scale, shift, residual, relu, self.impl)
+
+
+def input_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel (mean, population variance) of an NCHW map over N, H and W,
+    computed in f32 and rounded to the dtype of ``x``, as unit_tpu's
+    ``jnp.mean``/``jnp.var`` are (bf16 in, bf16 out).  A channels_last map is
+    reduced as it lies: no layout copy, one f32 copy for a bf16 map."""
+    var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)
+    return mean.to(x.dtype), var.to(x.dtype)
 
 
 def set_bn_act_impl(module: nn.Module, impl: str) -> None:

@@ -1,1 +1,2 @@
-"""Run-loop utilities: metric writers and the eval-time Conv+FrozenBN fold."""
+"""Run-loop utilities: metric writers, the eval-time Conv+FrozenBN fold,
+PreciseBN and the profiler hooks."""

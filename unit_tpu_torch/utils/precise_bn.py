@@ -1,0 +1,70 @@
+"""PreciseBN: refresh the FrozenBN statistics over N data batches.
+
+Port of unit_tpu/utils/precise_bn.py (the d2 PreciseBN hook the reference
+exposes, engine/defaults.py:304-311).  The backbone (``WSRCNN.features``, to
+res4) runs over ``num_iters`` batches while every FrozenBN captures the mean
+and variance of its input (``models.resnet.input_stats``); the per-batch
+statistics are averaged and written into each module's ``mean``/``var`` once,
+at the end.  Layer k's statistics read the activations that layers < k make
+with their old buffers, as in unit_tpu.  The Res5 heads do not run, so their
+buffers stay as they were; nothing else of the model changes.
+
+The average follows unit_tpu to the rounding: the per-batch statistics come
+in the activations' dtype and are summed in it (in bf16 each addition rounds,
+as ``np.add`` of two bf16 arrays does), then divided by the count in f32.  In
+f32 that is the plain mean; in bf16 it loses precision as the count grows
+(ROADMAP, faults of the reference, R8).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterator, Tuple
+
+import torch
+from torch import nn
+
+from ..models.resnet import FrozenBN
+
+Stats = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
+
+
+def collect_bn_stats(model: nn.Module, images: torch.Tensor) -> Stats:
+    """One batch's FrozenBN input statistics, {module name: (mean, var)}, of
+    every FrozenBN that ``model.features(images)`` runs."""
+    bns = {name: m for name, m in model.named_modules() if isinstance(m, FrozenBN)}
+    for m in bns.values():
+        m.batch_stats = []
+    try:
+        with torch.no_grad():
+            model.features(images)
+        return {name: m.batch_stats[0] for name, m in bns.items() if m.batch_stats}
+    finally:
+        for m in bns.values():
+            m.batch_stats = None
+
+
+def precise_bn(model: nn.Module, batches: Iterator, num_iters: int = 200) -> nn.Module:
+    """Replace the backbone's FrozenBN mean/var by their averages over up to
+    ``num_iters`` batches ({"image": [B, H, W, 3] f32 BGR, ...}) of
+    ``batches``, in place; returns ``model``.  No batch: nothing changes."""
+    device = model.embeddings.device
+    acc, n = None, 0
+    for _ in range(num_iters):
+        try:
+            batch = next(batches)
+        except StopIteration:
+            break
+        images = torch.as_tensor(batch["image"], dtype=torch.float32).to(device,
+                                                                          non_blocking=True)
+        stats = collect_bn_stats(model, images)
+        acc = stats if acc is None else {
+            k: (acc[k][0] + mean, acc[k][1] + var) for k, (mean, var) in stats.items()}
+        n += 1
+    if n == 0:
+        return model
+    modules = dict(model.named_modules())
+    with torch.no_grad():
+        for name, (mean, var) in acc.items():
+            modules[name].mean.copy_(mean.float() / n)
+            modules[name].var.copy_(var.float() / n)
+    return model

@@ -106,6 +106,19 @@ Phases (any failure raises and the script exits non-zero):
      K4 and with the plain epilogue (bit-identical buffers), then run with
      TEST.PRECISE_BN (NUM_ITER 4): the checkpoint holds the refreshed
      statistics; run with TPU.PROFILE_START_STEP 2: its trace names K1-K4
+ 16  the note recipe (COCO-RCNN-50-C4-split1-note.yaml: InceptionResNetV2 to
+     block17, 1088 channels, and the InceptionResNetV2 tail as the box head
+     over 17x17 ROIs, 80 classes, no FrozenBN) at full width and depth: 4
+     served requests of 480x640 / 640x480 (K1 1, K3 2, K4 0 each), K1 at a
+     request's own input, one profiled request; the f32 predict path kernels
+     vs plain; TrainerNoMeta 2 + 6 timed steps of 2 strong + 2 weak images on
+     608x1344 canvases in both orientations (K1 2, K2 2, K3 1, K4 0 a step),
+     one profiled, then one step at the recipe's IMS_PER_BATCH (8 strong + 8
+     weak images) with its peak memory; the f32 train path kernels vs plain;
+     K1 and K2 against their plain versions at the step's own inputs (P = 17,
+     C = 1088, f32 and bf16) and K3 at its RPN's; engine.runner.run on phase
+     12's shapes-COCO devkit: 4 steps, a checkpoint and an evaluation at 2
+     (COCO bbox AP), a resume from step 2
 The last three lines are the card (nvidia-smi), one JSON object describing
 the kernels (launches counted on the run loop of phase 10, and per path under
 launches_by_path), and {"ok": true, "device": {...}}.  Without a CUDA device, or without the
@@ -276,6 +289,18 @@ TTA_IMAGE = (600, 800)
 TTA_TIMED = 3
 PRECISE_BN_ITERS = 4
 PRECISE_BN_PERIOD = 3
+# The note recipe (phase 16): InceptionResNetV2 cut at block17 (1088
+# channels) with the InceptionResNetV2 tail as its box head over 17x17 ROIs,
+# COCO's 80 classes, 300 ROIs a strong image and no FrozenBN (K4 runs nowhere
+# on it).  A 480x640 image at the recipe's 600-pixel short side lies in a
+# 608x1344 canvas (600x800 content); the block17 map of that canvas is 36x82
+# (the stem's unpadded convolutions), not ceil(H/16) x ceil(W/16).
+NOTE_RECIPE = ROOT / "configs" / "COCO" / "COCO-RCNN-50-C4-split1-note.yaml"
+NOTE_REQUESTS = 4
+NOTE_TRAIN_STEPS = 6
+NOTE_RUN_STEPS = 4
+NOTE_CANVASES = (((608, 1344), (600, 800)), ((1344, 608), (800, 600)))
+NOTE_REQUEST_SHAPES = ((480, 640), (640, 480))
 
 
 def log(*parts):
@@ -416,24 +441,24 @@ def flagship_rois(rng, n, h_img=800, w_img=1344):
     return rois.astype(np.float32)
 
 
-def k1_check(feat, rois, label, tag="[2]"):
+def k1_check(feat, rois, label, tag="[2]", p=14):
     """K1 vs its plain version in f32 (the algorithm) and in bf16 (the
     working type, in ulps of the output); two launches bit-identical.
-    Returns the bf16 max|diff|."""
+    ``p``: the pooler's output size.  Returns the bf16 max|diff|."""
     import torch
 
     from unit_tpu_torch.ops import roi_align as ra
 
     f32 = feat.float()
-    got = ra.roi_align_batched(f32, rois, impl="cuda")
-    want = ra.roi_align_batched(f32, rois, impl="plain")
+    got = ra.roi_align_batched(f32, rois, p, impl="cuda")
+    want = ra.roi_align_batched(f32, rois, p, impl="plain")
     torch.cuda.synchronize()
     err32 = float((got - want).abs().max())
     del got, want, f32
-    got16 = ra.roi_align_batched(feat, rois, impl="cuda")
-    same = torch.equal(got16, ra.roi_align_batched(feat, rois, impl="cuda"))
+    got16 = ra.roi_align_batched(feat, rois, p, impl="cuda")
+    same = torch.equal(got16, ra.roi_align_batched(feat, rois, p, impl="cuda"))
     got16 = got16.float()
-    want16 = ra.roi_align_batched(feat, rois, impl="plain").float()
+    want16 = ra.roi_align_batched(feat, rois, p, impl="plain").float()
     diff = (got16 - want16).abs()
     ulp = torch.maximum(got16.abs(), want16.abs()) * 2.0 ** -7
     ulps = float(((diff - K1_F32_ATOL).clamp_min(0.0) / ulp.clamp_min(1e-30)).max())
@@ -451,15 +476,15 @@ def k1_check(feat, rois, label, tag="[2]"):
     return err16
 
 
-def k1_timed(feat, rois, label, tag="[2]"):
+def k1_timed(feat, rois, label, tag="[2]", p=14):
     """K1's kernel, plain and bound ms; the wrapper's host time a call."""
     from unit_tpu_torch.ops import roi_align as ra
     from unit_tpu_torch.ops.roi_align_cuda import roi_align_cuda
 
-    k_ms = cuda_ms(lambda: roi_align_cuda(feat, rois), 20)
-    q_ms, host_ms = cuda_ms_queued(lambda: roi_align_cuda(feat, rois), 20)
-    p_ms = cuda_ms(lambda: ra.roi_align_batched(feat, rois, impl="plain"), 3)
-    out_elems = rois.shape[0] * rois.shape[1] * 14 * 14 * feat.shape[-1]
+    k_ms = cuda_ms(lambda: roi_align_cuda(feat, rois, p), 20)
+    q_ms, host_ms = cuda_ms_queued(lambda: roi_align_cuda(feat, rois, p), 20)
+    p_ms = cuda_ms(lambda: ra.roi_align_batched(feat, rois, p, impl="plain"), 3)
+    out_elems = rois.shape[0] * rois.shape[1] * p * p * feat.shape[-1]
     least = bound(nbytes(feat, rois) + out_elems * feat.element_size(),
                   out_elems * ROI_ALIGN_FLOPS)
     log(f"{tag} K1 {label}: kernel {k_ms:.4f} ms ({q_ms:.4f} queued), plain {p_ms:.4f} ms "
@@ -1004,51 +1029,65 @@ def phase_whole_path(cfg, seed):
     if not (same_props and dprobs <= E2E_PROBS_ATOL and dbbox <= E2E_BBOX_RTOL):
         raise AssertionError("the whole path with kernels disagrees with the plain path")
 
+def k2_check(g, rois, shape, p, label, tag="[6]"):
+    """K2 vs its plain version, elementwise within K2_REL of the summed
+    absolute terms (+ one bf16 ulp for a bf16 g); two launches
+    bit-identical.  Returns the max|diff|."""
+    import torch
+
+    from unit_tpu_torch.ops import roi_align as ra
+    from unit_tpu_torch.ops.roi_align_cuda import roi_align_backward_cuda
+
+    got = roi_align_backward_cuda(g, rois, shape, p)
+    again = roi_align_backward_cuda(g, rois, shape, p)
+    want = ra.roi_align_backward_plain(g, rois, shape, p)
+    s_abs = ra.roi_align_backward_plain(g.float().abs(), rois, shape, p)
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    bound = s_abs * K2_REL
+    if g.dtype == torch.bfloat16:
+        bound = bound + torch.maximum(got.float().abs(), want.float().abs()) * 2.0 ** -7
+    rel = float((diff / s_abs.clamp_min(1e-30)).max())
+    same = torch.equal(got, again)
+    log(f"{tag} K2 {label}: max|diff| {float(diff.max()):.3g}, max|diff|/S {rel:.3g} "
+        f"(bound {K2_REL:.3g}{' + 1 bf16 ulp' if g.dtype == torch.bfloat16 else ''}), "
+        f"two launches bit-identical {same}")
+    if not (bool((diff <= bound).all()) and same):
+        raise AssertionError(f"K2 disagrees with its plain version ({label})")
+    return float(diff.max())
+
+
+def k2_timed(g, rois, shape, label, tag="[6]", p=14):
+    """K2's kernel (and queued) and plain ms; the wrapper's host time and its
+    scratch.  Returns (kernel ms, plain ms, queued ms)."""
+    from unit_tpu_torch.ops import roi_align as ra
+    from unit_tpu_torch.ops.roi_align_cuda import roi_align_backward_cuda
+
+    k_ms = cuda_ms(lambda: roi_align_backward_cuda(g, rois, shape, p), 10)
+    p_ms = cuda_ms(lambda: ra.roi_align_backward_plain(g, rois, shape, p), 3)
+    q_ms, host_ms = cuda_ms_queued(lambda: roi_align_backward_cuda(g, rois, shape, p), 10)
+    sizes = roi_align_backward_cuda.scratch_bytes
+    log(f"{tag} K2 {label}: kernel {k_ms:.4f} ms ({q_ms:.4f} queued), plain {p_ms:.4f} ms "
+        f"(median, CUDA events); wrapper host {1e3 * host_ms:.1f} us a call; scratch "
+        f"{sizes['scratch'] / 1e6:.1f} MB allocated + workspace "
+        f"{sizes['workspace'] / 1e6:.2f} MB")
+    return k_ms, p_ms, q_ms
+
+
 def phase_k2(rng):
     import torch
 
     from unit_tpu_torch.ops import roi_align as ra
-    from unit_tpu_torch.ops.roi_align_cuda import BWD_TUNING, roi_align_backward_cuda
+    from unit_tpu_torch.ops.roi_align_cuda import BWD_TUNING
 
     dev = torch.device("cuda")
-
-    def check(g, rois, shape, p, label):
-        got = roi_align_backward_cuda(g, rois, shape, p)
-        again = roi_align_backward_cuda(g, rois, shape, p)
-        want = ra.roi_align_backward_plain(g, rois, shape, p)
-        s_abs = ra.roi_align_backward_plain(g.float().abs(), rois, shape, p)
-        torch.cuda.synchronize()
-        diff = (got.float() - want.float()).abs()
-        bound = s_abs * K2_REL
-        if g.dtype == torch.bfloat16:
-            bound = bound + torch.maximum(got.float().abs(), want.float().abs()) * 2.0 ** -7
-        rel = float((diff / s_abs.clamp_min(1e-30)).max())
-        same = torch.equal(got, again)
-        log(f"[6] K2 {label}: max|diff| {float(diff.max()):.3g}, max|diff|/S {rel:.3g} "
-            f"(bound {K2_REL:.3g}{' + 1 bf16 ulp' if g.dtype == torch.bfloat16 else ''}), "
-            f"two launches bit-identical {same}")
-        if not (bool((diff <= bound).all()) and same):
-            raise AssertionError(f"K2 disagrees with its plain version ({label})")
-        return float(diff.max())
-
-    def timed(g, rois, shape, label):
-        """Kernel and plain ms; the wrapper's host time and its scratch."""
-        k_ms = cuda_ms(lambda: roi_align_backward_cuda(g, rois, shape), 10)
-        p_ms = cuda_ms(lambda: ra.roi_align_backward_plain(g, rois, shape), 3)
-        q_ms, host_ms = cuda_ms_queued(lambda: roi_align_backward_cuda(g, rois, shape), 10)
-        sizes = roi_align_backward_cuda.scratch_bytes
-        log(f"[6] K2 {label}: kernel {k_ms:.4f} ms ({q_ms:.4f} queued), plain {p_ms:.4f} ms "
-            f"(median, CUDA events); wrapper host {1e3 * host_ms:.1f} us a call; scratch "
-            f"{sizes['scratch'] / 1e6:.1f} MB allocated + workspace "
-            f"{sizes['workspace'] / 1e6:.2f} MB")
-        return k_ms, p_ms
 
     worst, times = 0.0, {}
     for b in (1, 2):
         shape = (b, 50, 84, 1024)
         rois = torch.as_tensor(np.stack([flagship_rois(rng, 512) for _ in range(b)]), device=dev)
         g32 = torch.as_tensor(rng.randn(b, 512, 14, 14, 1024).astype(np.float32), device=dev)
-        check(g32, rois, shape, 14, f"[{b},512,14,14,1024] f32")
+        k2_check(g32, rois, shape, 14, f"[{b},512,14,14,1024] f32")
         g16 = g32.to(torch.bfloat16)
         if b == 2:
             # the train path's layout (ROIs piled onto a few rows), and rows whose
@@ -1063,22 +1102,22 @@ def phase_k2(rng):
                 f"({-(-longest // seg)} segments of at most {seg})")
             if longest <= 2 * seg:
                 raise AssertionError("the one-band ROIs do not fill more than two segments")
-            check(g32, piled, shape, 14, "[2,512,14,14,1024] f32 piled")
-            check(g32, long_rows, shape, 14, "[2,512,14,14,1024] f32 one band")
+            k2_check(g32, piled, shape, 14, "[2,512,14,14,1024] f32 piled")
+            k2_check(g32, long_rows, shape, 14, "[2,512,14,14,1024] f32 one band")
         del g32
-        worst = max(worst, check(g16, rois, shape, 14, f"[{b},512,14,14,1024] bf16"))
-        k_ms, p_ms = timed(g16, rois, shape, f"B={b} bf16")
+        worst = max(worst, k2_check(g16, rois, shape, 14, f"[{b},512,14,14,1024] bf16"))
+        k_ms, p_ms, _ = k2_timed(g16, rois, shape, f"B={b} bf16")
         out_bytes = int(np.prod(shape)) * g16.element_size()
         times[b] = (k_ms, p_ms, bound(nbytes(g16, rois) + out_bytes,
                                       g16.numel() * ROI_ALIGN_FLOPS))
         log(f"[6] K2 B={b} bf16: bound {times[b][2]['bound_ms']:.4f} ms by "
             f"{times[b][2]['bound_by']}")
         if b == 2:
-            worst = max(worst, check(g16, piled, shape, 14, "[2,512,14,14,1024] bf16 piled"))
-            timed(g16, piled, shape, "B=2 bf16 piled ROIs")
-            worst = max(worst, check(g16, long_rows, shape, 14,
+            worst = max(worst, k2_check(g16, piled, shape, 14, "[2,512,14,14,1024] bf16 piled"))
+            k2_timed(g16, piled, shape, "B=2 bf16 piled ROIs")
+            worst = max(worst, k2_check(g16, long_rows, shape, 14,
                                      "[2,512,14,14,1024] bf16 one band"))
-            timed(g16, long_rows, shape, "B=2 bf16 one-band ROIs")
+            k2_timed(g16, long_rows, shape, "B=2 bf16 one-band ROIs")
     # tiny shapes: odd sizes, H = 1 and W = 1 maps
     for shape in ((1, 1, 5, 8), (2, 7, 1, 6), (1, 9, 11, 130)):
         rois = torch.as_tensor(
@@ -1086,16 +1125,17 @@ def phase_k2(rng):
                       for _ in range(shape[0])]), device=dev)
         g = torch.as_tensor(rng.randn(shape[0], 17, 7, 7, shape[3]).astype(np.float32),
                             device=dev)
-        check(g, rois, shape, 7, f"{shape} x 17 ROIs P=7 f32")
+        k2_check(g, rois, shape, 7, f"{shape} x 17 ROIs P=7 f32")
     torch.cuda.empty_cache()
     return {"max_abs_err": worst, "ms": times[2][0], "plain_ms": times[2][1],
             **times[2][2], "library_ms": None}  # no one PyTorch call computes its backward
 
 
-def synthetic_train_batches(cfg, seed, n_batches=4, per_stream=2, max_gt=5):
+def synthetic_train_batches(cfg, seed, n_batches=4, per_stream=2, max_gt=5,
+                            canvases=None):
     """Strong and weak numpy batches made from ``seed``, their canvases
-    alternating between the two of TRAIN_CANVASES (strong and weak of one
-    step share the canvas).
+    alternating between the two (canvas, content) sizes of ``canvases``
+    (TRAIN_CANVASES by default; strong and weak of one step share the canvas).
 
     Random BGR content fills the content size, zero padding the rest; strong
     images carry 1..max_gt base-class boxes (padded to TPU.MAX_GT_BOXES),
@@ -1107,8 +1147,9 @@ def synthetic_train_batches(cfg, seed, n_batches=4, per_stream=2, max_gt=5):
     n_cls = cfg.MODEL.ROI_HEADS.NUM_CLASSES
     g_cap = cfg.TPU.MAX_GT_BOXES
     strong, weak = [], []
+    canvases = canvases or TRAIN_CANVASES
     for k in range(n_batches):
-        canvas, content = TRAIN_CANVASES[k % 2]
+        canvas, content = canvases[k % 2]
 
         def images():
             im = np.zeros((per_stream,) + canvas + (3,), np.float32)
@@ -3340,6 +3381,412 @@ def phase_tta(cfg, seed, workdir):
     return by_path, k1_tta, k3_tta
 
 
+def phase_note(seed, workdir):
+    """Phase 16: the note recipe (COCO-RCNN-50-C4-split1-note.yaml) at full
+    width and depth: InceptionResNetV2 to block17, the InceptionResNetV2 tail
+    as the box head over 17x17 ROIs, 80 classes, seeded weights, GloVe, bf16.
+    (a) served requests; (b) the f32 predict path, kernels vs plain; (c)
+    TrainerNoMeta steps of 2 + 2 images in both orientations, then one step
+    at the recipe's IMS_PER_BATCH (its strong and weak loaders read 8 images
+    each); (d) the f32 train path, kernels vs plain; (e) K1 and K2 against
+    their plain versions at (c)'s own inputs (P = 17, C = 1088) and K3 at its
+    RPN's; (f) engine.runner.run on the shapes-COCO devkit of phase 12: 4
+    steps, a checkpoint and an evaluation at 2, a resume from 2.  Returns
+    ({path: launch counts}, K1's, K2's and K3's numbers at the note shapes)."""
+    import runpy
+
+    import torch
+
+    from unit_tpu_torch.config import get_cfg
+    from unit_tpu_torch.data import DatasetCatalog
+    from unit_tpu_torch.data.transforms import TransformConfig, prepare_test_image
+    from unit_tpu_torch.engine import runner
+    from unit_tpu_torch.engine.train import TrainerNoMeta
+    from unit_tpu_torch.models.similarity import COCO_CLASSES
+    from unit_tpu_torch.ops import nms as nms_ops
+    from unit_tpu_torch.ops import roi_align as ra
+    from unit_tpu_torch.serving import DetectionService
+    from unit_tpu_torch.solver import build_optimizer
+
+    dev = torch.device(RUN_DEVICE)
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def peak_mib():
+        return torch.cuda.max_memory_allocated() / 2**20 if on_card else 0.0
+
+    def reset_peak():
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+
+    def free():
+        if on_card:
+            torch.cuda.empty_cache()
+
+    cfg = get_cfg()
+    cfg.merge_from_file(str(NOTE_RECIPE))
+    cfg.merge_from_list(list(RUN_EXTRA_OPTS))
+    by_path = {}
+    p = cfg.MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION
+
+    # (a) served requests
+    t0 = time.perf_counter()
+    model = flagship_model(cfg, seed, dev)  # no FrozenBN: nothing to calibrate
+    mc = model.mc
+    n_bn = frozen_bn_counts(model)
+    log(f"[16] {NOTE_RECIPE.relative_to(ROOT)}: {type(model.backbone).__name__} + "
+        f"{type(model.box_head).__name__} built in {time.perf_counter() - t0:.1f} s: "
+        f"{sum(q.numel() for q in model.parameters()) / 1e6:.1f} M params (backbone "
+        f"{sum(q.numel() for q in model.backbone.parameters()) / 1e6:.1f} M, box head "
+        f"{sum(q.numel() for q in model.box_head.parameters()) / 1e6:.1f} M), "
+        f"{model.backbone.out_channels} channels into the RPN (conv {mc.rpn_conv_dim}) and "
+        f"the pooler, {mc.pooler_resolution}x{mc.pooler_resolution} ROIs, head "
+        f"{model.box_head.out_channels}-d, {mc.num_classes} classes, {mc.roi_batch_size} ROIs a "
+        f"strong image, compute {mc.compute_dtype}; FrozenBN modules (backbone, box head, "
+        f"trainable) {n_bn}")
+    if n_bn != (0, 0, 0):
+        raise AssertionError(f"the note model holds FrozenBN modules: {n_bn}")
+    svc = DetectionService(cfg, model, class_names=COCO_CLASSES)
+    t0 = time.perf_counter()
+    svc.warmup()
+    sync()
+    log(f"[16] warm-up, one request per orientation: {time.perf_counter() - t0:.2f} s")
+    rng = np.random.RandomState(seed + 160)
+    images = [rng.uniform(0, 255, NOTE_REQUEST_SHAPES[i % 2] + (3,)).astype(np.float32)
+              for i in range(NOTE_REQUESTS)]
+    reset_peak()
+    reset_launch_counts()
+    lat, results = [], []
+    for img in images:
+        t0 = time.perf_counter()
+        results.append(svc.detect_array(img))  # ends in a device-to-host copy
+        lat.append((time.perf_counter() - t0) * 1e3)
+    launches = read_launch_counts()
+    log(f"[16] {NOTE_REQUESTS} requests, latency ms {[round(v, 2) for v in lat]}, median "
+        f"{np.median(lat):.2f}, peak device memory {peak_mib():.1f} MiB; detections per "
+        f"request {[len(r) for r in results]}; launches {launches}")
+    want = {"roi_align_fwd": NOTE_REQUESTS, "roi_align_bwd": 0, "nms_mask": 2 * NOTE_REQUESTS,
+            "nms_mask_images": 2 * NOTE_REQUESTS, "bn_act_fwd": 0, "bn_act_bwd": 0,
+            "bn_act_layout_copies": 0}
+    if launches != want:
+        raise AssertionError(f"a note request did not run K1 x1, K3 x2 and no K4: {launches}")
+    by_path["note_serving"] = launches
+    for img, dets in zip(images, results):
+        h, w = img.shape[:2]
+        for d in dets:
+            x1, y1, x2, y2 = d["box"]
+            if not (np.isfinite(d["box"]).all() and 0 <= x1 <= x2 <= w and 0 <= y1 <= y2 <= h
+                    and 0 < d["score"] <= 1 and 0 <= d["class_id"] < mc.num_classes):
+                raise AssertionError(f"a detection outside the image or range: {d}")
+    # the map, the proposals kept at random weights and K1 at a request's input
+    k1_request = {}
+    for i, shape in enumerate(NOTE_REQUEST_SHAPES):
+        s = prepare_test_image(images[i], svc.tcfg)
+        with torch.inference_mode():
+            probs, bbox, props, feats = model.predict_raw(
+                torch.as_tensor(s["image"][None], device=dev),
+                torch.as_tensor(s["image_size"][None], device=dev))
+        n_prop = int(props.valid.sum())
+        finite = bool(torch.isfinite(probs).all() and torch.isfinite(bbox).all()
+                      and torch.isfinite(feats.float()).all())
+        ch, cw = s["image"].shape[:2]
+        log(f"[16] {shape} -> canvas {(ch, cw)}: block17 map {tuple(feats.shape)} "
+            f"{feats.dtype} (ceil(H/16) x ceil(W/16) would be {-(-ch // 16)}x{-(-cw // 16)}), "
+            f"{n_prop} of {props.valid.shape[1]} proposals kept, probs {tuple(probs.shape)}, "
+            f"finite {finite}")
+        if n_prop <= 0 or not finite:
+            raise AssertionError("no proposals or non-finite raw outputs on the note path")
+        if on_card and i == 0:
+            rois = props.boxes.float().contiguous()
+            label = f"note request {list(feats.shape)} x {rois.shape[1]} ROIs P={p}"
+            err = k1_check(feats, rois, label, tag="[16]", p=p)
+            k_ms, p_ms, least = k1_timed(feats, rois, label, tag="[16]", p=p)
+            q_ms, _ = cuda_ms_queued(lambda: ra.roi_align_cuda(feats, rois, p), 20)
+            k1_request = {"note_request_ms": k_ms, "note_request_queued_ms": q_ms,
+                          "note_request_plain_ms": p_ms,
+                          "note_request_bound_ms": least["bound_ms"],
+                          "note_request_max_abs_err": err,
+                          "note_request_shape": list(feats.shape) + [rois.shape[1], p]}
+    if on_card:
+        profile_run(lambda: svc.detect_array(images[0]), "[16]", "note request", top=12)
+    del svc, model, feats, props, probs, bbox
+    free()
+
+    # (b) the f32 predict path, kernels vs plain versions
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg32 = cfg.clone()
+    cfg32.TPU.COMPUTE_DTYPE = "float32"
+    model32 = flagship_model(cfg32, seed, dev)
+    s = prepare_test_image(images[1], TransformConfig.test_from_cfg(cfg32))
+    img = torch.as_tensor(s["image"][None], device=dev)
+    size = torch.as_tensor(s["image_size"][None], device=dev)
+    outs = {}
+    for impl in ("cuda", "plain"):
+        model32.mc = dataclasses.replace(model32.mc, roi_align_impl=impl, nms_impl=impl)
+        with torch.inference_mode():
+            outs[impl] = model32.predict_raw(img, size)[:3]
+    (pk, bk, prk), (pp, bp, prp) = outs["cuda"], outs["plain"]
+    same_props = torch.equal(prk.valid, prp.valid) and torch.equal(prk.boxes, prp.boxes)
+    dprobs = float((pk - pp).abs().max())
+    dbbox = float((bk - bp).abs().max()) / max(1.0, float(bp.abs().max()))
+    log(f"[16] f32, TF32 off, predict_raw: proposals identical {same_props} "
+        f"({int(prk.valid.sum())} valid); probs max|diff| {dprobs:.3g} (tol {E2E_PROBS_ATOL}); "
+        f"bbox max|diff|/max|bbox| {dbbox:.3g} (tol {E2E_BBOX_RTOL})")
+    if not (same_props and dprobs <= E2E_PROBS_ATOL and dbbox <= E2E_BBOX_RTOL):
+        raise AssertionError("the note predict path with kernels disagrees with the plain path")
+    del model32, outs, pk, bk, prk, pp, bp, prp
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    free()
+
+    # (c) train steps: 2 strong + 2 weak images, both orientations, clipped as
+    # phase 7; the first warm-up step's K1, K2 and K3 inputs are kept for (e)
+    cfg_t = cfg.clone()
+    cfg_t.SOLVER.CLIP_GRADIENTS.ENABLED = True
+    cfg_t.SOLVER.CLIP_GRADIENTS.CLIP_TYPE = "norm"
+    model = flagship_model(cfg_t, seed, dev)
+    solver = build_optimizer(cfg_t, model)
+    n_trainable = sum(q.numel() for q in model.parameters() if q.requires_grad)
+    strong, weak = synthetic_train_batches(cfg_t, seed + 16, canvases=NOTE_CANVASES)
+    trainer = TrainerNoMeta(model, solver, itertools.cycle(strong), itertools.cycle(weak),
+                            seed=seed)
+    trainer.init_state()
+
+    def step(tr, label):
+        t = time.perf_counter()
+        m = tr.run_step()  # ends in one device-to-host copy of the losses
+        ms = (time.perf_counter() - t) * 1e3
+        log(f"[16] step {tr.state.step} ({label}) {ms:.1f} ms: "
+            + ", ".join(f"{k} {v:.4g}" for k, v in m.items() if k != "data_time"))
+        return ms
+
+    k1_in, k2_in, k3_in = [], [], []
+    real = (ra.roi_align_cuda, ra.roi_align_backward_cuda, nms_ops.nms_sorted_mask_cuda)
+
+    def record_k1(feats, rois, *a):
+        k1_in.append((feats.detach().clone(), rois.clone()))
+        return real[0](feats, rois, *a)
+
+    def record_k2(g, rois, shape, *a):
+        k2_in.append((g.clone(), rois.clone(), tuple(shape)))
+        return real[1](g, rois, shape, *a)
+
+    def record_k3(boxes, thr, cap=None, n_valid=None):
+        k3_in.append((boxes.clone(), thr, cap, None if n_valid is None else n_valid.clone()))
+        return real[2](boxes, thr, cap, n_valid=n_valid)
+
+    if on_card:
+        ra.roi_align_cuda, ra.roi_align_backward_cuda = record_k1, record_k2
+        nms_ops.nms_sorted_mask_cuda = record_k3
+    try:
+        step(trainer, "warm-up, the kernels' inputs kept")
+    finally:
+        ra.roi_align_cuda, ra.roi_align_backward_cuda, nms_ops.nms_sorted_mask_cuda = real
+    for _ in range(TRAIN_WARMUP - 1):
+        step(trainer, "warm-up")
+    sync()
+    reset_peak()
+    reset_launch_counts()
+    times = [step(trainer, "timed") for _ in range(NOTE_TRAIN_STEPS)]
+    launches = read_launch_counts()
+    med = float(np.median(times))
+    imgs = 2 * strong[0]["image"].shape[0]
+    per_step = {k: v / NOTE_TRAIN_STEPS for k, v in launches.items()}
+    log(f"[16] {NOTE_TRAIN_STEPS} timed note train steps ({n_trainable / 1e6:.1f} M trainable "
+        f"params, every backbone tensor among them): median {med:.2f} ms (min "
+        f"{min(times):.2f}, max {max(times):.2f}), {1e3 * imgs / med:.2f} images/s ({imgs} per "
+        f"step), peak device memory {peak_mib():.1f} MiB; launches a step {per_step} (want K1 "
+        f"2, K2 2, K3 1 for 4 images, no K4)")
+    want = {"roi_align_fwd": 2, "roi_align_bwd": 2, "nms_mask": 1, "nms_mask_images": 4,
+            "bn_act_fwd": 0, "bn_act_bwd": 0, "bn_act_layout_copies": 0}
+    if per_step != want:
+        raise AssertionError(f"a note train step's launches: {per_step}")
+    by_path["note"] = launches
+    if not all(np.isfinite(v) for m in trainer.metrics_history for v in m.values()):
+        raise AssertionError("a note train step without finite losses")
+    if on_card:
+        profile_run(trainer.run_step, "[16]", "note train step", top=15)
+    del trainer, strong, weak
+    free()
+
+    # the recipe's IMS_PER_BATCH: the strong and the weak loader read that
+    # many images each a step
+    per_stream = cfg_t.SOLVER.IMS_PER_BATCH
+    strong, weak = synthetic_train_batches(cfg_t, seed + 17, n_batches=1,
+                                           per_stream=per_stream, canvases=NOTE_CANVASES)
+    trainer = TrainerNoMeta(model, solver, itertools.cycle(strong), itertools.cycle(weak),
+                            seed=seed)
+    trainer.init_state()
+    sync()
+    reset_peak()
+    reset_launch_counts()
+    ms_full = step(trainer, f"{per_stream} + {per_stream} images")
+    launches = read_launch_counts()
+    peak_full = peak_mib()
+    log(f"[16] one step at IMS_PER_BATCH {per_stream} ({per_stream} strong + {per_stream} weak "
+        f"images, {2 * per_stream * mc.roi_batch_size} ROIs through the head): {ms_full:.1f} ms "
+        f"(the first at this shape), {1e3 * 2 * per_stream / ms_full:.2f} images/s, peak device "
+        f"memory {peak_full:.1f} MiB; launches {launches}")
+    want_full = {"roi_align_fwd": 2, "roi_align_bwd": 2, "nms_mask": 1,
+                 "nms_mask_images": 2 * per_stream, "bn_act_fwd": 0, "bn_act_bwd": 0,
+                 "bn_act_layout_copies": 0}
+    if launches != want_full or not all(np.isfinite(v) for v in
+                                         trainer.metrics_history[-1].values()):
+        raise AssertionError(f"the {per_stream}-image note step: {launches}, "
+                             f"{trainer.metrics_history[-1]}")
+    by_path["note_full_batch"] = launches
+    del trainer, solver, model, strong, weak
+    free()
+
+    # (d) the f32 train path, kernels vs plain versions
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    model32 = flagship_model(cfg32, seed, dev)
+    build_optimizer(cfg32, model32)
+    strong, weak = synthetic_train_batches(cfg32, seed + 18, n_batches=1,
+                                           canvases=NOTE_CANVASES)
+    strong = {k: torch.as_tensor(v, device=dev) for k, v in strong[0].items()}
+    weak = {k: torch.as_tensor(v, device=dev) for k, v in weak[0].items()}
+    train_path_kernels_vs_plain(model32, strong, weak, seed, "[16]")
+    del model32, strong, weak
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    free()
+
+    # (e) K1, K2 and K3 at (c)'s own inputs: the step's strong and weak ROIs
+    # on its block17 map (P = 17, C = 1088), the gradients its heads sent back
+    # and its RPN's proposals
+    k1_note, k2_note, k3_note = {}, {}, {}
+    if on_card:
+        worst = 0.0
+        for i, (feats, rois) in enumerate(k1_in):
+            stream = ("strong", "weak")[i]
+            label = f"note train step, {stream} {list(feats.shape)} x {rois.shape[1]} ROIs P={p}"
+            worst = max(worst, k1_check(feats, rois, label, tag="[16]", p=p))
+            if i == 0:
+                k_ms, p_ms, least = k1_timed(feats, rois, label, tag="[16]", p=p)
+                q_ms, _ = cuda_ms_queued(lambda: real[0](feats, rois, p), 20)
+                k1_note = {"note_train_ms": k_ms, "note_train_queued_ms": q_ms,
+                           "note_train_plain_ms": p_ms, "note_train_bound_ms": least["bound_ms"],
+                           "note_train_shape": list(feats.shape) + [rois.shape[1], p]}
+        k1_note["note_train_max_abs_err"] = worst
+        worst = 0.0
+        for i, (g, rois, shape) in enumerate(k2_in):
+            label = f"note train step g {list(g.shape)} onto {list(shape)}"
+            k2_check(g.float(), rois, shape, p, label + " f32", tag="[16]")
+            worst = max(worst, k2_check(g, rois, shape, p, label + " bf16", tag="[16]"))
+            if i == 0:
+                k_ms, p_ms, q_ms = k2_timed(g, rois, shape, label, tag="[16]", p=p)
+                out_bytes = int(np.prod(shape)) * g.element_size()
+                least = bound(nbytes(g, rois) + out_bytes, g.numel() * ROI_ALIGN_FLOPS)
+                log(f"[16] K2 {label}: bound {least['bound_ms']:.4f} ms by {least['bound_by']}")
+                k2_note = {"note_train_ms": k_ms, "note_train_queued_ms": q_ms,
+                           "note_train_plain_ms": p_ms, "note_train_bound_ms": least["bound_ms"],
+                           "note_train_shape": list(g.shape)}
+        k2_note["note_train_max_abs_err"] = worst
+        (sb, thr, cap, n_valid), = k3_in  # one selection for the step's 4 images
+        got = real[2](sb, thr, cap, n_valid=n_valid)
+        same = torch.equal(got, real[2](sb, thr, cap, n_valid=n_valid))
+        plain = nms_ops.nms_sorted_mask_plain(sb, thr, cap)
+        k_ms, _ = cuda_ms_queued(lambda: real[2](sb, thr, cap, n_valid=n_valid), 20)
+        p_ms = cuda_ms(lambda: nms_ops.nms_sorted_mask_plain(sb, thr, cap), 2)
+        least = bound(nms_bytes(sb, got, cap, n_valid),
+                      nms_pair_tests(got, cap, n_valid) * IOU_FLOPS)
+        log(f"[16] K3 note train step's RPN: {list(sb.shape)} -> {cap} at IoU {thr}, keeps "
+            f"{got.sum(-1).tolist()}, {int((got != plain).sum())} rows differ from the plain "
+            f"version, two launches bit-identical {same}; kernel {k_ms:.4f} ms queued, plain "
+            f"{p_ms:.4f} ms, bound {least['bound_ms']:.5f} ms by {least['bound_by']}")
+        if not (torch.equal(got, plain) and same):
+            raise AssertionError("K3 at the note train step's RPN input differs from its plain "
+                                 "version")
+        k3_note = {"note_train_ms": k_ms, "note_train_plain_ms": p_ms,
+                   "note_train_bound_ms": least["bound_ms"],
+                   "note_train_keeps": got.sum(-1).tolist()}
+    del k1_in[:], k2_in[:], k3_in[:]
+    free()
+
+    # (f) the run loop on phase 12's shapes-COCO devkit: 4 steps, a
+    # checkpoint and an evaluation at 2, then a resume from the checkpoint
+    root = os.path.join(workdir, "shapes_coco")
+    if not os.path.isdir(root):
+        runpy.run_path(str(ROOT / "scripts" / "make_shapes_coco_torch.py"))[
+            "write_shapes_coco"](root, COCO_TRAIN_IMAGES, COCO_VAL_IMAGES, COCO_IMAGE_SIZE, seed)
+    made = []
+
+    class Recording(TrainerNoMeta):
+        """The runner's trainer, kept so that the script can read its losses."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    def run(out, *flags):
+        DatasetCatalog.clear()
+        made.clear()
+        args = runner.default_argument_parser().parse_args([
+            "--config-file", str(NOTE_RECIPE), "--data-root", root, "--device", RUN_DEVICE,
+            *flags, "OUTPUT_DIR", out,
+            "MODEL.ROI_HEADS.EMBEDDING_PATH", str(ROOT / cfg.MODEL.ROI_HEADS.EMBEDDING_PATH),
+            "DATASETS.CLASSIFIER_DATAROOT", root, "SEED", str(seed),
+            "SOLVER.IMS_PER_BATCH", "2", "SOLVER.MAX_ITER", str(NOTE_RUN_STEPS),
+            "SOLVER.CHECKPOINT_PERIOD", str(NOTE_RUN_STEPS // 2),
+            "TEST.EVAL_PERIOD", str(NOTE_RUN_STEPS // 2),
+            "SOLVER.CLIP_GRADIENTS.ENABLED", "True", "SOLVER.CLIP_GRADIENTS.CLIP_TYPE", "norm",
+            *RUN_EXTRA_OPTS])
+        t = time.perf_counter()
+        results = runner.run(args)
+        sync()
+        trainer = made[-1]
+        first = trainer.state.step - len(trainer.metrics_history)
+        losses = {first + 1 + k: {n: v for n, v in m.items() if n != "data_time"}
+                  for k, m in enumerate(trainer.metrics_history)}
+        return results, losses, time.perf_counter() - t
+
+    out_a, out_b = os.path.join(workdir, "note_run_a"), os.path.join(workdir, "note_run_b")
+    real_trainer, runner.TrainerNoMeta = runner.TrainerNoMeta, Recording
+    try:
+        reset_launch_counts()
+        results_a, losses_a, secs = run(out_a)
+        launches = read_launch_counts()
+        bbox = {k: results_a["bbox"][k] for k in ("AP", "AP50", "AP75", "novel_mean")}
+        for k, m in losses_a.items():
+            log(f"[16]   run step {k}: " + ", ".join(f"{n} {v:.4g}" for n, v in m.items()))
+        log(f"[16] run: {len(losses_a)} steps with a checkpoint and an evaluation every "
+            f"{NOTE_RUN_STEPS // 2} in {secs:.1f} s; bbox " + ", ".join(
+                f"{k} {v:.4g}" for k, v in bbox.items()) + f"; launches {launches}")
+        if not (sorted(losses_a) == list(range(1, NOTE_RUN_STEPS + 1))
+                and all(np.isfinite(v) for m in losses_a.values() for v in m.values())
+                and all(np.isfinite(v) for v in bbox.values())
+                and os.path.exists(os.path.join(out_a, f"step_{NOTE_RUN_STEPS // 2}.pt"))):
+            raise AssertionError("the note run left out a step, a checkpoint or a finite loss "
+                                 "or AP")
+        by_path["note_run"] = launches
+        os.makedirs(out_b)
+        shutil.copy(os.path.join(out_a, f"step_{NOTE_RUN_STEPS // 2}.pt"), out_b)
+        _, losses_b, secs = run(out_b, "--resume")
+        rel = max(abs(losses_b[k][n] - losses_a[k][n]) / max(abs(losses_a[k][n]), 1e-12)
+                  for k in losses_b for n in losses_b[k])
+        same = all(losses_b[k][n] == losses_a[k][n] for k in losses_b for n in losses_b[k])
+        log(f"[16] resumed from step {NOTE_RUN_STEPS // 2} in {secs:.1f} s: steps "
+            f"{sorted(losses_b)}, losses bit-identical to the uninterrupted run's {same} (max "
+            f"rel diff {rel:.3g}, tol {RESUME_LOSS_RTOL})")
+        if sorted(losses_b) != list(range(NOTE_RUN_STEPS // 2 + 1, NOTE_RUN_STEPS + 1)) \
+                or not rel <= RESUME_LOSS_RTOL:
+            raise AssertionError("the resumed note run does not reproduce its steps")
+    finally:
+        runner.TrainerNoMeta = real_trainer
+        made.clear()
+    free()
+    log(f"[16] phase 16 in {time.perf_counter() - t_phase:.1f} s")
+    return by_path, k1_request | k1_note, k2_note, k3_note
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3378,30 +3825,36 @@ def main():
         by_path.update(meta_paths)
         tta_paths, k1_tta, k3_tta = phase_tta(cfg, args.seed, workdir)
         by_path.update(tta_paths)
+        note_paths, k1_note, k2_note, k3_note = phase_note(args.seed, workdir)
+        by_path.update(note_paths)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     def per_path(*names):
         return {path: sum(counts[n] for n in names) for path, counts in by_path.items()}
 
-    # every kernel of a path was launched on it, but for the backward kernels
-    # a path has no backward through: serving none (VOC, COCO and WeakRCNN
-    # requests), the VOC fine-tune recipe neither (its freeze lists hold the
-    # backbone and box_head), the COCO one none through ROIAlign (it trains
-    # box_head behind a frozen backbone)
-    no_backward = {"serving": ("roi_align_bwd", "bn_act_bwd"),
-                   "finetune": ("roi_align_bwd", "bn_act_bwd"),
-                   "coco_segm": ("roi_align_bwd", "bn_act_bwd"),
-                   "coco_segm_ft": ("roi_align_bwd",),
-                   "weak_rcnn_serving": ("roi_align_bwd", "bn_act_bwd"),
-                   "tta": ("roi_align_bwd", "bn_act_bwd")}
+    # every kernel of a path was launched on it, but for the kernels a path
+    # does not run: serving no backward (VOC, COCO and WeakRCNN requests),
+    # the VOC fine-tune recipe neither (its freeze lists hold the backbone and
+    # box_head), the COCO one none through ROIAlign (it trains box_head behind
+    # a frozen backbone); the note recipe no K4 (InceptionResNetV2 and its
+    # tail have no FrozenBN)
+    no_k4 = ("bn_act_fwd", "bn_act_bwd")
+    not_run = {"serving": ("roi_align_bwd", "bn_act_bwd"),
+               "finetune": ("roi_align_bwd", "bn_act_bwd"),
+               "coco_segm": ("roi_align_bwd", "bn_act_bwd"),
+               "coco_segm_ft": ("roi_align_bwd",),
+               "weak_rcnn_serving": ("roi_align_bwd", "bn_act_bwd"),
+               "tta": ("roi_align_bwd", "bn_act_bwd"),
+               "note_serving": ("roi_align_bwd",) + no_k4,
+               "note": no_k4, "note_full_batch": no_k4, "note_run": no_k4}
     for path, counts in by_path.items():
         for name, count in counts.items():
             if name == "bn_act_layout_copies":
                 continue
-            if name in no_backward.get(path, ()):
+            if name in not_run.get(path, ()):
                 if count != 0:
                     raise AssertionError(f"{name} was launched {count} times on the {path} "
-                                         "path, which has no backward through it")
+                                         "path, which does not run it")
             elif count <= 0:
                 raise AssertionError(f"{name} was not launched on the {path} path")
 
@@ -3410,15 +3863,15 @@ def main():
              replaces="unit_tpu/ops/roi_align_pallas.py:230",
              launches=launches["roi_align_fwd"],
              launches_by_path=per_path("roi_align_fwd"), **k1, **k1_mask, **k1_support,
-             **k1_tta),
+             **k1_tta, **k1_note),
         dict(name="roi_align_bwd", route="cuda", source="unit_tpu_torch/csrc/roi_align_bwd.cu",
              replaces="unit_tpu/ops/roi_align_pallas_bwd.py:564",
              launches=launches["roi_align_bwd"],
-             launches_by_path=per_path("roi_align_bwd"), **k2),
+             launches_by_path=per_path("roi_align_bwd"), **k2, **k2_note),
         dict(name="nms_mask", route="cuda", source="unit_tpu_torch/csrc/nms_mask.cu",
              replaces="unit_tpu/ops/nms_pallas.py:115",
              launches=launches["nms_mask"], launches_by_path=per_path("nms_mask"), **k3,
-             **k3_b2, **k3_tta),
+             **k3_b2, **k3_tta, **k3_note),
         dict(name="bn_act", route="cuda", source="unit_tpu_torch/csrc/bn_act.cu",
              replaces="scripts/bench_backbone_epilogue.py:155",
              launches=launches["bn_act_fwd"] + launches["bn_act_bwd"],

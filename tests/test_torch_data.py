@@ -259,8 +259,9 @@ def test_prefetcher_pins_closes_and_forwards_errors():
     (lambda cfg: (setattr(cfg.MODEL, "LOAD_PROPOSALS", True),
                   setattr(cfg.DATASETS, "PROPOSAL_FILES_TRAIN", ("p.pkl",)),
                   tdata.build_strong_loader(cfg))[2], "item 25"),
-    # the COCO suites register; the note suite's model (its backbone) does not build
-    pytest.param(lambda cfg: (cfg.merge_from_file("configs/COCO/COCO-RCNN-50-C4-split1-note.yaml"),
+    # the COCO suites register; the dock suite's model (its backbone) does not
+    # build (the note suite's does: tests/test_torch_note.py)
+    pytest.param(lambda cfg: (cfg.merge_from_file("configs/COCO/COCO-VGG-CNN-F-split1-dock.yaml"),
                               __import__("unit_tpu_torch.data.utils", fromlist=["x"])
                               .register_datasets(cfg, "unused"),
                               WSRCNN(ModelConfig.from_cfg(cfg)))[2], "item 25",

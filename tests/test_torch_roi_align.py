@@ -334,6 +334,68 @@ def test_kernel_matches_plain_at_the_tta_groups(cuda_device, dtype, group):
     assert bool(((got.float() - want).abs() <= tol).all())
 
 
+# The note recipe (InceptionResNetV2 to block17: 1088 channels, P = 17): the
+# block17 map of a 600 x 800 canvas (35 x 48: the stem's unpadded
+# convolutions, not 38 x 50) and of the 608 x 1344 canvas a 480 x 640 image at
+# the recipe's 600-pixel side lies in (36 x 82), landscape and portrait.
+NOTE_MAPS = [(35, 48), (48, 35), (36, 82), (82, 36)]
+
+
+def note_rois(rng, hw, n=300):
+    """[2, n, 4]: a train step's ROIs on a block17 map ``hw`` (the canvas its
+    16-pixel cells span): the edge set, then proposals in the canvas."""
+    h, w = hw[0] * 16.0, hw[1] * 16.0
+    out = []
+    for _ in range(2):
+        xy = rng.uniform(0, 1, (n, 2)) * [w - 16, h - 16]
+        wh = rng.uniform(8, 500, (n, 2))
+        boxes = np.concatenate([xy, np.minimum(xy + wh, [w, h])], 1)
+        edge = edge_rois(*hw, rng, 0)
+        boxes[:len(edge)] = edge
+        out.append(boxes)
+    return np.stack(out).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hw", NOTE_MAPS, ids=lambda hw: f"{hw[0]}x{hw[1]}")
+def test_kernels_match_plain_at_the_note_shapes(cuda_device, dtype, hw):
+    """K1 and K2 at a note train step's stream: [2, h, w, 1088] x 300 ROIs an
+    image, P = 17 (K2's kP = 32 instantiation, 17 of a warp's lanes a bin
+    row), f32 and bf16.  K1 within the bounds of test_kernel_matches_plain,
+    K2 within those of test_backward_kernel_matches_plain; two launches of
+    each bit-identical, one count a launch."""
+    rng = np.random.RandomState(hw[0] * 100 + hw[1])
+    shape = (2,) + hw + (1088,)
+    feats = torch.as_tensor(rng.randn(*shape).astype(np.float32), device=cuda_device).to(dtype)
+    rois = torch.as_tensor(note_rois(rng, hw), device=cuda_device)
+    before = roi_align_cuda.launches
+    got = roi_align_cuda(feats, rois, 17, 1 / 16.0, 2)
+    again = roi_align_cuda(feats, rois, 17, 1 / 16.0, 2)
+    assert roi_align_cuda.launches == before + 2
+    assert got.dtype == dtype and got.shape == (2, 300, 17, 17, 1088)
+    assert torch.equal(got, again)
+    want = ra.roi_align_plain(feats, rois, 17, 1 / 16.0, 2).float()
+    tol = 2e-5 + (torch.maximum(got.float().abs(), want.abs()) * 2.0 ** -7
+                  if dtype == torch.bfloat16 else 0.0)
+    assert bool(((got.float() - want).abs() <= tol).all())
+    del got, again, want, tol
+    g = torch.as_tensor(rng.randn(2, 300, 17, 17, 1088).astype(np.float32),
+                        device=cuda_device).to(dtype)
+    before = roi_align_backward_cuda.launches
+    got = roi_align_backward_cuda(g, rois, shape, 17)
+    again = roi_align_backward_cuda(g, rois, shape, 17)
+    assert roi_align_backward_cuda.launches == before + 2
+    assert got.dtype == dtype and got.shape == shape
+    assert torch.equal(got, again)
+    want = ra.roi_align_backward_plain(g, rois, shape, 17).float()
+    s_abs = ra.roi_align_backward_plain(g.float().abs(), rois, shape, 17)
+    bound = s_abs * K2_REL
+    if dtype == torch.bfloat16:
+        bound = bound + torch.maximum(got.float().abs(), want.abs()) * 2.0 ** -7
+    assert bool(((got.float() - want).abs() <= bound).all())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernels_pair_through_the_function(cuda_device, dtype):

@@ -145,9 +145,10 @@ def test_unported_paths_raise(pair):
     with pytest.raises(NotImplementedError, match="item 25"):
         tmodel.predict_tta(torch.zeros(1, 160, 224, 3), torch.tensor([[160.0, 224.0]]), [],
                            proposal_boxes=torch.zeros(1, 4, 4))
-    # training options that are not ported yet: the note and dock suites'
-    # models (their backbones, precomputed proposals)
-    for key, value, item in [("MODEL.BACKBONE.NAME", "InceptionResNetV2", "item 25"),
+    # training options that are not ported yet: the dock suite's model and
+    # VGG16 (their backbones, precomputed proposals); the note suite's
+    # InceptionResNetV2 is ported (tests/test_torch_note.py)
+    for key, value, item in [("MODEL.BACKBONE.NAME", "VGG", "item 25"),
                              ("MODEL.BACKBONE.NAME", "VGG_CNN_F", "item 25"),
                              ("MODEL.LOAD_PROPOSALS", "True", "item 25"),
                              ("MODEL.ROI_HEADS.FAST_RCNN.WEAK_DETECTOR.REGRESSION_BRANCH",

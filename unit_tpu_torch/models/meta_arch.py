@@ -3,8 +3,9 @@
 Port of unit_tpu/models/meta_arch.py:43-336,346-361,429-876 for the
 ``WeaklySupervisedRCNNNoMeta``, ``WeaklySupervisedRCNN`` (the meta recipe),
 ``WeakRCNN`` and ``WeaklySupervisedRCNNRPN`` meta-architectures.
-Inference: ResNet-C4 -> RPN (+ NMS kernel K3) -> ROIAlignV2 (K1) -> one or
-two Res5 heads -> supervised delta heads + OICR weak detector ->
+Inference: ResNet-C4 (or InceptionResNetV2, the note recipe's) -> RPN (+ NMS
+kernel K3) -> ROIAlignV2 (K1) -> one or two Res5 heads (or the
+InceptionResNetV2 tail) -> supervised delta heads + OICR weak detector ->
 lingual/visual base->novel transfer -> softmax -> per-class NMS (K3).
 Training (``train_losses``): one fused backbone + RPN pass over both
 streams, RPN losses, proposal sampling, ROIAlignV2 with its
@@ -33,7 +34,7 @@ flip test-time augmentation: proposals from the canonical image, each scale's
 flip pair scored in one batch-2 pass.  The options still to port raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
 
-Precision mirrors ``TPU.COMPUTE_DTYPE``: backbone, RPN convs and Res5 run in
+Precision mirrors ``TPU.COMPUTE_DTYPE``: backbone, RPN convs and box heads run in
 the compute dtype; RPN outputs, box features and all predictor, transfer and
 softmax math are f32; pooled features keep the feature dtype.
 """
@@ -69,7 +70,9 @@ from .predictors import (
     transfer_deltas,
     transfer_scores,
 )
-from .resnet import Res5, ResNetC4, set_bn_act_impl
+from .backbones import BACKBONE_REGISTRY, build_backbone
+from .box_heads import BOX_HEAD_REGISTRY, build_box_head
+from .resnet import set_bn_act_impl
 from .visual_attention import MetaAttention, VisualAttentionHead
 
 # TPU.ROI_ALIGN_IMPL / TPU.NMS_IMPL keep their meaning: the hand-written CUDA
@@ -86,6 +89,18 @@ _ATTENTION_MODES = {
 }
 
 
+# MODEL.BACKBONE.NAME -> the RPN conv's width (unit_tpu meta_arch.py:125-133)
+_RPN_CONV_DIM = {
+    "build_resnet_backbone": 1024,
+    "build_vgg_backbone": 512,
+    "VGG": 512,
+    "build_vgg_cnn_f_backbone": 256,
+    "VGG_CNN_F": 256,
+    "build_inception_resnet_v2_backbone": 1088,
+    "InceptionResNetV2": 1088,
+}
+
+
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported to unit_tpu_torch yet ({item})")
 
@@ -97,6 +112,7 @@ class ModelConfig:
     meta_architecture: str = "WeaklySupervisedRCNNNoMeta"
     backbone_name: str = "build_resnet_backbone"
     box_head_name: str = "Res5BoxHead"
+    rpn_conv_dim: int = 1024  # the RPN's 3x3 conv width: the backbone's channels
     depth: int = 50
     res2_out_channels: int = 256
     num_classes: int = 20
@@ -170,6 +186,7 @@ class ModelConfig:
             meta_architecture=cfg.MODEL.META_ARCHITECTURE,
             backbone_name=cfg.MODEL.BACKBONE.NAME,
             box_head_name=cfg.MODEL.ROI_BOX_HEAD.NAME,
+            rpn_conv_dim=_RPN_CONV_DIM.get(cfg.MODEL.BACKBONE.NAME, 1024),
             depth=cfg.MODEL.RESNETS.DEPTH,
             res2_out_channels=cfg.MODEL.RESNETS.RES2_OUT_CHANNELS,
             num_classes=num_classes,
@@ -229,10 +246,18 @@ class ModelConfig:
 
 
 def _check_supported(mc: ModelConfig) -> None:
-    if mc.backbone_name != "build_resnet_backbone":
+    if mc.backbone_name not in BACKBONE_REGISTRY:
         raise _not_ported(f"backbone {mc.backbone_name}", "ROADMAP Queue 1 item 25")
-    if mc.box_head_name not in ("Res5BoxHead", "Res5BoxHeadNOTE", "Res5BoxHeadWithMask", ""):
+    if mc.box_head_name not in BOX_HEAD_REGISTRY:
         raise _not_ported(f"box head {mc.box_head_name}", "ROADMAP Queue 1 item 25")
+    # the shipped pairs: Res5 over ResNet-C4's map, the InceptionResNetV2 tail
+    # over InceptionResNetV2's (the note recipe), which no recipe gives the
+    # visual attention head's Res5 or the mask head
+    inception_head = mc.box_head_name == "InceptionResNetHead"
+    if (mc.backbone_name != "build_resnet_backbone") != inception_head or (
+            inception_head and (mc.use_meta or mc.mask_on)):
+        raise _not_ported(f"box head {mc.box_head_name!r} over {mc.backbone_name} (meta "
+                          f"{mc.use_meta}, mask {mc.mask_on})", "ROADMAP Queue 1 item 25")
     if mc.pooler_type != "ROIAlignV2":
         raise _not_ported(f"pooler {mc.pooler_type}", "ROADMAP Queue 1 item 25")
     if mc.load_proposals:
@@ -260,15 +285,20 @@ class WSRCNN(nn.Module):
         _check_supported(mc)
         self.mc = mc
         g, dt = generator, mc.dtype
-        self.backbone = ResNetC4(depth=mc.depth, res2_out_channels=mc.res2_out_channels,
-                                 dtype=dt, generator=g)
-        self.rpn_head = rpn_lib.RPNHead(self.backbone.out_channels, mc.rpn.num_cell_anchors,
+        self.backbone = build_backbone(mc.backbone_name, depth=mc.depth,
+                                       res2_out_channels=mc.res2_out_channels, dtype=dt,
+                                       generator=g)
+        c = self.backbone.out_channels
+        self.rpn_head = rpn_lib.RPNHead(c, mc.rpn.num_cell_anchors, conv_dim=mc.rpn_conv_dim,
                                         dtype=dt, generator=g)
-        self.box_head = Res5(depth=mc.depth, res2_out_channels=mc.res2_out_channels,
-                             dtype=dt, generator=g)
+
+        def box_head():
+            return build_box_head(mc.box_head_name, c, depth=mc.depth,
+                                  res2_out_channels=mc.res2_out_channels, dtype=dt, generator=g)
+
+        self.box_head = box_head()
         if mc.multi_box_head:
-            self.weak_box_head = Res5(depth=mc.depth, res2_out_channels=mc.res2_out_channels,
-                                      dtype=dt, generator=g)
+            self.weak_box_head = box_head()
         d = self.box_head.out_channels
         self.supervised = SupervisedPredictor(d, mc.num_classes, finetune=mc.finetune,
                                               generator=g)
@@ -303,8 +333,11 @@ class WSRCNN(nn.Module):
         return (x - mean) / std
 
     def features(self, images: torch.Tensor) -> torch.Tensor:
-        """images [B, H, W, 3] -> res4 features [B, H/16, W/16, C] (a
-        contiguous view of the channels_last backbone output)."""
+        """images [B, H, W, 3] -> stride-16 features [B, h, w, C] (a
+        contiguous view of the channels_last backbone output): ResNet-C4's
+        res4, h = ceil(H / 16); InceptionResNetV2's block17, smaller (its
+        unpadded stem), while the pooler's scale stays 1/16 as in unit_tpu.
+        Anchors are laid on the map as it comes."""
         return self.backbone(self.preprocess(images)).permute(0, 2, 3, 1)
 
     def rpn(self, feats: torch.Tensor):

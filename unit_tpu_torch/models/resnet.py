@@ -41,24 +41,26 @@ def lecun_normal_(t: torch.Tensor, fan_in: int, generator: Optional[torch.Genera
 
 
 class Conv2d(nn.Module):
-    """Square-kernel convolution with fp32 weight [O, I, k, k] run in ``dtype``.
+    """Convolution with fp32 weight [O, I, kh, kw] run in ``dtype``.
 
+    ``kernel`` and ``padding`` are an int (square) or an (h, w) pair.
     ``init_std=None`` draws flax's default ``lecun_normal``; a float draws
     ``normal(init_std)`` (the RPN head).  Biases start at zero.
     """
 
-    def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
-                 padding: int = 0, dilation: int = 1, bias: bool = False,
+    def __init__(self, in_ch: int, out_ch: int, kernel, stride: int = 1,
+                 padding=0, dilation: int = 1, bias: bool = False,
                  dtype: torch.dtype = torch.float32,
                  init_std: Optional[float] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        kh, kw = (kernel, kernel) if isinstance(kernel, int) else kernel
         self.stride, self.padding, self.dilation = stride, padding, dilation
         self.dtype = dtype
-        self.weight = nn.Parameter(torch.empty(out_ch, in_ch, kernel, kernel))
+        self.weight = nn.Parameter(torch.empty(out_ch, in_ch, kh, kw))
         self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
         if init_std is None:
-            lecun_normal_(self.weight, in_ch * kernel * kernel, generator)
+            lecun_normal_(self.weight, in_ch * kh * kw, generator)
         else:
             with torch.no_grad():
                 self.weight.normal_(0.0, init_std, generator=generator)

@@ -119,6 +119,24 @@ Phases (any failure raises and the script exits non-zero):
      C = 1088, f32 and bf16) and K3 at its RPN's; engine.runner.run on phase
      12's shapes-COCO devkit: 4 steps, a checkpoint and an evaluation at 2
      (COCO bbox AP), a resume from step 2
+ 17  the dock recipe (COCO-VGG-CNN-F-split1-dock.yaml: VGG-CNN-F with Caffe
+     LRN, ROIPool at 6x6, the VGG fc head 9216 -> 4096 -> 4096 with dropout in
+     training, 80 classes, no FrozenBN) at full width with precomputed
+     MCG-style proposals (scripts/make_shapes_proposals_torch.py): 4 requests
+     of 480x640 / 640x480 with 5000 proposals each through make_predict_fn (K3
+     1, the final NMS, and no other kernel), K3 at a request's own final NMS,
+     one profiled request; the f32 predict path kernels vs plain (identical
+     detections); TrainerNoMeta 2 + 6 timed steps of 2 + 2 images at the
+     largest train size (a 1200-pixel short side in the 1216x2016 canvas)
+     with proposals for both streams (no kernel launched: no RPN), one
+     profiled, one step at IMS_PER_BATCH 8 + 8; the YAML alone (no proposal
+     file): the RPN over VGG-CNN-F beside R12's all-invalid weak slots, 1 + 2
+     steps (K3 1 a step), 2 requests (K3 2 each) and the f32 train path
+     kernels vs plain; ROIPool's forward and backward at the step's own inputs
+     (its backward twice bit-identical); engine.runner.run on phase 12's
+     shapes-COCO devkit with proposal pickles: 4 steps, a checkpoint and an
+     evaluation at 2, a resume from 2; one image under TEST.AUG.ENABLED with
+     proposals (K3 1)
 The last three lines are the card (nvidia-smi), one JSON object describing
 the kernels (launches counted on the run loop of phase 10, and per path under
 launches_by_path), and {"ok": true, "device": {...}}.  Without a CUDA device, or without the
@@ -134,6 +152,7 @@ import dataclasses
 import itertools
 import json
 import os
+import pickle
 import shutil
 import subprocess
 import sys
@@ -301,6 +320,19 @@ NOTE_TRAIN_STEPS = 6
 NOTE_RUN_STEPS = 4
 NOTE_CANVASES = (((608, 1344), (600, 800)), ((1344, 608), (800, 600)))
 NOTE_REQUEST_SHAPES = ((480, 640), (640, 480))
+# The dock recipe (phase 17): VGG-CNN-F (Caffe LRN, 256 channels; an
+# 800x1344 canvas gives a 49x83 map) with ROIPool at 6x6 into the VGG fc head
+# (9216 -> 4096 -> 4096, dropout 0.5 in training), 80 classes, precomputed
+# proposals in place of the RPN (5000 a request and a train image; 512
+# sampled ROIs a strong image, the first 512 proposals of a weak one) and no
+# FrozenBN; its train steps run at the YAML's largest train size, a
+# 1200-pixel short side in the 1216x2016 canvas of MAX_SIZE_TRAIN 2000.
+DOCK_RECIPE = ROOT / "configs" / "COCO" / "COCO-VGG-CNN-F-split1-dock.yaml"
+DOCK_REQUESTS = 4
+DOCK_REQUEST_SHAPES = ((480, 640), (640, 480))
+DOCK_TRAIN_STEPS = 6
+DOCK_YAML_STEPS = 2
+DOCK_RUN_STEPS = 4
 
 
 def log(*parts):
@@ -3787,6 +3819,547 @@ def phase_note(seed, workdir):
     return by_path, k1_request | k1_note, k2_note, k3_note
 
 
+def dock_proposals(writer, rng, gt_boxes, h, w, capacity):
+    """One image's entry of a seeded MCG-style proposal file
+    (scripts/make_shapes_proposals_torch.py: its GT boxes, jittered copies,
+    random boxes) for content h x w, padded as the loaders pad it:
+    (boxes [capacity, 4], valid [capacity])."""
+    from unit_tpu_torch.data.proposals import pad_record_proposals
+
+    boxes, _ = writer(gt_boxes, w, h, rng, per_image=capacity)
+    return pad_record_proposals({"proposals": boxes[:capacity]}, 1.0, capacity,
+                                new_w=w, new_h=h)
+
+
+def with_dock_proposals(writer, rng, strong, weak, capacity, weak_files=True):
+    """Precomputed proposals into synthetic batches, as the dock loaders give
+    them: the strong images' from their GT boxes, the weak ones' random; with
+    ``weak_files`` False the weak slots are all invalid (R12) and the strong
+    batch keeps none (the YAML alone: the RPN proposes for it)."""
+    for s, w in zip(strong, weak):
+        sizes = s["image_size"].astype(int)
+        if weak_files:
+            s["proposals"], s["proposals_valid"] = (np.stack(x) for x in zip(*(
+                dock_proposals(writer, rng, s["gt_boxes"][i][s["gt_valid"][i]], h, wd, capacity)
+                for i, (h, wd) in enumerate(sizes))))
+            w["proposals"], w["proposals_valid"] = (np.stack(x) for x in zip(*(
+                dock_proposals(writer, rng, np.zeros((0, 4)), h, wd, capacity)
+                for h, wd in w["image_size"].astype(int))))
+        else:
+            n = len(w["image"])
+            w["proposals"] = np.zeros((n, capacity, 4), np.float32)
+            w["proposals_valid"] = np.zeros((n, capacity), bool)
+    return strong, weak
+
+
+def phase_dock(seed, workdir):
+    """Phase 17: the dock recipe (COCO-VGG-CNN-F-split1-dock.yaml) at full
+    width: VGG-CNN-F with Caffe LRN, ROIPool at 6x6 into the VGG fc head
+    (4096 wide, dropout in training), 80 classes, seeded weights, GloVe,
+    bf16, precomputed (MCG-style) proposals.  (a) requests with a proposal
+    file (PRECOMPUTED_PROPOSAL_TOPK_TEST a request) through make_predict_fn;
+    (b) the f32 predict path, kernels vs plain: identical detections; (c)
+    TrainerNoMeta steps of 2 + 2 images in both orientations at the largest
+    train size with proposals for both streams (no kernel runs), then one at
+    the recipe's IMS_PER_BATCH; (d) the YAML alone: the RPN over VGG-CNN-F
+    with R12's empty weak slots, its steps, its requests and its f32 train
+    path kernels vs plain; (e) ROIPool forward and backward at (c)'s own
+    inputs, as a layer of the step; (f) engine.runner.run on phase 12's
+    shapes-COCO devkit with proposal pickles: 4 steps, a checkpoint and an
+    evaluation at 2, a resume; (g) one image under TEST.AUG.ENABLED with
+    proposals.  Returns ({path: launch counts}, K3's numbers at a dock
+    request's final NMS)."""
+    import runpy
+
+    import torch
+
+    from unit_tpu_torch.config import get_cfg
+    from unit_tpu_torch.data import DatasetCatalog
+    from unit_tpu_torch.data.loader import prepare_tta_batch, tta_variant_configs
+    from unit_tpu_torch.data.proposals import attach_proposals
+    from unit_tpu_torch.data.transforms import (TransformConfig, max_aspect_of,
+                                                prepare_detection_record)
+    from unit_tpu_torch.engine import runner
+    from unit_tpu_torch.engine.predict import make_predict_fn, make_tta_predict_fn
+    from unit_tpu_torch.engine.train import TrainerNoMeta
+    from unit_tpu_torch.models import meta_arch
+    from unit_tpu_torch.models.similarity import COCO_CLASSES
+    from unit_tpu_torch.ops import nms as nms_ops
+    from unit_tpu_torch.ops.roi_pool import roi_pool_max
+    from unit_tpu_torch.serving import DetectionService
+    from unit_tpu_torch.solver import build_optimizer
+
+    dev = torch.device(RUN_DEVICE)
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    writer = runpy.run_path(str(ROOT / "scripts" / "make_shapes_proposals_torch.py"))
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def peak_mib():
+        return torch.cuda.max_memory_allocated() / 2**20 if on_card else 0.0
+
+    def reset_peak():
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+
+    def free():
+        if on_card:
+            torch.cuda.empty_cache()
+
+    cfg = get_cfg()
+    cfg.merge_from_file(str(DOCK_RECIPE))
+    cfg.merge_from_list(list(RUN_EXTRA_OPTS))
+    by_path = {}
+    none = {"roi_align_fwd": 0, "roi_align_bwd": 0, "nms_mask": 0, "nms_mask_images": 0,
+            "bn_act_fwd": 0, "bn_act_bwd": 0, "bn_act_layout_copies": 0}
+    topk_test = cfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TEST
+    topk_train = cfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TRAIN
+    rng = np.random.RandomState(seed + 170)
+
+    # (a) requests with a proposal file, as the evaluation's predict takes
+    # them: the file's top-K a request, scaled and clipped by the test loader's
+    # record preparation
+    t0 = time.perf_counter()
+    model = flagship_model(cfg, seed, dev)  # no FrozenBN: nothing to calibrate
+    mc = model.mc
+    n_bn = frozen_bn_counts(model)
+    log(f"[17] {DOCK_RECIPE.relative_to(ROOT)}: {type(model.backbone).__name__} + "
+        f"{type(model.box_head).__name__} built in {time.perf_counter() - t0:.1f} s: "
+        f"{sum(q.numel() for q in model.parameters()) / 1e6:.1f} M params (backbone "
+        f"{sum(q.numel() for q in model.backbone.parameters()) / 1e6:.1f} M, box head "
+        f"{sum(q.numel() for q in model.box_head.parameters()) / 1e6:.1f} M), "
+        f"{model.backbone.out_channels} channels, {mc.pooler_type} {mc.pooler_resolution}x"
+        f"{mc.pooler_resolution}, head {model.box_head.out_channels}-d, {mc.num_classes} "
+        f"classes, {mc.roi_batch_size} ROIs a strong image and {mc.weak_proposal_count} weak "
+        f"proposals, {topk_test} proposals a request, compute {mc.compute_dtype}; FrozenBN "
+        f"modules {n_bn}")
+    if n_bn != (0, 0, 0) or not mc.load_proposals:
+        raise AssertionError(f"the dock model holds FrozenBN modules or reads no proposals: "
+                             f"{n_bn}, {mc.load_proposals}")
+    tcfg = TransformConfig.test_from_cfg(cfg)
+    tcfg.proposal_capacity = topk_test
+    records, images = [], []
+    table = {}
+    for i in range(DOCK_REQUESTS):
+        h, w = DOCK_REQUEST_SHAPES[i % 2]
+        images.append(rng.uniform(0, 255, (h, w, 3)).astype(np.float32))
+        gt = rng.uniform(0, 1, (3, 4)) * [w / 2, h / 2, w / 2, h / 2]
+        gt[:, 2:] += gt[:, :2] + 16
+        boxes, scores = writer["mcg_like_proposals"](gt, w, h, rng, per_image=topk_test)
+        table[str(i)] = {"boxes": boxes, "scores": scores}
+        records.append({"image_id": str(i), "height": h, "width": w, "annotations": []})
+    path = os.path.join(workdir, "dock_requests.pkl")
+    with open(path, "wb") as f:
+        pickle.dump(table, f)
+    attach_proposals(records, [path], topk_test)
+    prepared = [prepare_detection_record(r, tcfg, None, image=im, training=False)
+                for r, im in zip(records, images)]
+    predict = make_predict_fn(model)
+
+    def request(s):
+        dets = predict(s["image"][None], s["image_size"][None], s["proposals"][None],
+                       s["proposals_valid"][None])
+        return [t.cpu() for t in (dets.boxes, dets.scores, dets.classes, dets.valid)]
+
+    for s in prepared[:2]:  # warm-up, one per orientation
+        request(s)
+    sync()
+    reset_peak()
+    reset_launch_counts()
+    lat, results = [], []
+    for s in prepared:
+        t0 = time.perf_counter()
+        results.append(request(s))  # ends in a device-to-host copy
+        lat.append((time.perf_counter() - t0) * 1e3)
+    launches = read_launch_counts()
+    log(f"[17] {DOCK_REQUESTS} requests of {DOCK_REQUEST_SHAPES} with {topk_test} proposals "
+        f"each, latency ms {[round(v, 2) for v in lat]}, median {np.median(lat):.2f}, peak "
+        f"device memory {peak_mib():.1f} MiB; detections per request "
+        f"{[int(r[3].sum()) for r in results]}; launches {launches}")
+    want = dict(none, nms_mask=DOCK_REQUESTS, nms_mask_images=DOCK_REQUESTS)
+    if launches != want:
+        raise AssertionError(f"a dock request with proposals did not run K3 x1 (the final "
+                             f"NMS) and nothing else: {launches}")
+    by_path["dock_serving"] = launches
+    for s, (boxes, scores, classes, valid) in zip(prepared, results):
+        h, w = s["image_size"]
+        b, sc, cl = boxes[valid].numpy(), scores[valid].numpy(), classes[valid].numpy()
+        if not (np.isfinite(b).all() and (b[:, 0] >= 0).all() and (b[:, 2] <= w).all()
+                and (b[:, 1] >= 0).all() and (b[:, 3] <= h).all() and (b[:, 0] <= b[:, 2]).all()
+                and ((sc > 0) & (sc <= 1)).all() and (cl < mc.num_classes).all()):
+            raise AssertionError("a dock detection outside the image or range")
+    # K3 at a request's own final NMS input
+    k3_dock = {}
+    if on_card:
+        real = nms_ops.nms_sorted_mask_cuda
+        k3_in = []
+
+        def record_k3(boxes, thr, cap=None, n_valid=None):
+            k3_in.append((boxes.clone(), thr, cap, None if n_valid is None else n_valid.clone()))
+            return real(boxes, thr, cap, n_valid=n_valid)
+
+        nms_ops.nms_sorted_mask_cuda = record_k3
+        try:
+            request(prepared[0])
+        finally:
+            nms_ops.nms_sorted_mask_cuda = real
+        (sb, thr, cap, n_valid), = k3_in
+        got = real(sb, thr, cap, n_valid=n_valid)
+        same = torch.equal(got, real(sb, thr, cap, n_valid=n_valid))
+        plain = nms_ops.nms_sorted_mask_plain(sb, thr, cap)
+        k_ms, host_ms = cuda_ms_queued(lambda: real(sb, thr, cap, n_valid=n_valid), 20)
+        p_ms = cuda_ms(lambda: nms_ops.nms_sorted_mask_plain(sb, thr, cap), 2)
+        least = bound(nms_bytes(sb, got, cap, n_valid),
+                      nms_pair_tests(got, cap, n_valid) * IOU_FLOPS)
+        log(f"[17] K3 at a dock request's final NMS: {list(sb.shape)} -> {cap} at IoU {thr}, "
+            f"keeps {got.sum(-1).tolist()}, {int((got != plain).sum())} rows differ from the "
+            f"plain version, two launches bit-identical {same}; kernel {k_ms:.4f} ms queued "
+            f"(host {host_ms:.4f} ms a call), plain {p_ms:.4f} ms, bound "
+            f"{least['bound_ms']:.5f} ms by {least['bound_by']}")
+        if not (torch.equal(got, plain) and same):
+            raise AssertionError("K3 at the dock request's final NMS differs from its plain "
+                                 "version")
+        k3_dock = {"dock_request_ms": k_ms, "dock_request_plain_ms": p_ms,
+                   "dock_request_bound_ms": least["bound_ms"],
+                   "dock_request_shape": list(sb.shape) + [cap]}
+        profile_run(lambda: request(prepared[0]), "[17]", "dock request", top=12)
+    del model, predict, results
+    free()
+
+    # (b) the f32 predict path with proposals, kernels vs plain: K3 is exact
+    # and nothing else differs, so the detections are identical
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg32 = cfg.clone()
+    cfg32.TPU.COMPUTE_DTYPE = "float32"
+    model32 = flagship_model(cfg32, seed, dev)
+    s = prepared[1]
+    args = [torch.as_tensor(s[k][None], device=dev)
+            for k in ("image", "image_size", "proposals", "proposals_valid")]
+    outs = {}
+    for impl in ("cuda", "plain"):
+        model32.mc = dataclasses.replace(model32.mc, roi_align_impl=impl, nms_impl=impl)
+        with torch.inference_mode():
+            d = model32.predict(*args)
+        outs[impl] = (d.boxes, d.scores, d.classes, d.valid)
+    same = all(torch.equal(a, b) for a, b in zip(outs["cuda"], outs["plain"]))
+    log(f"[17] f32, TF32 off, predict with {topk_test} proposals: detections identical "
+        f"{same} ({int(outs['cuda'][3].sum())} valid)")
+    if not same:
+        raise AssertionError("the dock predict path with kernels disagrees with the plain path")
+    del model32, outs
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    free()
+
+    # (c) train steps at the largest train size (the YAML's 1200-pixel short
+    # side in its MAX_SIZE_TRAIN canvas), both orientations, proposals for
+    # both streams: no RPN, so no kernel; the first warm-up step's ROIPool
+    # inputs are kept for (e)
+    cfg_t = cfg.clone()
+    cfg_t.SOLVER.CLIP_GRADIENTS.ENABLED = True
+    cfg_t.SOLVER.CLIP_GRADIENTS.CLIP_TYPE = "norm"
+    canvas = TransformConfig.train_from_cfg(cfg_t).canvas
+    short = max(cfg_t.INPUT.MIN_SIZE_TRAIN)
+    content = (short, min(int(round(short * 4 / 3)), cfg_t.INPUT.MAX_SIZE_TRAIN))
+    canvases = ((canvas, content), (canvas[::-1], content[::-1]))
+    model = flagship_model(cfg_t, seed, dev)
+    solver = build_optimizer(cfg_t, model)
+    n_trainable = sum(q.numel() for q in model.parameters() if q.requires_grad)
+    strong, weak = with_dock_proposals(writer["mcg_like_proposals"], rng,
+                                       *synthetic_train_batches(cfg_t, seed + 17,
+                                                                canvases=canvases), topk_train)
+    trainer = TrainerNoMeta(model, solver, itertools.cycle(strong), itertools.cycle(weak),
+                            seed=seed)
+    trainer.init_state()
+
+    def step(tr, label):
+        t = time.perf_counter()
+        m = tr.run_step()  # ends in one device-to-host copy of the losses
+        ms = (time.perf_counter() - t) * 1e3
+        log(f"[17] step {tr.state.step} ({label}) {ms:.1f} ms: "
+            + ", ".join(f"{k} {v:.4g}" for k, v in m.items() if k != "data_time"))
+        return ms
+
+    pool_in = []
+    real_pool = meta_arch.roi_pool_max
+
+    def record_pool(feats, boxes, *a):
+        pool_in.append((feats.detach().clone(), boxes.clone()))
+        return real_pool(feats, boxes, *a)
+
+    meta_arch.roi_pool_max = record_pool
+    try:
+        step(trainer, "warm-up, ROIPool's inputs kept")
+    finally:
+        meta_arch.roi_pool_max = real_pool
+    for _ in range(TRAIN_WARMUP - 1):
+        step(trainer, "warm-up")
+    sync()
+    reset_peak()
+    reset_launch_counts()
+    times = [step(trainer, "timed") for _ in range(DOCK_TRAIN_STEPS)]
+    launches = read_launch_counts()
+    med = float(np.median(times))
+    imgs = 2 * strong[0]["image"].shape[0]
+    log(f"[17] {DOCK_TRAIN_STEPS} timed dock train steps on {canvases} ({n_trainable / 1e6:.1f} "
+        f"M trainable params, dropout {trainer.dropout}): median {med:.2f} ms (min "
+        f"{min(times):.2f}, max {max(times):.2f}), {1e3 * imgs / med:.2f} images/s ({imgs} a "
+        f"step), peak device memory {peak_mib():.1f} MiB; launches {launches} (want none: the "
+        f"proposals come with the batches)")
+    if launches != none or not trainer.dropout:
+        raise AssertionError(f"a dock train step with proposals launched a kernel or ran no "
+                             f"dropout: {launches}")
+    if any(k.startswith("loss_rpn") for k in trainer.metrics_history[-1]):
+        raise AssertionError("the RPN trained on a stream with proposals")
+    by_path["dock"] = launches
+    if not all(np.isfinite(v) for m in trainer.metrics_history for v in m.values()):
+        raise AssertionError("a dock train step without finite losses")
+    if on_card:
+        profile_run(trainer.run_step, "[17]", "dock train step", top=15)
+    del trainer, strong, weak
+    free()
+
+    per_stream = cfg_t.SOLVER.IMS_PER_BATCH
+    strong, weak = with_dock_proposals(
+        writer["mcg_like_proposals"], rng,
+        *synthetic_train_batches(cfg_t, seed + 18, n_batches=1, per_stream=per_stream,
+                                 canvases=canvases), topk_train)
+    trainer = TrainerNoMeta(model, solver, itertools.cycle(strong), itertools.cycle(weak),
+                            seed=seed)
+    trainer.init_state()
+    sync()
+    reset_peak()
+    reset_launch_counts()
+    ms_full = step(trainer, f"{per_stream} + {per_stream} images")
+    launches = read_launch_counts()
+    log(f"[17] one step at IMS_PER_BATCH {per_stream} ({per_stream} strong + {per_stream} weak "
+        f"images, {per_stream * (mc.roi_batch_size + mc.weak_proposal_count)} ROIs through the "
+        f"head): {ms_full:.1f} ms (the first at this shape), {1e3 * 2 * per_stream / ms_full:.2f} "
+        f"images/s, peak device memory {peak_mib():.1f} MiB; launches {launches}")
+    if launches != none or not all(np.isfinite(v) for v in
+                                   trainer.metrics_history[-1].values()):
+        raise AssertionError(f"the {per_stream}-image dock step: {launches}, "
+                             f"{trainer.metrics_history[-1]}")
+    by_path["dock_full_batch"] = launches
+    del trainer, solver, model, strong, weak
+    free()
+
+    # (d) the YAML alone (no proposal file): the RPN proposes for the strong
+    # stream (K3, one launch a step) and trains on it; the weak slots are
+    # all invalid (R12); a request runs the RPN's NMS and the final one
+    model = flagship_model(cfg_t, seed, dev)
+    solver = build_optimizer(cfg_t, model)
+    strong, weak = with_dock_proposals(
+        writer["mcg_like_proposals"], rng,
+        *synthetic_train_batches(cfg_t, seed + 19, n_batches=2, canvases=canvases), topk_train,
+        weak_files=False)
+    trainer = TrainerNoMeta(model, solver, itertools.cycle(strong), itertools.cycle(weak),
+                            seed=seed)
+    trainer.init_state()
+    step(trainer, "warm-up, the YAML alone")
+    sync()
+    reset_launch_counts()
+    times = [step(trainer, "timed, the YAML alone") for _ in range(DOCK_YAML_STEPS)]
+    launches = read_launch_counts()
+    per_step = {k: v / DOCK_YAML_STEPS for k, v in launches.items()}
+    last = trainer.metrics_history[-1]
+    log(f"[17] {DOCK_YAML_STEPS} dock train steps from the YAML alone: median "
+        f"{np.median(times):.2f} ms; launches a step {per_step} (want K3 1 for the 2 strong "
+        f"images); losses {sorted(last)}")
+    want = dict(none, nms_mask=1, nms_mask_images=strong[0]["image"].shape[0])
+    if per_step != want or "loss_rpn_cls" not in last or not all(
+            np.isfinite(v) for m in trainer.metrics_history for v in m.values()):
+        raise AssertionError(f"a dock step from the YAML alone: {per_step}, {last}")
+    by_path["dock_yaml"] = launches
+    del trainer, solver
+    model.eval()
+    svc = DetectionService(cfg, model, class_names=COCO_CLASSES)
+    svc.warmup()
+    sync()
+    reset_launch_counts()
+    n_dets = [len(svc.detect_array(im)) for im in images[:2]]
+    launches = read_launch_counts()
+    log(f"[17] 2 requests from the YAML alone (the RPN over VGG-CNN-F): detections {n_dets}, "
+        f"launches {launches}")
+    if launches != dict(none, nms_mask=4, nms_mask_images=4):
+        raise AssertionError(f"a dock request from the YAML alone did not run K3 x2: {launches}")
+    by_path["dock_yaml_serving"] = launches
+    del svc, model
+    free()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    model32 = flagship_model(cfg32, seed, dev)
+    build_optimizer(cfg32, model32)
+    strong32 = {k: torch.as_tensor(v, device=dev) for k, v in strong[0].items()}
+    weak32 = {k: torch.as_tensor(v, device=dev) for k, v in weak[0].items()}
+    train_path_kernels_vs_plain(model32, strong32, weak32, seed, "[17]")
+    del model32, strong32, weak32, strong, weak
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    free()
+
+    # (e) ROIPool at (c)'s own inputs: a layer of the step (plain torch, as
+    # XLA in unit_tpu), forward and backward; its backward twice bit-identical
+    pool = {}
+    if on_card:
+        p, scale = mc.pooler_resolution, mc.pooler_scale
+        for name, (feats, boxes) in zip(("strong", "weak"), pool_in):
+            out = roi_pool_max(feats, boxes, p, scale)
+            g = torch.randn_like(out)
+            leaf = feats.clone().requires_grad_(True)
+
+            def fwd_bwd():
+                return torch.autograd.grad(roi_pool_max(leaf, boxes, p, scale), leaf, g)[0]
+
+            d1, d2 = fwd_bwd(), fwd_bwd()
+            f_ms = cuda_ms(lambda: roi_pool_max(feats, boxes, p, scale), 10)
+            fb_ms = cuda_ms(fwd_bwd, 10)
+            f_least = bound(nbytes(feats, boxes, out), 0)
+            b_least = bound(nbytes(g, boxes, feats), 0)
+            log(f"[17] ROIPool, {name} stream of the step: {list(feats.shape)} {feats.dtype} x "
+                f"{list(boxes.shape)} -> {list(out.shape)}: forward {f_ms:.4f} ms (bound "
+                f"{f_least['bound_ms']:.4f}), backward {fb_ms - f_ms:.4f} ms (forward + backward "
+                f"{fb_ms:.4f}; bound {b_least['bound_ms']:.4f}), backward twice bit-identical "
+                f"{torch.equal(d1, d2)}")
+            if not torch.equal(d1, d2):
+                raise AssertionError("ROIPool's backward is not deterministic")
+            pool[name] = {"fwd_ms": f_ms, "bwd_ms": fb_ms - f_ms,
+                          "fwd_bound_ms": f_least["bound_ms"], "bwd_bound_ms": b_least["bound_ms"]}
+        log(f"[17] ROIPool a step (both streams, forward + backward): "
+            f"{sum(v['fwd_ms'] + v['bwd_ms'] for v in pool.values()):.3f} ms of the median "
+            f"step's {med:.2f} ms")
+    del pool_in[:]
+    free()
+
+    # (f) the run loop on phase 12's shapes-COCO devkit with proposal
+    # pickles: 4 steps, a checkpoint and an evaluation at 2, a resume from 2
+    root = os.path.join(workdir, "shapes_coco")
+    if not os.path.isdir(root):
+        runpy.run_path(str(ROOT / "scripts" / "make_shapes_coco_torch.py"))[
+            "write_shapes_coco"](root, COCO_TRAIN_IMAGES, COCO_VAL_IMAGES, COCO_IMAGE_SIZE, seed)
+    for src, dst in (("val2017", "val2014"),
+                     (os.path.join("annotations", "instances_val2017.json"),
+                      os.path.join("annotations", "instances_val2014.json"))):
+        if not os.path.exists(os.path.join(root, dst)):
+            os.symlink(os.path.basename(src), os.path.join(root, dst))
+    train_file, val_file = writer["write_proposals"](root, ("train2014", "val2014"),
+                                                     per_image=topk_test, seed=seed)
+    made = []
+
+    class Recording(TrainerNoMeta):
+        """The runner's trainer, kept so that the script can read its losses."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    def run(out, *flags):
+        DatasetCatalog.clear()
+        made.clear()
+        args = runner.default_argument_parser().parse_args([
+            "--config-file", str(DOCK_RECIPE), "--data-root", root, "--device", RUN_DEVICE,
+            *flags, "OUTPUT_DIR", out,
+            "MODEL.ROI_HEADS.EMBEDDING_PATH", str(ROOT / cfg.MODEL.ROI_HEADS.EMBEDDING_PATH),
+            "DATASETS.CLASSIFIER_DATAROOT", root, "SEED", str(seed),
+            "DATASETS.PROPOSAL_FILES_TRAIN", f"('{train_file}',)",
+            "DATASETS.PROPOSAL_FILES_CLASSIFIER_TRAIN", f"('{train_file}',)",
+            "DATASETS.PROPOSAL_FILES_TEST", f"('{val_file}',)",
+            "SOLVER.IMS_PER_BATCH", "2", "SOLVER.MAX_ITER", str(DOCK_RUN_STEPS),
+            "SOLVER.CHECKPOINT_PERIOD", str(DOCK_RUN_STEPS // 2),
+            "TEST.EVAL_PERIOD", str(DOCK_RUN_STEPS // 2),
+            "SOLVER.CLIP_GRADIENTS.ENABLED", "True", "SOLVER.CLIP_GRADIENTS.CLIP_TYPE", "norm",
+            *RUN_EXTRA_OPTS])
+        t = time.perf_counter()
+        results = runner.run(args)
+        sync()
+        trainer = made[-1]
+        first = trainer.state.step - len(trainer.metrics_history)
+        losses = {first + 1 + k: {n: v for n, v in m.items() if n != "data_time"}
+                  for k, m in enumerate(trainer.metrics_history)}
+        return results, losses, time.perf_counter() - t
+
+    out_a, out_b = os.path.join(workdir, "dock_run_a"), os.path.join(workdir, "dock_run_b")
+    real_trainer, runner.TrainerNoMeta = runner.TrainerNoMeta, Recording
+    try:
+        reset_launch_counts()
+        results_a, losses_a, secs = run(out_a)
+        launches = read_launch_counts()
+        bbox = {k: results_a["bbox"][k] for k in ("AP", "AP50", "AP75", "novel_mean")}
+        for k, m in losses_a.items():
+            log(f"[17]   run step {k}: " + ", ".join(f"{n} {v:.4g}" for n, v in m.items()))
+        log(f"[17] run with proposal files: {len(losses_a)} steps with a checkpoint and an "
+            f"evaluation every {DOCK_RUN_STEPS // 2} in {secs:.1f} s; bbox " + ", ".join(
+                f"{k} {v:.4g}" for k, v in bbox.items()) + f"; launches {launches}")
+        if not (sorted(losses_a) == list(range(1, DOCK_RUN_STEPS + 1))
+                and all(np.isfinite(v) for m in losses_a.values() for v in m.values())
+                and not any(n.startswith("loss_rpn") for m in losses_a.values() for n in m)
+                and all(np.isfinite(v) for v in bbox.values())
+                and os.path.exists(os.path.join(out_a, f"step_{DOCK_RUN_STEPS // 2}.pt"))):
+            raise AssertionError("the dock run left out a step, a checkpoint or a finite loss "
+                                 "or AP, or trained the RPN")
+        by_path["dock_run"] = launches
+        os.makedirs(out_b)
+        shutil.copy(os.path.join(out_a, f"step_{DOCK_RUN_STEPS // 2}.pt"), out_b)
+        _, losses_b, secs = run(out_b, "--resume")
+        rel = max(abs(losses_b[k][n] - losses_a[k][n]) / max(abs(losses_a[k][n]), 1e-12)
+                  for k in losses_b for n in losses_b[k])
+        same = all(losses_b[k][n] == losses_a[k][n] for k in losses_b for n in losses_b[k])
+        log(f"[17] resumed from step {DOCK_RUN_STEPS // 2} in {secs:.1f} s: steps "
+            f"{sorted(losses_b)}, losses bit-identical to the uninterrupted run's {same} (max "
+            f"rel diff {rel:.3g}, tol {RESUME_LOSS_RTOL})")
+        if sorted(losses_b) != list(range(DOCK_RUN_STEPS // 2 + 1, DOCK_RUN_STEPS + 1)) \
+                or not rel <= RESUME_LOSS_RTOL:
+            raise AssertionError("the resumed dock run does not reproduce its steps")
+    finally:
+        runner.TrainerNoMeta = real_trainer
+        made.clear()
+    free()
+
+    # (g) one image under TEST.AUG.ENABLED with proposals: the file's boxes in
+    # the canonical frame, rescaled and mirrored for every variant; the
+    # RPN and the canonical backbone pass skipped
+    cfg_a = cfg.clone()
+    cfg_a.TEST.AUG.ENABLED = True
+    model = flagship_model(cfg_a, seed, dev)
+    base_t = TransformConfig.test_from_cfg(cfg_a)
+    base_t.proposal_capacity = topk_test
+    variant_cfgs = tta_variant_configs(cfg_a, max_aspect_of(records[:1]))
+    batch = prepare_tta_batch(records[0], images[0], base_t, variant_cfgs)
+    tta = make_tta_predict_fn(model, tta_topk=cfg_a.TPU.TTA_PROPOSAL_TOPK)
+
+    def tta_request():
+        d = tta(batch)
+        return d.valid.cpu(), d.scores.cpu()
+
+    tta_request()  # warm-up
+    sync()
+    reset_launch_counts()
+    times = []
+    for _ in range(TTA_TIMED):
+        t0 = time.perf_counter()
+        valid, scores = tta_request()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = read_launch_counts()
+    per_image = {k: v / TTA_TIMED for k, v in launches.items()}
+    log(f"[17] TTA with proposals, one {DOCK_REQUEST_SHAPES[0]} image, {len(batch['variants'])} "
+        f"variants over {len(variant_cfgs) // (2 if cfg_a.TEST.AUG.FLIP else 1)} scales: ms "
+        f"{[round(v, 1) for v in times]}, {int(valid.sum())} detections; launches an image "
+        f"{per_image}")
+    if per_image != dict(none, nms_mask=1, nms_mask_images=1) or not torch.isfinite(
+            scores).all():
+        raise AssertionError(f"the dock TTA with proposals: {per_image}")
+    by_path["dock_tta"] = launches
+    del model, tta
+    free()
+    log(f"[17] phase 17 in {time.perf_counter() - t_phase:.1f} s")
+    return by_path, k3_dock
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3827,6 +4400,8 @@ def main():
         by_path.update(tta_paths)
         note_paths, k1_note, k2_note, k3_note = phase_note(args.seed, workdir)
         by_path.update(note_paths)
+        dock_paths, k3_dock = phase_dock(args.seed, workdir)
+        by_path.update(dock_paths)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     def per_path(*names):
@@ -3837,8 +4412,12 @@ def main():
     # the VOC fine-tune recipe neither (its freeze lists hold the backbone and
     # box_head), the COCO one none through ROIAlign (it trains box_head behind
     # a frozen backbone); the note recipe no K4 (InceptionResNetV2 and its
-    # tail have no FrozenBN)
+    # tail have no FrozenBN); the dock recipe pools with ROIPool (no K1 or
+    # K2) and has no FrozenBN (no K4), and where its batches carry proposals
+    # no RPN runs: its train steps with proposal files launch no kernel at all
     no_k4 = ("bn_act_fwd", "bn_act_bwd")
+    no_k1_k2_k4 = ("roi_align_fwd", "roi_align_bwd") + no_k4
+    no_kernel = no_k1_k2_k4 + ("nms_mask", "nms_mask_images")
     not_run = {"serving": ("roi_align_bwd", "bn_act_bwd"),
                "finetune": ("roi_align_bwd", "bn_act_bwd"),
                "coco_segm": ("roi_align_bwd", "bn_act_bwd"),
@@ -3846,7 +4425,10 @@ def main():
                "weak_rcnn_serving": ("roi_align_bwd", "bn_act_bwd"),
                "tta": ("roi_align_bwd", "bn_act_bwd"),
                "note_serving": ("roi_align_bwd",) + no_k4,
-               "note": no_k4, "note_full_batch": no_k4, "note_run": no_k4}
+               "note": no_k4, "note_full_batch": no_k4, "note_run": no_k4,
+               "dock_serving": no_k1_k2_k4, "dock": no_kernel, "dock_full_batch": no_kernel,
+               "dock_yaml": no_k1_k2_k4, "dock_yaml_serving": no_k1_k2_k4,
+               "dock_run": no_k1_k2_k4, "dock_tta": no_k1_k2_k4}
     for path, counts in by_path.items():
         for name, count in counts.items():
             if name == "bn_act_layout_copies":
@@ -3871,7 +4453,7 @@ def main():
         dict(name="nms_mask", route="cuda", source="unit_tpu_torch/csrc/nms_mask.cu",
              replaces="unit_tpu/ops/nms_pallas.py:115",
              launches=launches["nms_mask"], launches_by_path=per_path("nms_mask"), **k3,
-             **k3_b2, **k3_tta, **k3_note),
+             **k3_b2, **k3_tta, **k3_note, **k3_dock),
         dict(name="bn_act", route="cuda", source="unit_tpu_torch/csrc/bn_act.cu",
              replaces="scripts/bench_backbone_epilogue.py:155",
              launches=launches["bn_act_fwd"] + launches["bn_act_bwd"],

@@ -33,6 +33,7 @@ import unit_tpu_torch.data.coco as tcoco
 from tests.test_full_graph_torch_parity import randomize_params
 from tests.test_torch_data import seeded_image_loader
 from tests.test_torch_runner import TINY, jax_losses, optax_trace
+from tests.test_torch_note import two_threads  # noqa: F401  (autouse)
 from unit_tpu.config import get_cfg as jget_cfg
 from unit_tpu.data.coco import RegisterCOCO as JRegisterCOCO
 from unit_tpu.engine import runner as jrunner

@@ -12,6 +12,7 @@ import zlib
 
 import numpy as np
 import pytest
+import torch
 
 import unit_tpu.data as jdata
 import unit_tpu_torch.data as tdata
@@ -237,37 +238,69 @@ def test_prefetcher_pins_closes_and_forwards_errors():
         next(pf)
 
 
+def first_batch(loader_and_n):
+    loader, _ = loader_and_n
+    try:
+        return next(iter(loader))
+    finally:
+        loader.close()
+
+
+def meta_model(cfg):
+    with torch.device("meta"):  # shapes and structure only
+        return WSRCNN(ModelConfig.from_cfg(cfg))
+
+
+def with_proposals(cfg, files_key=None):
+    cfg.MODEL.LOAD_PROPOSALS = True
+    if files_key:  # a file that does not exist: no image gets a proposal
+        setattr(cfg.DATASETS, files_key, ("p.pkl",))
+    return cfg
+
+
 @pytest.mark.parametrize("call,item", [
-    # the TTA loader is ported (tests/test_torch_tta.py); the case keeps its
-    # name and holds the TTA loader's precomputed proposals instead
-    pytest.param(lambda cfg: (setattr(cfg.MODEL, "LOAD_PROPOSALS", True),
-                              setattr(cfg.DATASETS, "PROPOSAL_FILES_TEST", ("p.pkl",)),
-                              tloader.build_tta_test_loader(cfg, "voc_base_training_query_val"))[2],
-                 "item 25",
-                 id="<lambda>-item 24"),
-    # the support loader is ported (tests/test_torch_meta.py); the case keeps
-    # its name and holds the precomputed proposals of the test loader instead
-    pytest.param(lambda cfg: (setattr(cfg.MODEL, "LOAD_PROPOSALS", True),
-                              setattr(cfg.DATASETS, "PROPOSAL_FILES_TEST", ("p.pkl",)),
-                              tdata.build_test_loader(cfg, "voc_base_training_query_val"))[2],
-                 "item 25",
-                 id="<lambda>-item 23"),
-    (lambda cfg: (setattr(cfg.MODEL, "LOAD_PROPOSALS", True),
-                  tdata.build_classifier_loader(cfg))[1], "item 25"),
-    (lambda cfg: (setattr(cfg.TPU, "HOST_TRANSFER_UINT8", True),
-                  tdata.build_strong_loader(cfg))[1], "item 29"),
-    (lambda cfg: (setattr(cfg.MODEL, "LOAD_PROPOSALS", True),
-                  setattr(cfg.DATASETS, "PROPOSAL_FILES_TRAIN", ("p.pkl",)),
-                  tdata.build_strong_loader(cfg))[2], "item 25"),
-    # the COCO suites register; the dock suite's model (its backbone) does not
-    # build (the note suite's does: tests/test_torch_note.py)
+    # the TTA loader is ported (tests/test_torch_tta.py), and with it its
+    # precomputed proposals (tests/test_torch_dock_data.py): the cases keep
+    # their names and hold that the ported paths run (item None), here with
+    # a proposal file that does not exist, so every slot is invalid
+    pytest.param(lambda cfg: first_batch(tloader.build_tta_test_loader(
+        with_proposals(cfg, "PROPOSAL_FILES_TEST"), "voc_base_training_query_val",
+        image_loader=seeded_image_loader)), None, id="<lambda>-item 24"),
+    pytest.param(lambda cfg: first_batch(tdata.build_test_loader(
+        with_proposals(cfg, "PROPOSAL_FILES_TEST"), "voc_base_training_query_val",
+        image_loader=seeded_image_loader)), None, id="<lambda>-item 23"),
+    pytest.param(lambda cfg: next(iter(tdata.build_classifier_loader(
+        with_proposals(cfg), image_loader=seeded_image_loader))), None,
+        id="<lambda>-item 25_0"),
+    pytest.param(lambda cfg: (setattr(cfg.TPU, "HOST_TRANSFER_UINT8", True),
+                              tdata.build_strong_loader(cfg))[1], "item 29",
+                 id="<lambda>-item 29"),
+    pytest.param(lambda cfg: next(iter(tdata.build_strong_loader(
+        with_proposals(cfg, "PROPOSAL_FILES_TRAIN"), image_loader=seeded_image_loader))), None,
+        id="<lambda>-item 25_1"),
+    # the COCO suites register, and the dock suite's model builds (shapes
+    # only: tests/test_torch_dock.py holds its modules)
     pytest.param(lambda cfg: (cfg.merge_from_file("configs/COCO/COCO-VGG-CNN-F-split1-dock.yaml"),
                               __import__("unit_tpu_torch.data.utils", fromlist=["x"])
                               .register_datasets(cfg, "unused"),
-                              WSRCNN(ModelConfig.from_cfg(cfg)))[2], "item 25",
-                 id="<lambda>-items 22 and 25"),
+                              meta_model(cfg))[2],
+                 None, id="<lambda>-items 22 and 25"),
 ])
 def test_unported_data_paths_raise(both, call, item):
+    """A data path still to port raises with its ROADMAP item; one ported
+    since (item None) runs: a loader's first batch carries the proposal
+    slots MODEL.LOAD_PROPOSALS asks for, and the dock model builds."""
     tcfg, _ = both
-    with pytest.raises(NotImplementedError, match=item):
-        call(tcfg)
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            call(tcfg)
+        return
+    out = call(tcfg)
+    if isinstance(out, dict):
+        n = out["image"].shape[0]
+        topk = (tcfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TEST if "image_id" in out
+                else tcfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TRAIN)
+        assert out["proposals"].shape == (n, topk, 4)
+        assert out["proposals_valid"].shape == (n, topk) and not out["proposals_valid"].any()
+    else:
+        assert type(out.backbone).__name__ == "VGGCNNF"

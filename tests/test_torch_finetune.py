@@ -36,6 +36,7 @@ from tests.test_full_graph_torch_parity import randomize_params
 from tests.test_torch_data import seeded_image_loader, write_devkit
 from tests.test_torch_losses import BASE, NOVEL, H, W, train_batches
 from tests.test_torch_runner import TINY, jax_losses, optax_trace
+from tests.test_torch_note import two_threads  # noqa: F401  (autouse)
 from unit_tpu.config import get_cfg as jget_cfg
 from unit_tpu.engine import runner as jrunner
 from unit_tpu.engine.train import TrainState as JTrainState

@@ -39,6 +39,7 @@ from tests.test_torch_weak_only import (
     assert_losses_match,
     variant_cfg,
 )
+from tests.test_torch_note import two_threads  # noqa: F401  (autouse)
 from unit_tpu.config import get_cfg as jget_cfg
 from unit_tpu.engine import runner as jrunner
 from unit_tpu.evaluation import PascalVOCEvaluator as JPascalVOCEvaluator

@@ -28,6 +28,7 @@ import unit_tpu.data as jdata
 import unit_tpu_torch.data as tdata
 from tests.test_full_graph_torch_parity import randomize_params
 from tests.test_torch_data import seeded_image_loader, write_devkit
+from tests.test_torch_note import two_threads  # noqa: F401  (autouse)
 from unit_tpu.config import get_cfg as jget_cfg
 from unit_tpu.engine import runner as jrunner
 from unit_tpu_torch.checkpoint import load_jax_train_state, read_checkpoint
@@ -191,9 +192,14 @@ def test_missing_weights_and_device_raise(devkit, tmp_path):
 @pytest.mark.parametrize("opts,item", [
     # TTA, PreciseBN and the profile hook are ported (tests/test_torch_tta.py,
     # test_torch_precise_bn.py, test_torch_profiling.py); the cases keep their
-    # names and hold TTA with precomputed proposals, FSDP and the uint8 wire
+    # names and hold TTA with precomputed proposals, FSDP and the uint8 wire;
+    # TTA with precomputed proposals is ported since too (the dock recipe's,
+    # tests/test_torch_dock_run.py): its case runs (item None), an
+    # --eval-only with a proposal file that does not exist (no valid slot)
     pytest.param(["TEST.AUG.ENABLED", "True", "MODEL.LOAD_PROPOSALS", "True",
-                  "DATASETS.PROPOSAL_FILES_TEST", "('p.pkl',)"], "item 25",
+                  "DATASETS.PROPOSAL_FILES_TEST", "('p.pkl',)",
+                  "TEST.AUG.MIN_SIZES", "(64,)", "TEST.AUG.MAX_SIZE", "160",
+                  "DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TEST", "8"], None,
                  id="opts0-item 24"),
     pytest.param(["TPU.FSDP", "True"], "items 27 and 29", id="opts1-item 26"),
     pytest.param(["TPU.HOST_TRANSFER_UINT8", "True"], "item 29", id="opts2-item 31"),
@@ -205,6 +211,11 @@ def test_missing_weights_and_device_raise(devkit, tmp_path):
 ])
 def test_unported_run_options_raise(devkit, tmp_path, opts, item):
     tdata.DatasetCatalog.clear()
+    if item is None:  # ported since: the run evaluates
+        results = runner.run(cli(devkit, tmp_path, "--eval-only", opts=opts),
+                             image_loader=seeded_image_loader)
+        assert np.isfinite(results["bbox"]["AP"]) and np.isfinite(results["bbox"]["AP50"])
+        return
     with pytest.raises(NotImplementedError, match=item):
         runner.run(cli(devkit, tmp_path, opts=opts), image_loader=seeded_image_loader)
 

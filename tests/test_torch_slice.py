@@ -141,21 +141,49 @@ def test_detection_service_matches(pair, shape):
 
 def test_unported_paths_raise(pair):
     _, _, _, tmodel = pair
-    # TTA is ported (tests/test_torch_tta.py): with precomputed proposals it is not
-    with pytest.raises(NotImplementedError, match="item 25"):
-        tmodel.predict_tta(torch.zeros(1, 160, 224, 3), torch.tensor([[160.0, 224.0]]), [],
-                           proposal_boxes=torch.zeros(1, 4, 4))
-    # training options that are not ported yet: the dock suite's model and
-    # VGG16 (their backbones, precomputed proposals); the note suite's
-    # InceptionResNetV2 is ported (tests/test_torch_note.py)
-    for key, value, item in [("MODEL.BACKBONE.NAME", "VGG", "item 25"),
-                             ("MODEL.BACKBONE.NAME", "VGG_CNN_F", "item 25"),
-                             ("MODEL.LOAD_PROPOSALS", "True", "item 25"),
-                             ("MODEL.ROI_HEADS.FAST_RCNN.WEAK_DETECTOR.REGRESSION_BRANCH",
-                              "True", "item 25")]:
+    images, sizes = images_and_sizes()
+    boxes = torch.tensor([[[10.0, 10.0, 90.0, 120.0], [40.0, 30.0, 200.0, 150.0],
+                           [0.0, 0.0, 0.0, 0.0]]]).expand(2, -1, -1)
+    valid = torch.tensor([[True, True, False]]).expand(2, -1)
+    # TTA with precomputed proposals is ported (tests/test_torch_dock_slice.py): it runs
+    var = {"image": torch.as_tensor(images[:1]), "image_size": torch.as_tensor(sizes[:1]),
+           "scale": 1.0, "flip": False}
+    with torch.inference_mode():
+        dets = tmodel.predict_tta(var["image"], var["image_size"], [var],
+                                  proposal_boxes=boxes[:1], proposal_valid=valid[:1])
+    assert dets.boxes.shape[0] == 1 and torch.isfinite(dets.boxes).all()
+    # the dock suite's model and VGG16 (their backbones with their fc heads
+    # and ROIPool), precomputed proposals and the weak regression branch are
+    # ported (tests/test_torch_dock*.py): they build and predict, from given
+    # proposals and from the RPN's
+    for opts in (["MODEL.BACKBONE.NAME", "VGG", "MODEL.ROI_BOX_HEAD.NAME", "VGGConvFCHead",
+                  "MODEL.ROI_BOX_HEAD.POOLER_TYPE", "ROIPool",
+                  "MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION", "2"],
+                 ["MODEL.BACKBONE.NAME", "VGG_CNN_F", "MODEL.ROI_BOX_HEAD.NAME", "VGGCNNFBoxHead",
+                  "MODEL.ROI_BOX_HEAD.POOLER_TYPE", "ROIPool",
+                  "MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION", "6"],
+                 ["MODEL.LOAD_PROPOSALS", "True"],
+                 ["MODEL.ROI_HEADS.FAST_RCNN.WEAK_DETECTOR.REGRESSION_BRANCH", "True"]):
         cfg = small_flagship_cfg()
-        cfg.merge_from_list([key, value])
-        with pytest.raises(NotImplementedError, match=item):
+        cfg.merge_from_list(opts)
+        model = WSRCNN(ModelConfig.from_cfg(cfg), torch.Generator().manual_seed(0)).eval()
+        with torch.inference_mode():
+            for given in ((boxes, valid), ()):
+                d = model.predict(torch.as_tensor(images), torch.as_tensor(sizes), *given)
+                assert d.boxes.shape[0] == 2 and torch.isfinite(d.scores).all(), opts
+    # the pairs no recipe ships are not ported: a Res5 head over a VGG
+    # backbone, a VGG head over ResNet-C4 or InceptionResNetV2, and the meta
+    # head or masks over VGG-CNN-F
+    vgg_f = ["MODEL.BACKBONE.NAME", "VGG_CNN_F", "MODEL.ROI_BOX_HEAD.NAME", "VGGCNNFBoxHead"]
+    for opts in (["MODEL.BACKBONE.NAME", "VGG"], ["MODEL.BACKBONE.NAME", "VGG_CNN_F"],
+                 ["MODEL.ROI_BOX_HEAD.NAME", "VGGCNNFBoxHead"],
+                 ["MODEL.BACKBONE.NAME", "InceptionResNetV2",
+                  "MODEL.ROI_BOX_HEAD.NAME", "VGGConvFCHead"],
+                 vgg_f + ["MODEL.ROI_HEADS.NAME", "WSROIHead"],
+                 vgg_f + ["MODEL.MASK_ON", "True"]):
+        cfg = small_flagship_cfg()
+        cfg.merge_from_list(opts)
+        with pytest.raises(NotImplementedError, match="item 25"):
             WSRCNN(ModelConfig.from_cfg(cfg))
     # the meta ROI heads are ported (tests/test_torch_meta.py): they build
     # the visual attention head

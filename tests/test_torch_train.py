@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from tests.test_torch_losses import jax_params, small_train_cfg, train_batches
+from tests.test_torch_note import two_threads  # noqa: F401  (autouse)
 from unit_tpu.engine.train import TrainState as JTrainState
 from unit_tpu.engine.train import make_train_step as jmake_train_step
 from unit_tpu.models.meta_arch import ModelConfig as JModelConfig

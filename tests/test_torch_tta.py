@@ -31,6 +31,7 @@ import unit_tpu_torch.data as tdata
 from tests.test_full_graph_torch_parity import randomize_params
 from tests.test_torch_data import assert_same_batch, seeded_image_loader, write_devkit
 from tests.test_torch_finetune import BOTH_FT, FT_YAML
+from tests.test_torch_note import two_threads  # noqa: F401  (autouse)
 from unit_tpu.config import get_cfg as jget_cfg
 from unit_tpu.data.transforms import max_aspect_of as jmax_aspect_of
 from unit_tpu.data.transforms import tta_canvas_for as jtta_canvas_for
@@ -284,11 +285,41 @@ def test_predict_tta_twin_variants_double_the_probabilities(pair):
 
 
 def test_predict_tta_with_precomputed_proposals_raises(pair):
-    tcfg, _, _, tmodel = pair
-    batch = tta_inputs(tcfg, "identity")
-    with pytest.raises(NotImplementedError, match="item 25"):
-        tmodel.predict_tta(torch.as_tensor(batch["image"]), torch.as_tensor(batch["image_size"]),
-                           [], proposal_boxes=torch.zeros(1, 4, 4))
+    """Precomputed proposals under TTA are ported since (the dock recipe's,
+    tests/test_torch_dock_slice.py; the test keeps its name): given boxes in
+    the canonical frame replace the RPN and the canonical pass, and every
+    variant rescales and mirrors them, as in unit_tpu."""
+    tcfg, jmodel, params, tmodel = pair
+    batch = tta_inputs(tcfg, "two scales x flip")
+    rng = np.random.RandomState(5)
+    h, w = batch["image_size"][0]
+    xy = rng.uniform(0, [w - 30, h - 30], (1, 24, 2))
+    pb = np.concatenate([xy, np.minimum(xy + rng.uniform(8, 60, (1, 24, 2)), [w, h])],
+                        -1).astype(np.float32)
+    pv = np.ones((1, 24), bool)
+    pv[0, -2:] = False
+    flips = [v["flip"] for v in batch["variants"]]
+
+    @jax.jit
+    def tta_fn(params, image, image_size, var_arrays, boxes, valid):
+        variants = [{"image": im, "image_size": sz, "scale": sc, "flip": fl}
+                    for (im, sz, sc), fl in zip(var_arrays, flips)]
+        return jmodel.apply({"params": params}, image, image_size, variants,
+                            proposal_boxes=boxes, proposal_valid=valid,
+                            method=JWSRCNN.predict_tta)
+
+    var_arrays = [(jnp.asarray(v["image"]), jnp.asarray(v["image_size"]), np.float32(v["scale"]))
+                  for v in batch["variants"]]
+    dj = tta_fn(params, jnp.asarray(batch["image"]), jnp.asarray(batch["image_size"]),
+                var_arrays, jnp.asarray(pb), jnp.asarray(pv))
+    tvars = [{"image": torch.as_tensor(v["image"]), "image_size": torch.as_tensor(v["image_size"]),
+              "scale": v["scale"], "flip": v["flip"]} for v in batch["variants"]]
+    with torch.inference_mode():
+        dt = tmodel.predict_tta(torch.as_tensor(batch["image"]),
+                                torch.as_tensor(batch["image_size"]), tvars,
+                                proposal_boxes=torch.as_tensor(pb),
+                                proposal_valid=torch.as_tensor(pv))
+    assert_same_detections(dj, dt)
 
 
 def test_weak_rcnn_under_tta_scores_with_predict_tta_as_unit_tpu_does(pair, monkeypatch):
@@ -390,7 +421,27 @@ def test_meta_model_under_tta_computes_no_prototypes(devkit, monkeypatch):
 
 
 def test_tta_with_precomputed_proposals_raises_in_the_eval_fn(pair):
-    _, cfg = both_cfgs(FLAGSHIP, *SMALL, "TEST.AUG.ENABLED", "True",
-                       "MODEL.LOAD_PROPOSALS", "True", "DATASETS.PROPOSAL_FILES_TEST", "('p.pkl',)")
-    with pytest.raises(NotImplementedError, match="item 25"):
-        runner.make_eval_fn(cfg, pair[3])
+    """Ported since (the test keeps its name): the eval fn builds under TTA
+    with proposal files, and its TTA predict passes a batch's proposals on
+    to predict_tta."""
+    from unit_tpu_torch.engine.predict import make_tta_predict_fn
+
+    tcfg, cfg = both_cfgs(FLAGSHIP, *SMALL, "TEST.AUG.ENABLED", "True",
+                          "MODEL.LOAD_PROPOSALS", "True",
+                          "DATASETS.PROPOSAL_FILES_TEST", "('p.pkl',)")
+    assert callable(runner.make_eval_fn(cfg, pair[3]))
+    tmodel = pair[3]
+    batch = tta_inputs(pair[0], "two scales x flip")
+    boxes = np.asarray([[[5.0, 8.0, 60.0, 70.0], [20.0, 10.0, 110.0, 80.0],
+                         [0.0, 0.0, 0.0, 0.0]]], np.float32)
+    batch["proposals"], batch["proposals_valid"] = boxes, np.asarray([[True, True, False]])
+    got = make_tta_predict_fn(tmodel)(batch)
+    tvars = [{"image": torch.as_tensor(v["image"]), "image_size": torch.as_tensor(v["image_size"]),
+              "scale": v["scale"], "flip": v["flip"]} for v in batch["variants"]]
+    with torch.inference_mode():
+        want = tmodel.predict_tta(torch.as_tensor(batch["image"]),
+                                  torch.as_tensor(batch["image_size"]), tvars,
+                                  proposal_boxes=torch.as_tensor(boxes),
+                                  proposal_valid=torch.as_tensor(batch["proposals_valid"]))
+    for f in ("boxes", "scores", "classes", "valid"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from tests.test_full_graph_torch_parity import randomize_params
+from tests.test_torch_note import two_threads  # noqa: F401  (autouse)
 from unit_tpu.models.visual_attention import MetaAttention as JMetaAttention
 from unit_tpu.models.visual_attention import VisualAttentionHead as JHead
 from unit_tpu_torch.checkpoint import flax_leaves, load_jax_params

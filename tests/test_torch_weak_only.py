@@ -42,6 +42,7 @@ from tests.test_torch_data import assert_same_batch, seeded_image_loader, write_
 from tests.test_torch_losses import jax_params, t, train_batches
 from tests.test_torch_runner import FLAGSHIP, TINY
 from tests.test_torch_slice import assert_same_detections, images_and_sizes
+from tests.test_torch_note import two_threads  # noqa: F401  (autouse)
 from unit_tpu.config import get_cfg as jget_cfg
 from unit_tpu.engine import runner as jrunner
 from unit_tpu.models.meta_arch import WSRCNN as JWSRCNN

@@ -9,14 +9,20 @@ stream reproduces the seeded per-class k-shot sampling with base/novel
 multipliers and oversampling modes; the support stream (``SupportLoader``)
 the per-class k-shot draws of the meta recipe; the TTA test loader
 (``build_tta_test_loader``) the canonical image with its resized and flipped
-variants.  ``Prefetcher`` overlaps host IO with the
-device's work and can hand out batches in pinned memory, from which the
-trainer's upload is asynchronous.
+variants.  Under MODEL.LOAD_PROPOSALS the batches carry precomputed proposals
+(data/proposals.py: ``proposals`` [B, P, 4], ``proposals_valid`` [B, P], P =
+DATASETS.PRECOMPUTED_PROPOSAL_TOPK_*): the strong and test loaders where
+DATASETS.PROPOSAL_FILES_TRAIN / _TEST name files, the TTA loader in the
+canonical frame only, and the classifier loader always, as unit_tpu's does
+(fault R12 of ROADMAP.md: with no file in PROPOSAL_FILES_CLASSIFIER_TRAIN
+every slot is invalid).  ``Prefetcher`` overlaps host IO with the device's
+work and can hand out batches in pinned memory, from which the trainer's
+upload is asynchronous.
 
 Not ported, each raising with its ROADMAP item: the native C loader (Queue 1
 item 30; records always go through ``image_loader`` or PIL), the host-shard
-and synchronized-orientation paths of multi-process runs (item 27),
-precomputed proposals (item 25) and the uint8 wire (item 29).
+and synchronized-orientation paths of multi-process runs (item 27) and the
+uint8 wire (item 29).
 """
 
 from __future__ import annotations
@@ -29,13 +35,15 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence
 import numpy as np
 
 from .catalog import DatasetCatalog
+from .proposals import attach_proposals
 from .transforms import (
-    TransformConfig, _not_ported, collate, load_image_bgr, max_aspect_of, oriented_canvas,
+    TransformConfig, collate, load_image_bgr, max_aspect_of, oriented_canvas,
     prepare_detection_record, prepare_test_image, resize_image, tta_canvas_for,
 )
 
 _STRONG_KEYS = ("image", "image_size", "gt_boxes", "gt_classes", "gt_valid")
 _WEAK_KEYS = ("image", "image_size", "labels")
+_PROPOSAL_KEYS = ("proposals", "proposals_valid")
 
 
 def sample_classifier_dataset(cfg, records: List[dict]) -> List[dict]:
@@ -205,36 +213,47 @@ class StreamLoader:
         self._resume = (order, {k: v for k, v in buckets.items() if v})
 
 
-def _check_no_proposals(cfg, files) -> None:
-    if cfg.MODEL.LOAD_PROPOSALS and files:
-        raise _not_ported("precomputed proposals", "ROADMAP Queue 1 item 25")
+def _with_proposals(records: List[dict], tcfg: TransformConfig, files, topk: int) -> None:
+    """Attach the files' top-``topk`` proposals to ``records`` (in place)
+    and make ``tcfg`` pad them to ``topk`` slots."""
+    attach_proposals(records, files, topk)
+    tcfg.proposal_capacity = topk
 
 
 def build_strong_loader(cfg, dataset_names=None, seed=0, image_loader=None,
                         batch_size=None) -> StreamLoader:
+    """The strong (box-labelled) stream; with MODEL.LOAD_PROPOSALS and
+    DATASETS.PROPOSAL_FILES_TRAIN its batches carry those proposals (then the
+    RPN neither proposes nor trains on them)."""
     names = dataset_names or cfg.DATASETS.TRAIN
     records = list(itertools.chain.from_iterable(DatasetCatalog.get(n) for n in names))
-    _check_no_proposals(cfg, cfg.DATASETS.PROPOSAL_FILES_TRAIN)
     keys = _STRONG_KEYS + (("gt_masks",) if cfg.MODEL.MASK_ON else ())
-    return StreamLoader(
-        records, TransformConfig.train_from_cfg(cfg),
-        batch_size or cfg.SOLVER.IMS_PER_BATCH, keys, seed=seed,
-        image_loader=image_loader,
-    )
+    tcfg = TransformConfig.train_from_cfg(cfg)
+    if cfg.MODEL.LOAD_PROPOSALS and cfg.DATASETS.PROPOSAL_FILES_TRAIN:
+        _with_proposals(records, tcfg, cfg.DATASETS.PROPOSAL_FILES_TRAIN,
+                        cfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TRAIN)
+        keys = keys + _PROPOSAL_KEYS
+    return StreamLoader(records, tcfg, batch_size or cfg.SOLVER.IMS_PER_BATCH, keys,
+                        seed=seed, image_loader=image_loader)
 
 
 def build_classifier_loader(cfg, seed=1, image_loader=None, batch_size=None) -> StreamLoader:
+    """The weak (image-labelled) stream.  Under MODEL.LOAD_PROPOSALS its
+    batches carry proposals whether or not DATASETS.PROPOSAL_FILES_CLASSIFIER_TRAIN
+    names a file, as unit_tpu's do: without one, every slot is invalid (R12)."""
     names = cfg.DATASETS.CLASSIFIER_TRAIN
     if isinstance(names, str):
         names = (names,)
     records = list(itertools.chain.from_iterable(DatasetCatalog.get(n) for n in names))
     records = sample_classifier_dataset(cfg, records)
-    _check_no_proposals(cfg, True)
-    return StreamLoader(
-        records, TransformConfig.train_from_cfg(cfg),
-        batch_size or cfg.SOLVER.IMS_PER_BATCH, _WEAK_KEYS, seed=seed,
-        image_loader=image_loader,
-    )
+    tcfg = TransformConfig.train_from_cfg(cfg)
+    keys = _WEAK_KEYS
+    if cfg.MODEL.LOAD_PROPOSALS:
+        _with_proposals(records, tcfg, cfg.DATASETS.PROPOSAL_FILES_CLASSIFIER_TRAIN,
+                        cfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TRAIN)
+        keys = keys + _PROPOSAL_KEYS
+    return StreamLoader(records, tcfg, batch_size or cfg.SOLVER.IMS_PER_BATCH, keys,
+                        seed=seed, image_loader=image_loader)
 
 
 def build_classifier_strong_loader(cfg, seed=0, image_loader=None,
@@ -257,12 +276,18 @@ def build_classifier_strong_loader(cfg, seed=0, image_loader=None,
 
 def build_test_loader(cfg, dataset_name: str, image_loader=None, batch_size=1):
     """Finite iterator over a test dataset and its length; yields per-batch
-    dicts plus metadata (image_id, scale, orig_size) for the evaluator.  The
-    final partial batch is padded with copies whose ``image_id`` is None.  The
-    iterator is a background Prefetcher, so host prep overlaps the device."""
+    dicts plus metadata (image_id, scale, orig_size) for the evaluator, and
+    with MODEL.LOAD_PROPOSALS and DATASETS.PROPOSAL_FILES_TEST the images'
+    proposals.  The final partial batch is padded with copies whose
+    ``image_id`` is None.  The iterator is a background Prefetcher, so host
+    prep overlaps the device."""
     records = DatasetCatalog.get(dataset_name)
-    _check_no_proposals(cfg, cfg.DATASETS.PROPOSAL_FILES_TEST)
     tcfg = TransformConfig.test_from_cfg(cfg)
+    extra_keys = ()
+    if cfg.MODEL.LOAD_PROPOSALS and cfg.DATASETS.PROPOSAL_FILES_TEST:
+        _with_proposals(records, tcfg, cfg.DATASETS.PROPOSAL_FILES_TEST,
+                        cfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TEST)
+        extra_keys = _PROPOSAL_KEYS
     rng = np.random.RandomState(0)
 
     def load_one(rec):
@@ -274,20 +299,20 @@ def build_test_loader(cfg, dataset_name: str, image_loader=None, batch_size=1):
         for rec in records:
             batch.append(load_one(rec))
             if len(batch) == batch_size:
-                yield _finalize_test_batch(batch)
+                yield _finalize_test_batch(batch, extra_keys)
                 batch = []
         if batch:
             while len(batch) < batch_size:  # pad the final partial batch
                 pad = {k: np.copy(v) for k, v in batch[-1].items()}
                 pad["image_id"] = None
                 batch.append(pad)
-            yield _finalize_test_batch(batch)
+            yield _finalize_test_batch(batch, extra_keys)
 
     return Prefetcher(gen(), depth=4), len(records)
 
 
-def _finalize_test_batch(batch):
-    out = collate(batch, ("image", "image_size"))
+def _finalize_test_batch(batch, extra_keys=()):
+    out = collate(batch, ("image", "image_size") + tuple(extra_keys))
     out["image_id"] = [s["image_id"] for s in batch]
     out["scale"] = np.asarray([s["scale"] for s in batch])
     out["orig_size"] = np.stack([s["orig_size"] for s in batch])
@@ -318,10 +343,11 @@ def tta_variant_configs(cfg, max_aspect: float) -> List[tuple]:
 def prepare_tta_batch(record: dict, image: np.ndarray, base_t: TransformConfig,
                       variant_cfgs: Sequence[tuple]) -> dict:
     """One record's TTA batch (batch size 1): the canonical image, size,
-    scale and id as ``build_test_loader`` gives them, and ``variants``, a list
-    of {image [1, h, w, 3], image_size [1, 2], scale (over the canonical
-    scale), flip}.  A flipped variant mirrors its content region only, never
-    the padding."""
+    scale and id as ``build_test_loader`` gives them (and its proposals, in
+    the canonical frame, where ``base_t`` has a proposal capacity), and
+    ``variants``, a list of {image [1, h, w, 3], image_size [1, 2], scale
+    (over the canonical scale), flip}.  A flipped variant mirrors its content
+    region only, never the padding."""
     canonical = prepare_detection_record(record, base_t, None, image=image, training=False)
     variants = []
     for t, flip in variant_cfgs:
@@ -332,7 +358,7 @@ def prepare_tta_batch(record: dict, image: np.ndarray, base_t: TransformConfig,
             vimg[:nh, :nw] = vimg[:nh, :nw][:, ::-1].copy()
         variants.append({"image": vimg[None], "image_size": v["image_size"][None],
                          "scale": float(v["scale"] / canonical["scale"]), "flip": flip})
-    return {
+    out = {
         "image": canonical["image"][None],
         "image_size": canonical["image_size"][None],
         "image_id": [canonical["image_id"]],
@@ -340,6 +366,10 @@ def prepare_tta_batch(record: dict, image: np.ndarray, base_t: TransformConfig,
         "orig_size": canonical["orig_size"][None],
         "variants": variants,
     }
+    for k in _PROPOSAL_KEYS:
+        if k in canonical:
+            out[k] = canonical[k][None]
+    return out
 
 
 def build_tta_test_loader(cfg, dataset_name: str, image_loader=None):
@@ -347,11 +377,15 @@ def build_tta_test_loader(cfg, dataset_name: str, image_loader=None):
     per image the canonical batch plus one resized (and flipped) variant per
     TEST.AUG.MIN_SIZES entry, batch size 1.  The many resizes of an image are
     heavy host work: a Prefetcher at depth 2 makes them while the device runs
-    the previous image.  Returns (loader, number of images); close the loader
-    when done."""
-    _check_no_proposals(cfg, cfg.DATASETS.PROPOSAL_FILES_TEST)
+    the previous image.  With MODEL.LOAD_PROPOSALS and
+    DATASETS.PROPOSAL_FILES_TEST each batch carries the image's proposals in
+    the canonical frame; ``predict_tta`` rescales them for every variant.
+    Returns (loader, number of images); close the loader when done."""
     records = DatasetCatalog.get(dataset_name)
     base_t = TransformConfig.test_from_cfg(cfg)
+    if cfg.MODEL.LOAD_PROPOSALS and cfg.DATASETS.PROPOSAL_FILES_TEST:
+        _with_proposals(records, base_t, cfg.DATASETS.PROPOSAL_FILES_TEST,
+                        cfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TEST)
     variant_cfgs = tta_variant_configs(cfg, max_aspect_of(records))
 
     def gen():

@@ -4,10 +4,12 @@ Port of unit_tpu/data/transforms.py (numpy only): resize the shortest edge,
 cap the longest, random flip when training, paste into a zero canvas of one
 shape per orientation, and pad the annotations to fixed shapes (under
 MODEL.MASK_ON with them each GT instance's bitmask in its box's frame).
-Images are float32 BGR (INPUT.FORMAT=BGR).  ``tta_canvas_for`` and
-``max_aspect_of`` size the test-time augmentation's per-scale canvases.
-Precomputed proposals, the uint8 wire and the native loader's
-``preprocessed`` input are not ported; each raises with its ROADMAP item.
+Images are float32 BGR (INPUT.FORMAT=BGR).  With ``proposal_capacity`` > 0
+a record's precomputed proposals come padded to that capacity, scaled,
+clipped and flipped with the image (data/proposals.py).  ``tta_canvas_for``
+and ``max_aspect_of`` size the test-time augmentation's per-scale canvases.
+The uint8 wire and the native loader's ``preprocessed`` input are not
+ported; each raises with its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import math
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from .proposals import pad_record_proposals
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -33,6 +37,7 @@ class TransformConfig:
     num_classes: int = 20
     with_masks: bool = False
     mask_size: int = 28                    # GT-box-frame mask resolution
+    proposal_capacity: int = 0             # > 0: padded precomputed proposals
 
     @classmethod
     def train_from_cfg(cls, cfg) -> "TransformConfig":
@@ -160,10 +165,12 @@ def prepare_detection_record(
 ) -> dict:
     """record dict -> fixed-shape arrays for one image:
     {image [Hc, Wc, 3], image_size [2], gt_boxes [G, 4], gt_classes [G],
-    gt_valid [G], labels [C], scale, image_id, orig_size}, and with
+    gt_valid [G], labels [C], scale, image_id, orig_size}; with
     ``tcfg.with_masks`` gt_masks [G, M, M] f32: each annotation's
     ``box_mask`` in its GT box's frame (zeros where it has none), mirrored
-    along x when the image is flipped.
+    along x when the image is flipped; with ``tcfg.proposal_capacity`` P,
+    proposals [P, 4] and proposals_valid [P] (``pad_record_proposals``,
+    mirrored with the image).
 
     ``aug=(min_size, flip)``: the caller already drew the augmentation
     parameters (StreamLoader draws them once per record, so that
@@ -225,6 +232,15 @@ def prepare_detection_record(
                 bm = bm.astype(np.float32)
                 gt_masks[i] = bm[:, ::-1] if flipped else bm
         out["gt_masks"] = gt_masks
+    if tcfg.proposal_capacity > 0:
+        p_boxes, p_valid = pad_record_proposals(record, scale, tcfg.proposal_capacity,
+                                                new_w=new_w, new_h=new_h)
+        if flipped:
+            x1p = new_w - p_boxes[:, 2]
+            x2p = new_w - p_boxes[:, 0]
+            p_boxes[:, 0], p_boxes[:, 2] = x1p, x2p
+        out["proposals"] = p_boxes
+        out["proposals_valid"] = p_valid
     return out
 
 

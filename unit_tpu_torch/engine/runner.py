@@ -27,9 +27,11 @@ fine-tuning, warm-started from a base run's snapshot), ``TrainerOnlyWeak``
 strong stream).  Evaluations run the multi-scale + flip test-time
 augmentation under TEST.AUG.ENABLED; TEST.PRECISE_BN refreshes the FrozenBN
 statistics before each periodic evaluation (``PreciseBNHook``), and
-TPU.PROFILE_START_STEP traces a window of steps (``utils.profiling``).  Not
-ported, each raising with its ROADMAP item: precomputed proposals (25), more
-than one device, ``--dist``, TP, PP and FSDP (27, 29).
+TPU.PROFILE_START_STEP traces a window of steps (``utils.profiling``).  Under
+MODEL.LOAD_PROPOSALS the loaders carry the DATASETS.PROPOSAL_FILES_* proposals
+and every evaluation (TTA included) scores them in place of the RPN's.  Not
+ported, each raising with its ROADMAP item: more than one device,
+``--dist``, TP, PP and FSDP (27, 29).
 """
 
 from __future__ import annotations
@@ -92,7 +94,9 @@ logger = logging.getLogger("unit_tpu_torch")
 def setup_logger(output_dir: Optional[str] = None, level: int = logging.INFO):
     """Configure the "unit_tpu_torch" logger for CLI runs: stream to stdout
     and a log.txt in OUTPUT_DIR.  The logger does not propagate, so a root
-    handler installed by another library neither drops nor doubles its lines."""
+    handler installed by another library neither drops nor doubles its lines.
+    A later run in the same process with another OUTPUT_DIR moves the file
+    log to its own directory."""
     lg = logging.getLogger("unit_tpu_torch")
     lg.setLevel(level)
     lg.propagate = False
@@ -106,10 +110,16 @@ def setup_logger(output_dir: Optional[str] = None, level: int = logging.INFO):
         sh = logging.StreamHandler(sys.stdout)
         sh.setFormatter(fmt)
         lg.addHandler(sh)
-    if output_dir and not any(isinstance(h, logging.FileHandler) for h in lg.handlers):
-        fh = logging.FileHandler(os.path.join(output_dir, "log.txt"))
-        fh.setFormatter(fmt)
-        lg.addHandler(fh)
+    if output_dir:
+        path = os.path.abspath(os.path.join(output_dir, "log.txt"))
+        for h in [h for h in lg.handlers if isinstance(h, logging.FileHandler)]:
+            if h.baseFilename != path:
+                lg.removeHandler(h)
+                h.close()
+        if not any(isinstance(h, logging.FileHandler) for h in lg.handlers):
+            fh = logging.FileHandler(path)
+            fh.setFormatter(fmt)
+            lg.addHandler(fh)
     return lg
 
 
@@ -352,9 +362,6 @@ def make_eval_fn(cfg, model, image_loader: Optional[Callable] = None):
     batch 1; a meta model then binds no prototypes, as in unit_tpu (its
     ``_meta_attention`` runs on the other branch only)."""
     use_tta = cfg.TEST.AUG.ENABLED
-    if cfg.MODEL.LOAD_PROPOSALS and cfg.DATASETS.PROPOSAL_FILES_TEST:
-        what = "test-time augmentation with " if use_tta else ""
-        raise _not_ported(f"{what}precomputed proposals", "ROADMAP Queue 1 item 25")
 
     def eval_fn(state):
         # Accumulate per dataset; with a single test dataset return its

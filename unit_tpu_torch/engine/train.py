@@ -14,7 +14,10 @@ the visual attention head, one a step, shared by all micro-batches.
 
 What differs from unit_tpu, on purpose:
   * the randomness of step k is one ``torch.Generator`` on the device,
-    seeded from (seed, k): the counterpart of ``jax.random.fold_in``;
+    seeded from (seed, k): the counterpart of ``jax.random.fold_in``; a
+    model with a VGG box head also gets a dropout generator of its own,
+    seeded from the same step seed (``dropout_seed``, where unit_tpu folds 7
+    into the step key), so that no other draw of the step moves;
   * the loss dict comes to the host once per step, as one stacked
     ``tolist()``, and every value is checked for NaN/Inf before any hook
     runs (unit_tpu defers that check past the hooks, so a checkpoint hook
@@ -34,6 +37,7 @@ from typing import Callable, Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
+from ..models.box_heads import VGG_HEADS
 from ..models.meta_arch import WSRCNN, _not_ported
 from ..solver.build import Solver
 
@@ -56,9 +60,11 @@ def make_train_step(
     grad_accum: int = 1,
     train_only_weak: bool = False,
 ) -> Callable[..., Dict[str, torch.Tensor]]:
-    """(strong, weak, generator, meta=None) -> detached loss dict with
-    ``total_loss``, after one update of ``model``'s parameters.  With
-    ``grad_accum`` A > 1 each of the first three arguments is a list of A
+    """(strong, weak, generator, meta=None, dropout=None) -> detached loss
+    dict with ``total_loss``, after one update of ``model``'s parameters.
+    ``dropout``: the VGG heads' dropout generator (None: no dropout).  With
+    ``grad_accum`` A > 1 each of the first three arguments (and ``dropout``
+    where given) is a list of A
     (the micro-batches and their generators; ``weak`` may be None): each
     micro-batch backpropagates its total / A, so the update uses the mean of
     their gradients, and the dict holds the mean of their losses (A = 1
@@ -68,14 +74,15 @@ def make_train_step(
     accum = int(grad_accum)
     trainable = [p for group in optimizer.param_groups for p in group["params"]]
 
-    def step(strong, weak, generator, meta=None) -> Dict[str, torch.Tensor]:
+    def step(strong, weak, generator, meta=None, dropout=None) -> Dict[str, torch.Tensor]:
         if accum == 1:
-            strong, weak, generator = [strong], [weak], [generator]
+            strong, weak, generator, dropout = [strong], [weak], [generator], [dropout]
         optimizer.zero_grad(set_to_none=True)
         sums: Dict[str, torch.Tensor] = {}
-        for s, w, g in zip(strong, weak if weak is not None else [None] * accum, generator,
-                           strict=True):
-            losses = model.train_losses(g, s, w, train_only_weak=train_only_weak, meta=meta)
+        for s, w, g, d in zip(strong, weak if weak is not None else [None] * accum, generator,
+                              dropout if dropout is not None else [None] * accum, strict=True):
+            losses = model.train_losses(g, s, w, train_only_weak=train_only_weak, meta=meta,
+                                        dropout_generator=d)
             total = torch.stack(list(losses.values())).sum()
             (total / accum).backward()
             losses["total_loss"] = total
@@ -99,6 +106,13 @@ def step_seed(seed: int, step: int, micro: int = 0, grad_accum: int = 1) -> int:
     """The generator seed of micro-batch ``micro`` of step ``step`` (fold_in's
     counterpart); without accumulation, (seed, step) alone."""
     return (int(seed) << 32) + int(step) * int(grad_accum) + int(micro)
+
+
+def dropout_seed(seed: int) -> int:
+    """The dropout generator's seed for a step seed (``step_seed``): 7 in its
+    top byte, as unit_tpu folds 7 into the step key; another Philox stream
+    than the sampling generator's."""
+    return (int(seed) + (7 << 56)) % (1 << 64)
 
 
 class TrainerBase:
@@ -137,6 +151,8 @@ class TrainerBase:
         # micro-batches waiting for A of their canvas, per stream and canvas
         self._accum_buf: Dict[str, Dict[tuple, list]] = {"strong": {}, "weak": {}}
         self.device = model.embeddings.device
+        # train-mode dropout for the VGG fc heads alone, as unit_tpu's step
+        self.dropout = model.mc.box_head_name in VGG_HEADS
         self.train_only_weak = bool(train_only_weak)
         self.train_step = make_train_step(model, optimizer.optimizer, optimizer.scheduler,
                                           optimizer.clip, self.grad_accum, self.train_only_weak)
@@ -175,9 +191,12 @@ class TrainerBase:
             if len(group) == self.grad_accum:
                 return buffers.pop(tuple(batch["image"].shape))
 
-    def _generator(self, micro: int) -> torch.Generator:
+    def _generator(self, micro: int, dropout: bool = False) -> torch.Generator:
+        """The sampling generator of micro-batch ``micro`` of this step, or
+        with ``dropout`` its dropout generator."""
+        seed = step_seed(self.seed, self.state.step, micro, self.grad_accum)
         generator = torch.Generator(device=self.device)
-        generator.manual_seed(step_seed(self.seed, self.state.step, micro, self.grad_accum))
+        generator.manual_seed(dropout_seed(seed) if dropout else seed)
         return generator
 
     def run_step(self) -> Dict[str, float]:
@@ -192,9 +211,12 @@ class TrainerBase:
                         for group in (strong, weak))
         meta = self._to_device(meta)  # pinned by the runner's Prefetcher: asynchronous
         generators = [self._generator(i) for i in range(self.grad_accum)]
+        dropouts = ([self._generator(i, dropout=True) for i in range(self.grad_accum)]
+                    if self.dropout else None)
         if self.grad_accum == 1:  # make_train_step's arguments without accumulation
             strong, weak, generators = strong and strong[0], weak and weak[0], generators[0]
-        losses = self.train_step(strong, weak, generators, meta)
+            dropouts = dropouts and dropouts[0]
+        losses = self.train_step(strong, weak, generators, meta, dropouts)
         self.state.step += 1
         # one device-to-host fetch per step
         metrics = dict(zip(losses, torch.stack(list(losses.values())).tolist()))

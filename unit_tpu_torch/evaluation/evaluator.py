@@ -57,14 +57,20 @@ def _start_fetch(det):
 
 
 def inference_on_dataset(
-    predict_fn: Callable,          # (images, image_sizes) -> Detections (batched)
+    predict_fn: Callable,          # (images, image_sizes[, boxes, valid]) -> Detections
     loader: Iterator,              # yields test batches from build_test_loader
     evaluator,                     # PascalVOCEvaluator-like
     total_images: Optional[int] = None,
     warmup: int = 1,
 ) -> dict:
-    return inference_loop(lambda batch: predict_fn(batch["image"], batch["image_size"]),
-                          loader, evaluator, total_images, warmup)
+    """``inference_loop`` over a test loader's batches; a batch with
+    precomputed proposals passes them on (``proposals``, ``proposals_valid``)."""
+    def run_batch(batch):
+        extra = ((batch["proposals"], batch["proposals_valid"]) if "proposals" in batch
+                 else ())
+        return predict_fn(batch["image"], batch["image_size"], *extra)
+
+    return inference_loop(run_batch, loader, evaluator, total_images, warmup)
 
 
 def inference_loop(
@@ -149,7 +155,7 @@ def inference_on_dataset_meta(
     posteriors, and the attention-driven branch is commented out
     (docs/DEVIATIONS.md, the meta-head row).  So the results equal those of
     ``inference_on_dataset`` and do not depend on ``attention``."""
-    def bound(images, image_sizes):
-        return predict_fn(attention, images, image_sizes)
+    def bound(images, image_sizes, *proposals):
+        return predict_fn(attention, images, image_sizes, *proposals)
 
     return inference_on_dataset(bound, loader, evaluator, total_images, warmup)

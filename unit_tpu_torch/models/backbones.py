@@ -1,19 +1,24 @@
-"""Backbones by registry name: ResNet-C4 and InceptionResNetV2.
+"""Backbones by registry name: ResNet-C4, VGG16, VGG-CNN-F and InceptionResNetV2.
 
-Port of unit_tpu/models/backbones.py:106-213 (the note suite's backbone; VGG16
-and VGG-CNN-F, the dock suite's, are ROADMAP Queue 1 item 25a).
-``InceptionResNetV2`` is cut after the block17 stage: 1088 channels at stride
-16, but its stem's unpadded ("VALID") convolutions and pools make the map
-smaller than ceil(H/16) x ceil(W/16) (35x48 for a 600x800 canvas, where
-ResNet-C4 gives 38x50).  The anchors and the pooler follow the map they get.
+Port of unit_tpu/models/backbones.py.  ``InceptionResNetV2`` (the note
+suite's) is cut after the block17 stage: 1088 channels at stride 16, but its
+stem's unpadded ("VALID") convolutions and pools make the map smaller than
+ceil(H/16) x ceil(W/16) (35x48 for a 600x800 canvas, where ResNet-C4 gives
+38x50).  ``VGGCNNF`` (the dock suite's Caffe VGG-CNN-F, 256 channels) opens
+with an unpadded 11x11 convolution at stride 4, and each of its two 3x3 max
+pools pads one row and one column of -inf at the bottom and right only: an
+800x1344 canvas gives a 49x83 map.  ``VGG16`` (512 channels) has four 2x2
+pools; ``dilated`` widens conv5's taps to dilation 2 (and its "SAME" pad to
+2) and keeps every pool, as unit_tpu's code does.  The anchors and the pooler
+follow the map they get.
 
 Layout and precision as in models/resnet.py: [B, H, W, 3] in, NCHW in
 ``torch.channels_last`` memory out; f32 parameters, every convolution in
 ``dtype``.  Module names follow the flax tree (``conv2d_1a``, ``block35_0/b1_1``
 ...), so ``checkpoint.jax_params`` maps them one to one.  flax ``"SAME"`` at
 stride 1 pads (k - 1) / 2 on each side of each axis (a 1x7 kernel (0, 3));
-the stride-2 convolutions and every max pool are unpadded.  Inits follow
-flax: lecun_normal kernels, zero biases.
+the stride-2 convolutions and every max pool are unpadded (but VGG-CNN-F's,
+above).  Inits follow flax: lecun_normal kernels, zero biases.
 """
 
 from __future__ import annotations
@@ -34,6 +39,99 @@ def _conv(in_ch: int, out_ch: int, kernel, stride: int = 1, valid: bool = False,
     k = (kernel, kernel) if isinstance(kernel, int) else kernel
     pad = 0 if valid else (k[0] // 2, k[1] // 2)
     return Conv2d(in_ch, out_ch, k, stride=stride, padding=pad, bias=True, **kw)
+
+
+class LocalResponseNorm(nn.Module):
+    """Caffe's cross-channel LRN (VGG-CNN-F): x / (k + alpha * S)^beta, S the
+    sum of x^2 over ``size`` neighbouring channels (zeros past the ends).
+    Not ``F.local_response_norm``, which divides alpha by the size and
+    defaults k to 1.  The window is summed channel by channel in the compute
+    dtype, in unit_tpu's order."""
+
+    def __init__(self, size: int = 5, alpha: float = 1e-4, beta: float = 0.75,
+                 k: float = 2.0):
+        super().__init__()
+        self.size, self.alpha, self.beta, self.k = size, alpha, beta, k
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # NCHW
+        half, c = self.size // 2, x.shape[1]
+        padded = F.pad(x * x, (0, 0, 0, 0, half, half))
+        acc = torch.zeros_like(x)
+        for i in range(self.size):
+            acc = acc + padded[:, i:i + c]
+        return x / (self.k + self.alpha * acc) ** self.beta
+
+
+def _max_pool_bottom_right(x: torch.Tensor) -> torch.Tensor:
+    """flax ``max_pool(x, (3, 3), (2, 2), padding=((0, 1), (0, 1)))``: one row
+    and one column of -inf at the bottom and right, then the pool
+    (``max_pool2d``'s own padding would pad both sides)."""
+    return F.max_pool2d(F.pad(x, (0, 1, 0, 1), value=float("-inf")), 3, 2)
+
+
+class VGGCNNF(nn.Module):
+    """Caffe VGG-CNN-F: conv1 11x11/4 unpadded + LRN + pool, conv2 5x5 + LRN +
+    pool, conv3-5 3x3; [B, H, W, 3] -> [B, 256, h, w], stride 16."""
+
+    def __init__(self, dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        kw = dict(dtype=dtype, generator=generator)
+        self.dtype = dtype
+        self.conv1 = _conv(3, 64, 11, stride=4, valid=True, **kw)
+        self.norm1 = LocalResponseNorm()
+        self.conv2 = _conv(64, 256, 5, **kw)
+        self.norm2 = LocalResponseNorm()
+        self.conv3 = _conv(256, 256, 3, **kw)
+        self.conv4 = _conv(256, 256, 3, **kw)
+        self.conv5 = _conv(256, 256, 3, **kw)
+        self.out_channels = 256
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.permute(0, 3, 1, 2).to(self.dtype)
+        x = _max_pool_bottom_right(self.norm1(F.relu(self.conv1(x))))
+        x = _max_pool_bottom_right(self.norm2(F.relu(self.conv2(x))))
+        x = F.relu(self.conv3(x))
+        x = F.relu(self.conv4(x))
+        return F.relu(self.conv5(x)).contiguous(memory_format=torch.channels_last)
+
+
+class VGG16(nn.Module):
+    """torchvision VGG16's features through conv5_3, named conv0 ... conv12
+    as in the flax tree: 3x3 "SAME" convolutions with a 2x2 max pool after
+    each of the first four blocks; [B, H, W, 3] -> [B, 512, h, w], stride 16.
+    ``dilated``: conv5's three convolutions at dilation 2."""
+
+    _BLOCKS = ((2, 64), (2, 128), (3, 256), (3, 512))
+
+    def __init__(self, dilated: bool = False, dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        kw = dict(dtype=dtype, generator=generator)
+        self.dtype = dtype
+        in_ch, idx = 3, 0
+        for n, ch in self._BLOCKS:
+            for _ in range(n):
+                self.add_module(f"conv{idx}", _conv(in_ch, ch, 3, **kw))
+                in_ch, idx = ch, idx + 1
+        d = 2 if dilated else 1
+        for _ in range(3):
+            self.add_module(f"conv{idx}", Conv2d(512, 512, 3, padding=d, dilation=d,
+                                                 bias=True, **kw))
+            idx += 1
+        self.out_channels = 512
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.permute(0, 3, 1, 2).to(self.dtype)
+        idx = 0
+        for n, _ in self._BLOCKS:
+            for _ in range(n):
+                x = F.relu(getattr(self, f"conv{idx}")(x))
+                idx += 1
+            x = F.max_pool2d(x, 2, 2)
+        for i in range(idx, idx + 3):
+            x = F.relu(getattr(self, f"conv{i}")(x))
+        return x
 
 
 class _IRBlock35(nn.Module):
@@ -151,18 +249,43 @@ def build_inception_resnet_v2_backbone(dtype: torch.dtype = torch.float32,
     return InceptionResNetV2(dtype=dtype, generator=generator)
 
 
+def build_vgg_backbone(dilated: bool = False, dtype: torch.dtype = torch.float32,
+                       generator: Optional[torch.Generator] = None, **_) -> VGG16:
+    return VGG16(dilated=dilated, dtype=dtype, generator=generator)
+
+
+def build_vgg_cnn_f_backbone(dtype: torch.dtype = torch.float32,
+                             generator: Optional[torch.Generator] = None, **_) -> VGGCNNF:
+    return VGGCNNF(dtype=dtype, generator=generator)
+
+
+def _resnet(depth: int = 50, res2_out_channels: int = 256, dtype: torch.dtype = torch.float32,
+            generator: Optional[torch.Generator] = None, **_) -> ResNetC4:
+    return ResNetC4(depth=depth, res2_out_channels=res2_out_channels, dtype=dtype,
+                    generator=generator)
+
+
 # MODEL.BACKBONE.NAME -> constructor, with the reference's aliases (its
-# backbone.py:103); VGG and VGG_CNN_F are not ported
+# backbone.py:58, 82, 103)
 BACKBONE_REGISTRY = {
-    "build_resnet_backbone": ResNetC4,
+    "build_resnet_backbone": _resnet,
+    "build_vgg_backbone": build_vgg_backbone,
+    "VGG": build_vgg_backbone,
+    "build_vgg_cnn_f_backbone": build_vgg_cnn_f_backbone,
+    "VGG_CNN_F": build_vgg_cnn_f_backbone,
     "build_inception_resnet_v2_backbone": build_inception_resnet_v2_backbone,
     "InceptionResNetV2": build_inception_resnet_v2_backbone,
 }
 
+# the registry names of each family (the box heads each can carry)
+VGG_BACKBONES = ("build_vgg_backbone", "VGG", "build_vgg_cnn_f_backbone", "VGG_CNN_F")
+INCEPTION_BACKBONES = ("build_inception_resnet_v2_backbone", "InceptionResNetV2")
+
 
 def build_backbone(name: str, depth: int = 50, res2_out_channels: int = 256,
-                   dtype: torch.dtype = torch.float32,
+                   dilated: bool = False, dtype: torch.dtype = torch.float32,
                    generator: Optional[torch.Generator] = None) -> nn.Module:
-    """The backbone MODEL.BACKBONE.NAME names; it has ``out_channels``."""
+    """The backbone MODEL.BACKBONE.NAME names (``dilated``: VGG16's
+    MODEL.BACKBONE.DILATED); it has ``out_channels``."""
     return BACKBONE_REGISTRY[name](depth=depth, res2_out_channels=res2_out_channels,
-                                   dtype=dtype, generator=generator)
+                                   dilated=dilated, dtype=dtype, generator=generator)

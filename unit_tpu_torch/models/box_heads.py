@@ -1,9 +1,19 @@
-"""Box heads by registry name: Res5 and the InceptionResNetV2 tail.
+"""Box heads by registry name: Res5, the VGG fc heads and the InceptionResNetV2 tail.
 
-Port of unit_tpu/models/box_heads.py:79-144 (the note suite's head; the VGG
-heads of the dock suite are ROADMAP Queue 1 item 25a).  A head maps pooled
-ROIs [N, P, P, C] to one feature vector a ROI and has ``out_channels``, from
-which the predictors size themselves.
+Port of unit_tpu/models/box_heads.py.  A head maps pooled ROIs [N, P, P, C]
+to one feature vector a ROI and has ``out_channels``, from which the
+predictors size themselves.
+
+``VGGConvFCHead`` and ``VGGCNNFBoxHead`` (the dock suite's; one module under
+two names, as in unit_tpu) flatten each ROI in (h, w, c) order, as the NHWC
+reshape does, and run fc6 and fc7 (4096 wide, ReLU) with dropout 0.5 after
+each ReLU when the caller passes a dropout generator (the train step of a VGG
+head does; predict never does), which mirrors flax's ``has_rng("dropout")``.
+fc6's input width P * P * C must be known when the head is built (flax infers
+it at init): 6 * 6 * 256 = 9216 for the dock recipe.  A dropped unit is 0 and
+a kept one is doubled (x / 0.5), as ``nn.Dropout`` does; the mask is drawn by
+``torch.rand`` from the generator given (``F.dropout`` takes none), so it is
+not unit_tpu's threefry mask.
 
 ``InceptionResNetHead`` is the full InceptionResNetV2 tail: ``mixed_7a``
 (stride-2 unpadded branches and a max pool: 17x17 -> 8x8, 14x14 -> 6x6, to
@@ -23,7 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .resnet import Conv2d, Res5
+from .resnet import Conv2d, Res5, lecun_normal_
 
 
 class _Block8(nn.Module):
@@ -47,6 +57,65 @@ class _Block8(nn.Module):
         b1 = F.relu(self.b1_2(F.relu(self.b1_1(F.relu(self.b1_0(x))))))
         x = x + self.scale * self.up(torch.cat([b0, b1], 1))
         return F.relu(x) if self.relu else x
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """Units kept with probability 1 - ``rate`` (uniform draws from
+    ``generator``) and divided by it; the others are zero."""
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class Linear(nn.Module):
+    """flax ``nn.Dense`` in ``dtype``: f32 weight [out, in] (lecun_normal) and
+    bias (zero), both cast with the input to ``dtype``."""
+
+    def __init__(self, in_features: int, out_features: int, dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(lecun_normal_(torch.empty(out_features, in_features),
+                                                 in_features, generator))
+        self.bias = nn.Parameter(torch.zeros(out_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), self.bias.to(self.dtype))
+
+
+class TwoFC(nn.Module):
+    """fc6 and fc7, each followed by ReLU and, given a generator, dropout."""
+
+    def __init__(self, in_features: int, fc_dim: int = 4096, rate: float = 0.5,
+                 dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.rate = rate
+        self.fc6 = Linear(in_features, fc_dim, dtype, generator)
+        self.fc7 = Linear(fc_dim, fc_dim, dtype, generator)
+
+    def forward(self, x: torch.Tensor,
+                dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        for fc in (self.fc6, self.fc7):
+            x = F.relu(fc(x))
+            if dropout_generator is not None:
+                x = dropout(x, self.rate, dropout_generator)
+        return x
+
+
+class VGGFCHead(nn.Module):
+    """[N, P, P, C] -> flattened in (h, w, c) order -> fc6/fc7 -> [N, 4096] f32."""
+
+    def __init__(self, in_channels: int, pooler_resolution: int, fc_dim: int = 4096,
+                 dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.fc = TwoFC(pooler_resolution * pooler_resolution * in_channels, fc_dim,
+                        dtype=dtype, generator=generator)
+        self.out_channels = fc_dim
+
+    def forward(self, x: torch.Tensor, spatial_mean: bool = True,
+                dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.fc(x.reshape(x.shape[0], -1), dropout_generator).to(torch.float32)
 
 
 class InceptionResNetHead(nn.Module):
@@ -89,7 +158,7 @@ class InceptionResNetHead(nn.Module):
 
 def build_res5_box_head(in_channels: int, depth: int = 50, res2_out_channels: int = 256,
                         dtype: torch.dtype = torch.float32,
-                        generator: Optional[torch.Generator] = None) -> Res5:
+                        generator: Optional[torch.Generator] = None, **_) -> Res5:
     return Res5(depth=depth, res2_out_channels=res2_out_channels, dtype=dtype,
                 generator=generator)
 
@@ -100,23 +169,37 @@ def build_inception_resnet_head(in_channels: int, dtype: torch.dtype = torch.flo
     return InceptionResNetHead(in_channels, dtype=dtype, generator=generator)
 
 
+def build_vgg_fc_head(in_channels: int, pooler_resolution: int = 7,
+                      dtype: torch.dtype = torch.float32,
+                      generator: Optional[torch.Generator] = None, **_) -> VGGFCHead:
+    return VGGFCHead(in_channels, pooler_resolution, dtype=dtype, generator=generator)
+
+
 # MODEL.ROI_BOX_HEAD.NAME -> constructor.  Res5BoxHeadNOTE differs from
 # Res5BoxHead only in the reference's torch in-channel bookkeeping, and ""
-# is the defaults' placeholder; the VGG heads are not ported
+# is the defaults' placeholder
 BOX_HEAD_REGISTRY = {
     "Res5BoxHead": build_res5_box_head,
     "Res5BoxHeadWithMask": build_res5_box_head,
     "Res5BoxHeadNOTE": build_res5_box_head,
     "": build_res5_box_head,
     "InceptionResNetHead": build_inception_resnet_head,
+    "VGGConvFCHead": build_vgg_fc_head,
+    "VGGCNNFBoxHead": build_vgg_fc_head,
 }
+
+# the heads that take a dropout generator in training
+VGG_HEADS = ("VGGConvFCHead", "VGGCNNFBoxHead")
 
 
 def build_box_head(name: str, in_channels: int, depth: int = 50,
-                   res2_out_channels: int = 256, dtype: torch.dtype = torch.float32,
+                   res2_out_channels: int = 256, pooler_resolution: int = 14,
+                   dtype: torch.dtype = torch.float32,
                    generator: Optional[torch.Generator] = None) -> nn.Module:
     """The box head MODEL.ROI_BOX_HEAD.NAME names, over ``in_channels``
-    pooled channels; it has ``out_channels``."""
+    pooled channels at ``pooler_resolution`` (the VGG heads' fc6 width); it
+    has ``out_channels``."""
     return BOX_HEAD_REGISTRY[name](in_channels, depth=depth,
-                                   res2_out_channels=res2_out_channels, dtype=dtype,
+                                   res2_out_channels=res2_out_channels,
+                                   pooler_resolution=pooler_resolution, dtype=dtype,
                                    generator=generator)

@@ -6,7 +6,12 @@ Port of unit_tpu/models/meta_arch.py:43-336,346-361,429-876 for the
 Inference: ResNet-C4 (or InceptionResNetV2, the note recipe's) -> RPN (+ NMS
 kernel K3) -> ROIAlignV2 (K1) -> one or two Res5 heads (or the
 InceptionResNetV2 tail) -> supervised delta heads + OICR weak detector ->
-lingual/visual base->novel transfer -> softmax -> per-class NMS (K3).
+lingual/visual base->novel transfer -> softmax -> per-class NMS (K3).  The
+dock recipe (VGG-CNN-F, or VGG16) pools with ROIPool (plain torch, as XLA in
+unit_tpu) into the VGG fc heads, and under MODEL.LOAD_PROPOSALS takes
+precomputed (MCG) proposals from the batch in place of the RPN: for the
+strong stream (no RPN losses), the weak stream and predict; a stream whose
+batch holds none falls back to the RPN.
 Training (``train_losses``): one fused backbone + RPN pass over both
 streams, RPN losses, proposal sampling, ROIAlignV2 with its
 backward (K1 + K2), supervised Fast R-CNN losses on top of the frozen weak
@@ -30,9 +35,11 @@ batch into class prototypes through a backbone pass without gradient and K1
 over the shots, and ``train_losses(meta=...)`` adds the rank losses over the
 first ``rank_loss_slots`` sampled slots of each strong image.  The attention
 does not feed inference, as in unit_tpu.  ``predict_tta`` is the multi-scale +
-flip test-time augmentation: proposals from the canonical image, each scale's
-flip pair scored in one batch-2 pass.  The options still to port raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+flip test-time augmentation: proposals from the canonical image (or
+precomputed ones in its frame), each scale's flip pair scored in one batch-2
+pass.  The VGG heads' dropout runs only when the train step passes a
+dropout generator.  The backbone and head pairs no recipe ships raise
+``NotImplementedError`` naming the ROADMAP item.
 
 Precision mirrors ``TPU.COMPUTE_DTYPE``: backbone, RPN convs and box heads run in
 the compute dtype; RPN outputs, box features and all predictor, transfer and
@@ -70,8 +77,9 @@ from .predictors import (
     transfer_deltas,
     transfer_scores,
 )
-from .backbones import BACKBONE_REGISTRY, build_backbone
-from .box_heads import BOX_HEAD_REGISTRY, build_box_head
+from ..ops.roi_pool import roi_pool_max
+from .backbones import BACKBONE_REGISTRY, INCEPTION_BACKBONES, VGG_BACKBONES, build_backbone
+from .box_heads import BOX_HEAD_REGISTRY, VGG_HEADS, build_box_head
 from .resnet import set_bn_act_impl
 from .visual_attention import MetaAttention, VisualAttentionHead
 
@@ -111,6 +119,7 @@ class ModelConfig:
 
     meta_architecture: str = "WeaklySupervisedRCNNNoMeta"
     backbone_name: str = "build_resnet_backbone"
+    backbone_dilated: bool = False  # VGG16's MODEL.BACKBONE.DILATED
     box_head_name: str = "Res5BoxHead"
     rpn_conv_dim: int = 1024  # the RPN's 3x3 conv width: the backbone's channels
     depth: int = 50
@@ -121,7 +130,7 @@ class ModelConfig:
     multi_box_head: bool = False
     pooler_resolution: int = 14
     pooler_scale: float = 1.0 / 16.0
-    pooler_type: str = "ROIAlignV2"
+    pooler_type: str = "ROIAlignV2"  # ROIAlignV2 | ROIPool
     sampling_ratio: int = 2
     roi_batch_size: int = 512
     roi_positive_fraction: float = 0.25
@@ -185,6 +194,7 @@ class ModelConfig:
         return cls(
             meta_architecture=cfg.MODEL.META_ARCHITECTURE,
             backbone_name=cfg.MODEL.BACKBONE.NAME,
+            backbone_dilated=cfg.MODEL.BACKBONE.DILATED,
             box_head_name=cfg.MODEL.ROI_BOX_HEAD.NAME,
             rpn_conv_dim=_RPN_CONV_DIM.get(cfg.MODEL.BACKBONE.NAME, 1024),
             depth=cfg.MODEL.RESNETS.DEPTH,
@@ -239,32 +249,42 @@ class ModelConfig:
                 bg_threshold=wd.BG_THRESHOLD,
                 mil_multiplier=wd.MIL_MULTIPLIER,
                 weak_loss_multiplier=wd.WEAK_LOSS_MULTIPLIER,
+                bbox_reg_weights=tuple(cfg.MODEL.ROI_BOX_HEAD.BBOX_REG_WEIGHTS),
+                smooth_l1_beta=cfg.MODEL.ROI_BOX_HEAD.SMOOTH_L1_BETA,
                 regression_branch=wd.REGRESSION_BRANCH,
+                oicr_regression_branch=wd.OICR_REGRESSION_BRANCH,
             ),
             sim=sim_lib.SimilarityConfig.from_cfg(cfg, class_names),
         )
 
 
+def _family(backbone_name: str) -> str:
+    if backbone_name in VGG_BACKBONES:
+        return "vgg"
+    return "inception" if backbone_name in INCEPTION_BACKBONES else "resnet"
+
+
+# MODEL.ROI_BOX_HEAD.NAME -> the backbone family whose map it can read
+_HEAD_FAMILY = dict.fromkeys(VGG_HEADS, "vgg") | {"InceptionResNetHead": "inception"}
+
+
 def _check_supported(mc: ModelConfig) -> None:
     if mc.backbone_name not in BACKBONE_REGISTRY:
-        raise _not_ported(f"backbone {mc.backbone_name}", "ROADMAP Queue 1 item 25")
+        raise ValueError(f"unknown backbone {mc.backbone_name!r}")
     if mc.box_head_name not in BOX_HEAD_REGISTRY:
-        raise _not_ported(f"box head {mc.box_head_name}", "ROADMAP Queue 1 item 25")
+        raise ValueError(f"unknown box head {mc.box_head_name!r}")
     # the shipped pairs: Res5 over ResNet-C4's map, the InceptionResNetV2 tail
-    # over InceptionResNetV2's (the note recipe), which no recipe gives the
-    # visual attention head's Res5 or the mask head
-    inception_head = mc.box_head_name == "InceptionResNetHead"
-    if (mc.backbone_name != "build_resnet_backbone") != inception_head or (
-            inception_head and (mc.use_meta or mc.mask_on)):
+    # over InceptionResNetV2's (the note recipe), a VGG fc head over a VGG
+    # backbone (the dock recipe); no recipe gives the last two the visual
+    # attention head's Res5 or the mask head
+    family = _family(mc.backbone_name)
+    if _HEAD_FAMILY.get(mc.box_head_name, "resnet") != family or (
+            family != "resnet" and (mc.use_meta or mc.mask_on)):
         raise _not_ported(f"box head {mc.box_head_name!r} over {mc.backbone_name} (meta "
                           f"{mc.use_meta}, mask {mc.mask_on})", "ROADMAP Queue 1 item 25")
-    if mc.pooler_type != "ROIAlignV2":
-        raise _not_ported(f"pooler {mc.pooler_type}", "ROADMAP Queue 1 item 25")
-    if mc.load_proposals:
-        raise _not_ported("precomputed proposals", "ROADMAP Queue 1 item 25")
-    if mc.regression_branch or mc.oicr_regression_branch or mc.oicr_iter < 1:
-        raise _not_ported("weak regression branches and OICR_ITER 0",
-                          "ROADMAP Queue 1 item 25")
+    if mc.pooler_type not in ("ROIAlignV2", "ROIPool"):
+        # unit_tpu's unaligned ROIAlign, which no recipe uses
+        raise _not_ported(f"pooler {mc.pooler_type}", "ROADMAP Queue 1 item 32")
     for impl in (mc.roi_align_impl, mc.nms_impl, mc.bn_act_impl):
         if impl not in ("auto", "cuda", "plain"):
             raise ValueError(f"unknown kernel impl {impl!r} (auto | cuda | plain)")
@@ -286,26 +306,30 @@ class WSRCNN(nn.Module):
         self.mc = mc
         g, dt = generator, mc.dtype
         self.backbone = build_backbone(mc.backbone_name, depth=mc.depth,
-                                       res2_out_channels=mc.res2_out_channels, dtype=dt,
-                                       generator=g)
+                                       res2_out_channels=mc.res2_out_channels,
+                                       dilated=mc.backbone_dilated, dtype=dt, generator=g)
         c = self.backbone.out_channels
         self.rpn_head = rpn_lib.RPNHead(c, mc.rpn.num_cell_anchors, conv_dim=mc.rpn_conv_dim,
                                         dtype=dt, generator=g)
 
         def box_head():
             return build_box_head(mc.box_head_name, c, depth=mc.depth,
-                                  res2_out_channels=mc.res2_out_channels, dtype=dt, generator=g)
+                                  res2_out_channels=mc.res2_out_channels,
+                                  pooler_resolution=mc.pooler_resolution, dtype=dt,
+                                  generator=g)
 
         self.box_head = box_head()
         if mc.multi_box_head:
             self.weak_box_head = box_head()
         d = self.box_head.out_channels
         self.supervised = SupervisedPredictor(d, mc.num_classes, finetune=mc.finetune,
+                                              regression_branch=mc.regression_branch,
                                               generator=g)
         self.weak_detector = WeakDetectorPredictor(
             d, mc.num_classes, oicr_iter=mc.oicr_iter, detector_temp=mc.detector_temp,
             classifier_temp=mc.classifier_temp, finetune=mc.weak_detector_finetune,
-            novel_ids=mc.novel_ids, generator=g)
+            novel_ids=mc.novel_ids, regression_branch=mc.regression_branch,
+            oicr_regression_branch=mc.oicr_regression_branch, generator=g)
         emb = torch.empty(80, 300)
         with torch.no_grad():
             emb.normal_(0.0, 0.02, generator=g)
@@ -344,17 +368,26 @@ class WSRCNN(nn.Module):
         return self.rpn_head(feats)
 
     def pooled_rois(self, feats: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
-        """feats [B, h, w, C], boxes [B, S, 4] -> [B*S, P, P, C] (feature dtype)."""
+        """feats [B, h, w, C], boxes [B, S, 4] -> [B*S, P, P, C] (feature
+        dtype): ROIAlignV2 (K1, K2 backward) or ROIPool."""
         mc = self.mc
-        out = roi_align_ops.roi_align_batched(
-            feats, boxes.contiguous(), mc.pooler_resolution, mc.pooler_scale,
-            mc.sampling_ratio, impl=mc.roi_align_impl,
-        )
+        if mc.pooler_type == "ROIPool":
+            out = roi_pool_max(feats, boxes, mc.pooler_resolution, mc.pooler_scale)
+        else:
+            out = roi_align_ops.roi_align_batched(
+                feats, boxes.contiguous(), mc.pooler_resolution, mc.pooler_scale,
+                mc.sampling_ratio, impl=mc.roi_align_impl,
+            )
         return out.reshape((-1,) + out.shape[2:])
 
-    def box_features(self, pooled: torch.Tensor, head: str = "box") -> torch.Tensor:
+    def box_features(self, pooled: torch.Tensor, head: str = "box",
+                     dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The box (or the weak) head's f32 features of pooled ROIs; a VGG
+        head drops units when given ``dropout_generator`` (training)."""
         module = self.box_head if head == "box" else self.weak_box_head
-        return module(pooled).to(torch.float32)
+        if dropout_generator is None:
+            return module(pooled).to(torch.float32)
+        return module(pooled, dropout_generator=dropout_generator).to(torch.float32)
 
     def oicr_weight_mean(self) -> torch.Tensor:
         """Mean OICR classifier weight [C+1, D]."""
@@ -392,16 +425,22 @@ class WSRCNN(nn.Module):
         weak: Optional[Dict[str, torch.Tensor]],
         train_only_weak: bool = False,
         meta: Optional[Dict[str, torch.Tensor]] = None,
+        dropout_generator: Optional[torch.Generator] = None,
     ) -> Dict[str, torch.Tensor]:
         """One training step's loss dict (unit_tpu meta_arch.py:429-651).
 
         strong: {image [B,H,W,3], gt_boxes [B,G,4], gt_classes [B,G],
-                 gt_valid [B,G], image_size [B,2], and under MODEL.MASK_ON
-                 gt_masks [B,G,M,M]}
-        weak:   {image [Bw,H',W',3], labels [Bw,C], image_size [Bw,2], and
+                 gt_valid [B,G], image_size [B,2], under MODEL.MASK_ON
+                 gt_masks [B,G,M,M], and under MODEL.LOAD_PROPOSALS
+                 optionally proposals [B,P,4] and proposals_valid [B,P]:
+                 then they are the stream's proposals and the RPN neither
+                 proposes nor trains on it}
+        weak:   {image [Bw,H',W',3], labels [Bw,C], image_size [Bw,2],
                  optionally labels_host: a CPU copy of labels, from which the
                  PCL losses read the classes present without waiting for the
-                 device}
+                 device, and under MODEL.LOAD_PROPOSALS optionally
+                 proposals / proposals_valid, of which the stream takes the
+                 first ``weak_proposal_count``}
         ``generator`` (on the batches' device) draws every random choice:
         the RPN's anchor subsampling and the ROI heads' proposal sampling.
         With ``train_only_weak`` (TrainerOnlyWeak) the strong batch trains
@@ -411,45 +450,62 @@ class WSRCNN(nn.Module):
                 losses of the first ``rank_loss_slots`` sampled slots of each
                 strong image against the batch's prototypes; ignored by a
                 model without the meta ROI heads, as in unit_tpu.
+        dropout_generator: the VGG heads' dropout draws (the train step
+                passes one for them alone); None, no dropout.
         """
         mc = self.mc
         losses: Dict[str, torch.Tensor] = {}
+        strong_pre = mc.load_proposals and strong is not None and "proposals" in strong
+        weak_pre = mc.load_proposals and weak is not None and "proposals" in weak
+        rpn_s = strong is not None and not strong_pre
+        rpn_w = weak is not None and (not weak_pre or mc.rpn_self_training)
 
         # Both streams on one canvas: one fused backbone + RPN pass over
         # cat(strong, weak), and one proposal selection (one launch of K3) for
         # all images that need proposals; the gradients are those of two
         # passes, and the proposals those of one selection a stream (images
-        # are independent).
+        # are independent).  Precomputed proposals take a stream out of the
+        # RPN.
         feats = feats_w = logits = deltas = logits_w = deltas_w = proposals = props_w = None
         if (strong is not None and weak is not None
                 and strong["image"].shape[1:] == weak["image"].shape[1:]):
             bs = strong["image"].shape[0]
             all_feats = self.features(torch.cat([strong["image"], weak["image"]]))
             feats, feats_w = all_feats[:bs], all_feats[bs:]
-            all_logits, all_deltas = self.rpn(all_feats)
-            logits, logits_w = all_logits[:bs], all_logits[bs:]
-            deltas, deltas_w = all_deltas[:bs], all_deltas[bs:]
-            if not train_only_weak:
-                both = self._train_proposals(
-                    all_feats, all_logits, all_deltas,
-                    torch.cat([strong["image_size"], weak["image_size"]]))
-                proposals, props_w = (
-                    Proposals(**{f.name: getattr(both, f.name)[part]
-                                 for f in dataclasses.fields(Proposals)})
-                    for part in (slice(0, bs), slice(bs, None)))
+            if rpn_s and rpn_w:
+                all_logits, all_deltas = self.rpn(all_feats)
+                logits, logits_w = all_logits[:bs], all_logits[bs:]
+                deltas, deltas_w = all_deltas[:bs], all_deltas[bs:]
+                if not train_only_weak and not weak_pre:
+                    both = self._train_proposals(
+                        all_feats, all_logits, all_deltas,
+                        torch.cat([strong["image_size"], weak["image_size"]]))
+                    proposals, props_w = (
+                        Proposals(**{f.name: getattr(both, f.name)[part]
+                                     for f in dataclasses.fields(Proposals)})
+                        for part in (slice(0, bs), slice(bs, None)))
+            elif rpn_s:
+                logits, deltas = self.rpn(feats)
+            elif rpn_w:
+                logits_w, deltas_w = self.rpn(feats_w)
 
         if strong is not None:
             gt = GTInstances(boxes=strong["gt_boxes"], classes=strong["gt_classes"].long(),
                              valid=strong["gt_valid"].bool())
             if feats is None:
                 feats = self.features(strong["image"])
+        if rpn_s:
+            if logits is None:
                 logits, deltas = self.rpn(feats)
             # the RPN trains on the strong batch under train_only_weak too
             anchors = rpn_lib.get_anchors(feats.shape[1], feats.shape[2], mc.rpn,
                                           device=feats.device)
             losses.update(rpn_lib.rpn_losses(generator, logits, deltas, anchors, gt, mc.rpn))
         if strong is not None and not train_only_weak:
-            if proposals is None:
+            if strong_pre:
+                proposals = self._given_proposals(strong["proposals"],
+                                                  strong["proposals_valid"])
+            elif proposals is None:
                 proposals = self._train_proposals(feats, logits, deltas, strong["image_size"])
             sampled = stack_fields([
                 sampling_ops.label_and_sample_proposals(
@@ -467,13 +523,13 @@ class WSRCNN(nn.Module):
                 feats4d = self.box_head(pooled, spatial_mean=False)
                 box_feats = feats4d.mean(dim=(1, 2)).to(torch.float32)
             else:
-                box_feats = self.box_features(pooled, "box")
+                box_feats = self.box_features(pooled, "box", dropout_generator)
             sup = self.supervised(box_feats)
             # Frozen weak scores on top of the deltas: no graph (unit_tpu
             # stops the gradient here), so Res5 keeps no activations for it.
             with torch.no_grad():
-                sup_weak_feats = (self.box_features(pooled, "weak") if mc.multi_box_head
-                                  else box_feats)
+                sup_weak_feats = (self.box_features(pooled, "weak", dropout_generator)
+                                  if mc.multi_box_head else box_feats)
                 weak_scores, weak_box_deltas = self.weak_detector.evaluation(sup_weak_feats)
             delta_scores, proposal_deltas = sup["delta_scores"], sup["proposal_deltas"]
             sims = None
@@ -510,14 +566,18 @@ class WSRCNN(nn.Module):
         if weak is not None:
             if feats_w is None:
                 feats_w = self.features(weak["image"])
+            if rpn_w and logits_w is None:
                 logits_w, deltas_w = self.rpn(feats_w)
-            if props_w is None:
+            if weak_pre:
+                props_w = self._given_proposals(weak["proposals"], weak["proposals_valid"])
+            elif props_w is None:
                 props_w = self._train_proposals(feats_w, logits_w, deltas_w, weak["image_size"])
             # the top (BATCH_SIZE_PER_IMAGE // WEAK_CLASSIFIER_PROPOSAL_DIVISOR)
             w_boxes = props_w.boxes[:, :mc.weak_proposal_count].contiguous()
             w_valid = props_w.valid[:, :mc.weak_proposal_count]
             pooled_w = self.pooled_rois(feats_w, w_boxes)
-            weak_feats = self.box_features(pooled_w, "weak" if mc.multi_box_head else "box")
+            weak_feats = self.box_features(pooled_w, "weak" if mc.multi_box_head else "box",
+                                           dropout_generator)
             streams = self.weak_detector(weak_feats)
             if mc.weak_detector_type == "PCL":
                 present = pcl_lib.present_classes(weak.get("labels_host", weak["labels"]))
@@ -547,6 +607,7 @@ class WSRCNN(nn.Module):
         mc = self.mc
         if feats_w is None:
             feats_w = self.features(weak["image"])
+        if logits_w is None:
             logits_w, deltas_w = self.rpn(feats_w)
         with torch.no_grad():
             dets = self._predict_weak_only(feats_w.detach(), logits_w.detach(),
@@ -560,6 +621,18 @@ class WSRCNN(nn.Module):
         generator.manual_seed(0)
         losses = rpn_lib.rpn_losses(generator, logits_w, deltas_w, anchors, pseudo, mc.rpn)
         return {f"{k}_weak": v for k, v in losses.items()}
+
+    @staticmethod
+    def _given_proposals(boxes: torch.Tensor, valid: Optional[torch.Tensor] = None
+                         ) -> Proposals:
+        """Precomputed proposals [B, P, 4] (all valid unless ``valid`` [B, P]
+        says otherwise) as a Proposals of zero objectness."""
+        shape = boxes.shape[:2]
+        return Proposals(
+            boxes=boxes.to(torch.float32),
+            objectness=torch.zeros(shape, dtype=torch.float32, device=boxes.device),
+            valid=(torch.ones(shape, dtype=torch.bool, device=boxes.device) if valid is None
+                   else valid.bool()))
 
     def _mask_loss(self, feats4d, sampled: SampledProposals, gt_masks, sims) -> torch.Tensor:
         """The mask loss over the first ``mask_fg_slots`` slots of each image,
@@ -652,20 +725,31 @@ class WSRCNN(nn.Module):
             bbox = bbox + sup["ft_deltas"]
         return torch.softmax(scores, dim=-1), bbox
 
-    def predict_raw(self, images: torch.Tensor, image_sizes: torch.Tensor):
+    def predict_raw(self, images: torch.Tensor, image_sizes: torch.Tensor,
+                    proposal_boxes: Optional[torch.Tensor] = None,
+                    proposal_valid: Optional[torch.Tensor] = None):
         """Everything of :meth:`predict` before the final NMS:
         ``(probs [B,P,C+1], bbox [B,P,C*4], proposals, feats)``; images
-        [B, H, W, 3] f32 BGR, image_sizes [B, 2] (h, w) of the content."""
+        [B, H, W, 3] f32 BGR, image_sizes [B, 2] (h, w) of the content.
+        ``proposal_boxes`` [B, P, 4] (with ``proposal_valid`` [B, P], else
+        all valid): precomputed proposals in canvas coordinates, and no RPN."""
         feats = self.features(images)
-        proposals = self._test_proposals(feats, *self.rpn(feats), image_sizes)
+        if proposal_boxes is not None:
+            proposals = self._given_proposals(proposal_boxes, proposal_valid)
+        else:
+            proposals = self._test_proposals(feats, *self.rpn(feats), image_sizes)
         b, p = proposals.boxes.shape[:2]
         probs, bbox = self._score_rois(self.pooled_rois(feats, proposals.boxes))
         return probs.reshape(b, p, -1), bbox.reshape(b, p, -1), proposals, feats
 
-    def predict(self, images: torch.Tensor, image_sizes: torch.Tensor) -> Detections:
+    def predict(self, images: torch.Tensor, image_sizes: torch.Tensor,
+                proposal_boxes: Optional[torch.Tensor] = None,
+                proposal_valid: Optional[torch.Tensor] = None) -> Detections:
         """Batched inference -> Detections [B, D] in canvas coordinates, with
-        their masks under MODEL.MASK_ON."""
-        probs, bbox, proposals, feats = self.predict_raw(images, image_sizes)
+        their masks under MODEL.MASK_ON; precomputed proposals as in
+        :meth:`predict_raw`."""
+        probs, bbox, proposals, feats = self.predict_raw(images, image_sizes, proposal_boxes,
+                                                         proposal_valid)
         dets = self._final_detections(probs, bbox, proposals, image_sizes)
         if self.mc.mask_on:
             dets.masks = self._predict_masks(feats, dets)
@@ -685,16 +769,17 @@ class WSRCNN(nn.Module):
     def predict_tta_raw(self, canonical_image: torch.Tensor,
                         canonical_image_sizes: torch.Tensor, variants,
                         with_transfer: bool = True, proposal_boxes=None,
-                        tta_topk: int = 0):
+                        tta_topk: int = 0, proposal_valid=None):
         """Everything of :meth:`predict_tta` before the final NMS:
         ``(probs [B, P, C+1] summed over the variants, mean deltas [B, P, C*4],
         the canonical proposals)``."""
         if proposal_boxes is not None:
-            raise _not_ported("test-time augmentation with precomputed proposals",
-                              "ROADMAP Queue 1 item 25")
-        feats0 = self.features(canonical_image)
-        proposals = self._test_proposals(feats0, *self.rpn(feats0), canonical_image_sizes)
-        del feats0
+            # no canonical pass: the given boxes are the canonical proposals
+            proposals = self._given_proposals(proposal_boxes, proposal_valid)
+        else:
+            feats0 = self.features(canonical_image)
+            proposals = self._test_proposals(feats0, *self.rpn(feats0), canonical_image_sizes)
+            del feats0
         if tta_topk and tta_topk < proposals.boxes.shape[1]:
             # TPU.TTA_PROPOSAL_TOPK: the top-K canonical proposals by
             # objectness; a stable sort takes the lower index first among
@@ -744,7 +829,7 @@ class WSRCNN(nn.Module):
 
     def predict_tta(self, canonical_image: torch.Tensor, canonical_image_sizes: torch.Tensor,
                     variants, with_transfer: bool = True, proposal_boxes=None,
-                    tta_topk: int = 0) -> Detections:
+                    tta_topk: int = 0, proposal_valid=None) -> Detections:
         """Multi-scale + flip test-time augmentation (unit_tpu
         meta_arch.py:878-1020; the reference's rcnn.py:136-185).
 
@@ -759,11 +844,14 @@ class WSRCNN(nn.Module):
         flipped deltas); then the canonical proposals are decoded and go
         through one per-class NMS (K3), in the canonical frame.
         ``tta_topk`` > 0 keeps only the top-K canonical proposals by
-        objectness.  Precomputed proposals (``proposal_boxes``) are not
-        ported."""
+        objectness.  Precomputed proposals (``proposal_boxes`` [B, P, 4] in
+        the canonical frame, ``proposal_valid`` [B, P]) replace the RPN and
+        the canonical backbone pass; every variant rescales (and mirrors)
+        them as it does the RPN's, and their objectness is zero, so the top-K
+        are the first K valid."""
         probs, deltas, proposals = self.predict_tta_raw(
             canonical_image, canonical_image_sizes, variants, with_transfer=with_transfer,
-            proposal_boxes=proposal_boxes, tta_topk=tta_topk)
+            proposal_boxes=proposal_boxes, tta_topk=tta_topk, proposal_valid=proposal_valid)
         return self._final_detections(probs, deltas, proposals, canonical_image_sizes)
 
     def predict_weak_only(self, images: torch.Tensor, image_sizes: torch.Tensor) -> Detections:

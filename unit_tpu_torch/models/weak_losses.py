@@ -1,6 +1,6 @@
 """Weakly supervised detector losses (MIL + OICR), batched, static shapes.
 
-Port of unit_tpu/models/weak_losses.py (OICR path).  Every image has a fixed
+Port of unit_tpu/models/weak_losses.py.  Every image has a fixed
 proposal capacity P with a validity mask and its image-level labels are a
 multi-hot vector, so the batch goes through as tensors:
 
@@ -12,16 +12,20 @@ multi-hot vector, so the batch goes through as tensors:
     before the next class;
   * OICR loss: proposals matched to a pseudo box at IoU >= fg threshold take
     its class, the rest background; the weight is the matched pseudo score,
-    zeroed below the bg threshold; weighted CE, mean over proposals.
+    zeroed below the bg threshold; weighted CE, mean over proposals;
+  * with WEAK_DETECTOR.REGRESSION_BRANCH, a Fast R-CNN loss of the branch
+    against pseudo boxes mined from the mean of the OICR softmaxes: the
+    weighted CE, and a class-specific L1 (smooth L1 under
+    ROI_BOX_HEAD.SMOOTH_L1_BETA) on the foreground proposals over the valid
+    count (set by no shipped config).
 
 Mining runs on the device as a loop over classes over the whole batch; no
-value comes back to the host.  The weak regression branches (set by no
-shipped config) are not ported (ROADMAP Queue 1 item 25).
+value comes back to the host.  With OICR_ITER 0 only the MIL loss remains.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -37,7 +41,10 @@ class WeakLossConfig(NamedTuple):
     bg_threshold: float = 0.1   # WEAK_DETECTOR.BG_THRESHOLD (weight zeroing)
     mil_multiplier: float = 1.0
     weak_loss_multiplier: float = 1.0
-    regression_branch: bool = False  # not ported: weak_detector_losses raises
+    bbox_reg_weights: Sequence[float] = (10.0, 10.0, 5.0, 5.0)  # ROI_BOX_HEAD's
+    smooth_l1_beta: float = 0.0                                 # ROI_BOX_HEAD's
+    regression_branch: bool = False
+    oicr_regression_branch: bool = False
 
 
 class PseudoGT(NamedTuple):
@@ -124,11 +131,9 @@ def weak_detector_losses(
     labels: torch.Tensor,     # [B, C] multi-hot image labels
     cfg: WeakLossConfig,
 ) -> Dict[str, torch.Tensor]:
-    """The weak branch's loss dict, OICR path: loss_im_cls and
-    loss_oicr_{1..K}, each times ``weak_loss_multiplier``."""
-    if cfg.regression_branch:
-        raise NotImplementedError("the weak regression branch is not ported to "
-                                  "unit_tpu_torch yet (ROADMAP Queue 1 item 25)")
+    """The weak branch's loss dict, OICR path: loss_im_cls, loss_oicr_{1..K}
+    and, with the regression branch, loss_regression_cls and
+    loss_regression_bbox, each times ``weak_loss_multiplier``."""
     b, p, _ = proposals.shape
     c = cfg.num_classes
 
@@ -152,4 +157,38 @@ def weak_detector_losses(
             per.append(weighted_ce(logits_k[i], t_labels, t_weights, valid[i]))
         losses[f"loss_oicr_{k + 1}"] = torch.stack(per).mean()
         prev = F.softmax(logits_k, dim=-1).detach()
+    if cfg.regression_branch:
+        losses.update(_regression_branch_losses(streams, proposals, valid, labels, cfg))
     return {k: v * cfg.weak_loss_multiplier for k, v in losses.items()}
+
+
+def _regression_branch_losses(streams: Dict, proposals: torch.Tensor, valid: torch.Tensor,
+                              labels: torch.Tensor, cfg: WeakLossConfig
+                              ) -> Dict[str, torch.Tensor]:
+    """The regression branch's Fast R-CNN losses against the pseudo boxes of
+    the OICR-mean scores, each the mean over the images."""
+    b, p, _ = proposals.shape
+    c = cfg.num_classes
+    oicr_mean = torch.stack([F.softmax(s.reshape(b, p, -1), dim=-1)
+                             for s in streams["oicr_scores"]]).mean(0).detach()
+    reg_cls = streams["regression_cls"].reshape(b, p, -1)
+    reg_bbox = streams["regression_bbox"].reshape(b, p, c, 4)
+    pseudo = mine_pseudo_gt(oicr_mean, proposals, valid, labels, c)
+    cls_losses, bbox_losses = [], []
+    for i in range(b):
+        t_labels, t_weights, slot, _ = oicr_targets(
+            PseudoGT(pseudo.boxes[i], pseudo.scores[i], pseudo.valid[i]),
+            proposals[i], valid[i], cfg)
+        cls_losses.append(weighted_ce(reg_cls[i], t_labels, t_weights, valid[i]))
+        gt_deltas = box_ops.get_deltas(proposals[i], pseudo.boxes[i][slot],
+                                       cfg.bbox_reg_weights)
+        fg = (t_labels < c) & valid[i]
+        sel = reg_bbox[i].gather(1, t_labels.clamp(0, c - 1)[:, None, None].expand(-1, 1, 4))
+        diff = (sel[:, 0] - gt_deltas).abs()
+        beta = cfg.smooth_l1_beta
+        loss = (torch.where(diff < beta, 0.5 * diff * diff / beta, diff - 0.5 * beta)
+                if beta > 1e-5 else diff)
+        bbox_losses.append(torch.where(fg[:, None], loss, 0.0).sum()
+                           / valid[i].float().sum().clamp_min(1.0))
+    return {"loss_regression_cls": torch.stack(cls_losses).mean(),
+            "loss_regression_bbox": torch.stack(bbox_losses).mean()}

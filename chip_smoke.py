@@ -137,6 +137,21 @@ Phases (any failure raises and the script exits non-zero):
      shapes-COCO devkit with proposal pickles: 4 steps, a checkpoint and an
      evaluation at 2, a resume from 2; one image under TEST.AUG.ENABLED with
      proposals (K3 1)
+ 18  the serving surface at the flagship's full width (bf16): 32 seeded
+     requests of 375x500 / 500x375 under 8 client threads
+     (scripts/bench_serving_torch.py's load generator) through
+     DetectionService at batch 1 and micro-batched at 4 (wait 10 ms): req/s,
+     p50/p99, each device call's batch and its launches (K1 1, K3 1 + b, K4
+     114 a call); micro-batched against batch 1 in f32 with TF32 off (counts
+     and classes equal, boxes 1e-2 px, scores 1e-4); torch.export artifacts
+     at batch 1 (both orientations) and at 4 (landscape): export seconds,
+     MiB, the artifact against the live predict and its launches, the batch
+     artifact served through the service; the dock recipe's artifact with
+     5000 proposals a request against make_predict_fn (identical; K3 1, no
+     K1, K2 or K4) and refused by the service; DetectionServer on 127.0.0.1
+     (/healthz, /metadata, 8 concurrent JPEG POSTs, 400, 404);
+     scripts/serve_torch.py --artifact and scripts/export_model_torch.py
+     --describe as subprocesses
 The last three lines are the card (nvidia-smi), one JSON object describing
 the kernels (launches counted on the run loop of phase 10, and per path under
 launches_by_path), and {"ok": true, "device": {...}}.  Without a CUDA device, or without the
@@ -149,6 +164,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import dataclasses
+import io
 import itertools
 import json
 import os
@@ -4360,6 +4376,454 @@ def phase_dock(seed, workdir):
     return by_path, k3_dock
 
 
+# Serving surface (phase 18): the flagship served at batch 1 and micro-batched
+# at SERVE_BATCH under SERVE_CLIENTS client threads (scripts/bench_serving_torch.py's
+# load generator), SERVE_REQUESTS seeded requests of a VOC image's size in both
+# orientations; torch.export artifacts of the flagship and of the dock recipe
+# with proposals; the HTTP front end; the serving CLIs as subprocesses.
+SERVE_REQUESTS = 32
+SERVE_CLIENTS = 8
+SERVE_BATCH = 4
+SERVE_WAIT_MS = 10.0
+SERVE_SHAPES = ((375, 500), (500, 375))
+# A micro-batched request against the same request at batch 1, in f32 with
+# TF32 off (tests/test_serving.py:139-142): the batch-4 and batch-1 calls pick
+# their convolution algorithms apart, so boxes move by float noise, far under
+# 1e-2 px, and scores under 1e-4; the counts and classes are the same.
+BATCH_BOX_ATOL, BATCH_BOX_RTOL = 1e-2, 1e-4
+BATCH_SCORE_ATOL, BATCH_SCORE_RTOL = 1e-4, 1e-3
+# An artifact against the live predict in one process (tests/test_serving.py:
+# 84-90): the program runs the same aten operations and kernels on the same
+# weights, so they should agree bit for bit; these bounds hold where not.
+EXPORT_BOX_ATOL, EXPORT_BOX_RTOL = 1e-5, 1e-6
+EXPORT_SCORE_ATOL, EXPORT_SCORE_RTOL = 1e-6, 1e-6
+HTTP_REQUESTS = 8
+CLI_START_S = 300   # the serving CLI's start: torch, the artifact, its warm-up
+CLI_STOP_S = 10     # SIGTERM to exit
+
+
+def match_detections(got, want, box_atol, box_rtol, score_atol, score_rtol):
+    """(every detection of ``want`` has its own in ``got`` (same class, box and
+    score within the bounds) and the counts are equal, max |box diff|, max
+    |score diff|) of two detection lists, matched by class and distance."""
+    used, worst_box, worst_score, ok = set(), 0.0, 0.0, len(got) == len(want)
+    for w in want:
+        best = None
+        for j, g in enumerate(got):
+            if j in used or g["class_id"] != w["class_id"]:
+                continue
+            db = float(np.abs(np.subtract(g["box"], w["box"])).max())
+            if best is None or db < best[1]:
+                best = (j, db, abs(g["score"] - w["score"]))
+        if best is None:
+            ok = False
+            continue
+        j, db, ds = best
+        used.add(j)
+        worst_box, worst_score = max(worst_box, db), max(worst_score, ds)
+        box_tol = box_atol + box_rtol * float(np.abs(w["box"]).max())
+        ok &= db <= box_tol and ds <= score_atol + score_rtol * abs(w["score"])
+    return ok, worst_box, worst_score
+
+
+def file_mib(path):
+    return os.path.getsize(path) / 2**20
+
+
+def phase_serving(cfg, seed, workdir):
+    """Phase 18: the serving surface at the flagship's full width.  (a) the
+    live DetectionService at batch 1 and micro-batched at SERVE_BATCH under
+    SERVE_CLIENTS clients: req/s, p50/p99, each device call's batch size and
+    its launches; (b) micro-batched against batch 1 in f32 with TF32 off;
+    (c) torch.export artifacts at batch 1 (both orientations) and at
+    SERVE_BATCH (landscape): export seconds, MiB, the artifact against the
+    live predict, its launches, and the batch artifact served through the
+    service; (d) the dock recipe's artifact with 5000 proposals a request
+    against make_predict_fn, its launches, and the service refusing it; (e)
+    DetectionServer on 127.0.0.1 over (b)'s batch service; (f)
+    scripts/serve_torch.py --artifact and scripts/export_model_torch.py
+    --describe as subprocesses.  Returns {path: launch counts}."""
+    import runpy
+    import signal
+    import urllib.error
+    import urllib.request
+
+    import torch
+    from PIL import Image
+
+    from unit_tpu_torch.config import get_cfg
+    from unit_tpu_torch.data.proposals import attach_proposals
+    from unit_tpu_torch.data.transforms import (TransformConfig, prepare_detection_record,
+                                                prepare_test_image)
+    from unit_tpu_torch.engine.predict import make_predict_fn
+    from unit_tpu_torch.models.similarity import VOC_CLASSES
+    from unit_tpu_torch.serving import (DetectionServer, DetectionService, export_predict,
+                                        load_exported)
+
+    dev = torch.device(RUN_DEVICE)
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    bench = runpy.run_path(str(ROOT / "scripts" / "bench_serving_torch.py"))
+    writer = runpy.run_path(str(ROOT / "scripts" / "make_shapes_proposals_torch.py"))
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def free():
+        if on_card:
+            torch.cuda.empty_cache()
+
+    def reset_peak():
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak_mib():
+        return torch.cuda.max_memory_allocated() / 2**20 if on_card else 0.0
+
+    def recording(svc):
+        """Record the batch size of each of the micro-batcher's device calls."""
+        calls = []
+        inner = svc._batcher._predict
+        svc._batcher._predict = lambda i, s: (calls.append(i.shape[0]), inner(i, s))[1]
+        return calls
+
+    def serve(svc, requests, mode="array"):
+        bench["run"](svc, requests[: SERVE_CLIENTS * 2], SERVE_CLIENTS, mode)  # warm
+        return bench["run"](svc, requests, SERVE_CLIENTS, mode)
+
+    cfg = cfg.clone()
+    cfg.merge_from_list(list(RUN_EXTRA_OPTS))
+    rng = np.random.RandomState(seed + 180)
+    images = [rng.uniform(0, 255, SERVE_SHAPES[i % 2] + (3,)).astype(np.float32)
+              for i in range(SERVE_REQUESTS)]
+    none = {"roi_align_fwd": 0, "roi_align_bwd": 0, "nms_mask": 0, "nms_mask_images": 0,
+            "bn_act_fwd": 0, "bn_act_bwd": 0, "bn_act_layout_copies": 0}
+    by_path = {}
+
+    # (a) the live service at batch 1 and micro-batched
+    model = flagship_model(cfg, seed, dev)
+    n_backbone, n_res5, _ = frozen_bn_counts(model)
+    k4_call = n_backbone + (2 if model.mc.multi_box_head else 1) * n_res5
+
+    def want_launches(calls):
+        """K1 once a call, K3 once for the RPN of the call's images and once
+        for each image's final NMS, K4 once a FrozenBN a call."""
+        return dict(none, roi_align_fwd=len(calls), nms_mask=sum(1 + b for b in calls),
+                    nms_mask_images=sum(2 * b for b in calls), bn_act_fwd=k4_call * len(calls))
+
+    svc1 = DetectionService(cfg, model, class_names=VOC_CLASSES)
+    svc1.warmup()
+    reset_launch_counts()
+    rps1, p50_1, p99_1, _, res1 = serve(svc1, images)
+    log(f"[18] (a) batch 1, {SERVE_CLIENTS} clients, {SERVE_REQUESTS} requests of "
+        f"{SERVE_SHAPES}: {rps1:.2f} req/s, p50 {p50_1:.1f} ms, p99 {p99_1:.1f} ms; launches "
+        f"(warm-up run included) {read_launch_counts()}")
+    svc4 = DetectionService(cfg, model, class_names=VOC_CLASSES, batch_size=SERVE_BATCH,
+                            batch_wait_ms=SERVE_WAIT_MS)
+    calls = recording(svc4)
+    t0 = time.perf_counter()
+    svc4.warmup()
+    sync()
+    log(f"[18] (a) batch {SERVE_BATCH} warm-up, both orientations x batches {sorted(set(calls))}:"
+        f" {time.perf_counter() - t0:.2f} s")
+    bench["run"](svc4, images[: SERVE_CLIENTS * 2], SERVE_CLIENTS, "array")
+    calls.clear()
+    reset_peak()
+    reset_launch_counts()
+    rps4, p50_4, p99_4, _, res4 = bench["run"](svc4, images, SERVE_CLIENTS, "array")
+    launches = read_launch_counts()
+    log(f"[18] (a) batch {SERVE_BATCH} micro-batched (wait {SERVE_WAIT_MS} ms): {rps4:.2f} req/s "
+        f"({rps4 / rps1:.2f}x batch 1), p50 {p50_4:.1f} ms, p99 {p99_4:.1f} ms; {len(calls)} "
+        f"device calls of batch {calls}; peak {peak_mib():.1f} MiB; launches {launches}, a call "
+        f"K1 {launches['roi_align_fwd'] / max(len(calls), 1):.2f}, K3 "
+        f"{launches['nms_mask'] / max(len(calls), 1):.2f}, K4 "
+        f"{launches['bn_act_fwd'] / max(len(calls), 1):.2f}")
+    if not (calls and all(b in (1, 2, 4) for b in calls) and len(calls) < SERVE_REQUESTS):
+        raise AssertionError(f"the micro-batcher's calls {calls} are not power-of-two batches "
+                             f"fewer than the {SERVE_REQUESTS} requests")
+    if on_card and launches != want_launches(calls):
+        raise AssertionError(f"the micro-batched calls {calls} did not launch K1 x1, K3 x(1 + b) "
+                             f"and K4 x{k4_call} each: {launches}, want {want_launches(calls)}")
+    by_path["serving_micro"] = launches
+    same = [match_detections(g, w, BATCH_BOX_ATOL, BATCH_BOX_RTOL, BATCH_SCORE_ATOL,
+                             BATCH_SCORE_RTOL) for g, w in zip(res4, res1)]
+    log(f"[18] (a) bf16, batch {SERVE_BATCH} against batch 1 (reported, not gated): "
+        f"{sum(s[0] for s in same)} of {SERVE_REQUESTS} requests within the f32 bounds, "
+        f"detections {sum(map(len, res4))} vs {sum(map(len, res1))}, max |box diff| "
+        f"{max(s[1] for s in same):.4g} px, max |score diff| {max(s[2] for s in same):.4g}")
+    for img, dets in zip(images, res4):
+        h, w = img.shape[:2]
+        for d in dets:
+            x1, y1, x2, y2 = d["box"]
+            if not (np.isfinite(d["box"]).all() and 0 <= x1 <= x2 <= w and 0 <= y1 <= y2 <= h
+                    and 0 < d["score"] <= 1):
+                raise AssertionError(f"a served detection outside the image or range: {d}")
+    svc1.close()
+    svc4.close()
+
+    # (c) artifacts of the live model, in this process
+    tcfg = TransformConfig.test_from_cfg(cfg)
+    art_paths = {}
+    for b, orientations in ((1, "both"), (SERVE_BATCH, "landscape")):
+        path = os.path.join(workdir, f"flagship_b{b}.pt2.pkl")
+        reset_peak()
+        t0 = time.perf_counter()
+        meta = export_predict(cfg, model, path, class_names=VOC_CLASSES, batch_size=b,
+                              orientations=orientations)
+        log(f"[18] (c) exported {meta['canvases']} at batch {b} in "
+            f"{time.perf_counter() - t0:.1f} s: {file_mib(path):.1f} MiB, peak {peak_mib():.1f} "
+            f"MiB, {meta['platforms']}, torch {meta['torch_version']}")
+        art_paths[b] = (path, meta)
+    art1 = load_exported(art_paths[1][0])
+    predict = make_predict_fn(model)
+    prepared = [prepare_test_image(images[i], tcfg) for i in range(2)]  # both orientations
+    reset_launch_counts()
+    got = [art1(s["image"][None], s["image_size"][None]) for s in prepared]
+    sync()
+    launches = read_launch_counts()
+    want = [predict(s["image"][None], s["image_size"][None]) for s in prepared]
+    identical = all(torch.equal(getattr(g, f), getattr(w, f)) for g, w in zip(got, want)
+                    for f in ("boxes", "scores", "classes", "valid"))
+    worst = [0.0, 0.0]
+    for g, w in zip(got, want):
+        v = w.valid
+        if not torch.equal(g.valid, v) or not torch.equal(g.classes[v], w.classes[v]):
+            raise AssertionError("the artifact's valid detections or classes differ from the "
+                                 "live predict's")
+        box_ok = torch.allclose(g.boxes[v], w.boxes[v], rtol=EXPORT_BOX_RTOL, atol=EXPORT_BOX_ATOL)
+        score_ok = torch.allclose(g.scores[v], w.scores[v], rtol=EXPORT_SCORE_RTOL,
+                                  atol=EXPORT_SCORE_ATOL)
+        if not (box_ok and score_ok):
+            raise AssertionError("the artifact's boxes or scores differ from the live predict's "
+                                 "beyond tests/test_serving.py's bounds")
+        if v.any():
+            worst = [max(worst[0], float((g.boxes[v] - w.boxes[v]).abs().max())),
+                     max(worst[1], float((g.scores[v] - w.scores[v]).abs().max()))]
+    log(f"[18] (c) batch-1 artifact against the live predict, one request each orientation: "
+        f"valid and classes identical, bit-identical {identical}, max |box diff| {worst[0]:.3g}"
+        f", max |score diff| {worst[1]:.3g}; launches {launches}")
+    if on_card and launches != want_launches([1, 1]):
+        raise AssertionError(f"the artifact did not launch K1 x1, K3 x2 and K4 x{k4_call} a "
+                             f"call: {launches}")
+    by_path["serving_artifact_b1"] = launches
+    del art1, got, want
+    free()
+    art4 = load_exported(art_paths[SERVE_BATCH][0])
+    svc_a = DetectionService(cfg, exported=art4)
+    if svc_a.batch_size != SERVE_BATCH or svc_a.class_names != list(VOC_CLASSES):
+        raise AssertionError("the service did not take the artifact's batch size and names")
+    calls = recording(svc_a)
+    svc_a.warmup()  # the landscape program only: the artifact has no other
+    landscape = images[0::2]
+    bench["run"](svc_a, landscape[:SERVE_CLIENTS], SERVE_CLIENTS, "array")
+    calls.clear()
+    reset_launch_counts()
+    rps_a, p50_a, p99_a, _, _ = bench["run"](svc_a, landscape, SERVE_CLIENTS, "array")
+    launches = read_launch_counts()
+    log(f"[18] (c) batch-{SERVE_BATCH} artifact through the service, {len(landscape)} landscape "
+        f"requests, {SERVE_CLIENTS} clients: {rps_a:.2f} req/s, p50 {p50_a:.1f} ms, p99 "
+        f"{p99_a:.1f} ms; calls {calls}; launches {launches}")
+    if not (calls and set(calls) == {SERVE_BATCH}):
+        raise AssertionError(f"the artifact's calls are not all of batch {SERVE_BATCH}: {calls}")
+    if on_card and launches != want_launches(calls):
+        raise AssertionError(f"the batch artifact's launches {launches} are not "
+                             f"{want_launches(calls)}")
+    by_path["serving_artifact"] = launches
+    svc_a.close()
+    del svc_a, art4, model, predict
+    free()
+
+    # (b) micro-batched against batch 1 in f32 with TF32 off
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    cfg32 = cfg.clone()
+    cfg32.TPU.COMPUTE_DTYPE = "float32"
+    model32 = flagship_model(cfg32, seed, dev)
+    s1 = DetectionService(cfg32, model32, class_names=VOC_CLASSES)
+    s4 = DetectionService(cfg32, model32, class_names=VOC_CLASSES, batch_size=SERVE_BATCH,
+                          batch_wait_ms=SERVE_WAIT_MS)
+    s1.warmup()
+    s4.warmup()
+    calls = recording(s4)
+    reqs = images[:2 * HTTP_REQUESTS]
+    single = [s1.detect_array(im) for im in reqs]
+    batched = bench["run"](s4, reqs, SERVE_CLIENTS, "array")[4]
+    same = [match_detections(g, w, BATCH_BOX_ATOL, BATCH_BOX_RTOL, BATCH_SCORE_ATOL,
+                             BATCH_SCORE_RTOL) for g, w in zip(batched, single)]
+    log(f"[18] (b) f32, TF32 off: batch {SERVE_BATCH} (calls {calls}) against batch 1 on "
+        f"{len(reqs)} requests: {sum(s[0] for s in same)} within the bounds, detections "
+        f"{sum(map(len, batched))} vs {sum(map(len, single))}, max |box diff| "
+        f"{max(s[1] for s in same):.3g} px (tol {BATCH_BOX_ATOL}), max |score diff| "
+        f"{max(s[2] for s in same):.3g} (tol {BATCH_SCORE_ATOL})")
+    if not all(s[0] for s in same) or max(calls) < 2 or sum(map(len, single)) == 0:
+        raise AssertionError("micro-batched f32 requests differ from batch 1 beyond the bounds "
+                             "(or no call was batched, or nothing was detected)")
+
+    # (e) the HTTP front end over (b)'s batch service
+    def http(base, path, data=None):
+        req = urllib.request.Request(base + path, data=data,
+                                     method="POST" if data is not None else "GET")
+        try:
+            with urllib.request.urlopen(req, timeout=120) as r:
+                return r.status, json.load(r)
+        except urllib.error.HTTPError as e:
+            return e.code, json.load(e)
+
+    def jpeg(img):
+        buf = io.BytesIO()
+        Image.fromarray(img[:, :, ::-1].astype(np.uint8)).save(buf, format="JPEG", quality=90)
+        return buf.getvalue()
+
+    jpegs = [jpeg(im) for im in images[:HTTP_REQUESTS]]
+    server = DetectionServer(s4, host="127.0.0.1", port=0,
+                             metadata={"config": str(FLAGSHIP.relative_to(ROOT))})
+    server.start_background()
+    try:
+        base = f"http://127.0.0.1:{server.port}"
+        health, meta_reply = http(base, "/healthz"), http(base, "/metadata")
+        with concurrent.futures.ThreadPoolExecutor(HTTP_REQUESTS) as pool:
+            replies = list(pool.map(lambda p: http(base, "/predict", p), jpegs))
+        direct = bench["run"](s4, jpegs, HTTP_REQUESTS, "bytes")[4]
+        bad, unknown = http(base, "/predict", b"not an image"), http(base, "/nowhere")
+    finally:
+        server.shutdown()  # closes s4's micro-batcher
+    same = [code == 200 and match_detections(body["detections"], d, BATCH_BOX_ATOL,
+                                             BATCH_BOX_RTOL, BATCH_SCORE_ATOL,
+                                             BATCH_SCORE_RTOL)[0]
+            for (code, body), d in zip(replies, direct)]
+    identical = sum(code == 200 and body["detections"] == d for (code, body), d in
+                    zip(replies, direct))
+    log(f"[18] (e) HTTP on 127.0.0.1:{server.port}: /healthz {health}, /metadata {meta_reply[0]},"
+        f" {HTTP_REQUESTS} concurrent JPEG POSTs {[c for c, _ in replies]}: {sum(same)} equal to "
+        f"detect_bytes within (b)'s bounds ({identical} identical), detections "
+        f"{[len(b['detections']) for _, b in replies]}; garbage -> {bad[0]}, unknown path -> "
+        f"{unknown[0]}")
+    if not (health == (200, {"status": "ok"}) and meta_reply[0] == 200 and all(same)
+            and bad[0] == 400 and unknown[0] == 404):
+        raise AssertionError("the HTTP front end did not answer as DetectionService does")
+    s1.close()
+    del s1, s4, model32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    free()
+
+    # (d) the dock recipe's artifact with proposals at full width
+    dcfg = get_cfg()
+    dcfg.merge_from_file(str(DOCK_RECIPE))
+    dcfg.merge_from_list(list(RUN_EXTRA_OPTS))
+    topk = dcfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TEST
+    dtcfg = TransformConfig.test_from_cfg(dcfg)
+    dtcfg.proposal_capacity = topk
+    table, records, dimages = {}, [], []
+    for i in range(DOCK_REQUESTS):
+        h, w = DOCK_REQUEST_SHAPES[i % 2]
+        dimages.append(rng.uniform(0, 255, (h, w, 3)).astype(np.float32))
+        gt = rng.uniform(0, 1, (3, 4)) * [w / 2, h / 2, w / 2, h / 2]
+        gt[:, 2:] += gt[:, :2] + 16
+        boxes, scores = writer["mcg_like_proposals"](gt, w, h, rng, per_image=topk)
+        table[str(i)] = {"boxes": boxes, "scores": scores}
+        records.append({"image_id": str(i), "height": h, "width": w, "annotations": []})
+    prop_path = os.path.join(workdir, "serving_proposals.pkl")
+    with open(prop_path, "wb") as f:
+        pickle.dump(table, f)
+    attach_proposals(records, [prop_path], topk)
+    dprep = [prepare_detection_record(r, dtcfg, None, image=im, training=False)
+             for r, im in zip(records, dimages)]
+    dcfg.DATASETS.PROPOSAL_FILES_TEST = (prop_path,)
+    dmodel = flagship_model(dcfg, seed, dev)
+    dpath = os.path.join(workdir, "dock_b1.pt2.pkl")
+    reset_peak()
+    t0 = time.perf_counter()
+    dmeta = export_predict(dcfg, dmodel, dpath)
+    log(f"[18] (d) dock artifact {dmeta['canvases']} with {dmeta['proposal_capacity']} proposals "
+        f"a request exported in {time.perf_counter() - t0:.1f} s: {file_mib(dpath):.1f} MiB, "
+        f"peak {peak_mib():.1f} MiB")
+    dart = load_exported(dpath)
+    dpredict = make_predict_fn(dmodel)
+
+    def args_of(s):
+        return (s["image"][None], s["image_size"][None], s["proposals"][None],
+                s["proposals_valid"][None])
+
+    reset_launch_counts()
+    dgot = [dart(*args_of(s)) for s in dprep]
+    sync()
+    launches = read_launch_counts()
+    dwant = [dpredict(*args_of(s)) for s in dprep]
+    identical = [all(torch.equal(getattr(g, f), getattr(w, f))
+                     for f in ("boxes", "scores", "classes", "valid"))
+                 for g, w in zip(dgot, dwant)]
+    log(f"[18] (d) dock artifact against make_predict_fn on {DOCK_REQUESTS} requests of "
+        f"{DOCK_REQUEST_SHAPES}: identical {identical}, detections "
+        f"{[int(g.valid.sum()) for g in dgot]}; launches {launches}")
+    if not all(identical):
+        raise AssertionError("the dock artifact's detections differ from make_predict_fn's")
+    want = dict(none, nms_mask=DOCK_REQUESTS, nms_mask_images=DOCK_REQUESTS)
+    if on_card and launches != want:
+        raise AssertionError(f"the dock artifact did not launch K3 x1 a call and nothing else: "
+                             f"{launches}")
+    by_path["dock_artifact"] = launches
+    try:
+        DetectionService(dcfg, exported=dart)
+    except ValueError as e:
+        log(f"[18] (d) DetectionService refuses the artifact: {str(e)[:80]}...")
+    else:
+        raise AssertionError("DetectionService took an artifact exported with proposals")
+    del dart, dmodel, dpredict, dgot, dwant
+    free()
+
+    # (f) the CLIs as a user starts them
+    path4, meta4 = art_paths[SERVE_BATCH]
+    cmd = [sys.executable, str(ROOT / "scripts" / "serve_torch.py"), "--config-file",
+           str(FLAGSHIP), "--artifact", path4, "--host", "127.0.0.1", "--port", "0",
+           "--device", RUN_DEVICE, *RUN_EXTRA_OPTS, "OUTPUT_DIR", os.path.join(workdir, "serve")]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            cwd=workdir)
+    lines = []
+
+    def serving_line():
+        for out_line in iter(proc.stdout.readline, ""):
+            lines.append(out_line)
+            if out_line.startswith("serving on "):
+                return out_line
+        return None
+
+    try:
+        reader = concurrent.futures.ThreadPoolExecutor(1)
+        line = reader.submit(serving_line).result(timeout=CLI_START_S)
+        if line is None:
+            raise AssertionError("serve_torch.py exited before serving:\n" + "".join(lines))
+        start_s = time.perf_counter() - t0
+        base = "http://127.0.0.1:" + line.strip().rsplit(":", 1)[1]
+        health = http(base, "/healthz")
+        code, body = http(base, "/predict", jpegs[0])
+        t0 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rest, _ = proc.communicate(timeout=CLI_STOP_S)
+        stop_s = time.perf_counter() - t0
+        reader.shutdown()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    log(f"[18] (f) serve_torch.py --artifact: serving after {start_s:.1f} s, /healthz {health},"
+        f" POST {code} ({len(body.get('detections', []))} detections), exit {proc.returncode} "
+        f"{stop_s:.2f} s after SIGTERM")
+    if not (health == (200, {"status": "ok"}) and code == 200 and proc.returncode == 0
+            and "signal 15: shutting down" in rest):
+        raise AssertionError("serve_torch.py did not serve and stop cleanly:\n"
+                             + "".join(lines) + rest)
+    described = json.loads(run([sys.executable, str(ROOT / "scripts" / "export_model_torch.py"),
+                                "--describe", path4]))
+    log(f"[18] (f) export_model_torch.py --describe: {described['canvases']} batch "
+        f"{described['batch_size']} {described['platforms']}")
+    if described != meta4:
+        raise AssertionError(f"--describe printed {described}, not the artifact's metadata")
+    log(f"[18] phase 18 took {time.perf_counter() - t_phase:.1f} s")
+    return by_path
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4402,6 +4866,7 @@ def main():
         by_path.update(note_paths)
         dock_paths, k3_dock = phase_dock(args.seed, workdir)
         by_path.update(dock_paths)
+        by_path.update(phase_serving(cfg, args.seed, workdir))
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     def per_path(*names):
@@ -4428,7 +4893,11 @@ def main():
                "note": no_k4, "note_full_batch": no_k4, "note_run": no_k4,
                "dock_serving": no_k1_k2_k4, "dock": no_kernel, "dock_full_batch": no_kernel,
                "dock_yaml": no_k1_k2_k4, "dock_yaml_serving": no_k1_k2_k4,
-               "dock_run": no_k1_k2_k4, "dock_tta": no_k1_k2_k4}
+               "dock_run": no_k1_k2_k4, "dock_tta": no_k1_k2_k4,
+               "serving_micro": ("roi_align_bwd", "bn_act_bwd"),
+               "serving_artifact_b1": ("roi_align_bwd", "bn_act_bwd"),
+               "serving_artifact": ("roi_align_bwd", "bn_act_bwd"),
+               "dock_artifact": no_k1_k2_k4}
     for path, counts in by_path.items():
         for name, count in counts.items():
             if name == "bn_act_layout_copies":

@@ -13,6 +13,9 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "unit_tpu_torch"
+# the serving CLIs of the port, and the benchmark of its operators' host cost
+SCRIPTS = [REPO / "scripts" / f"{name}_torch.py"
+           for name in ("serve", "export_model", "bench_serving", "bench_nograd")]
 
 _RUN_WITHOUT_JAX = r"""
 import importlib, pkgutil, sys
@@ -35,6 +38,17 @@ with torch.inference_mode():
 assert dets.boxes.shape[0] == 1 and bool(torch.isfinite(dets.boxes).all())
 recs = DetectionService(cfg, model).detect_array(torch.rand(50, 70, 3).numpy() * 255)
 assert isinstance(recs, list)
+# the serving surface: the registered operators, an artifact, the CLIs
+import runpy, tempfile, os
+from unit_tpu_torch.ops import library
+from unit_tpu_torch.serving import export_predict, load_exported
+path = os.path.join(tempfile.mkdtemp(), "model.pt2.pkl")
+cfg.merge_from_list(["INPUT.MAX_SIZE_TEST", "64"])
+export_predict(cfg, model, path)
+assert isinstance(DetectionService(cfg, exported=load_exported(path)).detect_array(
+    torch.rand(40, 50, 3).numpy() * 255), list)
+for script in SCRIPTS:
+    runpy.run_path(script)
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "torchvision", "unit_tpu"))
 assert not loaded, loaded
@@ -43,14 +57,15 @@ print("no jax")
 
 
 def test_port_imports_and_runs_without_jax():
-    proc = subprocess.run([sys.executable, "-c", _RUN_WITHOUT_JAX], cwd=REPO,
+    code = f"SCRIPTS = {[str(p) for p in SCRIPTS]!r}\n" + _RUN_WITHOUT_JAX
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().endswith("no jax")
 
 
 def _sources():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"] + SCRIPTS
 
 
 def test_sources_use_no_jax_library_kernels_or_compile():

@@ -211,8 +211,16 @@ def test_unported_paths_raise(pair):
     ft = WSRCNN(ModelConfig.from_cfg(cfg))
     assert ft.mc.finetune and ft.mc.weak_detector_finetune
     assert not ft.supervised.cls_score_ft.weight.any()
-    # TPU.FOLD_BN_AT_EVAL is ported (tests/test_torch_bn_fold.py); the uint8 wire is not
+    # TPU.FOLD_BN_AT_EVAL is ported (tests/test_torch_bn_fold.py), and so are
+    # the micro-batcher, encoded requests, the HTTP server and the exported
+    # artifacts (tests/test_torch_serving.py, tests/test_torch_export.py): a
+    # micro-batching service builds and closes; the uint8 wire is not ported
     cfg = small_flagship_cfg()
+    svc = DetectionService(cfg, tmodel, batch_size=4)
+    assert svc._batcher is not None
+    svc.close()
     cfg.TPU.HOST_TRANSFER_UINT8 = True
     with pytest.raises(NotImplementedError, match="item 29"):
         DetectionService(cfg, tmodel)
+    with pytest.raises(NotImplementedError, match="item 29"):
+        DetectionService(cfg, tmodel, batch_size=4)

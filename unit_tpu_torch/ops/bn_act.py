@@ -78,11 +78,20 @@ class _BnActCuda(torch.autograd.Function):
 def bn_act(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
            residual: Optional[torch.Tensor] = None, relu: bool = True,
            impl: str = "auto") -> torch.Tensor:
-    """The epilogue on NCHW tensors (see the module docstring)."""
-    if impl == "auto":
-        impl = "cuda" if x.is_cuda else "plain"
-    if impl == "plain":
-        return bn_act_plain(x, scale, shift, residual, relu)
-    if impl != "cuda":
+    """The epilogue on NCHW tensors (see the module docstring).  Without a
+    gradient, "auto" and "cuda" on a CUDA tensor go through the registered
+    operator ``library.bn_act`` (K4's forward on the card, the plain version
+    on the CPU), which ``torch.export`` can trace."""
+    if impl not in ("auto", "cuda", "plain"):
         raise ValueError(f"unknown bn_act impl {impl!r} (auto | cuda | plain)")
-    return _BnActCuda.apply(x, scale, shift, residual, relu)
+    needs_grad = torch.is_grad_enabled() and (
+        x.requires_grad or (residual is not None and residual.requires_grad))
+    if impl == "plain" or (impl == "auto" and needs_grad and not x.is_cuda):
+        return bn_act_plain(x, scale, shift, residual, relu)
+    if needs_grad or not x.is_cuda and impl == "cuda":
+        return _BnActCuda.apply(x, scale, shift, residual, relu)
+    return library.bn_act(x, scale, shift, residual, relu)
+
+
+# the registered operator calls back into this module (a cycle: imported last)
+from . import library  # noqa: E402

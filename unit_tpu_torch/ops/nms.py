@@ -201,14 +201,22 @@ def nms_sorted_mask(
 ) -> torch.Tensor:
     """Dispatching keep mask (see the module docstring for ``impl``) over
     [N, 4] -> [N] or [B, N, 4] -> [B, N].  ``n_valid`` ([B] int32, the
-    kernel's hint): rows at or after it are all-zero boxes."""
-    if impl == "auto":
-        impl = "cuda" if sorted_boxes.is_cuda else "plain"
-    if impl == "cuda":
-        return nms_sorted_mask_cuda(sorted_boxes, iou_threshold, max_keep, n_valid=n_valid)
+    kernel's hint): rows at or after it are all-zero boxes.  "auto", and
+    "cuda" on a CUDA tensor, go through the registered operator
+    ``library.nms_keep`` (K3 on the card, the plain version on the CPU),
+    which ``torch.export`` can trace."""
+    if impl not in ("auto", "cuda", "plain"):
+        raise ValueError(f"unknown NMS impl {impl!r} (auto | cuda | plain)")
     if impl == "plain":
         return nms_sorted_mask_plain(sorted_boxes, iou_threshold, max_keep)
-    raise ValueError(f"unknown NMS impl {impl!r} (auto | cuda | plain)")
+    if impl == "cuda" and not sorted_boxes.is_cuda:
+        return nms_sorted_mask_cuda(sorted_boxes, iou_threshold, max_keep, n_valid=n_valid)
+    single = sorted_boxes.dim() == 2
+    boxes = sorted_boxes[None] if single else sorted_boxes
+    n = boxes.shape[1]
+    cap = n if max_keep is None else max(0, min(int(max_keep), n))
+    keep = library.nms_keep(boxes, n_valid, float(iou_threshold), cap)
+    return keep[0] if single else keep
 
 
 def _take(values: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
@@ -273,3 +281,7 @@ def batched_nms(
     offsets = idxs.to(boxes.dtype) * (max_coord[..., None] + 1.0)
     shifted = boxes + offsets[..., None]
     return nms(shifted, scores, iou_threshold, max_out, valid=valid, impl=impl)
+
+
+# the registered operator calls back into this module (a cycle: imported last)
+from . import library  # noqa: E402

@@ -311,13 +311,23 @@ def roi_align_batched(
     sampling_ratio: int = 2,
     impl: str = "auto",
 ) -> torch.Tensor:
-    """Whole-batch ROIAlignV2 -> [B, N, P, P, C] (see the module docstring)."""
-    if impl == "auto":
-        impl = "cuda" if features.is_cuda else "plain"
-    if impl not in ("cuda", "plain"):
+    """Whole-batch ROIAlignV2 -> [B, N, P, P, C] (see the module docstring).
+    Without a gradient, "auto" and "cuda" on a CUDA tensor go through the
+    registered operator ``library.roi_align`` (K1 on the card, the plain
+    version on the CPU), which ``torch.export`` can trace."""
+    if impl not in ("auto", "cuda", "plain"):
         raise ValueError(f"unknown ROIAlign impl {impl!r} (auto | cuda | plain)")
     if features.requires_grad and torch.is_grad_enabled():
+        if impl == "auto":
+            impl = "cuda" if features.is_cuda else "plain"
         return RoIAlignV2Function.apply(features, rois, output_size, spatial_scale,
                                         sampling_ratio, impl)
-    fwd = roi_align_cuda if impl == "cuda" else roi_align_plain
-    return fwd(features, rois, output_size, spatial_scale, sampling_ratio)
+    if impl == "plain":
+        return roi_align_plain(features, rois, output_size, spatial_scale, sampling_ratio)
+    if impl == "cuda" and not features.is_cuda:
+        return roi_align_cuda(features, rois, output_size, spatial_scale, sampling_ratio)
+    return library.roi_align(features, rois, output_size, spatial_scale, sampling_ratio)
+
+
+# the registered operators call back into this module (a cycle: imported last)
+from . import library  # noqa: E402

@@ -1,5 +1,14 @@
-"""Serving (port of unit_tpu.serving: the in-process DetectionService)."""
+"""Serving and deployment (port of unit_tpu.serving): torch.export artifacts
+and the HTTP inference server (see export.py and server.py)."""
 
-from .server import DetectionService
+from .export import ExportedPredictor, describe, export_predict, load_exported
+from .server import DetectionServer, DetectionService
 
-__all__ = ["DetectionService"]
+__all__ = [
+    "DetectionServer",
+    "DetectionService",
+    "ExportedPredictor",
+    "describe",
+    "export_predict",
+    "load_exported",
+]

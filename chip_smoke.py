@@ -152,6 +152,20 @@ Phases (any failure raises and the script exits non-zero):
      (/healthz, /metadata, 8 concurrent JPEG POSTs, 400, 404);
      scripts/serve_torch.py --artifact and scripts/export_model_torch.py
      --describe as subprocesses
+ 19  the flagship learns: a shapes-VOC devkit (scripts/make_shapes_voc_torch.py:
+     JPEGs of the 20 classes as (shape, hue) pairs), engine.runner.run on
+     the recipe from random weights (MODEL.WEIGHTS "", FREEZE_AT 0, LR 0.002
+     with 100 warm-up steps, 320-pixel INPUT sizes: the accuracy pipeline's
+     settings) for 300 steps of 4 + 4 images, one checkpoint and one
+     evaluation; the median total_loss of the last 20 steps under 0.7x that
+     of the first 20, loss_rpn_cls and loss_im_cls lower, every loss finite
+     (AP reported, not gated); on the trained checkpoint: the proposals an
+     image at test settings against random weights', the f32 predict and
+     train paths kernels vs plain, bf16 against f32 on the test images, a
+     trained step of 2 + 2 images at 800x800 under the recipe's solver (K1 2,
+     K2 2, K3 1, K4 124 + 103) and K3 at that step's own RPN input (4 x
+     12000 -> 2000) bit-identical to its plain version, timed beside phase
+     3's three synthetic layouts
 The last three lines are the card (nvidia-smi), one JSON object describing
 the kernels (launches counted on the run loop of phase 10, and per path under
 launches_by_path), and {"ok": true, "device": {...}}.  Without a CUDA device, or without the
@@ -988,20 +1002,6 @@ def phase_e2e(cfg, seed):
     return launches
 
 
-# Kernel names -> the layer they belong to, for the profiled breakdowns.
-KERNEL_KINDS = (
-    ("K1 roi_align_fwd", ("roi_align_fwd",)),
-    ("K2 roi_align_bwd", ("roi_align_bwd",)),
-    ("K3 nms_mask", ("nms_survivor",)),
-    ("K4 bn_act", ("bn_act",)),
-    ("cuDNN conv", ("xmma", "implicit_gemm", "cudnn", "conv2d")),
-    ("cuBLAS matmul", ("nvjet", "gemm", "cutlass")),
-    ("copies", ("Memcpy", "Memset", "copy")),
-    ("sort/scan/index", ("sort", "Sort", "scan", "index", "gather", "scatter")),
-    ("elementwise/reduce", ("elementwise", "reduce", "Reduce", "foreach")),
-)
-
-
 def profile_request(svc, image):
     """Where one request's time goes: torch.profiler over one more request."""
     profile_run(lambda: svc.detect_array(image), "[4]", "request")
@@ -1012,6 +1012,8 @@ def profile_run(fn, tag, what, top=15):
     wall time, device busy share and the kernels with the most device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from unit_tpu_torch.utils.profiling import kernel_kind
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1031,7 +1033,7 @@ def profile_run(fn, tag, what, top=15):
         f"{n_ops} device ops")
     by_kind = {}
     for ms, count, key in rows:
-        kind = next((k for k, frags in KERNEL_KINDS if any(f in key for f in frags)), "other")
+        kind = kernel_kind(key)
         by_kind[kind] = by_kind.get(kind, 0.0) + ms
     log(f"{tag} device ms by kind: " + ", ".join(
         f"{k} {v:.2f}" for k, v in sorted(by_kind.items(), key=lambda kv: -kv[1])))
@@ -1045,7 +1047,6 @@ def phase_whole_path(cfg, seed):
     import torch
 
     from unit_tpu_torch.data.transforms import TransformConfig, prepare_test_image
-    from unit_tpu_torch.models.resnet import set_bn_act_impl
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1060,18 +1061,33 @@ def phase_whole_path(cfg, seed):
                            TransformConfig.test_from_cfg(cfg32))
     img = torch.as_tensor(s["image"][None], device=dev)
     size = torch.as_tensor(s["image_size"][None], device=dev)
-    outs = {}
-    for impl in ("cuda", "plain"):
-        model.mc = dataclasses.replace(model.mc, roi_align_impl=impl, nms_impl=impl)
-        set_bn_act_impl(model, impl)
-        with torch.inference_mode():
-            probs, bbox, props, _ = model.predict_raw(img, size)
-        outs[impl] = (probs, bbox, props)
+    predict_path_kernels_vs_plain(model, img, size, "[5]")
+
+
+def predict_path_kernels_vs_plain(model, img, size, tag):
+    """predict_raw with the kernels (K1, K3, K4) and with their plain
+    versions: identical proposals, probabilities within E2E_PROBS_ATOL and
+    box deltas within E2E_BBOX_RTOL of their largest magnitude."""
+    import torch
+
+    from unit_tpu_torch.models.resnet import set_bn_act_impl
+
+    outs, mc = {}, model.mc
+    try:
+        for impl in ("cuda", "plain"):
+            model.mc = dataclasses.replace(mc, roi_align_impl=impl, nms_impl=impl)
+            set_bn_act_impl(model, impl)
+            with torch.inference_mode():
+                probs, bbox, props, _ = model.predict_raw(img, size)
+            outs[impl] = (probs, bbox, props)
+    finally:
+        model.mc = mc
+        set_bn_act_impl(model, mc.bn_act_impl)
     (pk, bk, prk), (pp, bp, prp) = outs["cuda"], outs["plain"]
     same_props = torch.equal(prk.valid, prp.valid) and torch.equal(prk.boxes, prp.boxes)
     dprobs = float((pk - pp).abs().max())
     dbbox = float((bk - bp).abs().max()) / max(1.0, float(bp.abs().max()))
-    log(f"[5] proposals identical: {same_props} ({int(prk.valid.sum())} valid); probs "
+    log(f"{tag} proposals identical: {same_props} ({int(prk.valid.sum())} valid); probs "
         f"max|diff| {dprobs:.3g} (tol {E2E_PROBS_ATOL}); bbox max|diff|/max|bbox| "
         f"{dbbox:.3g} (tol {E2E_BBOX_RTOL})")
     if not (same_props and dprobs <= E2E_PROBS_ATOL and dbbox <= E2E_BBOX_RTOL):
@@ -1450,14 +1466,18 @@ def phase_train_whole_path(cfg, seed):
     torch.cuda.empty_cache()
 
 
-def phase_k4(rng):
+def k4_case(rng, shape, has_res, relu, tag="[9]"):
+    """K4 at one NHWC ``shape`` against its plain version, forward and
+    backward, f32 and bf16 (bit-identical, two backward launches
+    bit-identical, NHWC-dense outputs), then timed in bf16 beside the plain
+    version, the four-op chain it replaces and the bound of the bytes it must
+    move.  Returns the largest difference and the times."""
     import torch
 
     from unit_tpu_torch.ops import bn_act as ba
     from unit_tpu_torch.ops import bn_act_cuda as k4
 
     dev = torch.device("cuda")
-    worst, reported = 0.0, None
 
     def chain(x, s16, t16, res, relu):
         """The four-op chain the model ran before the fused epilogue: scale
@@ -1467,72 +1487,79 @@ def phase_k4(rng):
             y = y + res
         return torch.relu(y) if relu else y
 
-    for shape, (has_res, relu) in K4_SHAPES:
-        n, h, w, c = shape
-        scale = torch.as_tensor(rng.uniform(0.5, 1.5, c).astype(np.float32), device=dev)
-        shift = torch.as_tensor((rng.randn(c) * 0.3).astype(np.float32), device=dev)
-        gen = torch.Generator(device=dev).manual_seed(int(rng.randint(2 ** 31)))
-        label = f"[{n},{h},{w},{c}] res={int(has_res)} relu={int(relu)}"
-        for dtype in (torch.float32, torch.bfloat16):
-            def nhwc():
-                return torch.randn(shape, generator=gen, device=dev).to(dtype).permute(0, 3, 1, 2)
+    n, h, w, c = shape
+    worst = 0.0
+    scale = torch.as_tensor(rng.uniform(0.5, 1.5, c).astype(np.float32), device=dev)
+    shift = torch.as_tensor((rng.randn(c) * 0.3).astype(np.float32), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(int(rng.randint(2 ** 31)))
+    label = f"[{n},{h},{w},{c}] res={int(has_res)} relu={int(relu)}"
+    for dtype in (torch.float32, torch.bfloat16):
+        def nhwc():
+            return torch.randn(shape, generator=gen, device=dev).to(dtype).permute(0, 3, 1, 2)
 
-            x, res, g = nhwc(), (nhwc() if has_res else None), nhwc()
-            outs = {}
-            for impl in ("cuda", "plain"):
-                xi = x.clone().requires_grad_(True)
-                ri = res.clone().requires_grad_(True) if has_res else None
-                y = ba.bn_act(xi, scale, shift, ri, relu, impl)
-                y.backward(g)
-                outs[impl] = [y.detach(), xi.grad] + ([ri.grad] if has_res else [])
-                del xi, ri, y
-            again = k4.bn_act_backward_cuda(g, outs["cuda"][0] if relu else None, scale, relu,
-                                            need_dx=True, need_dres=has_res)
-            torch.cuda.synchronize()
-            err = max(float((a.float() - b.float()).abs().max())
-                      for a, b in zip(outs["cuda"], outs["plain"]))
-            same = all(torch.equal(a, b) for a, b in zip(outs["cuda"], outs["plain"]))
-            twice = all(torch.equal(a, b) for a, b in zip(outs["cuda"][1:], again))
-            dense = all(k4.nhwc_dense(t) for t in outs["cuda"])
-            log(f"[9] K4 {label} {str(dtype).split('.')[-1]}: forward and backward "
-                f"max|diff| {err:.3g} (tol {K4_MAX_ABS_ERR}), bit-identical {same}, two "
-                f"backward launches bit-identical {twice}, outputs NHWC-dense {dense}")
-            if not (err <= K4_MAX_ABS_ERR and same and twice and dense):
-                raise AssertionError(f"K4 disagrees with its plain version ({label} {dtype})")
-            worst = max(worst, err)
-            y_saved = outs["cuda"][0]
-            del outs, again
-        # times in bf16 (x, res, g, y_saved are the bf16 tensors of the last pass)
-        s16 = scale.to(torch.bfloat16).view(1, -1, 1, 1)
-        t16 = shift.to(torch.bfloat16).view(1, -1, 1, 1)
-        with torch.no_grad():
-            k_ms, k_host = cuda_ms_queued(
-                lambda: k4.bn_act_forward_cuda(x, scale, shift, res, relu), 20)
-            p_ms, _ = cuda_ms_queued(lambda: ba.bn_act_plain(x, scale, shift, res, relu), 10)
-            c_ms, c_host = cuda_ms_queued(lambda: chain(x, s16, t16, res, relu), 10)
-            kb_ms, _ = cuda_ms_queued(lambda: k4.bn_act_backward_cuda(
-                g, y_saved if relu else None, scale, relu, True, has_res), 20)
-            pb_ms, _ = cuda_ms_queued(
-                lambda: ba.bn_act_backward_plain(g, y_saved, scale, relu), 10)
-        elems = x.numel()
-        # forward: x [+ res] read, out written; backward: g [+ y] read, dx [+ dres] written;
-        # 3 or 4 f32 operations an element
-        fwd = bound((2 + has_res) * elems * 2 + 8 * c, (3 + has_res) * elems)
-        bwd = bound((2 + relu + (has_res and relu)) * elems * 2 + 4 * c, 2 * elems)
-        log(f"[9] K4 {label} bf16 forward: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-            f"four-op chain {c_ms:.4f} ms, bound {fwd['bound_ms']:.4f} ms by {fwd['bound_by']} "
-            f"({100 * fwd['bound_ms'] / k_ms:.0f}% of the kernel's time); backward: kernel "
-            f"{kb_ms:.4f} ms, plain {pb_ms:.4f} ms, bound {bwd['bound_ms']:.4f} ms; host time "
-            f"to enqueue one call: kernel wrapper {k_host:.4f} ms, chain {c_host:.4f} ms")
-        if (shape, (has_res, relu)) == K4_REPORTED:
-            reported = {"ms": k_ms, "plain_ms": p_ms, **fwd, "library_ms": None,
-                        "chain_ms": c_ms, "host_ms": k_host, "bwd_ms": kb_ms,
-                        "bwd_plain_ms": pb_ms,
-                        "bwd_bound_ms": bwd["bound_ms"]}
-        del x, res, g, y_saved
-        torch.cuda.empty_cache()
+        x, res, g = nhwc(), (nhwc() if has_res else None), nhwc()
+        outs = {}
+        for impl in ("cuda", "plain"):
+            xi = x.clone().requires_grad_(True)
+            ri = res.clone().requires_grad_(True) if has_res else None
+            y = ba.bn_act(xi, scale, shift, ri, relu, impl)
+            y.backward(g)
+            outs[impl] = [y.detach(), xi.grad] + ([ri.grad] if has_res else [])
+            del xi, ri, y
+        again = k4.bn_act_backward_cuda(g, outs["cuda"][0] if relu else None, scale, relu,
+                                        need_dx=True, need_dres=has_res)
+        torch.cuda.synchronize()
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(outs["cuda"], outs["plain"]))
+        same = all(torch.equal(a, b) for a, b in zip(outs["cuda"], outs["plain"]))
+        twice = all(torch.equal(a, b) for a, b in zip(outs["cuda"][1:], again))
+        dense = all(k4.nhwc_dense(t) for t in outs["cuda"])
+        log(f"{tag} K4 {label} {str(dtype).split('.')[-1]}: forward and backward "
+            f"max|diff| {err:.3g} (tol {K4_MAX_ABS_ERR}), bit-identical {same}, two "
+            f"backward launches bit-identical {twice}, outputs NHWC-dense {dense}")
+        if not (err <= K4_MAX_ABS_ERR and same and twice and dense):
+            raise AssertionError(f"K4 disagrees with its plain version ({label} {dtype})")
+        worst = max(worst, err)
+        y_saved = outs["cuda"][0]
+        del outs, again
+    # times in bf16 (x, res, g, y_saved are the bf16 tensors of the last pass)
+    s16 = scale.to(torch.bfloat16).view(1, -1, 1, 1)
+    t16 = shift.to(torch.bfloat16).view(1, -1, 1, 1)
+    with torch.no_grad():
+        k_ms, k_host = cuda_ms_queued(
+            lambda: k4.bn_act_forward_cuda(x, scale, shift, res, relu), 20)
+        p_ms, _ = cuda_ms_queued(lambda: ba.bn_act_plain(x, scale, shift, res, relu), 10)
+        c_ms, c_host = cuda_ms_queued(lambda: chain(x, s16, t16, res, relu), 10)
+        kb_ms, _ = cuda_ms_queued(lambda: k4.bn_act_backward_cuda(
+            g, y_saved if relu else None, scale, relu, True, has_res), 20)
+        pb_ms, _ = cuda_ms_queued(
+            lambda: ba.bn_act_backward_plain(g, y_saved, scale, relu), 10)
+    elems = x.numel()
+    # forward: x [+ res] read, out written; backward: g [+ y] read, dx [+ dres] written;
+    # 3 or 4 f32 operations an element
+    fwd = bound((2 + has_res) * elems * 2 + 8 * c, (3 + has_res) * elems)
+    bwd = bound((2 + relu + (has_res and relu)) * elems * 2 + 4 * c, 2 * elems)
+    log(f"{tag} K4 {label} bf16 forward: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+        f"four-op chain {c_ms:.4f} ms, bound {fwd['bound_ms']:.4f} ms by {fwd['bound_by']} "
+        f"({100 * fwd['bound_ms'] / k_ms:.0f}% of the kernel's time); backward: kernel "
+        f"{kb_ms:.4f} ms, plain {pb_ms:.4f} ms, bound {bwd['bound_ms']:.4f} ms; host time "
+        f"to enqueue one call: kernel wrapper {k_host:.4f} ms, chain {c_host:.4f} ms")
+    del x, res, g, y_saved
+    torch.cuda.empty_cache()
     # no one PyTorch call computes the epilogue (library_ms null); the chain is four calls
-    return {"max_abs_err": worst, **reported}
+    return {"max_abs_err": worst, "ms": k_ms, "plain_ms": p_ms, **fwd, "library_ms": None,
+            "chain_ms": c_ms, "host_ms": k_host, "bwd_ms": kb_ms, "bwd_plain_ms": pb_ms,
+            "bwd_bound_ms": bwd["bound_ms"]}
+
+
+def phase_k4(rng):
+    worst, reported = 0.0, None
+    for shape, (has_res, relu) in K4_SHAPES:
+        row = k4_case(rng, shape, has_res, relu)
+        worst = max(worst, row["max_abs_err"])
+        if (shape, (has_res, relu)) == K4_REPORTED:
+            reported = row
+    return {**reported, "max_abs_err": worst}
 
 
 _XML = """<annotation>
@@ -3107,6 +3134,7 @@ def phase_tta(cfg, seed, workdir):
     from unit_tpu_torch.ops import nms as nms_ops
     from unit_tpu_torch.ops import roi_align as ra
     from unit_tpu_torch.utils.precise_bn import precise_bn
+    from unit_tpu_torch.utils.profiling import KERNEL_KINDS, kernel_kind
 
     dev = torch.device(RUN_DEVICE)
     on_card = dev.type == "cuda"
@@ -3419,8 +3447,8 @@ def phase_tta(cfg, seed, workdir):
         with open(path) as f:
             names |= {str(e.get("name", "")) for e in json.load(f)["traceEvents"]
                       if e.get("cat") == "kernel"}
-    found = {kind: sorted(n for n in names if any(f in n for f in frags))[:1]
-             for kind, frags in KERNEL_KINDS[:4]}
+    found = {kind: sorted(n for n in names if kernel_kind(n) == kind)[:1]
+             for kind, _ in KERNEL_KINDS[:4]}
     log(f"[15] run with TPU.PROFILE_START_STEP 2, PROFILE_NUM_STEPS 2 in {secs:.1f} s: "
         f"{len(traces)} trace ({sum(os.path.getsize(p) for p in traces) / 2**20:.1f} MiB), "
         f"{len(names)} kernel names; " + ", ".join(f"{k}: {v}" for k, v in found.items()))
@@ -4824,6 +4852,347 @@ def phase_serving(cfg, seed, workdir):
     return by_path
 
 
+# Phase 19: the flagship learns on shapes-VOC from random weights, at the
+# accuracy pipeline's size and learning rate (scripts/run_shapes_pipeline_torch.sh,
+# 6000 steps there); then the kernels on the trained weights.
+TRAINED_STEPS = 300
+TRAINED_IMS_PER_BATCH = 4  # 4 strong + 4 weak images a step
+TRAINED_BASE_LR = 0.002
+TRAINED_WARMUP_ITERS = 100
+TRAINED_SIZE = 320         # the devkit's images and the run's INPUT sizes
+TRAINED_WINDOW = 20        # the steps whose median losses open and close the run
+TRAINED_LOSS_RATIO = 0.7   # tests/test_overfit.py's criterion for total_loss
+# The trained weights' train step at the recipe's largest train size: a
+# 320x320 image scaled to 800x800 gives a 50x50 map, 37500 anchors an image,
+# so the RPN's training NMS runs at its 12000 -> 2000 shape.
+TRAINED_STEP_SIZE = 800
+SHAPES_VOC_SEED = 17
+
+
+def shapes_voc_step_batches(devkit, cfg, size):
+    """One strong and one weak batch of 2 shapes-VOC training images each,
+    scaled to size x size as one canvas: the strong images carry their base
+    classes' boxes (padded to TPU.MAX_GT_BOXES), the weak ones a multi-hot
+    label of every class they show."""
+    from unit_tpu_torch.data.transforms import load_image_bgr, resize_image
+    from unit_tpu_torch.data.voc import load_voc_split
+
+    base = set(cfg.DATASETS.FEWSHOT.BASE_CLASSES_ID)
+    g_cap = cfg.TPU.MAX_GT_BOXES
+    recs = load_voc_split(devkit, "2007", "trainval", None)
+    strong_recs = [r for r in recs if any(a["category_id"] in base
+                                          for a in r["annotations"])][:2]
+    weak_recs = [r for r in recs if r not in strong_recs][:2]
+
+    def images(rs):
+        return np.stack([resize_image(load_image_bgr(r["file_name"]), size, size)
+                         for r in rs]).astype(np.float32)
+
+    boxes = np.zeros((2, g_cap, 4), np.float32)
+    classes = np.zeros((2, g_cap), np.int32)
+    valid = np.zeros((2, g_cap), bool)
+    for i, r in enumerate(strong_recs):
+        anns = [a for a in r["annotations"] if a["category_id"] in base][:g_cap]
+        for j, a in enumerate(anns):
+            boxes[i, j] = np.asarray(a["bbox"]) * (size / r["width"])
+            classes[i, j] = a["category_id"]
+            valid[i, j] = True
+    labels = np.zeros((2, cfg.MODEL.ROI_HEADS.NUM_CLASSES), np.float32)
+    for i, r in enumerate(weak_recs):
+        for a in r["annotations"]:
+            labels[i, a["category_id"]] = 1.0
+    sizes = np.asarray([[size, size]] * 2, np.float32)
+    strong = dict(image=images(strong_recs), gt_boxes=boxes, gt_classes=classes,
+                  gt_valid=valid, image_size=sizes)
+    weak = dict(image=images(weak_recs), labels=labels, image_size=sizes)
+    return strong, weak
+
+
+def phase_trained(cfg, seed, workdir):
+    """Phase 19 in ``workdir``: (1) a shapes-VOC devkit; (2) engine.runner.run
+    on the flagship recipe from random weights (MODEL.WEIGHTS "", FREEZE_AT
+    0, the pipeline's learning rate and 320-pixel sizes), TRAINED_STEPS steps
+    of 4 + 4 images, one checkpoint and one evaluation at the end; (3) the
+    gate: the median total_loss of the last TRAINED_WINDOW steps under
+    TRAINED_LOSS_RATIO x that of the first, loss_rpn_cls and loss_im_cls
+    lower, every loss finite; (4) on the trained checkpoint (a) proposals kept
+    an image at test settings against the random weights', (b) K3 against its
+    plain version at the trained RPN's own train-step input (4 images, 12000
+    -> 2000), timed beside the three synthetic layouts of phase 3, (c) the
+    f32 predict and train paths kernels vs plain, (d) bf16 against f32 on the
+    test images, (e) a trained step's launches under the recipe's own solver.
+    Returns ({path: launch counts}, K3's numbers at the trained input)."""
+    import runpy
+
+    import torch
+
+    from unit_tpu_torch.checkpoint import read_checkpoint
+    from unit_tpu_torch.config import get_cfg
+    from unit_tpu_torch.data import DatasetCatalog
+    from unit_tpu_torch.data.transforms import (TransformConfig, load_image_bgr,
+                                                prepare_test_image)
+    from unit_tpu_torch.data.voc import load_voc_split
+    from unit_tpu_torch.engine import runner
+    from unit_tpu_torch.engine.train import TrainerNoMeta
+    from unit_tpu_torch.models import WSRCNN, ModelConfig
+    from unit_tpu_torch.models.similarity import VOC_CLASSES
+    from unit_tpu_torch.ops import nms as nms_ops
+    from unit_tpu_torch.serving import DetectionService
+    from unit_tpu_torch.solver import build_optimizer
+
+    t_phase = time.perf_counter()
+    dev = torch.device(RUN_DEVICE)
+    on_card = dev.type == "cuda"
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    by_path = {}
+
+    def free():
+        if on_card:
+            torch.cuda.empty_cache()
+
+    # (1) the devkit
+    t0 = time.perf_counter()
+    devkit = os.path.join(workdir, "shapes_voc")
+    n_train, n_test = runpy.run_path(str(ROOT / "scripts" / "make_shapes_voc_torch.py"))[
+        "write_shapes_voc"](devkit, size=TRAINED_SIZE, seed=SHAPES_VOC_SEED)
+    log(f"[19] shapes-VOC devkit: {n_train} training images a year (VOC2007, VOC2012), "
+        f"{n_test} test images at {TRAINED_SIZE}x{TRAINED_SIZE}, written in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # (2) the run from random weights
+    out = os.path.join(workdir, "trained")
+    size = str(TRAINED_SIZE)
+    opts = ["MODEL.WEIGHTS", "", "MODEL.BACKBONE.FREEZE_AT", "0",
+            "OUTPUT_DIR", out, "SEED", str(seed),
+            "MODEL.ROI_HEADS.EMBEDDING_PATH", str(ROOT / cfg.MODEL.ROI_HEADS.EMBEDDING_PATH),
+            "DATASETS.CLASSIFIER_DATAROOT", devkit,
+            "SOLVER.IMS_PER_BATCH", str(TRAINED_IMS_PER_BATCH),
+            "SOLVER.BASE_LR", str(TRAINED_BASE_LR),
+            "SOLVER.WARMUP_ITERS", str(TRAINED_WARMUP_ITERS),
+            "SOLVER.MAX_ITER", str(TRAINED_STEPS),
+            "SOLVER.CHECKPOINT_PERIOD", str(TRAINED_STEPS), "TEST.EVAL_PERIOD", "0",
+            "INPUT.MIN_SIZE_TRAIN", f"({size},)", "INPUT.MAX_SIZE_TRAIN", size,
+            "INPUT.MIN_SIZE_TEST", size, "INPUT.MAX_SIZE_TEST", size, *RUN_EXTRA_OPTS]
+    run_cfg = get_cfg()
+    run_cfg.merge_from_file(str(FLAGSHIP))
+    run_cfg.merge_from_list(opts)
+    made = []
+
+    class Recording(TrainerNoMeta):
+        """TrainerNoMeta that keeps itself, so the script can read its losses."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    DatasetCatalog.clear()
+    args = runner.default_argument_parser().parse_args([
+        "--config-file", str(FLAGSHIP), "--data-root", devkit, "--device", RUN_DEVICE, *opts])
+    real_trainer, runner.TrainerNoMeta = runner.TrainerNoMeta, Recording
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        results = runner.run(args)
+    finally:
+        runner.TrainerNoMeta = real_trainer
+    if on_card:
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    by_path["trained_run"] = read_launch_counts()
+    trainer = made[-1]
+    history = trainer.metrics_history
+    bbox = results["bbox"]
+    ckpt = os.path.join(out, f"step_{TRAINED_STEPS}.pt")
+    log(f"[19] run of {len(history)} steps ({TRAINED_IMS_PER_BATCH} + {TRAINED_IMS_PER_BATCH} "
+        f"images at {TRAINED_SIZE}, LR {TRAINED_BASE_LR}, warm-up {TRAINED_WARMUP_ITERS}, "
+        f"FREEZE_AT 0, from random weights) with a checkpoint and the final evaluation of "
+        f"{n_test} images: {secs:.1f} s; launches {by_path['trained_run']}")
+    log(f"[19] AP {bbox['AP']:.4g}, AP50 {bbox['AP50']:.4g}, AP75 {bbox['AP75']:.4g}, "
+        f"novel_mean {bbox['novel_mean']:.4g} (reported, not gated); checkpoint "
+        f"{os.path.getsize(ckpt) / 2**20:.1f} MiB")
+
+    # (3) the gate: the loss falls
+    def window_median(key, last):
+        rows = history[-TRAINED_WINDOW:] if last else history[:TRAINED_WINDOW]
+        return float(np.median([m[key] for m in rows]))
+
+    keys = ("total_loss", "loss_rpn_cls", "loss_im_cls")
+    first = {k: window_median(k, False) for k in keys}
+    last = {k: window_median(k, True) for k in keys}
+    for step in sorted({0, len(history) // 4, len(history) // 2, len(history) - 1}):
+        log(f"[19]   step {step + 1}: " + ", ".join(
+            f"{k} {v:.4g}" for k, v in history[step].items() if k != "data_time"))
+    ratio = last["total_loss"] / first["total_loss"]
+    log(f"[19] median of the first / last {TRAINED_WINDOW} steps: " + ", ".join(
+        f"{k} {first[k]:.4g} -> {last[k]:.4g}" for k in keys)
+        + f"; total_loss ratio {ratio:.4g} (gate < {TRAINED_LOSS_RATIO})")
+    finite = all(np.isfinite(v) for m in history for v in m.values())
+    if not (finite and len(history) == TRAINED_STEPS and ratio < TRAINED_LOSS_RATIO
+            and last["loss_rpn_cls"] < first["loss_rpn_cls"]
+            and last["loss_im_cls"] < first["loss_im_cls"]):
+        raise AssertionError(f"the flagship did not learn shapes-VOC: {first} -> {last}, "
+                             f"finite {finite}")
+    if not os.path.exists(ckpt):
+        raise AssertionError(f"the run left no checkpoint at {ckpt}")
+    del trainer, made[:]
+    free()
+
+    # the trained checkpoint, in the run's bf16 and in f32
+    state = read_checkpoint(ckpt)["model"]
+
+    def trained(dtype):
+        c = run_cfg.clone()
+        c.TPU.COMPUTE_DTYPE = dtype
+        net = WSRCNN(ModelConfig.from_cfg(c)).to(dev).eval()
+        net.load_state_dict(state)
+        return net
+
+    model = trained(run_cfg.TPU.COMPUTE_DTYPE)
+    tcfg = TransformConfig.test_from_cfg(run_cfg)
+    test_recs = load_voc_split(devkit, "2007", "test", None, keep_empty=True)
+    test_images = [load_image_bgr(r["file_name"]) for r in test_recs]
+
+    # (a) proposals an image at test settings, trained and random weights
+    def proposals(net):
+        kept = []
+        for img in test_images:
+            s = prepare_test_image(img, tcfg)
+            with torch.inference_mode():
+                _, _, props, _ = net.predict_raw(
+                    torch.as_tensor(s["image"][None], device=dev),
+                    torch.as_tensor(s["image_size"][None], device=dev))
+            kept.append(int(props.valid.sum()))
+        return kept
+
+    kept_trained = proposals(model)
+    random_model = flagship_model(run_cfg, seed, dev)
+    kept_random = proposals(random_model)
+    del random_model
+    free()
+    cap = run_cfg.MODEL.RPN.POST_NMS_TOPK_TEST
+    log(f"[19] (a) RPN proposals kept an image at test settings ({run_cfg.MODEL.RPN.PRE_NMS_TOPK_TEST}"
+        f" -> {cap} at IoU {run_cfg.MODEL.RPN.NMS_THRESH}), over the {len(test_images)} test "
+        f"images: trained mean {np.mean(kept_trained):.1f} (min {min(kept_trained)}, max "
+        f"{max(kept_trained)}); random weights with calibrated FrozenBN mean "
+        f"{np.mean(kept_random):.1f} (min {min(kept_random)}, max {max(kept_random)})")
+
+    # (d) bf16 against f32 on the test images, as served
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model32 = trained("float32")
+    svc, svc32 = (DetectionService(run_cfg, m, class_names=VOC_CLASSES)
+                  for m in (model, model32))
+    dets_bf16 = [svc.detect_array(img) for img in test_images]
+    dets_f32 = [svc32.detect_array(img) for img in test_images]
+    del svc, svc32
+    same = [match_detections(g, w, BATCH_BOX_ATOL, BATCH_BOX_RTOL, BATCH_SCORE_ATOL,
+                             BATCH_SCORE_RTOL) for g, w in zip(dets_bf16, dets_f32)]
+    log(f"[19] (d) bf16 against f32 on the same {len(test_images)} requests (reported, not "
+        f"gated): {sum(s[0] for s in same)} within the f32 bounds (boxes "
+        f"{BATCH_BOX_ATOL} px + {BATCH_BOX_RTOL}, scores {BATCH_SCORE_ATOL} + "
+        f"{BATCH_SCORE_RTOL}), detections {sum(map(len, dets_bf16))} vs "
+        f"{sum(map(len, dets_f32))}, max |box diff| {max(s[1] for s in same):.4g} px, max "
+        f"|score diff| {max(s[2] for s in same):.4g}")
+
+    # (c) the f32 predict and train paths, kernels vs plain, on trained weights
+    torch.backends.cudnn.deterministic = True
+    s = prepare_test_image(test_images[0], tcfg)
+    predict_path_kernels_vs_plain(model32, torch.as_tensor(s["image"][None], device=dev),
+                                  torch.as_tensor(s["image_size"][None], device=dev), "[19] (c)")
+    step_cfg = cfg.clone()  # the recipe's own solver: FREEZE_AT 2, its LR
+    step_cfg.SOLVER.CLIP_GRADIENTS.ENABLED = True
+    step_cfg.SOLVER.CLIP_GRADIENTS.CLIP_TYPE = "norm"
+    step_cfg.merge_from_list(list(RUN_EXTRA_OPTS))
+    strong, weak = shapes_voc_step_batches(devkit, step_cfg, TRAINED_STEP_SIZE)
+    build_optimizer(step_cfg, model32)
+    strong_t = {k: torch.as_tensor(v, device=dev) for k, v in strong.items()}
+    weak_t = {k: torch.as_tensor(v, device=dev) for k, v in weak.items()}
+    train_path_kernels_vs_plain(model32, strong_t, weak_t, seed, "[19] (c)")
+    del model32, strong_t, weak_t
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    free()
+
+    # (e) a trained step under the recipe's solver, its K3 input kept (b)
+    solver = build_optimizer(step_cfg, model)
+    model.train()
+    step_trainer = TrainerNoMeta(model, solver, itertools.repeat(strong), itertools.repeat(weak),
+                                 seed=seed)
+    step_trainer.init_state()
+    k3_in = []
+    real_k3 = nms_ops.nms_sorted_mask_cuda
+
+    def record_k3(boxes, thr, cap=None, n_valid=None):
+        k3_in.append((boxes.clone(), thr, cap, None if n_valid is None else n_valid.clone()))
+        return real_k3(boxes, thr, cap, n_valid=n_valid)
+
+    nms_ops.nms_sorted_mask_cuda = record_k3
+    try:
+        step_trainer.run_step()  # a warm-up, its K3 input kept
+    finally:
+        nms_ops.nms_sorted_mask_cuda = real_k3
+    reset_launch_counts()
+    m = step_trainer.run_step()
+    launches = read_launch_counts()
+    n_backbone, n_res5, n_trainable = frozen_bn_counts(model)
+    want = {"roi_align_fwd": 2, "roi_align_bwd": 2, "nms_mask": 1, "nms_mask_images": 4,
+            "bn_act_fwd": n_backbone + 3 * n_res5, "bn_act_bwd": n_trainable + 2 * n_res5,
+            "bn_act_layout_copies": 2}
+    log(f"[19] (e) a trained step of 2 + 2 images at {strong['image'].shape[1]}x"
+        f"{strong['image'].shape[2]} under the recipe's solver: "
+        + ", ".join(f"{k} {v:.4g}" for k, v in m.items() if k != "data_time")
+        + f"; launches {launches} (want {want})")
+    if on_card and launches != want:
+        raise AssertionError(f"a trained step's launches {launches}, want {want}")
+    if not all(np.isfinite(v) for v in m.values()):
+        raise AssertionError(f"a trained step without finite losses: {m}")
+    by_path["trained_step"] = launches
+    del step_trainer, solver, model
+    free()
+
+    # (b) K3 at the trained RPN's own train-step input, beside phase 3's layouts
+    k3_trained = {}
+    if on_card:
+        (sb, thr, cap, n_valid), = k3_in  # one selection for the step's 4 images
+        got = real_k3(sb, thr, cap, n_valid=n_valid)
+        same = torch.equal(got, real_k3(sb, thr, cap, n_valid=n_valid))
+        plain = nms_ops.nms_sorted_mask_plain(sb, thr, cap)
+        q_ms, _ = cuda_ms_queued(lambda: real_k3(sb, thr, cap, n_valid=n_valid), 20)
+        p_ms = cuda_ms(lambda: nms_ops.nms_sorted_mask_plain(sb, thr, cap), 2)
+        walked = nms_rows_walked(got, cap, n_valid)
+        least = bound(nms_bytes(sb, got, cap, n_valid),
+                      nms_pair_tests(got, cap, n_valid) * IOU_FLOPS)
+        log(f"[19] (b) K3 at the trained RPN's train-step input {list(sb.shape)} -> {cap} at "
+            f"IoU {thr}, valid {n_valid.tolist() if n_valid is not None else 'all'}: keeps "
+            f"{got.sum(-1).tolist()}, rows walked {walked}, {int((got != plain).sum())} rows "
+            f"differ from the plain version, two launches bit-identical {same}; kernel "
+            f"{q_ms:.4f} ms queued, plain {p_ms:.4f} ms, bound {least['bound_ms']:.5f} ms by "
+            f"{least['bound_by']}")
+        if not (torch.equal(got, plain) and same):
+            raise AssertionError("K3 at the trained RPN's input differs from its plain version")
+        layouts = {}
+        for name, batch in nms_train_layouts(np.random.RandomState(seed + 19)).items():
+            lb = torch.as_tensor(batch, device=dev)
+            keep = real_k3(lb, 0.7, 2000)
+            layouts[name] = (cuda_ms_queued(lambda: real_k3(lb, 0.7, 2000), 20)[0],
+                             nms_rows_walked(keep, 2000))
+        nearest = min(layouts, key=lambda k: abs(np.log(layouts[k][0] / q_ms)))
+        log(f"[19] (b) the synthetic layouts in this call, queued ms and rows walked: "
+            + "; ".join(f"{k} {v[0]:.4f}, {v[1]}" for k, v in layouts.items())
+            + f"; the trained input's time is nearest the {nearest} layout's")
+        k3_trained = {"trained_train_ms": q_ms, "trained_train_plain_ms": p_ms,
+                      "trained_train_bound_ms": least["bound_ms"],
+                      "trained_train_keeps": got.sum(-1).tolist(),
+                      "trained_train_rows_walked": walked,
+                      "trained_train_nearest_layout": nearest,
+                      **{f"layout_{k}_queued_ms": v[0] for k, v in layouts.items()}}
+    del k3_in[:]
+    free()
+    log(f"[19] phase 19 in {time.perf_counter() - t_phase:.1f} s")
+    return by_path, k3_trained
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4867,6 +5236,8 @@ def main():
         dock_paths, k3_dock = phase_dock(args.seed, workdir)
         by_path.update(dock_paths)
         by_path.update(phase_serving(cfg, args.seed, workdir))
+        trained_paths, k3_trained = phase_trained(cfg, args.seed, workdir)
+        by_path.update(trained_paths)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     def per_path(*names):
@@ -4922,7 +5293,7 @@ def main():
         dict(name="nms_mask", route="cuda", source="unit_tpu_torch/csrc/nms_mask.cu",
              replaces="unit_tpu/ops/nms_pallas.py:115",
              launches=launches["nms_mask"], launches_by_path=per_path("nms_mask"), **k3,
-             **k3_b2, **k3_tta, **k3_note, **k3_dock),
+             **k3_b2, **k3_tta, **k3_note, **k3_dock, **k3_trained),
         dict(name="bn_act", route="cuda", source="unit_tpu_torch/csrc/bn_act.cu",
              replaces="scripts/bench_backbone_epilogue.py:155",
              launches=launches["bn_act_fwd"] + launches["bn_act_bwd"],

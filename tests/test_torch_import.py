@@ -13,9 +13,11 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "unit_tpu_torch"
-# the serving CLIs of the port, and the benchmark of its operators' host cost
+# the serving CLIs of the port, the benchmark of its operators' host cost,
+# the shapes-VOC writer, the step profiler and its analyzer, and K4's bench
 SCRIPTS = [REPO / "scripts" / f"{name}_torch.py"
-           for name in ("serve", "export_model", "bench_serving", "bench_nograd")]
+           for name in ("serve", "export_model", "bench_serving", "bench_nograd",
+                        "make_shapes_voc", "profile_train_step", "analyze_trace", "bench_k4")]
 
 _RUN_WITHOUT_JAX = r"""
 import importlib, pkgutil, sys

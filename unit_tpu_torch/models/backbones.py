@@ -29,7 +29,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.registry import Registry
 from .resnet import Conv2d, ResNetC4
+
+# MODEL.BACKBONE.NAME -> constructor, with the reference's aliases (its
+# backbone.py:58, 82, 103)
+BACKBONE_REGISTRY = Registry("BACKBONE")
 
 
 def _conv(in_ch: int, out_ch: int, kernel, stride: int = 1, valid: bool = False,
@@ -243,39 +248,35 @@ class InceptionResNetV2(nn.Module):
         return x
 
 
+@BACKBONE_REGISTRY.register()
 def build_inception_resnet_v2_backbone(dtype: torch.dtype = torch.float32,
                                        generator: Optional[torch.Generator] = None,
                                        **_) -> InceptionResNetV2:
     return InceptionResNetV2(dtype=dtype, generator=generator)
 
 
+@BACKBONE_REGISTRY.register()
 def build_vgg_backbone(dilated: bool = False, dtype: torch.dtype = torch.float32,
                        generator: Optional[torch.Generator] = None, **_) -> VGG16:
     return VGG16(dilated=dilated, dtype=dtype, generator=generator)
 
 
+@BACKBONE_REGISTRY.register()
 def build_vgg_cnn_f_backbone(dtype: torch.dtype = torch.float32,
                              generator: Optional[torch.Generator] = None, **_) -> VGGCNNF:
     return VGGCNNF(dtype=dtype, generator=generator)
 
 
+@BACKBONE_REGISTRY.register(name="build_resnet_backbone")
 def _resnet(depth: int = 50, res2_out_channels: int = 256, dtype: torch.dtype = torch.float32,
             generator: Optional[torch.Generator] = None, **_) -> ResNetC4:
     return ResNetC4(depth=depth, res2_out_channels=res2_out_channels, dtype=dtype,
                     generator=generator)
 
 
-# MODEL.BACKBONE.NAME -> constructor, with the reference's aliases (its
-# backbone.py:58, 82, 103)
-BACKBONE_REGISTRY = {
-    "build_resnet_backbone": _resnet,
-    "build_vgg_backbone": build_vgg_backbone,
-    "VGG": build_vgg_backbone,
-    "build_vgg_cnn_f_backbone": build_vgg_cnn_f_backbone,
-    "VGG_CNN_F": build_vgg_cnn_f_backbone,
-    "build_inception_resnet_v2_backbone": build_inception_resnet_v2_backbone,
-    "InceptionResNetV2": build_inception_resnet_v2_backbone,
-}
+BACKBONE_REGISTRY.register(build_vgg_backbone, name="VGG")
+BACKBONE_REGISTRY.register(build_vgg_cnn_f_backbone, name="VGG_CNN_F")
+BACKBONE_REGISTRY.register(build_inception_resnet_v2_backbone, name="InceptionResNetV2")
 
 # the registry names of each family (the box heads each can carry)
 VGG_BACKBONES = ("build_vgg_backbone", "VGG", "build_vgg_cnn_f_backbone", "VGG_CNN_F")
@@ -287,5 +288,5 @@ def build_backbone(name: str, depth: int = 50, res2_out_channels: int = 256,
                    generator: Optional[torch.Generator] = None) -> nn.Module:
     """The backbone MODEL.BACKBONE.NAME names (``dilated``: VGG16's
     MODEL.BACKBONE.DILATED); it has ``out_channels``."""
-    return BACKBONE_REGISTRY[name](depth=depth, res2_out_channels=res2_out_channels,
-                                   dilated=dilated, dtype=dtype, generator=generator)
+    return BACKBONE_REGISTRY.get(name)(depth=depth, res2_out_channels=res2_out_channels,
+                                       dilated=dilated, dtype=dtype, generator=generator)

@@ -33,7 +33,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.registry import Registry
 from .resnet import Conv2d, Res5, lecun_normal_
+
+# MODEL.ROI_BOX_HEAD.NAME -> constructor.  Res5BoxHeadNOTE differs from
+# Res5BoxHead only in the reference's torch in-channel bookkeeping, and ""
+# is the defaults' placeholder
+BOX_HEAD_REGISTRY = Registry("BOX_HEAD")
 
 
 class _Block8(nn.Module):
@@ -175,18 +181,11 @@ def build_vgg_fc_head(in_channels: int, pooler_resolution: int = 7,
     return VGGFCHead(in_channels, pooler_resolution, dtype=dtype, generator=generator)
 
 
-# MODEL.ROI_BOX_HEAD.NAME -> constructor.  Res5BoxHeadNOTE differs from
-# Res5BoxHead only in the reference's torch in-channel bookkeeping, and ""
-# is the defaults' placeholder
-BOX_HEAD_REGISTRY = {
-    "Res5BoxHead": build_res5_box_head,
-    "Res5BoxHeadWithMask": build_res5_box_head,
-    "Res5BoxHeadNOTE": build_res5_box_head,
-    "": build_res5_box_head,
-    "InceptionResNetHead": build_inception_resnet_head,
-    "VGGConvFCHead": build_vgg_fc_head,
-    "VGGCNNFBoxHead": build_vgg_fc_head,
-}
+for _name in ("Res5BoxHead", "Res5BoxHeadWithMask", "Res5BoxHeadNOTE", ""):
+    BOX_HEAD_REGISTRY.register(build_res5_box_head, name=_name)
+BOX_HEAD_REGISTRY.register(build_inception_resnet_head, name="InceptionResNetHead")
+for _name in ("VGGConvFCHead", "VGGCNNFBoxHead"):
+    BOX_HEAD_REGISTRY.register(build_vgg_fc_head, name=_name)
 
 # the heads that take a dropout generator in training
 VGG_HEADS = ("VGGConvFCHead", "VGGCNNFBoxHead")
@@ -199,7 +198,7 @@ def build_box_head(name: str, in_channels: int, depth: int = 50,
     """The box head MODEL.ROI_BOX_HEAD.NAME names, over ``in_channels``
     pooled channels at ``pooler_resolution`` (the VGG heads' fc6 width); it
     has ``out_channels``."""
-    return BOX_HEAD_REGISTRY[name](in_channels, depth=depth,
-                                   res2_out_channels=res2_out_channels,
-                                   pooler_resolution=pooler_resolution, dtype=dtype,
-                                   generator=generator)
+    return BOX_HEAD_REGISTRY.get(name)(in_channels, depth=depth,
+                                       res2_out_channels=res2_out_channels,
+                                       pooler_resolution=pooler_resolution, dtype=dtype,
+                                       generator=generator)

@@ -130,7 +130,7 @@ class ModelConfig:
     multi_box_head: bool = False
     pooler_resolution: int = 14
     pooler_scale: float = 1.0 / 16.0
-    pooler_type: str = "ROIAlignV2"  # ROIAlignV2 | ROIPool
+    pooler_type: str = "ROIAlignV2"  # ROIAlignV2 | ROIAlign (unaligned) | ROIPool
     sampling_ratio: int = 2
     roi_batch_size: int = 512
     roi_positive_fraction: float = 0.25
@@ -282,9 +282,8 @@ def _check_supported(mc: ModelConfig) -> None:
             family != "resnet" and (mc.use_meta or mc.mask_on)):
         raise _not_ported(f"box head {mc.box_head_name!r} over {mc.backbone_name} (meta "
                           f"{mc.use_meta}, mask {mc.mask_on})", "ROADMAP Queue 1 item 25")
-    if mc.pooler_type not in ("ROIAlignV2", "ROIPool"):
-        # unit_tpu's unaligned ROIAlign, which no recipe uses
-        raise _not_ported(f"pooler {mc.pooler_type}", "ROADMAP Queue 1 item 32")
+    if mc.pooler_type not in ("ROIAlignV2", "ROIAlign", "ROIPool"):
+        raise ValueError(f"unknown pooler {mc.pooler_type!r} (ROIAlignV2 | ROIAlign | ROIPool)")
     for impl in (mc.roi_align_impl, mc.nms_impl, mc.bn_act_impl):
         if impl not in ("auto", "cuda", "plain"):
             raise ValueError(f"unknown kernel impl {impl!r} (auto | cuda | plain)")
@@ -369,7 +368,8 @@ class WSRCNN(nn.Module):
 
     def pooled_rois(self, feats: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
         """feats [B, h, w, C], boxes [B, S, 4] -> [B*S, P, P, C] (feature
-        dtype): ROIAlignV2 (K1, K2 backward) or ROIPool."""
+        dtype): ROIAlignV2 (K1, K2 backward), the legacy unaligned ROIAlign
+        (plain PyTorch, as unit_tpu's XLA path) or ROIPool."""
         mc = self.mc
         if mc.pooler_type == "ROIPool":
             out = roi_pool_max(feats, boxes, mc.pooler_resolution, mc.pooler_scale)
@@ -377,6 +377,7 @@ class WSRCNN(nn.Module):
             out = roi_align_ops.roi_align_batched(
                 feats, boxes.contiguous(), mc.pooler_resolution, mc.pooler_scale,
                 mc.sampling_ratio, impl=mc.roi_align_impl,
+                aligned=mc.pooler_type == "ROIAlignV2",
             )
         return out.reshape((-1,) + out.shape[2:])
 

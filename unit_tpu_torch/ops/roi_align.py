@@ -65,12 +65,18 @@ def _bilinear_gather(flat: torch.Tensor, h: int, w: int, y: torch.Tensor,
 
 
 def _roi_sample_coords(rois: torch.Tensor, output_size: int, spatial_scale: float,
-                       sampling_ratio: int):
-    """Sample coordinates per ROI: ([N, P*s] ys, [N, P*s] xs)."""
-    x1 = rois[:, 0] * spatial_scale - 0.5
-    y1 = rois[:, 1] * spatial_scale - 0.5
-    x2 = rois[:, 2] * spatial_scale - 0.5
-    y2 = rois[:, 3] * spatial_scale - 0.5
+                       sampling_ratio: int, aligned: bool = True):
+    """Sample coordinates per ROI: ([N, P*s] ys, [N, P*s] xs).  Unaligned
+    (the legacy ROIAlign): no -0.5 shift, and each ROI at least one feature
+    pixel wide and high (unit_tpu/ops/roi_align.py:66-80)."""
+    offset = 0.5 if aligned else 0.0
+    x1 = rois[:, 0] * spatial_scale - offset
+    y1 = rois[:, 1] * spatial_scale - offset
+    x2 = rois[:, 2] * spatial_scale - offset
+    y2 = rois[:, 3] * spatial_scale - offset
+    if not aligned:
+        x2 = torch.maximum(x2, x1 + 1.0)
+        y2 = torch.maximum(y2, y1 + 1.0)
     # True divisions, as in unit_tpu and the kernel: on a CUDA tensor PyTorch
     # multiplies by the reciprocal of a Python-number divisor, which moves a
     # sample coordinate by an ulp and a bilinear weight with it.
@@ -94,10 +100,12 @@ def roi_align_plain(
     spatial_scale: float = 1.0 / 16.0,
     sampling_ratio: int = 2,
     chunk_size: int = 64,
+    aligned: bool = True,
 ) -> torch.Tensor:
     """Plain PyTorch ROIAlign: [B, H, W, C], [B, N, 4] -> [B, N, P, P, C],
     interpolated and averaged in f32, returned in the feature dtype.  ROIs go
-    through in chunks to bound the [chunk, P*s, P*s, C] gather."""
+    through in chunks to bound the [chunk, P*s, P*s, C] gather.  ``aligned``
+    False: the legacy ROIAlign of POOLER_TYPE "ROIAlign" (no kernel)."""
     b, h, w, c = features.shape
     n = rois.shape[1]
     p, s = output_size, sampling_ratio
@@ -106,7 +114,7 @@ def roi_align_plain(
         flat = features[i].reshape(h * w, c)
         for lo in range(0, n, chunk_size):
             chunk = rois[i, lo:lo + chunk_size].to(torch.float32)
-            ys, xs = _roi_sample_coords(chunk, p, spatial_scale, s)
+            ys, xs = _roi_sample_coords(chunk, p, spatial_scale, s, aligned)
             yy = ys[:, :, None].expand(-1, -1, xs.shape[1])
             xx = xs[:, None, :].expand(-1, ys.shape[1], -1)
             vals = _bilinear_gather(flat, h, w, yy, xx)  # [n_c, P*s, P*s, C]
@@ -123,12 +131,14 @@ def roi_align_backward_plain(
     spatial_scale: float = 1.0 / 16.0,
     sampling_ratio: int = 2,
     chunk_size: int = 64,
+    aligned: bool = True,
 ) -> torch.Tensor:
     """Plain PyTorch gradient of ROIAlignV2 w.r.t. the features: g
     [B, N, P, P, C], rois [B, N, 4], feature_shape (B, H, W, C) -> dF
     [B, H, W, C] in the dtype of g.  Each sample's g / s^2 times each
     corner's bilinear weight is scattered with ``index_add_`` into an f32
-    buffer, ROIs in chunks (no autograd through the forward)."""
+    buffer, ROIs in chunks (no autograd through the forward).  ``aligned``
+    False: the legacy ROIAlign's gradient."""
     b, h, w, c = (int(v) for v in feature_shape)
     n = rois.shape[1]
     p, s = output_size, sampling_ratio
@@ -138,7 +148,7 @@ def roi_align_backward_plain(
         for lo in range(0, n, chunk_size):
             chunk = rois[i, lo:lo + chunk_size].to(torch.float32)
             m = chunk.shape[0]
-            ys, xs = _roi_sample_coords(chunk, p, spatial_scale, s)
+            ys, xs = _roi_sample_coords(chunk, p, spatial_scale, s, aligned)
             y_lo, y_hi, y_wl, y_wh, y_oob = _corners(ys, h)
             x_lo, x_hi, x_wl, x_wh, x_oob = _corners(xs, w)
             inside = ~(y_oob[:, :, None] | x_oob[:, None, :])  # [m, P*s, P*s]
@@ -284,23 +294,32 @@ class RoIAlignV2Function(torch.autograd.Function):
     With impl="cuda" the backward takes ``output_size`` <= 32
     (``roi_align_cuda.MAX_BWD_OUTPUT_SIZE``: K2 keeps one bin a lane) and
     raises above it, naming the limit; the forward kernel and the plain
-    versions take any size.  Every shipped recipe pools at 6, 14 or 17."""
+    versions take any size.  Every shipped recipe pools at 6, 14 or 17.
+    ``aligned`` False (the legacy ROIAlign) takes impl="plain" only."""
 
     @staticmethod
-    def forward(ctx, features, rois, output_size, spatial_scale, sampling_ratio, impl):
+    def forward(ctx, features, rois, output_size, spatial_scale, sampling_ratio, impl,
+                aligned=True):
         ctx.save_for_backward(rois)
-        ctx.args = (tuple(features.shape), output_size, spatial_scale, sampling_ratio, impl)
-        fwd = roi_align_cuda if impl == "cuda" else roi_align_plain
-        return fwd(features, rois, output_size, spatial_scale, sampling_ratio)
+        ctx.args = (tuple(features.shape), output_size, spatial_scale, sampling_ratio, impl,
+                    aligned)
+        if impl == "cuda":
+            return roi_align_cuda(features, rois, output_size, spatial_scale, sampling_ratio)
+        return roi_align_plain(features, rois, output_size, spatial_scale, sampling_ratio,
+                               aligned=aligned)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         (rois,) = ctx.saved_tensors
-        shape, output_size, spatial_scale, sampling_ratio, impl = ctx.args
-        bwd = roi_align_backward_cuda if impl == "cuda" else roi_align_backward_plain
-        df = bwd(g.contiguous(), rois, shape, output_size, spatial_scale, sampling_ratio)
-        return df, None, None, None, None, None
+        shape, output_size, spatial_scale, sampling_ratio, impl, aligned = ctx.args
+        if impl == "cuda":
+            df = roi_align_backward_cuda(g.contiguous(), rois, shape, output_size,
+                                         spatial_scale, sampling_ratio)
+        else:
+            df = roi_align_backward_plain(g.contiguous(), rois, shape, output_size,
+                                          spatial_scale, sampling_ratio, aligned=aligned)
+        return df, None, None, None, None, None, None
 
 
 def roi_align_batched(
@@ -310,13 +329,24 @@ def roi_align_batched(
     spatial_scale: float = 1.0 / 16.0,
     sampling_ratio: int = 2,
     impl: str = "auto",
+    aligned: bool = True,
 ) -> torch.Tensor:
     """Whole-batch ROIAlignV2 -> [B, N, P, P, C] (see the module docstring).
     Without a gradient, "auto" and "cuda" on a CUDA tensor go through the
     registered operator ``library.roi_align`` (K1 on the card, the plain
-    version on the CPU), which ``torch.export`` can trace."""
+    version on the CPU), which ``torch.export`` can trace.
+
+    ``aligned`` False is the legacy ROIAlign (POOLER_TYPE "ROIAlign"), which
+    unit_tpu computes in XLA, never in its kernel: here the plain versions,
+    forward and backward, whatever ``impl`` says."""
     if impl not in ("auto", "cuda", "plain"):
         raise ValueError(f"unknown ROIAlign impl {impl!r} (auto | cuda | plain)")
+    if not aligned:
+        if features.requires_grad and torch.is_grad_enabled():
+            return RoIAlignV2Function.apply(features, rois, output_size, spatial_scale,
+                                            sampling_ratio, "plain", False)
+        return roi_align_plain(features, rois, output_size, spatial_scale, sampling_ratio,
+                               aligned=False)
     if features.requires_grad and torch.is_grad_enabled():
         if impl == "auto":
             impl = "cuda" if features.is_cuda else "plain"

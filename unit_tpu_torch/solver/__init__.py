@@ -8,6 +8,7 @@ from .build import (
     modify_for_weak_only,
     warmup_multistep,
 )
+from .lr_scheduler import cyclic_cosine_decay
 
-__all__ = ["Solver", "build_optimizer", "is_frozen", "lr_factor_for", "modify_for_weak_only",
-           "warmup_multistep"]
+__all__ = ["Solver", "build_optimizer", "cyclic_cosine_decay", "is_frozen", "lr_factor_for",
+           "modify_for_weak_only", "warmup_multistep"]

@@ -1,10 +1,11 @@
 """Metrics storage and writers (port of unit_tpu/utils/events.py).
 
 Scalars accumulated per step, written periodically to the terminal and to
-``metrics.json`` (one JSON line per write, d2's JSONWriter format).  Two
-differences from unit_tpu: the console writer prints no ETA on its first
-line (unit_tpu divides a near-zero elapsed time by one step there and shows
-a false rate), and the TensorBoard writer is not ported.
+``metrics.json`` (one JSON line per write, d2's JSONWriter format), and,
+under ``MetricsHook(tensorboard=True)``, to TensorBoard event files in
+``<output_dir>/tb``.  One difference from unit_tpu: the console writer
+prints no ETA on its first line (unit_tpu divides a near-zero elapsed time
+by one step there and shows a false rate).
 """
 
 from __future__ import annotations
@@ -91,11 +92,37 @@ def print_csv_format(results: Dict, logger_=None):
                 log("csv: %s,%s,%.4f", task, k, v)
 
 
+class TensorBoardWriter:
+    """TensorBoard scalars (d2's PeriodicWriter); a writer that writes
+    nothing when ``torch.utils.tensorboard`` does not import (the
+    ``tensorboard`` package is optional), as in unit_tpu."""
+
+    def __init__(self, logdir: str):
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+        except ImportError:
+            logger.warning("torch.utils.tensorboard does not import: no TensorBoard events")
+            self._w = None
+        else:
+            self._w = SummaryWriter(logdir)
+
+    def write(self, step: int, storage: EventStorage):
+        if self._w is None:
+            return
+        for k, v in storage.latest().items():
+            self._w.add_scalar(k, v, step)
+
+    def close(self):
+        if self._w is not None:
+            self._w.close()
+
+
 class MetricsHook:
-    """Trainer hook: accumulate every step's metrics, write every ``period``."""
+    """Trainer hook: accumulate every step's metrics, write every ``period``
+    (also to TensorBoard under ``tensorboard``)."""
 
     def __init__(self, output_dir: str, period: int = 20, max_iter: Optional[int] = None,
-                 lr_fn=None):
+                 tensorboard: bool = False, lr_fn=None):
         self.storage = EventStorage()
         self.period = period
         self.lr_fn = lr_fn  # step -> current lr (d2 logs lr per step)
@@ -103,6 +130,8 @@ class MetricsHook:
             ConsoleWriter(max_iter),
             JSONWriter(os.path.join(output_dir, "metrics.json")),
         ]
+        if tensorboard:
+            self.writers.append(TensorBoardWriter(os.path.join(output_dir, "tb")))
 
     def __call__(self, step: int, metrics: dict, trainer):
         self.storage.iter = step

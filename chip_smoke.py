@@ -166,6 +166,21 @@ Phases (any failure raises and the script exits non-zero):
      K2 2, K3 1, K4 124 + 103) and K3 at that step's own RPN input (4 x
      12000 -> 2000) bit-identical to its plain version, timed beside phase
      3's three synthetic layouts
+ 20  the host wire: (a) build the C host loader (unit_tpu_torch/csrc/
+     dataloader.cc with g++; libjpeg decodes where the host has jpeglib.h,
+     else PIL) and print how; (b) prepare_image, prepare_image_mem and
+     prepare_batch (8 threads) bit-identical on 16 VOC-sized JPEGs, the C
+     canvas within 2^-8 of the numpy path's with equal dims and scale; (c)
+     host ms an image, C against PIL + numpy, to the 800x1344 canvases; (d)
+     engine.runner.run at full width on a devkit of JPEG files (no
+     image_loader), 10 steps through the C loader, then the same through PIL
+     (the script patches data.native.available): step and data-wait medians,
+     every step K1 2, K2 2, K3 1, K4 124 + 103; (e) detect_bytes on 32 JPEGs
+     under 8 clients at batch 1 and micro-batched at 4, C against PIL: req/s,
+     p50, images a device call; (f) TPU.HOST_TRANSFER_UINT8: served batch-4
+     requests (uint8 canvases, launches as phase 18's) and 2 flagship train
+     steps on uint8 batches (phase 7's launches, finite losses), upload MiB
+     and ms against the f32 wire
 The last three lines are the card (nvidia-smi), one JSON object describing
 the kernels (launches counted on the run loop of phase 10, and per path under
 launches_by_path), and {"ok": true, "device": {...}}.  Without a CUDA device, or without the
@@ -1571,13 +1586,34 @@ _OBJ = """<object><name>{name}</name><difficult>0</difficult>
 </object>"""
 
 
-def write_devkit(root, seed, n_images=RUN_TEST_IMAGES):
+def natural_image(rng, h, w):
+    """uint8 RGB [h, w, 3] with a photo's smoothness (a coarse random field,
+    bicubically enlarged, plus a little noise): white noise would decode
+    ~3x slower than a photo and time the wrong JPEG."""
+    from PIL import Image
+
+    coarse = rng.randint(0, 256, (max(h // 24, 2), max(w // 24, 2), 3)).astype(np.uint8)
+    big = np.asarray(Image.fromarray(coarse).resize((w, h), Image.BICUBIC), np.float32)
+    return np.clip(big + rng.normal(0, 6, big.shape), 0, 255).astype(np.uint8)
+
+
+def write_jpeg(path, rgb, quality=90):
+    from PIL import Image
+
+    Image.fromarray(rgb).save(path, format="JPEG", quality=quality)
+    return str(path)
+
+
+def write_devkit(root, seed, n_images=RUN_TEST_IMAGES, shapes=((600, 800), (800, 600)),
+                 jpegs=False):
     """A synthetic VOCdevkit under ``root``: annotations and image sets of
-    VOC2007 trainval/test and VOC2012 trainval, 600x800 and 800x600 images in
-    turn with 1-3 boxes each, no image files."""
+    VOC2007 trainval/test and VOC2012 trainval, images of the (h, w)
+    ``shapes`` in turn with 1-3 boxes each; with ``jpegs`` a JPEG file for
+    every image (``natural_image``), else no image files."""
     from unit_tpu_torch.models.similarity import VOC_CLASSES
 
     rng = np.random.RandomState(seed + 11)
+    pixels = np.random.RandomState(seed + 12)
     for year, splits in (("2007", ("trainval", "test")), ("2012", ("trainval",))):
         base = Path(root) / f"VOC{year}"
         for sub in ("Annotations", "ImageSets/Main", "JPEGImages"):
@@ -1585,9 +1621,11 @@ def write_devkit(root, seed, n_images=RUN_TEST_IMAGES):
         for split in splits:
             ids = []
             for i in range(n_images):
-                h, w = ((600, 800), (800, 600))[i % 2]
+                h, w = shapes[i % len(shapes)]
                 image_id = f"{year}_{split}_{i:03d}"
                 ids.append(image_id)
+                if jpegs:
+                    write_jpeg(base / "JPEGImages" / f"{image_id}.jpg", natural_image(pixels, h, w))
                 objs = []
                 for _ in range(rng.randint(1, 4)):
                     bw, bh = rng.randint(w // 10, w // 2), rng.randint(h // 10, h // 2)
@@ -5193,6 +5231,370 @@ def phase_trained(cfg, seed, workdir):
     return by_path, k3_trained
 
 
+HOST_WIRE_SHAPES = ((375, 500), (500, 375))   # (h, w): VOC's two common sizes
+HOST_WIRE_IMAGES = 8       # JPEGs of each shape: prepare_batch's batch and threads
+HOST_WIRE_TIMED = 5        # host ms an image: the median of this many images
+HOST_WIRE_RUN_SHAPES = ((375, 500), (333, 500))  # landscape only: one canvas a step
+HOST_WIRE_STEPS = 10       # run-loop steps through each decode path
+HOST_WIRE_REQUESTS = 32
+HOST_WIRE_UPLOADS = 10     # uploads timed a wire (median)
+C_VS_NUMPY_ATOL = 2.0 ** -8  # the C resize in f32 against the numpy one in f64
+
+
+def phase_host_wire(cfg, seed, workdir):
+    """Phase 20: the host wire.  (a) build the C host loader
+    (csrc/dataloader.cc, g++) and print how it decodes; (b) prepare_image,
+    prepare_image_mem and prepare_batch (several threads) bit-identical on
+    VOC-sized JPEGs, and the C canvas within C_VS_NUMPY_ATOL of the numpy
+    path's with equal dims and scale; (c) host ms an image, C against PIL +
+    numpy, and a threaded batch; (d) engine.runner.run at full width on a
+    devkit of JPEG files (no image_loader) through the C loader, then the same
+    steps through PIL (the script patches data.native.available): step time,
+    data wait and each step's launches; (e) detect_bytes on JPEGs at batch 1
+    and micro-batched at 4 under 8 clients, C against PIL: req/s, p50, images
+    a device call; (f) TPU.HOST_TRANSFER_UINT8: served batch-4 requests and
+    train steps on uint8 batches, upload bytes and ms against the f32 wire,
+    finite losses, unchanged launches.  Returns {path: launch counts}."""
+    import runpy
+
+    import torch
+
+    from unit_tpu_torch.checkpoint import Checkpointer
+    from unit_tpu_torch.data import DatasetCatalog, native
+    from unit_tpu_torch.data.loader import pin_batch
+    from unit_tpu_torch.data.transforms import (TransformConfig, load_image_bgr,
+                                                oriented_canvas, prepare_test_image)
+    from unit_tpu_torch.engine import runner
+    from unit_tpu_torch.engine.predict import upload_image
+    from unit_tpu_torch.engine.train import TrainerNoMeta, TrainState
+    from unit_tpu_torch.models.similarity import VOC_CLASSES
+    from unit_tpu_torch.serving import DetectionService
+    from unit_tpu_torch.solver import build_optimizer
+
+    dev = torch.device(RUN_DEVICE)
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def median_ms(fn, n):
+        times = []
+        for _ in range(n):
+            t = time.perf_counter()
+            fn()
+            sync()
+            times.append((time.perf_counter() - t) * 1e3)
+        return float(np.median(times))
+
+    cfg = cfg.clone()
+    cfg.merge_from_list(list(RUN_EXTRA_OPTS))
+    by_path = {}
+
+    # (a) the build
+    lib = native.load_library()
+    st = native.STATUS
+    if lib is None:
+        raise AssertionError(f"the host loader did not build: {st['error']}")
+    log(f"[20] (a) host loader csrc/dataloader.cc built ({st['seconds']:.2f} s of g++, 0 if "
+        f"built before) at {os.path.relpath(st['path'], ROOT)}; JPEG decode: {st['decode']}"
+        + ("" if st["decode"] == "libjpeg" else " (no jpeglib.h here: PIL decodes, C resizes)"))
+
+    # (b) the three entry points agree bit for bit, and the C canvas with numpy's
+    rng = np.random.RandomState(seed + 200)
+    jdir = os.path.join(workdir, "host_wire_jpegs")
+    os.makedirs(jdir, exist_ok=True)
+    files = {shape: [write_jpeg(os.path.join(jdir, f"{shape[0]}x{shape[1]}_{i}.jpg"),
+                                natural_image(rng, *shape)) for i in range(HOST_WIRE_IMAGES)]
+             for shape in HOST_WIRE_SHAPES}
+    tcfg = TransformConfig.test_from_cfg(cfg)
+    ms_, mx_ = tcfg.min_sizes[0], tcfg.max_size
+    identical, worst, dims_ok = True, 0.0, True
+    for shape, paths in files.items():
+        canvas = oriented_canvas(*shape, tcfg.canvas)
+        images, sizes, scales = native.prepare_batch_native(paths, ms_, mx_, canvas,
+                                                            n_threads=HOST_WIRE_IMAGES)
+        for i, path in enumerate(paths):
+            data = Path(path).read_bytes()
+            for flip in (False, True):
+                one = native.prepare_image_native(path, ms_, mx_, canvas, flip)
+                mem = native.prepare_image_mem_native(data, ms_, mx_, canvas, flip)
+                identical &= (np.array_equal(one[0], mem[0]) and one[1:] == mem[1:3]
+                              and mem[3] == shape)
+                if not flip:
+                    identical &= (np.array_equal(images[i], one[0])
+                                  and tuple(sizes[i].astype(int)) == one[1]
+                                  and float(scales[i]) == one[2])
+        s = prepare_test_image(load_image_bgr(paths[0]), tcfg)
+        img, (nh, nw), scale = native.prepare_image_native(paths[0], ms_, mx_, canvas)
+        dims_ok &= ((nh, nw) == tuple(s["image_size"].astype(int))
+                    and np.float32(scale) == s["scale"] and img.shape == s["image"].shape)
+        worst = max(worst, float(np.abs(img - s["image"]).max()))
+    log(f"[20] (b) {len(HOST_WIRE_SHAPES) * HOST_WIRE_IMAGES} JPEGs of {HOST_WIRE_SHAPES} at "
+        f"{ms_}/{mx_}: prepare_image = prepare_image_mem (flip on and off) = prepare_batch "
+        f"({HOST_WIRE_IMAGES} threads) bit for bit {identical}; against the numpy path: dims and "
+        f"scale equal {dims_ok}, max |diff| {worst:.3g} (tol {C_VS_NUMPY_ATOL:.3g})")
+    if not (identical and dims_ok and worst <= C_VS_NUMPY_ATOL):
+        raise AssertionError("the C loader's entry points disagree, or its canvas is off the "
+                             "numpy path's")
+
+    # (c) host ms an image, C against PIL + numpy
+    host = {}
+    for shape, paths in files.items():
+        canvas = oriented_canvas(*shape, tcfg.canvas)
+        for name, fn in (("C", lambda p: native.prepare_image_native(p, ms_, mx_, canvas)),
+                         ("PIL+numpy", lambda p: prepare_test_image(load_image_bgr(p), tcfg))):
+            times = []
+            for p in paths[:HOST_WIRE_TIMED]:
+                t = time.perf_counter()
+                fn(p)
+                times.append((time.perf_counter() - t) * 1e3)
+            host[f"{shape[0]}x{shape[1]} {name}"] = float(np.median(times))
+    land = files[HOST_WIRE_SHAPES[0]]
+    canvas = oriented_canvas(*HOST_WIRE_SHAPES[0], tcfg.canvas)
+    batch_ms = median_ms(lambda: native.prepare_batch_native(land, ms_, mx_, canvas,
+                                                             n_threads=HOST_WIRE_IMAGES), 3)
+    log(f"[20] (c) host ms an image to the {tcfg.canvas} canvases (median of "
+        f"{HOST_WIRE_TIMED}, decode {st['decode']}): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in host.items())
+        + f"; prepare_batch of {HOST_WIRE_IMAGES} on {HOST_WIRE_IMAGES} threads "
+        f"{batch_ms:.2f} ms ({batch_ms / HOST_WIRE_IMAGES:.2f} an image), {os.cpu_count()} cores")
+
+    # (d) the run loop on JPEG files, through C, then through PIL
+    devkit = write_devkit(os.path.join(workdir, "VOCdevkit_jpeg"), seed,
+                          shapes=HOST_WIRE_RUN_SHAPES, jpegs=True)
+    model = flagship_model(cfg, seed, dev)
+    init = Checkpointer(os.path.join(workdir, "host_wire_init")).save(
+        0, TrainState(model, build_optimizer(cfg, model), 0))
+    made = []
+
+    class Recording(TrainerNoMeta):
+        """TrainerNoMeta that keeps each step's time and launches."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.step_ms, self.launches = [], []
+            made.append(self)
+
+        def run_step(self):
+            reset_launch_counts()
+            t = time.perf_counter()
+            metrics = super().run_step()  # ends in the loss fetch
+            self.step_ms.append((time.perf_counter() - t) * 1e3)
+            self.launches.append(read_launch_counts())
+            return metrics
+
+    def run_loop(path):
+        DatasetCatalog.clear()
+        made.clear()
+        args = runner.default_argument_parser().parse_args([
+            "--config-file", str(FLAGSHIP), "--data-root", devkit, "--device", RUN_DEVICE,
+            "MODEL.WEIGHTS", init, "OUTPUT_DIR", os.path.join(workdir, f"host_wire_{path}"),
+            "MODEL.ROI_HEADS.EMBEDDING_PATH", str(ROOT / cfg.MODEL.ROI_HEADS.EMBEDDING_PATH),
+            "DATASETS.CLASSIFIER_DATAROOT", devkit, "SEED", str(seed),
+            "SOLVER.IMS_PER_BATCH", "2", "SOLVER.MAX_ITER", str(HOST_WIRE_STEPS),
+            "SOLVER.CHECKPOINT_PERIOD", "0", "TEST.EVAL_PERIOD", "0",
+            "SOLVER.CLIP_GRADIENTS.ENABLED", "True", "SOLVER.CLIP_GRADIENTS.CLIP_TYPE", "norm",
+            *RUN_EXTRA_OPTS])
+        calls = count_calls(native, "prepare_image_native")
+        t = time.perf_counter()
+        try:
+            results = runner.run(args)  # no image_loader: the devkit's JPEG files
+        finally:
+            native.prepare_image_native = calls["real"]
+        secs = time.perf_counter() - t
+        trainer = made[-1]
+        n_backbone, n_res5, n_trainable = frozen_bn_counts(trainer.model)
+        want = {"roi_align_fwd": 2, "roi_align_bwd": 2, "nms_mask": 1, "nms_mask_images": 4,
+                "bn_act_fwd": n_backbone + 3 * n_res5, "bn_act_bwd": n_trainable + 2 * n_res5,
+                "bn_act_layout_copies": 2}
+        half = HOST_WIRE_STEPS // 2
+        waits = [1e3 * m["data_time"] for m in trainer.metrics_history[half:]]
+        steps = trainer.step_ms[half:]
+        total = {k: sum(c[k] for c in trainer.launches) for k in want}
+        finite = all(np.isfinite(v) for m in trainer.metrics_history for v in m.values())
+        log(f"[20] (d) run loop through {path}: {HOST_WIRE_STEPS} steps and the final "
+            f"evaluation of {RUN_TEST_IMAGES} images in {secs:.1f} s ({calls['n']} C calls); "
+            f"over the last {len(steps)}: step median {np.median(steps):.2f} ms "
+            f"({4e3 / np.median(steps):.2f} images/s), data wait median {np.median(waits):.2f} "
+            f"ms (max {max(waits):.2f}); AP50 {results['bbox']['AP50']:.4g}; launches a step "
+            f"{trainer.launches[-1]}")
+        if on_card and any(c != want for c in trainer.launches):
+            raise AssertionError(f"a run-loop step through {path} did not launch {want}: "
+                                 f"{trainer.launches}")
+        if not finite or not np.isfinite(results["bbox"]["AP50"]) \
+                or (calls["n"] > 0) != (path == "C"):
+            raise AssertionError(f"the run through {path} has a non-finite result or took "
+                                 "the other decode path")
+        by_path[f"host_wire_run_{path}"] = total
+        out = {"step_ms": float(np.median(steps)), "wait_ms": float(np.median(waits))}
+        del trainer
+        made.clear()
+        return out
+
+    real_trainer, runner.TrainerNoMeta = runner.TrainerNoMeta, Recording
+    real_available = native.available
+    try:
+        loop = {"C": run_loop("C")}
+        native.available = lambda: False  # the script's switch: the PIL path
+        loop["PIL"] = run_loop("PIL")
+    finally:
+        native.available = real_available
+        runner.TrainerNoMeta = real_trainer
+    if on_card:
+        torch.cuda.empty_cache()
+    log(f"[20] (d) run loop, C against PIL in one call: step median {loop['C']['step_ms']:.2f} "
+        f"vs {loop['PIL']['step_ms']:.2f} ms, data wait {loop['C']['wait_ms']:.2f} vs "
+        f"{loop['PIL']['wait_ms']:.2f} ms")
+
+    # (e) detect_bytes on JPEGs, C against PIL, batch 1 and micro-batched
+    bench = runpy.run_path(str(ROOT / "scripts" / "bench_serving_torch.py"))
+    jpegs = [Path(files[HOST_WIRE_SHAPES[i % 2]][(i // 2) % HOST_WIRE_IMAGES]).read_bytes()
+             for i in range(HOST_WIRE_REQUESTS)]
+    n_backbone, n_res5, _ = frozen_bn_counts(model)
+    k4_call = n_backbone + (2 if model.mc.multi_box_head else 1) * n_res5
+
+    def want_launches(calls):
+        return {"roi_align_fwd": len(calls), "roi_align_bwd": 0,
+                "nms_mask": sum(1 + b for b in calls), "nms_mask_images": sum(2 * b for b in calls),
+                "bn_act_fwd": k4_call * len(calls), "bn_act_bwd": 0, "bn_act_layout_copies": 0}
+
+    def serve(svc, path):
+        calls = []
+        owner = svc if svc._batcher is None else svc._batcher
+        inner = owner._predict
+
+        def counted(images, sizes):
+            calls.append(images.shape[0])
+            return inner(images, sizes)
+
+        owner._predict = counted
+        bench["run"](svc, jpegs[: SERVE_CLIENTS], SERVE_CLIENTS, "bytes")  # warm
+        calls.clear()
+        reset_launch_counts()
+        rps, p50, p99, _, results = bench["run"](svc, jpegs, SERVE_CLIENTS, "bytes")
+        launches = read_launch_counts()
+        for i, dets in enumerate(results):
+            h, w = HOST_WIRE_SHAPES[i % 2]
+            for d in dets:
+                x1, y1, x2, y2 = d["box"]
+                if not (np.isfinite(d["box"]).all() and 0 <= x1 <= x2 <= w
+                        and 0 <= y1 <= y2 <= h and 0 < d["score"] <= 1):
+                    raise AssertionError(f"a served detection outside the image or range: {d}")
+        if on_card and launches != want_launches(calls):
+            raise AssertionError(f"the served calls {calls} through {path} did not launch "
+                                 f"{want_launches(calls)}: {launches}")
+        return {"rps": rps, "p50": p50, "p99": p99, "calls": calls}, launches
+
+    served = {}
+    for batch in (1, SERVE_BATCH):
+        for path in ("C", "PIL"):
+            svc = DetectionService(cfg, model, class_names=VOC_CLASSES, batch_size=batch,
+                                   batch_wait_ms=SERVE_WAIT_MS)
+            svc.warmup()
+            if path == "PIL":
+                native.available = lambda: False
+            try:
+                served[batch, path], launches = serve(svc, path)
+            finally:
+                native.available = real_available
+                svc.close()
+            if batch > 1:
+                by_path[f"host_wire_serving_{path}"] = launches
+            r = served[batch, path]
+            log(f"[20] (e) detect_bytes, batch {batch}, {SERVE_CLIENTS} clients, "
+                f"{HOST_WIRE_REQUESTS} JPEGs of {HOST_WIRE_SHAPES} through {path}: "
+                f"{r['rps']:.2f} req/s, p50 {r['p50']:.1f} ms, p99 {r['p99']:.1f} ms, "
+                f"{len(r['calls'])} device calls, {np.mean(r['calls']):.2f} images a call")
+
+    # (f) the uint8 wire: served batch-4 requests and train steps
+    cfg8 = cfg.clone()
+    cfg8.TPU.HOST_TRANSFER_UINT8 = True
+    svc = DetectionService(cfg8, model, class_names=VOC_CLASSES, batch_size=SERVE_BATCH,
+                           batch_wait_ms=SERVE_WAIT_MS)
+    dtypes = []
+    inner_predict = svc._batcher._predict
+    svc._batcher._predict = lambda i, s: (dtypes.append(i.dtype), inner_predict(i, s))[1]
+    svc.warmup()
+    try:
+        u8, launches = serve(svc, "C, uint8 wire")
+    finally:
+        svc.close()
+    by_path["host_wire_uint8_serving"] = launches
+    if set(dtypes) != {np.dtype(np.uint8)}:
+        raise AssertionError(f"the uint8 wire submitted {set(dtypes)}")
+    f32 = np.random.RandomState(seed + 201).uniform(
+        0, 255, (SERVE_BATCH,) + tcfg.canvas + (3,)).astype(np.float32)
+    wires = {"f32": f32, "uint8": np.clip(np.rint(f32), 0, 255).astype(np.uint8)}
+    up = {k: [] for k in wires}
+    for k in ("f32", "uint8", "uint8", "f32"):  # in turns
+        up[k].append(median_ms(lambda: upload_image(wires[k], dev), HOST_WIRE_UPLOADS))
+    log(f"[20] (f) served batch {SERVE_BATCH} on the uint8 wire: {u8['rps']:.2f} req/s (f32 "
+        f"wire {served[SERVE_BATCH, 'C']['rps']:.2f}), p50 {u8['p50']:.1f} ms, "
+        f"{np.mean(u8['calls']):.2f} images a call, launches {launches}; a call's canvases "
+        f"{wires['uint8'].nbytes / 2**20:.2f} MiB against {f32.nbytes / 2**20:.2f}, pageable "
+        f"upload ms in turns: uint8 {up['uint8']}, f32 {up['f32']}")
+
+    cfg_train = cfg.clone()
+    cfg_train.SOLVER.CLIP_GRADIENTS.ENABLED = True
+    cfg_train.SOLVER.CLIP_GRADIENTS.CLIP_TYPE = "norm"
+    strong, weak = synthetic_train_batches(cfg_train, seed, n_batches=2)
+    for b in strong + weak:
+        b["image"] = np.clip(np.rint(b["image"]), 0, 255).astype(np.uint8)
+    f32_strong = [dict(b, image=b["image"].astype(np.float32)) for b in strong]
+    if on_card:  # as the runner's Prefetcher hands them out
+        strong, weak, f32_strong = ([pin_batch(b) for b in s] for s in (strong, weak, f32_strong))
+    trainer = TrainerNoMeta(model, build_optimizer(cfg_train, model), itertools.cycle(strong),
+                            itertools.cycle(weak), seed=seed)
+    trainer.init_state()
+    trainer.run_step()  # warm-up
+    sync()
+    reset_launch_counts()
+    t = time.perf_counter()
+    metrics = [trainer.run_step() for _ in range(2)]
+    step_ms = (time.perf_counter() - t) * 1e3 / 2
+    launches = read_launch_counts()
+    n_backbone, n_res5, n_trainable = frozen_bn_counts(model)
+    want = {"roi_align_fwd": 4, "roi_align_bwd": 4, "nms_mask": 2, "nms_mask_images": 8,
+            "bn_act_fwd": 2 * (n_backbone + 3 * n_res5),
+            "bn_act_bwd": 2 * (n_trainable + 2 * n_res5), "bn_act_layout_copies": 4}
+    up_t = {k: [] for k in ("f32", "uint8")}
+    for k in ("f32", "uint8", "uint8", "f32"):
+        b = f32_strong[0] if k == "f32" else strong[0]
+        up_t[k].append(median_ms(lambda: trainer._to_device(b), HOST_WIRE_UPLOADS))
+    finite = all(np.isfinite(v) for m in metrics for v in m.values())
+    log(f"[20] (f) 2 flagship train steps on uint8 batches: {step_ms:.2f} ms a step, losses "
+        + ", ".join(f"{k} {v:.4g}" for k, v in metrics[-1].items() if k != "data_time")
+        + f"; launches {launches}; a strong batch's images "
+        f"{np.asarray(strong[0]['image']).nbytes / 2**20:.2f} MiB against "
+        f"{np.asarray(f32_strong[0]['image']).nbytes / 2**20:.2f}, "
+        f"{'pinned' if on_card else 'pageable'} upload ms in turns: uint8 {up_t['uint8']}, "
+        f"f32 {up_t['f32']}")
+    if not finite:
+        raise AssertionError(f"a non-finite loss on the uint8 wire: {metrics}")
+    if on_card and launches != want:
+        raise AssertionError(f"the uint8 train steps did not launch {want}: {launches}")
+    by_path["host_wire_uint8_train"] = launches
+    del trainer, model
+    if on_card:
+        torch.cuda.empty_cache()
+    log(f"[20] phase 20 in {time.perf_counter() - t_phase:.1f} s")
+    return by_path
+
+
+def count_calls(module, name):
+    """Count the calls of ``module.name`` (restore ``calls["real"]`` after)."""
+    calls = {"n": 0, "real": getattr(module, name)}
+
+    def counted(*a, **kw):
+        calls["n"] += 1
+        return calls["real"](*a, **kw)
+
+    setattr(module, name, counted)
+    return calls
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5238,6 +5640,7 @@ def main():
         by_path.update(phase_serving(cfg, args.seed, workdir))
         trained_paths, k3_trained = phase_trained(cfg, args.seed, workdir)
         by_path.update(trained_paths)
+        by_path.update(phase_host_wire(cfg, args.seed, workdir))
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     def per_path(*names):
@@ -5268,7 +5671,10 @@ def main():
                "serving_micro": ("roi_align_bwd", "bn_act_bwd"),
                "serving_artifact_b1": ("roi_align_bwd", "bn_act_bwd"),
                "serving_artifact": ("roi_align_bwd", "bn_act_bwd"),
-               "dock_artifact": no_k1_k2_k4}
+               "dock_artifact": no_k1_k2_k4,
+               "host_wire_serving_C": ("roi_align_bwd", "bn_act_bwd"),
+               "host_wire_serving_PIL": ("roi_align_bwd", "bn_act_bwd"),
+               "host_wire_uint8_serving": ("roi_align_bwd", "bn_act_bwd")}
     for path, counts in by_path.items():
         for name, count in counts.items():
             if name == "bn_act_layout_copies":

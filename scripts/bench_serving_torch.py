@@ -5,12 +5,16 @@ micro-batched batch N under concurrent clients (twin of scripts/bench_serving.py
 Times the whole request path (decode in ``bytes`` mode -> test-time resize to
 the canvas -> device predict -> packed device-to-host copy -> detections in
 the original frame) with C client threads, and prints requests/s and the p50
-and p99 latency of each service.
+and p99 latency of each service.  In ``bytes`` mode a JPEG is decoded and
+resized by the port's C loader (data/native.py) where it builds, with PIL
+decoding where the host has no libjpeg; the last line's ``decode`` says
+which.  ``--uint8-wire`` sets TPU.HOST_TRANSFER_UINT8 (uint8 canvases, 4x
+fewer bytes to upload).
 
     python3 scripts/bench_serving_torch.py [--config-file YAML] [--requests 64]
         [--clients 8] [--batch 4] [--mode bytes|array|both] [--depth 50|101]
         [--min-size S --max-size M] [--weights PATH] [--images-dir DIR]
-        [--device cuda|cpu] [KEY VALUE ...]
+        [--uint8-wire] [--device cuda|cpu] [KEY VALUE ...]
 
 The config (the flagship's by default) stands as its YAML gives it: a flag
 changes a value only when it is passed.  Without ``--weights`` the weights
@@ -80,6 +84,8 @@ def bench_cfg(args):
     if args.max_size is not None:
         cfg.INPUT.MAX_SIZE_TEST = args.max_size
     cfg.MODEL.WEIGHTS = args.weights
+    if args.uint8_wire:
+        cfg.TPU.HOST_TRANSFER_UINT8 = True
     if args.opts:
         cfg.merge_from_list(args.opts)
     return cfg
@@ -119,12 +125,16 @@ def main(argv=None):
     ap.add_argument("--min-size", type=int, default=None)
     ap.add_argument("--max-size", type=int, default=None)
     ap.add_argument("--mode", choices=("bytes", "array", "both"), default="both",
-                    help="bytes: the request path with the PIL decode; array: "
-                         "decoded arrays")
+                    help="bytes: encoded requests through detect_bytes (a JPEG "
+                         "decoded and resized by the C loader where it builds, "
+                         "else PIL + numpy); array: decoded arrays (numpy resize)")
     ap.add_argument("--weights", default="",
                     help="MODEL.WEIGHTS for trained weights (default: seeded, FrozenBN "
                          "calibrated)")
     ap.add_argument("--images-dir", default="", help="JPEGs for the request stream (cycled)")
+    ap.add_argument("--uint8-wire", action="store_true",
+                    help="set TPU.HOST_TRANSFER_UINT8: uint8 canvases, 4x fewer bytes "
+                         "to upload, at most 0.5 off")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("opts", nargs=argparse.REMAINDER)
     args = ap.parse_args(argv)
@@ -132,6 +142,7 @@ def main(argv=None):
     import torch
 
     from microbench_torch import chip_smoke_here
+    from unit_tpu_torch.data import native
     from unit_tpu_torch.data.transforms import TransformConfig, prepare_test_image
     from unit_tpu_torch.engine.runner import load_initial_weights, resolve_device
     from unit_tpu_torch.models import WSRCNN, ModelConfig
@@ -154,7 +165,8 @@ def main(argv=None):
            "config": args.config_file, "depth": int(cfg.MODEL.RESNETS.DEPTH),
            "canvas": list(TransformConfig.test_from_cfg(cfg).canvas),
            "compute_dtype": cfg.TPU.COMPUTE_DTYPE, "clients": args.clients,
-           "requests": args.requests}
+           "requests": args.requests, "uint8_wire": bool(cfg.TPU.HOST_TRANSFER_UINT8),
+           "decode": native.STATUS.get("decode") if native.available() else "PIL (no C loader)"}
     for batch in (1, args.batch):
         svc = DetectionService(cfg, model, batch_size=batch, batch_wait_ms=BATCH_WAIT_MS)
         svc.warmup()  # both orientations, every batch size a group can take

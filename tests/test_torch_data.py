@@ -272,8 +272,12 @@ def with_proposals(cfg, files_key=None):
     pytest.param(lambda cfg: next(iter(tdata.build_classifier_loader(
         with_proposals(cfg), image_loader=seeded_image_loader))), None,
         id="<lambda>-item 25_0"),
+    # the uint8 wire is ported (tests/test_torch_host_uint8.py): its case
+    # keeps its name and holds a strong stream's uint8 batch with proposals
     pytest.param(lambda cfg: (setattr(cfg.TPU, "HOST_TRANSFER_UINT8", True),
-                              tdata.build_strong_loader(cfg))[1], "item 29",
+                              next(iter(tdata.build_strong_loader(
+                                  with_proposals(cfg, "PROPOSAL_FILES_TRAIN"),
+                                  image_loader=seeded_image_loader))))[1], None,
                  id="<lambda>-item 29"),
     pytest.param(lambda cfg: next(iter(tdata.build_strong_loader(
         with_proposals(cfg, "PROPOSAL_FILES_TRAIN"), image_loader=seeded_image_loader))), None,
@@ -302,5 +306,6 @@ def test_unported_data_paths_raise(both, call, item):
                 else tcfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TRAIN)
         assert out["proposals"].shape == (n, topk, 4)
         assert out["proposals_valid"].shape == (n, topk) and not out["proposals_valid"].any()
+        assert out["image"].dtype == (np.uint8 if tcfg.TPU.HOST_TRANSFER_UINT8 else np.float32)
     else:
         assert type(out.backbone).__name__ == "VGGCNNF"

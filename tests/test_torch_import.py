@@ -51,6 +51,10 @@ assert isinstance(DetectionService(cfg, exported=load_exported(path)).detect_arr
     torch.rand(40, 50, 3).numpy() * 255), list)
 for script in SCRIPTS:
     runpy.run_path(script)
+# the host loader builds from the port's own source, not unit_tpu's library
+from unit_tpu_torch.data import native
+if native.available():
+    assert "libunit_native" not in native.STATUS["path"], native.STATUS
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "torchvision", "unit_tpu"))
 assert not loaded, loaded
@@ -91,3 +95,10 @@ def test_no_source_of_the_port_imports_unit_tpu():
         names = [n for n in imports.findall(text) if n.split(".")[0] == "unit_tpu"]
         assert not names, f"{path.relative_to(REPO)} imports {names}"
         assert not dynamic.search(text), f"{path.relative_to(REPO)} imports unit_tpu dynamically"
+
+
+def test_no_source_of_the_port_loads_unit_tpus_native_library():
+    """The port builds its loader from unit_tpu_torch/csrc/dataloader.cc
+    (data/native.py); it never loads native/libunit_native.so."""
+    for path in _sources():
+        assert "libunit_native" not in path.read_text(), path.relative_to(REPO)

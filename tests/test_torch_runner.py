@@ -33,6 +33,7 @@ from unit_tpu.config import get_cfg as jget_cfg
 from unit_tpu.engine import runner as jrunner
 from unit_tpu_torch.checkpoint import load_jax_train_state, read_checkpoint
 from unit_tpu_torch.checkpoint.jax_params import flatten_tree, flax_path, to_flax_layout
+from unit_tpu_torch.data.loader import StreamLoader
 from unit_tpu_torch.engine import runner
 from unit_tpu_torch.engine.train import TrainerNoMeta
 
@@ -202,15 +203,32 @@ def test_missing_weights_and_device_raise(devkit, tmp_path):
                   "DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TEST", "8"], None,
                  id="opts0-item 24"),
     pytest.param(["TPU.FSDP", "True"], "items 27 and 29", id="opts1-item 26"),
-    pytest.param(["TPU.HOST_TRANSFER_UINT8", "True"], "item 29", id="opts2-item 31"),
+    # the uint8 wire is ported (tests/test_torch_host_uint8.py): its case
+    # trains on uint8 batches (item "trains") and evaluates
+    pytest.param(["TPU.HOST_TRANSFER_UINT8", "True"], "trains", id="opts2-item 31"),
     (["TPU.TP", "2"], "items 27 and 29"),
     (["MODEL.BACKBONE.NAME", "VGG_CNN_F"], "item 25"),
     # the meta Trainer is ported (tests/test_torch_meta.py); the case keeps
     # its name and holds pipeline parallelism instead
     pytest.param(["TPU.PP", "True"], "items 27 and 29", id="opts5-item 23"),
 ])
-def test_unported_run_options_raise(devkit, tmp_path, opts, item):
+def test_unported_run_options_raise(devkit, tmp_path, opts, item, monkeypatch):
     tdata.DatasetCatalog.clear()
+    if item == "trains":  # ported since: the run trains and evaluates
+        dtypes = []
+        real = StreamLoader._emit
+
+        def emit(self, batch):
+            out = real(self, batch)
+            dtypes.append(out["image"].dtype)
+            return out
+
+        monkeypatch.setattr(StreamLoader, "_emit", emit)
+        results, losses = run_recorded(monkeypatch, cli(devkit, tmp_path, opts=opts))
+        assert losses and all(np.isfinite(v) for m in losses.values() for v in m.values())
+        assert np.isfinite(results["bbox"]["AP50"])
+        assert dtypes and set(dtypes) == {np.dtype(np.uint8)}
+        return
     if item is None:  # ported since: the run evaluates
         results = runner.run(cli(devkit, tmp_path, "--eval-only", opts=opts),
                              image_loader=seeded_image_loader)

@@ -326,7 +326,8 @@ def test_bench_serving_keeps_the_yaml_values():
     yaml_cfg = get_cfg()
     yaml_cfg.merge_from_file(coco)
     args = types.SimpleNamespace(
-        config_file=coco, depth=None, min_size=None, max_size=None, weights="", opts=[])
+        config_file=coco, depth=None, min_size=None, max_size=None, weights="",
+        uint8_wire=False, opts=[])
     cfg = bench["bench_cfg"](args)
     for key in ("MODEL.ROI_HEADS.NUM_CLASSES", "MODEL.RESNETS.DEPTH", "INPUT.MIN_SIZE_TEST",
                 "INPUT.MAX_SIZE_TEST", "MODEL.MASK_ON"):
@@ -339,6 +340,9 @@ def test_bench_serving_keeps_the_yaml_values():
     cfg = bench["bench_cfg"](args)
     assert (cfg.MODEL.RESNETS.DEPTH, cfg.INPUT.MIN_SIZE_TEST) == (101, 640)
     assert cfg.INPUT.MAX_SIZE_TEST == yaml_cfg.INPUT.MAX_SIZE_TEST
+    assert cfg.TPU.HOST_TRANSFER_UINT8 is False
+    args.uint8_wire = True  # --uint8-wire
+    assert bench["bench_cfg"](args).TPU.HOST_TRANSFER_UINT8 is True
 
 
 def test_serve_cli_needs_the_card_unless_asked():

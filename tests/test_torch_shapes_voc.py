@@ -3,7 +3,8 @@
 scripts/make_shapes_voc_torch.py must write the same files as
 scripts/make_shapes_voc.py at one seed (every JPEG, XML and split file, byte
 for byte); on that tree the port's VOC registration and its strong and
-classifier loaders (JPEGs decoded from disk) must give what unit_tpu's give.
+classifier loaders (JPEGs decoded from disk) must give what unit_tpu's give,
+with both packages on their C loaders and with both on PIL.
 scripts/run_shapes_pipeline_torch.sh then runs its three stages through the
 port's CLIs at a tiny size (depth 26, RES2_OUT_CHANNELS 16, 64x96 inputs, a
 few steps a stage, 2 images a class) with ``CLI_ARGS="--device cpu"``.
@@ -18,10 +19,13 @@ from pathlib import Path
 import pytest
 
 import unit_tpu.data as jdata
+import unit_tpu.data.native as jnative_mod
 import unit_tpu_torch.data as tdata
 from tests.test_torch_data import assert_same_batch, data_cfg
+from tests.test_torch_native import count_calls, jnative, tnative  # noqa: F401  (fixtures)
 from unit_tpu.config import get_cfg as jget_cfg
 from unit_tpu_torch.config import get_cfg
+from unit_tpu_torch.data import native
 
 REPO = Path(__file__).resolve().parent.parent
 SHAPES = runpy.run_path(str(REPO / "scripts" / "make_shapes_voc_torch.py"))
@@ -67,8 +71,22 @@ def both(devkit):
     return tcfg, jcfg
 
 
-def test_the_port_reads_the_devkit_as_unit_tpu_does(both):
+@pytest.mark.parametrize("path", ["native", "pil"])
+def test_the_port_reads_the_devkit_as_unit_tpu_does(both, path, request, monkeypatch):
+    """Both packages on their C loaders, or both on PIL and numpy: each pair
+    gives the same batches (the C resize is f32, the numpy one f64, so the
+    two paths differ from each other).  The path is pinned, not left to
+    whether unit_tpu's native/libunit_native.so happens to be built."""
     tcfg, jcfg = both
+    if path == "native":
+        request.getfixturevalue("tnative")
+        request.getfixturevalue("jnative")
+    else:
+        monkeypatch.setattr(native, "available", lambda: False)
+        monkeypatch.setattr(jnative_mod, "_LIB_PATHS", [])
+        monkeypatch.setattr(jnative_mod, "_LIB", None)
+    calls = (count_calls(monkeypatch, native, "prepare_image_native"),
+             count_calls(monkeypatch, jnative_mod, "prepare_image_native"))
     for name in ("voc_base_training_query_train", "voc_base_training_query_val",
                  "pascal_trainval_2007", "pascal_trainval_2012"):
         got, want = tdata.DatasetCatalog.get(name), jdata.DatasetCatalog.get(name)
@@ -82,6 +100,7 @@ def test_the_port_reads_the_devkit_as_unit_tpu_does(both):
             assert_same_batch(got, want)
             boxes += int(got.get("gt_valid", got.get("labels")).sum())
     assert boxes > 0
+    assert calls[0]["n"] == calls[1]["n"] and (calls[0]["n"] > 0) == (path == "native")
 
 
 def test_the_pipeline_runs_its_three_stages_on_the_cpu(devkit, tmp_path):

@@ -214,13 +214,26 @@ def test_unported_paths_raise(pair):
     # TPU.FOLD_BN_AT_EVAL is ported (tests/test_torch_bn_fold.py), and so are
     # the micro-batcher, encoded requests, the HTTP server and the exported
     # artifacts (tests/test_torch_serving.py, tests/test_torch_export.py): a
-    # micro-batching service builds and closes; the uint8 wire is not ported
+    # micro-batching service builds and closes; so is the uint8 request wire
+    # (tests/test_torch_host_uint8.py): a service on it submits uint8
+    # canvases and answers
     cfg = small_flagship_cfg()
     svc = DetectionService(cfg, tmodel, batch_size=4)
     assert svc._batcher is not None
     svc.close()
     cfg.TPU.HOST_TRANSFER_UINT8 = True
-    with pytest.raises(NotImplementedError, match="item 29"):
-        DetectionService(cfg, tmodel)
-    with pytest.raises(NotImplementedError, match="item 29"):
-        DetectionService(cfg, tmodel, batch_size=4)
+    for batch_size in (1, 4):
+        svc = DetectionService(cfg, tmodel, batch_size=batch_size)
+        dtypes = []
+        owner = svc if svc._batcher is None else svc._batcher
+        inner = owner._predict
+
+        def spy(images, sizes, inner=inner):
+            dtypes.append(images.dtype)
+            return inner(images, sizes)
+
+        owner._predict = spy
+        assert svc.uint8_wire and isinstance(
+            svc.detect_array(np.random.RandomState(batch_size).rand(50, 70, 3) * 255), list)
+        svc.close()
+        assert dtypes == [np.dtype(np.uint8)]

@@ -19,10 +19,18 @@ every slot is invalid).  ``Prefetcher`` overlaps host IO with the device's
 work and can hand out batches in pinned memory, from which the trainer's
 upload is asynchronous.
 
-Not ported, each raising with its ROADMAP item: the native C loader (Queue 1
-item 30; records always go through ``image_loader`` or PIL), the host-shard
-and synchronized-orientation paths of multi-process runs (item 27) and the
-uint8 wire (item 29).
+A record of a JPEG file with its height and width goes through the C loader
+(data/native.py: decode, resize, flip and canvas fill with the GIL
+released) in the strong, classifier and test loaders wherever the library
+builds, unless an ``image_loader`` is given; a file the C decoder refuses,
+and any other record, goes through PIL and the numpy resize.  The TTA and
+support loaders are numpy only, as unit_tpu's are.  Under
+TPU.HOST_TRANSFER_UINT8 (``TransformConfig.host_uint8``) a stream batch's
+images are rounded to uint8, 4x fewer bytes to upload; the model casts them
+to f32 on the device.
+
+Not ported: the host-shard and synchronized-orientation paths of
+multi-process runs (ROADMAP Queue 1 item 27).
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
+from . import native
 from .catalog import DatasetCatalog
 from .proposals import attach_proposals
 from .transforms import (
@@ -153,10 +162,35 @@ class StreamLoader:
         return min_size, flip
 
     def _load(self, rec, aug=None):
-        aug = aug if aug is not None else self._draw_aug()
+        # the augmentation is drawn once, up front: the C path and the PIL
+        # fallback consume the same draws, so a file the C decoder refuses
+        # does not shift the stream of every record after it
+        min_size, flip = aug if aug is not None else self._draw_aug()
+        if self.image_loader is None and _native_eligible(rec):
+            try:
+                return self._load_native(rec, min_size, flip)
+            except RuntimeError:
+                pass  # not decodable in C: PIL
         img = self.image_loader(rec) if self.image_loader else None
         return prepare_detection_record(rec, self.tcfg, self.rng, image=img,
-                                        training=self.training, aug=aug)
+                                        training=self.training, aug=(min_size, flip))
+
+    def _load_native(self, rec, min_size: int, flip: bool):
+        """Decode, resize, flip and canvas in C; the annotations in Python."""
+        t = self.tcfg
+        canvas = oriented_canvas(int(rec["height"]), int(rec["width"]), t.canvas)
+        image, (nh, nw), scale = native.prepare_image_native(
+            rec["file_name"], min_size, t.max_size, canvas, flip)
+        return prepare_detection_record(rec, t, self.rng, training=self.training,
+                                        preprocessed=(image, nh, nw, scale, flip))
+
+    def _emit(self, batch):
+        out = collate(batch, self.keys)
+        if self.tcfg.host_uint8 and "image" in out:
+            # the uint8 wire: the bilinear values rounded back to the decode's
+            # uint8 (at most 0.5 off), 4x fewer bytes to upload
+            out["image"] = np.clip(np.rint(out["image"]), 0, 255).astype(np.uint8)
+        return out
 
     def __iter__(self) -> Iterator[dict]:
         """Aspect-ratio-grouped batching (d2 AspectRatioGroupedDataset):
@@ -182,7 +216,7 @@ class StreamLoader:
             buckets.setdefault(key, []).append(sample)
             if len(buckets[key]) == self.batch_size:
                 batch, buckets[key] = buckets[key], []
-                yield collate(batch, self.keys)
+                yield self._emit(batch)
 
     def fast_forward(self, n_batches: int) -> None:
         """Advance the stream past ``n_batches`` WITHOUT decoding any image.
@@ -288,11 +322,7 @@ def build_test_loader(cfg, dataset_name: str, image_loader=None, batch_size=1):
         _with_proposals(records, tcfg, cfg.DATASETS.PROPOSAL_FILES_TEST,
                         cfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TEST)
         extra_keys = _PROPOSAL_KEYS
-    rng = np.random.RandomState(0)
-
-    def load_one(rec):
-        img = image_loader(rec) if image_loader else None
-        return prepare_detection_record(rec, tcfg, rng, image=img, training=False)
+    load_one = _make_test_record_loader(tcfg, np.random.RandomState(0), image_loader)
 
     def gen():
         batch = []
@@ -309,6 +339,30 @@ def build_test_loader(cfg, dataset_name: str, image_loader=None, batch_size=1):
             yield _finalize_test_batch(batch, extra_keys)
 
     return Prefetcher(gen(), depth=4), len(records)
+
+
+def _native_eligible(rec) -> bool:
+    """A JPEG file with its size in the record, and the C loader built."""
+    return (str(rec.get("file_name", "")).lower().endswith((".jpg", ".jpeg"))
+            and "height" in rec and "width" in rec and native.available())
+
+
+def _make_test_record_loader(tcfg, rng, image_loader):
+    """record -> prepared test sample, through the C loader where it can."""
+    def load_one(rec):
+        if image_loader is None and _native_eligible(rec):
+            canvas = oriented_canvas(int(rec["height"]), int(rec["width"]), tcfg.canvas)
+            try:
+                image, (nh, nw), scale = native.prepare_image_native(
+                    rec["file_name"], tcfg.min_sizes[0], tcfg.max_size, canvas)
+                return prepare_detection_record(rec, tcfg, rng, training=False,
+                                                preprocessed=(image, nh, nw, scale))
+            except RuntimeError:
+                pass  # not decodable in C: PIL
+        img = image_loader(rec) if image_loader else None
+        return prepare_detection_record(rec, tcfg, rng, image=img, training=False)
+
+    return load_one
 
 
 def _finalize_test_batch(batch, extra_keys=()):

@@ -8,8 +8,10 @@ Images are float32 BGR (INPUT.FORMAT=BGR).  With ``proposal_capacity`` > 0
 a record's precomputed proposals come padded to that capacity, scaled,
 clipped and flipped with the image (data/proposals.py).  ``tta_canvas_for``
 and ``max_aspect_of`` size the test-time augmentation's per-scale canvases.
-The uint8 wire and the native loader's ``preprocessed`` input are not
-ported; each raises with its ROADMAP item.
+``prepare_detection_record(..., preprocessed=...)`` takes a canvas that the
+C loader (data/native.py) already made and transforms only the annotations;
+``TransformConfig.host_uint8`` (TPU.HOST_TRANSFER_UINT8) makes the stream
+loaders ship their batches' images as uint8.
 """
 
 from __future__ import annotations
@@ -23,10 +25,6 @@ import numpy as np
 from .proposals import pad_record_proposals
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to unit_tpu_torch yet ({item})")
-
-
 @dataclasses.dataclass
 class TransformConfig:
     min_sizes: Sequence[int] = (800,)
@@ -38,11 +36,10 @@ class TransformConfig:
     with_masks: bool = False
     mask_size: int = 28                    # GT-box-frame mask resolution
     proposal_capacity: int = 0             # > 0: padded precomputed proposals
+    host_uint8: bool = False               # uint8 batch images (TPU.HOST_TRANSFER_UINT8)
 
     @classmethod
     def train_from_cfg(cls, cfg) -> "TransformConfig":
-        if cfg.TPU.HOST_TRANSFER_UINT8:
-            raise _not_ported("TPU.HOST_TRANSFER_UINT8", "ROADMAP Queue 1 item 29")
         min_sizes = cfg.INPUT.MIN_SIZE_TRAIN
         if isinstance(min_sizes, int):
             min_sizes = (min_sizes,)
@@ -52,6 +49,7 @@ class TransformConfig:
             min_sizes=tuple(min_sizes), max_size=max_size, canvas=canvas,
             flip=cfg.INPUT.RANDOM_FLIP != "none", max_gt=cfg.TPU.MAX_GT_BOXES,
             num_classes=cfg.MODEL.ROI_HEADS.NUM_CLASSES, with_masks=cfg.MODEL.MASK_ON,
+            host_uint8=cfg.TPU.HOST_TRANSFER_UINT8,
         )
 
     @classmethod
@@ -162,6 +160,7 @@ def prepare_detection_record(
     image: Optional[np.ndarray] = None,
     training: bool = True,
     aug: Optional[tuple] = None,
+    preprocessed: Optional[tuple] = None,
 ) -> dict:
     """record dict -> fixed-shape arrays for one image:
     {image [Hc, Wc, 3], image_size [2], gt_boxes [G, 4], gt_classes [G],
@@ -174,18 +173,29 @@ def prepare_detection_record(
 
     ``aug=(min_size, flip)``: the caller already drew the augmentation
     parameters (StreamLoader draws them once per record, so that
-    ``fast_forward`` can replay them); no draws happen here.
+    ``fast_forward`` can replay them and the C path and the PIL fallback
+    stay on one stream); no draws happen here.
+
+    ``preprocessed=(canvas, new_h, new_w, scale[, flipped])``: the decode,
+    resize, flip and canvas fill were done already (by the C loader,
+    data/native.py); only the annotations are transformed here, mirrored
+    where the image came flipped.  The original size is the record's.
     """
-    if image is None:
-        image = load_image_bgr(record["file_name"])
-    h, w = image.shape[:2]
-    if aug is not None:
-        min_size, flipped = aug[0], bool(aug[1])
-    else:  # the draws in unit_tpu's order: the size, then the flip coin
-        min_size = (tcfg.min_sizes[rng.randint(len(tcfg.min_sizes))] if training
-                    else tcfg.min_sizes[0])
-        flipped = bool(training and tcfg.flip and rng.rand() < 0.5)
-    canvas, new_h, new_w, scale = resize_to_canvas(image, min_size, tcfg, flipped)
+    if preprocessed is not None:
+        canvas, new_h, new_w, scale = preprocessed[:4]
+        flipped = bool(preprocessed[4]) if len(preprocessed) > 4 else False
+        h, w = int(record["height"]), int(record["width"])
+    else:
+        if image is None:
+            image = load_image_bgr(record["file_name"])
+        h, w = image.shape[:2]
+        if aug is not None:
+            min_size, flipped = aug[0], bool(aug[1])
+        else:  # the draws in unit_tpu's order: the size, then the flip coin
+            min_size = (tcfg.min_sizes[rng.randint(len(tcfg.min_sizes))] if training
+                        else tcfg.min_sizes[0])
+            flipped = bool(training and tcfg.flip and rng.rand() < 0.5)
+        canvas, new_h, new_w, scale = resize_to_canvas(image, min_size, tcfg, flipped)
 
     annotations = record.get("annotations", [])
     boxes = np.asarray([a["bbox"] for a in annotations], np.float32).reshape(-1, 4) * scale

@@ -171,7 +171,9 @@ class TrainerBase:
             return None
         # a Prefetcher with data.loader.pin_batch hands out tensors in pinned
         # memory, from which the copy is asynchronous; numpy arrays (pageable)
-        # are copied synchronously whatever the flag says
+        # are copied synchronously whatever the flag says.  Every dtype is
+        # kept: uint8 images (TPU.HOST_TRANSFER_UINT8) go up as uint8, and
+        # WSRCNN.preprocess casts them to f32 on the device
         host = {k: v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
                 for k, v in batch.items()}
         out = {k: v.to(self.device, non_blocking=True) for k, v in host.items()}

@@ -347,7 +347,8 @@ class WSRCNN(nn.Module):
 
     # ---------------------------------------------------------------- pieces
     def preprocess(self, images: torch.Tensor) -> torch.Tensor:
-        """Optional /255, then caffe-style BGR mean/std, in f32."""
+        """Optional /255, then caffe-style BGR mean/std, in f32 (uint8 images
+        of the uint8 wire are cast here, on the device)."""
         x = images.to(torch.float32)
         if self.mc.normalize_images:
             x = x / 255.0

@@ -7,7 +7,10 @@ use into ``unit_tpu_torch/_build/`` (listed in ``.gitignore``) for ``sm_90a``:
          -Xcompiler -fPIC [extra flags] -o _build/lib<name>-<hash>.so csrc/<name>.cu
 
 The file name carries a hash of the source and flags, so an edited source is
-rebuilt and a stale library is never loaded.  Nothing here runs at import.
+rebuilt and a stale library is never loaded.  ``build_library`` does the
+hashing, the compile to a temporary name and the atomic rename for any host
+or device compiler: the port's host loader (``data/native.py``) builds
+``csrc/dataloader.cc`` with g++ through it.  Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -18,9 +21,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
@@ -60,28 +64,40 @@ def nvcc_path() -> str:
     return found
 
 
+def build_library(compiler: str, src: Path, flags: Sequence[str],
+                  libs: Sequence[str] = ()) -> Tuple[Path, float, str]:
+    """Compile ``src`` into ``_build/lib<stem>-<hash>.so`` unless that file
+    exists: ``compiler *flags -o <tmp> src *libs``, then an atomic rename, so
+    that processes building at once each write their own temporary file and
+    none loads a half-written library.  Returns (path, seconds spent in the
+    compiler, 0.0 if it was built already; the compiler's stderr).  Raises
+    RuntimeError with the compiler's output if it fails."""
+    key = src.read_bytes() + " ".join((*flags, *libs)).encode()
+    digest = hashlib.sha256(key).hexdigest()[:16]
+    lib_path = BUILD_DIR / f"lib{src.stem}-{digest}.so"
+    if lib_path.exists():
+        return lib_path, 0.0, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+    cmd = [compiler, *flags, "-o", str(tmp), str(src), *libs]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"{os.path.basename(compiler)} failed for {src.name} (exit {proc.returncode}):\n"
+            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, lib_path)
+    return lib_path, time.perf_counter() - t0, proc.stderr
+
+
 @functools.cache
 def load_library(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` if needed and return the loaded library."""
-    src = CSRC_DIR / f"{name}.cu"
-    flags = BASE_FLAGS + EXTRA_FLAGS[name]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"lib{name}-{digest}.so"
-    if lib_path.exists():
-        BUILD_LOG[name] = (0.0, "")
-    else:
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *flags, "-o", str(tmp), str(src)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed for {src.name} (exit {proc.returncode}):\n"
-                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, lib_path)
-        BUILD_LOG[name] = (time.perf_counter() - t0, proc.stderr)
+    lib_path, secs, report = build_library(nvcc_path(), CSRC_DIR / f"{name}.cu",
+                                           BASE_FLAGS + EXTRA_FLAGS[name])
+    BUILD_LOG[name] = (secs, report)
     return ctypes.CDLL(str(lib_path))
 
 

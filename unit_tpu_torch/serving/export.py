@@ -26,6 +26,7 @@ from typing import Dict, Optional, Sequence
 import torch
 
 from ..data.transforms import TransformConfig
+from ..engine.predict import upload_image
 from ..structures.instances import Detections
 
 FORMAT_VERSION = 1
@@ -140,7 +141,8 @@ class ExportedPredictor:
         self.device = torch.device(meta["platforms"][0])
 
     def __call__(self, image, image_size, *proposals) -> Detections:
-        """image [b, Hc, Wc, 3], image_size [b, 2][, proposal_boxes [b, K, 4],
+        """image [b, Hc, Wc, 3] (f32, or uint8: uploaded as such and cast on
+        the device), image_size [b, 2][, proposal_boxes [b, K, 4],
         proposal_valid [b, K]] (numpy arrays or tensors) -> Detections on the
         artifact's device."""
         key = f"{image.shape[1]}x{image.shape[2]}"
@@ -149,7 +151,7 @@ class ExportedPredictor:
             raise ValueError(f"no exported program for canvas {key}; artifact has "
                              f"{sorted(self._programs)}")
         with torch.inference_mode():
-            args = [torch.as_tensor(image, dtype=torch.float32).to(self.device, non_blocking=True),
+            args = [upload_image(image, self.device),
                     torch.as_tensor(image_size, dtype=torch.float32).to(self.device)]
             args += [torch.as_tensor(p).to(self.device) for p in proposals]
             out = program(*args)

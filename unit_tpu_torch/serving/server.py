@@ -13,14 +13,16 @@ unit_tpu/serving/server.py).
     POST /predict  (body: JPEG/PNG bytes) -> JSON detections
     GET  /healthz  -> {"status": "ok"}
     GET  /metadata -> artifact/model metadata
-  Each request is decoded and resized in its own handler thread; the device
-  work queues on the card's stream.
+  Each request is decoded and resized in its own handler thread (a JPEG in
+  C with the GIL released, data/native.py, where the library builds; PIL
+  and numpy otherwise); the device work queues on the card's stream.
 
 A device call's outputs come back as one packed device-to-host copy into
 pinned memory with one event (``evaluation.evaluator._start_fetch``), in the
-caller's thread at batch 1 and in the batcher's fetch thread otherwise.  The
-uint8 request wire (TPU.HOST_TRANSFER_UINT8) is not ported (ROADMAP Queue 1
-item 29).
+caller's thread at batch 1 and in the batcher's fetch thread otherwise.
+Under TPU.HOST_TRANSFER_UINT8 a prepared canvas is rounded to uint8 before
+it is submitted (the uint8 wire: 4x fewer bytes to upload, at most 0.5 off);
+the model casts it to f32 on the device.
 """
 
 from __future__ import annotations
@@ -37,7 +39,8 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from ..data.transforms import TransformConfig, prepare_test_image
+from ..data import native
+from ..data.transforms import TransformConfig, oriented_canvas, prepare_test_image
 from ..engine.predict import make_predict_fn
 from ..evaluation.evaluator import _start_fetch
 
@@ -205,10 +208,10 @@ class DetectionService:
                  batch_wait_ms: float = 5.0):
         if (model is None) == (exported is None):
             raise ValueError("need exactly one of model= and exported=")
-        if cfg.TPU.HOST_TRANSFER_UINT8:
-            raise NotImplementedError(
-                "TPU.HOST_TRANSFER_UINT8 is not ported (ROADMAP Queue 1 item 29)")
         self.tcfg = TransformConfig.test_from_cfg(cfg)
+        # the uint8 request wire; off by default, where a served result
+        # equals the evaluation's bit for bit
+        self.uint8_wire = bool(cfg.TPU.HOST_TRANSFER_UINT8)
         self.class_names = list(class_names) if class_names else None
         self._lock = threading.Lock()  # batch 1: one dispatch at a time
         if exported is not None:
@@ -242,12 +245,26 @@ class DetectionService:
 
     # -- input adapters ----------------------------------------------------
     def detect_bytes(self, data: bytes):
-        """Decode an encoded image (JPEG/PNG/...) with PIL and run detection.
+        """Decode an encoded image (JPEG/PNG/...) and run detection.
 
-        There is one decoder.  unit_tpu decodes and resizes JPEGs in C when
-        its native library is built (native/dataloader.cc); the port has no
-        native loader yet (ROADMAP Queue 1 item 30), so every request is
-        decoded here."""
+        A JPEG is decoded and resized in C with the GIL released
+        (data/native.py: the header's dims pick the canvas, then
+        ``prepare_image_mem``) where the library builds; anything else, and
+        a JPEG the C decoder refuses, goes through PIL and numpy."""
+        if data[:2] == b"\xff\xd8" and native.available():
+            prepared = None
+            try:
+                h, w = native.decode_image_size_mem_native(data)
+                prepared = native.prepare_image_mem_native(
+                    data, self.tcfg.min_sizes[0], self.tcfg.max_size,
+                    oriented_canvas(h, w, self.tcfg.canvas))
+            except RuntimeError:
+                pass  # not decodable in C: PIL gives the result or the error
+            if prepared is not None:
+                # outside the try: a device error (a RuntimeError too) must
+                # propagate, not rerun the request through PIL
+                image, size, scale, _ = prepared
+                return self._detect_prepared(image, size, scale, h, w)
         from PIL import Image
 
         img = Image.open(io.BytesIO(data)).convert("RGB")
@@ -261,6 +278,8 @@ class DetectionService:
         return self._detect_prepared(s["image"], s["image_size"], s["scale"], h, w)
 
     def _detect_prepared(self, image, image_size, scale, h, w):
+        if self.uint8_wire and image.dtype != np.uint8:
+            image = np.clip(np.rint(image), 0, 255).astype(np.uint8)
         size = np.asarray(image_size, np.float32)
         if self._batcher is not None:
             out = self._batcher.submit(image, size)

@@ -40,8 +40,8 @@ Phases (any failure raises and the script exits non-zero):
      SGD (gradients clipped: the weights are random); launch counters prove
      every step ran K1 x2, K2 x2, K3 x1 (one launch for the step's 4 images)
      and K4 once per FrozenBN forward and
-     once per differentiated FrozenBN backward; the same steps again with the
-     plain epilogue, in turns
+     once per differentiated FrozenBN backward; 1 + 4 steps a turn with the
+     plain epilogue and K4, in turns
   8  whole train path in f32 (TF32 off): train_losses + backward with the
      kernels vs with the plain versions, same weights and generator seed
   9  K4 fused FrozenBN + residual + ReLU epilogue vs its plain version,
@@ -52,7 +52,7 @@ Phases (any failure raises and the script exits non-zero):
      VOC devkit (XML and image sets on disk, images from a seeded loader):
      6 steps with checkpoints and evaluations every 3, a resume from step 3,
      --eval-only from step 6, one evaluation with TPU.FOLD_BN_AT_EVAL, and
-     24 steps without hooks for the loader's steady rate
+     12 steps without hooks for the loader's steady rate
  11  k-shot fine-tuning: engine.runner.run on the shipped 10-shot split1
      fine-tune recipe (8 strong images a step), warm-started from phase 10's
      best/model as the recipe spells it, 6 steps with checkpoints and
@@ -156,7 +156,7 @@ Phases (any failure raises and the script exits non-zero):
      JPEGs of the 20 classes as (shape, hue) pairs), engine.runner.run on
      the recipe from random weights (MODEL.WEIGHTS "", FREEZE_AT 0, LR 0.002
      with 100 warm-up steps, 320-pixel INPUT sizes: the accuracy pipeline's
-     settings) for 300 steps of 4 + 4 images, one checkpoint and one
+     settings) for 150 steps of 4 + 4 images, one checkpoint and one
      evaluation; the median total_loss of the last 20 steps under 0.7x that
      of the first 20, loss_rpn_cls and loss_im_cls lower, every loss finite
      (AP reported, not gated); on the trained checkpoint: the proposals an
@@ -181,6 +181,20 @@ Phases (any failure raises and the script exits non-zero):
      requests (uint8 canvases, launches as phase 18's) and 2 flagship train
      steps on uint8 batches (phase 7's launches, finite losses), upload MiB
      and ms against the f32 wire
+ 21  data parallelism (parallel.launch; NCCL refuses two ranks on one card, so
+     two ranks share card 0 over gloo): (a) the flagship at full width at the
+     recipe's global batch, 4 + 4 images a rank, 2 warm-up + 6 timed steps:
+     per rank the step median, the gradient all-reduce's ms a step and the
+     peak memory, every rank's launches (K1 2, K2 2, K3 1, K4 124 + 103 a
+     step), one state on both ranks (a hash), finite losses; (b) f32 with
+     TF32 off and every candidate kept: one step at world 2, 1 + 1 images a
+     rank, against one process on the 2 + 2 global batch (losses 1e-4,
+     gradients phase 8's bound); (c) engine.runner.run at world 2 on phase
+     20's devkit of JPEG files through the C loader: 4 steps, a checkpoint and
+     an evaluation at 2 and 4, the gathered AP against a one-process
+     --eval-only of the step-4 checkpoint (1e-6), a resume from step 2; (d)
+     --dist at world 1 over NCCL from torchrun's environment: 2 steps, their
+     launches, finite losses, one NCCL all-reduce
 The last three lines are the card (nvidia-smi), one JSON object describing
 the kernels (launches counted on the run loop of phase 10, and per path under
 launches_by_path), and {"ok": true, "device": {...}}.  Without a CUDA device, or without the
@@ -240,6 +254,7 @@ K2_REL = 2.0 ** -16
 # resized to the recipe's 800-pixel short side, in both orientations.
 TRAIN_WARMUP = 2
 TRAIN_STEPS = 8
+TRAIN_TURN_STEPS = 4  # steps a turn of the plain epilogue against K4
 TRAIN_CANVASES = (((800, 1344), (800, 1067)), ((1344, 800), (1067, 800)))
 # Whole train path in f32, kernels vs plain versions: the proposals and the
 # sampled slots are identical (K3 is exact); K1/K2 differ from their plain
@@ -295,7 +310,7 @@ K4_REPORTED = ((4, 50, 84, 1024), (True, True))  # the kernels line's K4 row
 RUN_STEPS = 6
 RUN_PERIOD = 3
 RUN_TEST_IMAGES = 8
-RUN_STEADY_STEPS = 24  # a longer run without hooks in the way: the loader's steady rate
+RUN_STEADY_STEPS = 12  # a longer run without hooks in the way: the loader's steady rate
 RUN_EXTRA_OPTS = ()  # more config overrides (a rehearsal at a small size sets them)
 RUN_DEVICE = "cuda"  # a rehearsal of the run loop's control flow sets "cpu"
 RESUME_LOSS_RTOL = 1e-3
@@ -1355,7 +1370,7 @@ def phase_train(cfg, seed):
         set_bn_act_impl(model, impl)
         step(f"warm-up, bn_act {impl}")
         medians[impl].append(float(np.median([step(f"bn_act {impl}")
-                                              for _ in range(TRAIN_STEPS)])))
+                                              for _ in range(TRAIN_TURN_STEPS)])))
     set_bn_act_impl(model, "cuda")
     log(f"[7] step medians ms, bn_act_impl in turns: cuda {medians['cuda']}, plain "
         f"{medians['plain']}")
@@ -4893,7 +4908,7 @@ def phase_serving(cfg, seed, workdir):
 # Phase 19: the flagship learns on shapes-VOC from random weights, at the
 # accuracy pipeline's size and learning rate (scripts/run_shapes_pipeline_torch.sh,
 # 6000 steps there); then the kernels on the trained weights.
-TRAINED_STEPS = 300
+TRAINED_STEPS = 150        # total_loss falls ~14x by step 76 on the card: the 0.7 gate holds
 TRAINED_IMS_PER_BATCH = 4  # 4 strong + 4 weak images a step
 TRAINED_BASE_LR = 0.002
 TRAINED_WARMUP_ITERS = 100
@@ -5583,6 +5598,513 @@ def phase_host_wire(cfg, seed, workdir):
     return by_path
 
 
+# Phase 21: data parallelism on one card.  NCCL refuses two ranks on one
+# device, so the two ranks of (a)-(c) share card 0 over gloo (its all-reduce
+# of CUDA tensors goes through the host), and (d) runs one rank over NCCL
+# through --dist.  No NCCL figure at world >= 2 can be taken here.
+DP_WORLD = 2
+DP_IMAGES_PER_RANK = 4      # the recipe's IMS_PER_BATCH 8: 4 + 4 images a rank
+DP_WARMUP, DP_STEPS = 2, 6
+DP_RUN_STEPS, DP_RUN_PERIOD = 4, 2
+DP_DIST_STEPS = 2
+DP_TIMEOUT = 600            # seconds a launch may take, collectives and join
+DP_AP_ATOL = 1e-6
+# the merged evaluator's detections against one process's (class, image,
+# score and box): random weights find no object at AP50, so the detections
+# carry the comparison
+DP_DET_ATOL = 1e-3
+# (b): every candidate kept, so that the ranks' samplers select what one
+# process selects: the RPN's 63000 anchors of an 800x1344 canvas under its
+# per-image batch, all 128 proposals and the 100 GT slots under the ROI batch
+# of 512 (the recipe's), and no cap on the foreground
+DP_KEEP_ALL_OPTS = ("TPU.COMPUTE_DTYPE", "float32", "MODEL.RPN.POST_NMS_TOPK_TRAIN", "128",
+                    "MODEL.RPN.BATCH_SIZE_PER_IMAGE", "100000",
+                    "MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE", "512",
+                    "MODEL.ROI_HEADS.POSITIVE_FRACTION", "1.0",
+                    "SOLVER.CLIP_GRADIENTS.ENABLED", "False")
+
+
+def dp_cfg(opts):
+    """The flagship with the smoke's clipping (random weights) and ``opts``."""
+    from unit_tpu_torch.config import get_cfg
+
+    cfg = get_cfg()
+    cfg.merge_from_file(str(FLAGSHIP))
+    cfg.merge_from_list(["SOLVER.CLIP_GRADIENTS.ENABLED", "True",
+                         "SOLVER.CLIP_GRADIENTS.CLIP_TYPE", "norm", *opts])
+    return cfg
+
+
+def state_digest(model):
+    """A hash of every parameter and buffer of ``model``, bit for bit."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for name, t in itertools.chain(model.named_parameters(), model.named_buffers()):
+        h.update(name.encode())
+        h.update(t.detach().cpu().contiguous().view(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def timed_grad_reduce(sync, into):
+    """Wrap the train step's gradient all-reduce (parallel.comm): its host ms,
+    the device synchronised on both sides, go to ``into``."""
+    from unit_tpu_torch.parallel import comm
+
+    real = comm.all_reduce_mean_tensors
+
+    def timed(tensors):
+        sync()
+        t = time.perf_counter()
+        real(tensors)
+        sync()
+        into.append((time.perf_counter() - t) * 1e3)
+
+    comm.all_reduce_mean_tensors = timed
+
+
+def dp_train_rank(device, opts, seed, per_rank, canvases, warmup, steps):
+    """(a), one rank: the flagship at full width on this rank's own images,
+    ``warmup`` + ``steps`` steps; the timed steps' times, gradient
+    all-reduce ms, launches, peak memory, losses and the state's digest."""
+    import torch
+
+    from unit_tpu_torch.engine import TrainerNoMeta
+    from unit_tpu_torch.parallel import comm
+    from unit_tpu_torch.solver import build_optimizer
+
+    on_card = device.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    cfg = dp_cfg(opts)
+    t0 = time.perf_counter()
+    model = flagship_model(cfg, seed, device)
+    strong, weak = synthetic_train_batches(cfg, seed + 1000 * (comm.rank() + 1),
+                                           per_stream=per_rank, canvases=canvases)
+    trainer = TrainerNoMeta(model, build_optimizer(cfg, model), itertools.cycle(strong),
+                            itertools.cycle(weak), seed=seed)
+    trainer.init_state()
+    reduce_ms = []
+    timed_grad_reduce(sync, reduce_ms)
+    for _ in range(warmup):
+        trainer.run_step()
+    setup_s = time.perf_counter() - t0
+    sync()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    reduce_ms.clear()
+    step_ms = []
+    for _ in range(steps):
+        t = time.perf_counter()
+        trainer.run_step()  # ends in the one fetch of the ranks' mean losses
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    launches = read_launch_counts()
+    n_backbone, n_res5, n_trainable = frozen_bn_counts(model)
+    return {"rank": comm.rank(), "step_ms": step_ms, "reduce_ms": reduce_ms,
+            "setup_s": setup_s, "launches": launches,
+            "k4": (n_backbone + 3 * n_res5, n_trainable + 2 * n_res5),
+            "peak": torch.cuda.max_memory_allocated(device) if on_card else 0,
+            "grad_mib": sum(p.numel() * p.element_size()
+                            for g in trainer.optimizer.optimizer.param_groups
+                            for p in g["params"]) / 2**20,
+            "losses": [m["total_loss"] for m in trainer.metrics_history],
+            "finite": all(np.isfinite(v) for m in trainer.metrics_history for v in m.values()),
+            "digest": state_digest(model)}
+
+
+def dp_f32_step(device, opts, seed, strong, weak, out_path=None):
+    """(b): one f32 step (TF32 off) of the flagship on this process's rows of
+    ``strong``/``weak`` (all of them in one process): (losses, the gradient
+    that enters the optimizer, after the ranks' all-reduce).  A rank saves
+    the gradient to ``out_path`` instead (rank 0) and returns None for it."""
+    import torch
+
+    from unit_tpu_torch.engine import TrainerNoMeta
+    from unit_tpu_torch.parallel import comm
+    from unit_tpu_torch.solver import build_optimizer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    cfg = dp_cfg((*opts, *DP_KEEP_ALL_OPTS))
+    model = flagship_model(cfg, seed, device)
+    solver = build_optimizer(cfg, model)
+    r, n = comm.rank(), comm.world()
+    rows = len(strong["image"]) // n
+
+    def mine(batch):
+        return {k: v[r * rows:(r + 1) * rows] for k, v in batch.items()}
+
+    trainer = TrainerNoMeta(model, solver, itertools.repeat(mine(strong)),
+                            itertools.repeat(mine(weak)), seed=seed)
+    trainer.init_state()
+    names = {id(p): name for name, p in model.named_parameters()}
+    grads = {}
+    real = comm.all_reduce_mean_tensors
+
+    def keep(tensors):
+        real(tensors)
+        params = [p for g in solver.optimizer.param_groups for p in g["params"]]
+        grads.update({names[id(p)]: t.detach().clone() for p, t in zip(params, tensors)})
+
+    comm.all_reduce_mean_tensors = keep
+    try:
+        metrics = trainer.run_step()
+    finally:
+        comm.all_reduce_mean_tensors = real
+    del trainer, model
+    if out_path is None:
+        return metrics, grads
+    if comm.is_main():
+        torch.save({k: v.cpu() for k, v in grads.items()}, out_path)
+    return metrics, None
+
+
+def recording_merges(merged):
+    """Make the inference loop's ``merge_gathered`` append each merged VOC
+    evaluator's detections (``voc_detections``) to ``merged``; returns the
+    function to restore."""
+    from unit_tpu_torch.evaluation import evaluator as ev_mod
+
+    real = ev_mod.merge_gathered
+
+    def merge(evaluator):
+        out = real(evaluator)
+        merged.append(voc_detections(out))
+        return out
+
+    ev_mod.merge_gathered = merge
+    return real
+
+
+def voc_detections(evaluator):
+    """A VOC evaluator's detections as a sorted [N, 6] array (class, image
+    index, score, box) with the image ids beside it."""
+    rows, images = [], sorted({d[0] for dets in evaluator._dets.values() for d in dets})
+    index = {img: i for i, img in enumerate(images)}
+    for cid, dets in evaluator._dets.items():
+        rows += [(cid, index[d[0]], *d[1:]) for d in dets]
+    return np.asarray(sorted(rows), np.float64).reshape(-1, 7), images
+
+
+def dp_run_rank(device, argv):
+    """(c), one rank of engine.runner.run in the caller's group: the results,
+    the detections of each merged evaluation, each step's launches and
+    losses, and the final state's digest."""
+    from unit_tpu_torch.data import DatasetCatalog
+    from unit_tpu_torch.engine import runner
+    from unit_tpu_torch.engine.train import TrainerNoMeta
+
+    from unit_tpu_torch.evaluation import evaluator as ev_mod
+
+    made, merged = [], []
+
+    class Recording(TrainerNoMeta):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.launches = []
+            made.append(self)
+
+        def run_step(self):
+            reset_launch_counts()
+            metrics = super().run_step()
+            self.launches.append(read_launch_counts())
+            return metrics
+
+    real_trainer, runner.TrainerNoMeta = runner.TrainerNoMeta, Recording
+    real_merge = recording_merges(merged)
+    DatasetCatalog.clear()
+    try:
+        results = runner.run(runner.default_argument_parser().parse_args(argv))
+    finally:
+        runner.TrainerNoMeta, ev_mod.merge_gathered = real_trainer, real_merge
+    trainer = made[-1]
+    first = trainer.state.step - len(trainer.metrics_history)
+    n_backbone, n_res5, n_trainable = frozen_bn_counts(trainer.model)
+    return {"results": results, "launches": trainer.launches, "merged": merged,
+            "k4": (n_backbone + 3 * n_res5, n_trainable + 2 * n_res5),
+            "losses": {first + 1 + k: {n: v for n, v in m.items() if n != "data_time"}
+                       for k, m in enumerate(trainer.metrics_history)},
+            "digest": state_digest(trainer.model)}
+
+
+def dp_train_and_f32_rank(device, train_args, f32_args):
+    """(a) then (b) in one rank process: ``dp_train_rank(*train_args)``, then
+    ``dp_f32_step(*f32_args)`` (one spawn fewer)."""
+    return dp_train_rank(device, *train_args), dp_f32_step(device, *f32_args)
+
+
+def dp_run_and_resume_rank(device, argv_a, argv_b, out_a, out_b):
+    """(c) in one rank process: the run into ``out_a``, then (rank 0 copies
+    its step-2 checkpoint into ``out_b``) the run resumed from it."""
+    from unit_tpu_torch.parallel import comm
+
+    a = dp_run_rank(device, argv_a)
+    if comm.is_main():
+        os.makedirs(out_b)
+        shutil.copy(os.path.join(out_a, f"step_{DP_RUN_PERIOD}.pt"), out_b)
+    comm.barrier()
+    return a, dp_run_rank(device, argv_b)
+
+
+def phase_data_parallel(seed, workdir):
+    """Phase 21: data parallelism on one card.  (a) the flagship at full
+    width at the recipe's global batch, 4 + 4 images a rank on 2 ranks (gloo,
+    both on card 0): per rank the step median, the gradient all-reduce's ms a
+    step and the peak memory, every step's launches (K1 2, K2 2, K3 1, K4
+    124 + 103), finite losses and one state on both ranks; (b) f32, TF32
+    off, every candidate kept: one step at world 2 of 1 + 1 images a rank
+    against one process on the 2 + 2 global batch, the losses to 1e-4 and
+    the gradients to phase 8's bound; (c) engine.runner.run at world 2 on a
+    devkit of JPEG files through the C loader: 4 steps, a checkpoint and an
+    evaluation at 2 and 4, only rank 0 writing, the gathered AP against a
+    one-process --eval-only of the step-4 checkpoint, a resume from step 2;
+    (d) --dist at world 1 over NCCL (torchrun's environment): 2 steps, their
+    launches, finite losses, one NCCL all-reduce.  Returns {path: launch
+    counts}."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from unit_tpu_torch.checkpoint import Checkpointer, read_checkpoint
+    from unit_tpu_torch.data import DatasetCatalog
+    from unit_tpu_torch.engine import runner
+    from unit_tpu_torch.engine.train import TrainerNoMeta, TrainState
+    from unit_tpu_torch.parallel import launch
+    from unit_tpu_torch.solver import build_optimizer
+
+    dev = torch.device(RUN_DEVICE)
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    devices = [0] * DP_WORLD if on_card else ["cpu"] * DP_WORLD
+    opts = list(RUN_EXTRA_OPTS)
+    by_path = {}
+    if on_card:
+        torch.cuda.empty_cache()
+
+    def spawn(main, *args):
+        return launch(main, DP_WORLD, devices, "gloo", args=args, timeout=DP_TIMEOUT)
+
+    # (b)'s one process first: its gradient waits on the card for the ranks'
+    cfg32 = dp_cfg((*opts, *DP_KEEP_ALL_OPTS))
+    strong, weak = synthetic_train_batches(cfg32, seed + 5, n_batches=1, per_stream=DP_WORLD)
+    strong, weak = strong[0], weak[0]
+    t = time.perf_counter()
+    m1, g1 = dp_f32_step(dev, opts, seed, strong, weak)
+    secs_one = time.perf_counter() - t
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (a) world 2 at the recipe's global batch, then (b) world 2, in one spawn
+    grads_path = os.path.join(workdir, "dp_f32_grads.pt")
+    t = time.perf_counter()
+    both = spawn(dp_train_and_f32_rank,
+                 (opts, seed, DP_IMAGES_PER_RANK, TRAIN_CANVASES, DP_WARMUP, DP_STEPS),
+                 (opts, seed, strong, weak, grads_path))
+    secs = time.perf_counter() - t
+    ranks = [r for r, _ in both]
+    for r in ranks:
+        log(f"[21] (a) rank {r['rank']}: {DP_STEPS} timed steps of {DP_IMAGES_PER_RANK} + "
+            f"{DP_IMAGES_PER_RANK} images, median {np.median(r['step_ms']):.2f} ms (min "
+            f"{min(r['step_ms']):.2f}, max {max(r['step_ms']):.2f}), gradient all-reduce "
+            f"({r['grad_mib']:.1f} MiB, gloo through the host) median "
+            f"{np.median(r['reduce_ms']):.2f} ms a step, peak device memory "
+            f"{r['peak'] / 2**30:.2f} GiB, set-up + {DP_WARMUP} warm-up steps "
+            f"{r['setup_s']:.1f} s; launches {r['launches']}; total_loss "
+            f"{[round(v, 4) for v in r['losses']]}")
+    k4_fwd, k4_bwd = ranks[0]["k4"]
+    want = {"roi_align_fwd": 2 * DP_STEPS, "roi_align_bwd": 2 * DP_STEPS,
+            "nms_mask": DP_STEPS, "nms_mask_images": 2 * DP_IMAGES_PER_RANK * DP_STEPS,
+            "bn_act_fwd": k4_fwd * DP_STEPS, "bn_act_bwd": k4_bwd * DP_STEPS,
+            "bn_act_layout_copies": 2 * DP_STEPS}
+    same = len({r["digest"] for r in ranks}) == 1
+    slowest = max(np.median(r["step_ms"]) for r in ranks)
+    log(f"[21] (a) + (b) {DP_WORLD} ranks in {secs:.1f} s (spawn, builds, steps); (a)'s "
+        f"state's hash equal on every rank {same}; global images/s "
+        f"{1e3 * 2 * DP_IMAGES_PER_RANK * DP_WORLD / slowest:.2f}")
+    if not (same and all(r["finite"] for r in ranks)) or len(
+            {tuple(r["losses"]) for r in ranks}) != 1:
+        raise AssertionError("the ranks' states or losses differ, or a loss is not finite")
+    if on_card and any(r["launches"] != want for r in ranks):
+        raise AssertionError(f"a rank did not launch {want} in its timed steps: "
+                             f"{[r['launches'] for r in ranks]}")
+    for r in ranks:
+        by_path[f"dp_train_rank{r['rank']}"] = r["launches"]
+
+    # (b) f32: world 2 (1 + 1 a rank) against one process on the 2 + 2 batch
+    m2, _ = both[0][1]
+    g2 = torch.load(grads_path, map_location=dev, weights_only=True)
+    os.remove(grads_path)
+    loss_rel = max(abs(m2[k] - m1[k]) / max(abs(m1[k]), 1e-12) for k in m1 if k != "data_time")
+    big = max(float(g.abs().max()) for g in g1.values())
+    over = {n: float((g2[n] - g1[n]).abs().max()) / (TRAIN_GRAD_REL * float(g1[n].abs().max())
+                                                      + TRAIN_GRAD_FLOOR * big)
+            for n in g1}
+    worst = sorted(over, key=over.get, reverse=True)[:3]
+    log(f"[21] (b) f32, TF32 off, every candidate kept (the one process {secs_one:.1f} s): "
+        f"world 2 (1 + 1 a rank) against one process (2 + 2): losses max rel diff "
+        f"{loss_rel:.3g} (tol {TRAIN_LOSS_RTOL}); {len(g1)} gradients, worst max|diff|/bound "
+        f"{over[worst[0]]:.3g} (bound {TRAIN_GRAD_REL} * max|g_leaf| + {TRAIN_GRAD_FLOOR} * "
+        f"G, G = {big:.4g}): " + ", ".join(f"{n} {over[n]:.3g}" for n in worst))
+    if set(g2) != set(g1) or loss_rel > TRAIN_LOSS_RTOL or over[worst[0]] > 1.0:
+        raise AssertionError("the world-2 f32 step is not the one-process step")
+    del g1, g2
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (c) the run loop at world 2 on JPEG files (phase 20's devkit)
+    devkit = os.path.join(workdir, "VOCdevkit_jpeg")
+    if not os.path.isdir(devkit):
+        write_devkit(devkit, seed, shapes=HOST_WIRE_RUN_SHAPES, jpegs=True)
+    cfg = dp_cfg(opts)
+    model = flagship_model(cfg, seed, dev)
+    init = Checkpointer(os.path.join(workdir, "dp_init")).save(
+        0, TrainState(model, build_optimizer(cfg, model), 0))
+    del model
+
+    def argv(out, *flags):
+        return ["--config-file", str(FLAGSHIP), "--data-root", devkit, "--device", RUN_DEVICE,
+                *flags, "MODEL.WEIGHTS", init, "OUTPUT_DIR", out,
+                "MODEL.ROI_HEADS.EMBEDDING_PATH", str(ROOT / cfg.MODEL.ROI_HEADS.EMBEDDING_PATH),
+                "DATASETS.CLASSIFIER_DATAROOT", devkit, "SEED", str(seed),
+                "SOLVER.IMS_PER_BATCH", str(2 * DP_WORLD), "SOLVER.MAX_ITER", str(DP_RUN_STEPS),
+                "SOLVER.CHECKPOINT_PERIOD", str(DP_RUN_PERIOD),
+                "TEST.EVAL_PERIOD", str(DP_RUN_PERIOD),
+                "SOLVER.CLIP_GRADIENTS.ENABLED", "True", "SOLVER.CLIP_GRADIENTS.CLIP_TYPE", "norm",
+                *opts]
+
+    out_a, out_b = os.path.join(workdir, "dp_run_a"), os.path.join(workdir, "dp_run_b")
+    t = time.perf_counter()
+    (a, a2), (b, _) = spawn(dp_run_and_resume_rank, argv(out_a), argv(out_b, "--resume"),
+                            out_a, out_b)
+    secs_a = time.perf_counter() - t
+    k4_fwd, k4_bwd = a["k4"]
+    want = {"roi_align_fwd": 2, "roi_align_bwd": 2, "nms_mask": 1, "nms_mask_images": 4,
+            "bn_act_fwd": k4_fwd, "bn_act_bwd": k4_bwd, "bn_act_layout_copies": 2}
+    written = sorted(os.listdir(out_a))
+    ap = a["results"]["bbox"]
+    log(f"[21] (c) run at world 2 ({DP_RUN_STEPS} steps of 2 + 2 images a rank through the C "
+        f"loader, checkpoints and evaluations at {DP_RUN_PERIOD} and {DP_RUN_STEPS}) and its "
+        f"resume in one spawn, {secs_a:.1f} s: AP50 {ap['AP50']:.6g}, AP {ap['AP']:.6g}, the "
+        f"ranks' results equal {strip_results(a['results']) == strip_results(b['results'])}, "
+        f"states equal {a['digest'] == b['digest']}; OUTPUT_DIR holds {written}; rank 0's "
+        f"launches a step {a['launches'][-1]}")
+    if on_card and any(c != want for r in (a, b) for c in r["launches"]):
+        raise AssertionError(f"a run-loop step did not launch {want}: "
+                             f"{[r['launches'] for r in (a, b)]}")
+    if a["digest"] != b["digest"] or strip_results(a["results"]) != strip_results(
+            b["results"]) or not {"step_2.pt", "step_4.pt", "metrics.json"} <= set(written):
+        raise AssertionError("the ranks' runs differ, or a checkpoint is missing")
+    by_path["dp_run_loop"] = {k: sum(c[k] for c in a["launches"]) for k in want}
+
+    DatasetCatalog.clear()
+    merged = []
+    real_merge = recording_merges(merged)
+    try:
+        alone = runner.run(runner.default_argument_parser().parse_args(
+            argv(out_a, "--eval-only", "--resume")))
+    finally:
+        from unit_tpu_torch.evaluation import evaluator as ev_mod
+
+        ev_mod.merge_gathered = real_merge
+    off = max(abs(alone["bbox"][k] - ap[k]) for k in ("AP", "AP50", "AP75"))
+    (dets, images), (ref, ref_images) = a["merged"][-1], merged[-1]
+    same_dets = dets.shape == ref.shape and images == ref_images
+    det_off = float(np.abs(dets - ref).max()) if same_dets and dets.size else 0.0
+    log(f"[21] (c) one-process --eval-only of the step-4 checkpoint: AP50 "
+        f"{alone['bbox']['AP50']:.6g}, max |diff| from the gathered AP {off:.3g} "
+        f"(tol {DP_AP_ATOL}); the gathered evaluator's {len(dets)} detections of "
+        f"{len(images)} images against the one process's {len(ref)}: bit-identical "
+        f"{same_dets and np.array_equal(dets, ref)}, max |diff| (score, box px) {det_off:.3g} "
+        f"(tol {DP_DET_ATOL})")
+    if not (off <= DP_AP_ATOL and same_dets and len(dets) > 0 and det_off <= DP_DET_ATOL):
+        raise AssertionError("the gathered evaluation is not the one-process evaluation")
+
+    rel = max(abs(a2["losses"][s][k] - a["losses"][s][k]) / max(abs(a["losses"][s][k]), 1e-12)
+              for s in a2["losses"] for k in a2["losses"][s])
+    ma = read_checkpoint(os.path.join(out_a, f"step_{DP_RUN_STEPS}.pt"))
+    mb = read_checkpoint(os.path.join(out_b, f"step_{DP_RUN_STEPS}.pt"))
+    same_params = all(torch.equal(ma["model"][k], mb["model"][k]) for k in ma["model"])
+    log(f"[21] (c) resumed at world 2 from step {DP_RUN_PERIOD}: steps "
+        f"{sorted(a2['losses'])}, losses max rel diff "
+        f"{rel:.3g} (tol {RESUME_LOSS_RTOL}), step-{DP_RUN_STEPS} checkpoint bit-identical "
+        f"{same_params}")
+    if sorted(a2["losses"]) != list(range(DP_RUN_PERIOD + 1, DP_RUN_STEPS + 1)) \
+            or not rel <= RESUME_LOSS_RTOL:
+        raise AssertionError("the resumed world-2 run does not reproduce its steps")
+
+    # (d) --dist: one rank over NCCL, from torchrun's environment
+    made = []
+
+    class Recording(TrainerNoMeta):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.launches, self.checks = [], []
+            made.append(self)
+
+        def run_step(self):
+            reset_launch_counts()
+            metrics = super().run_step()
+            self.launches.append(read_launch_counts())
+            one = torch.ones(1, device=dev)
+            dist.all_reduce(one)  # one collective of the group, beside the step's
+            self.checks.append((dist.get_backend(), dist.get_world_size(), float(one)))
+            return metrics
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "LOCAL_WORLD_SIZE": "1",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    real_trainer, runner.TrainerNoMeta = runner.TrainerNoMeta, Recording
+    t = time.perf_counter()
+    try:
+        DatasetCatalog.clear()
+        results = runner.run(runner.default_argument_parser().parse_args(
+            argv(os.path.join(workdir, "dp_dist"), "--dist")
+            + ["SOLVER.MAX_ITER", str(DP_DIST_STEPS), "SOLVER.IMS_PER_BATCH", "2",
+               "SOLVER.CHECKPOINT_PERIOD", "0", "TEST.EVAL_PERIOD", "0"]))
+    finally:
+        runner.TrainerNoMeta = real_trainer
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    trainer = made[-1]
+    finite = all(np.isfinite(v) for m in trainer.metrics_history for v in m.values())
+    log(f"[21] (d) --dist, 1 rank, {DP_DIST_STEPS} steps in {time.perf_counter() - t:.1f} s: "
+        f"group {trainer.checks}, launches a step {trainer.launches[-1]}, AP50 "
+        f"{results['bbox']['AP50']:.4g}, losses finite {finite}, the group destroyed "
+        f"{not dist.is_initialized()}")
+    backend = "nccl" if on_card else "gloo"
+    if not finite or dist.is_initialized() or len(trainer.launches) != DP_DIST_STEPS \
+            or any(c != (backend, 1, 1.0) for c in trainer.checks):
+        raise AssertionError(f"the --dist run did not train over {backend}")
+    if on_card and any(c != want for c in trainer.launches):
+        raise AssertionError(f"a --dist step did not launch {want}: {trainer.launches}")
+    by_path["dp_dist"] = {k: sum(c[k] for c in trainer.launches) for k in want}
+    del trainer
+    made.clear()
+    if on_card:
+        torch.cuda.empty_cache()
+    log(f"[21] phase 21 in {time.perf_counter() - t_phase:.1f} s")
+    return by_path
+
+
+def strip_results(results):
+    return {k: v for k, v in results.items() if k != "inference_seconds_per_image"}
+
+
 def count_calls(module, name):
     """Count the calls of ``module.name`` (restore ``calls["real"]`` after)."""
     calls = {"n": 0, "real": getattr(module, name)}
@@ -5609,39 +6131,49 @@ def main():
     from unit_tpu_torch.config import get_cfg
 
     t_start = time.perf_counter()
+    seconds = {}
+
+    def timed(label, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        seconds[label] = round(time.perf_counter() - t, 1)
+        return out
+
     card = phase_env()
-    phase_build()
+    timed(1, phase_build)
     rng = np.random.RandomState(args.seed)
-    k1 = phase_k1(rng)
-    k3 = phase_k3(rng)
+    k1 = timed(2, phase_k1, rng)
+    k3 = timed(3, phase_k3, rng)
     cfg = get_cfg()
     cfg.merge_from_file(str(FLAGSHIP))
-    by_path = {"serving": phase_e2e(cfg, args.seed)}
-    phase_whole_path(cfg, args.seed)
-    k2 = phase_k2(rng)
-    by_path["train"] = phase_train(cfg, args.seed)
-    phase_train_whole_path(cfg, args.seed)
-    k4 = phase_k4(rng)
+    by_path = {"serving": timed(4, phase_e2e, cfg, args.seed)}
+    timed(5, phase_whole_path, cfg, args.seed)
+    k2 = timed(6, phase_k2, rng)
+    by_path["train"] = timed(7, phase_train, cfg, args.seed)
+    timed(8, phase_train_whole_path, cfg, args.seed)
+    k4 = timed(9, phase_k4, rng)
     with tempfile.TemporaryDirectory(prefix="unit_tpu_torch_run_") as workdir:
-        by_path["run_loop"] = launches = phase_run_loop(cfg, args.seed, workdir)
-        by_path["finetune"] = phase_finetune(cfg, args.seed, workdir)
-        coco_paths, k1_mask = phase_coco_segm(args.seed, workdir)
+        by_path["run_loop"] = launches = timed(10, phase_run_loop, cfg, args.seed, workdir)
+        by_path["finetune"] = timed(11, phase_finetune, cfg, args.seed, workdir)
+        coco_paths, k1_mask = timed(12, phase_coco_segm, args.seed, workdir)
         by_path.update(coco_paths)
-        weak_paths, k3_b2 = phase_weak_variants(args.seed, workdir)
+        weak_paths, k3_b2 = timed(13, phase_weak_variants, args.seed, workdir)
         by_path.update(weak_paths)
-        meta_paths, k1_support = phase_meta(args.seed, workdir)
+        meta_paths, k1_support = timed(14, phase_meta, args.seed, workdir)
         by_path.update(meta_paths)
-        tta_paths, k1_tta, k3_tta = phase_tta(cfg, args.seed, workdir)
+        tta_paths, k1_tta, k3_tta = timed(15, phase_tta, cfg, args.seed, workdir)
         by_path.update(tta_paths)
-        note_paths, k1_note, k2_note, k3_note = phase_note(args.seed, workdir)
+        note_paths, k1_note, k2_note, k3_note = timed(16, phase_note, args.seed, workdir)
         by_path.update(note_paths)
-        dock_paths, k3_dock = phase_dock(args.seed, workdir)
+        dock_paths, k3_dock = timed(17, phase_dock, args.seed, workdir)
         by_path.update(dock_paths)
-        by_path.update(phase_serving(cfg, args.seed, workdir))
-        trained_paths, k3_trained = phase_trained(cfg, args.seed, workdir)
+        by_path.update(timed(18, phase_serving, cfg, args.seed, workdir))
+        trained_paths, k3_trained = timed(19, phase_trained, cfg, args.seed, workdir)
         by_path.update(trained_paths)
-        by_path.update(phase_host_wire(cfg, args.seed, workdir))
-    log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
+        by_path.update(timed(20, phase_host_wire, cfg, args.seed, workdir))
+        by_path.update(timed(21, phase_data_parallel, args.seed, workdir))
+    log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s; seconds a "
+        f"phase {seconds}")
 
     def per_path(*names):
         return {path: sum(counts[n] for n in names) for path, counts in by_path.items()}

@@ -10,8 +10,14 @@ Usage:
 The config's SupervisedDetectorOutputsFineTune head selects TrainerFineTune
 (the k-shot strong stream alone, the base->novel transfer applied in
 training); MODEL.WEIGHTS names a base run's best snapshot, which the port
-writes as ``best/model.pt``.  The model runs on one NVIDIA GPU; ``--device
+writes as ``best/model.pt``.  The model runs on an NVIDIA GPU; ``--device
 cpu`` asks for the CPU on purpose.
+
+Data parallelism, one process a rank: ``--num-gpus N`` spawns N ranks on
+cards 0..N-1 (NCCL); with ``--device cpu``, N CPU ranks (gloo).  Under
+torchrun, ``--dist`` joins the group it describes:
+  torchrun --nproc_per_node N scripts/finetune_VOC_torch.py --dist --config-file ...
+SOLVER.IMS_PER_BATCH is the global batch, split over the ranks.
 """
 
 import os

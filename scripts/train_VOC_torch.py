@@ -5,7 +5,13 @@ Usage:
   python scripts/train_VOC_torch.py --config-file configs/VOC/VOC-RCNN-101-C4-split1.yaml \
       [--eval-only] [--resume] [--device cuda|cpu] [--data-root DIR] SOLVER.BASE_LR 0.02 ...
 
-The model runs on one NVIDIA GPU; ``--device cpu`` asks for the CPU on purpose.
+The model runs on an NVIDIA GPU; ``--device cpu`` asks for the CPU on purpose.
+
+Data parallelism, one process a rank: ``--num-gpus N`` spawns N ranks on
+cards 0..N-1 (NCCL); with ``--device cpu``, N CPU ranks (gloo).  Under
+torchrun, ``--dist`` joins the group it describes:
+  torchrun --nproc_per_node N scripts/train_VOC_torch.py --dist --config-file ...
+SOLVER.IMS_PER_BATCH is the global batch, split over the ranks.
 """
 
 import os

@@ -8,8 +8,14 @@ Usage:
       --data-root COCO_ROOT [--eval-only] [--resume] [--device cuda|cpu] SOLVER.BASE_LR 0.02 ...
 
 ``--data-root`` is a COCO-layout root (annotations/instances_<split>.json and
-<split>/ image directories).  The model runs on one NVIDIA GPU; ``--device
+<split>/ image directories).  The model runs on an NVIDIA GPU; ``--device
 cpu`` asks for the CPU on purpose.
+
+Data parallelism, one process a rank: ``--num-gpus N`` spawns N ranks on
+cards 0..N-1 (NCCL); with ``--device cpu``, N CPU ranks (gloo).  Under
+torchrun, ``--dist`` joins the group it describes:
+  torchrun --nproc_per_node N scripts/train_net_torch.py --dist --config-file ...
+SOLVER.IMS_PER_BATCH is the global batch, split over the ranks.
 """
 
 import os

@@ -202,15 +202,17 @@ def test_missing_weights_and_device_raise(devkit, tmp_path):
                   "TEST.AUG.MIN_SIZES", "(64,)", "TEST.AUG.MAX_SIZE", "160",
                   "DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TEST", "8"], None,
                  id="opts0-item 24"),
-    pytest.param(["TPU.FSDP", "True"], "items 27 and 29", id="opts1-item 26"),
+    pytest.param(["TPU.FSDP", "True"], "items 35-37", id="opts1-item 26"),
     # the uint8 wire is ported (tests/test_torch_host_uint8.py): its case
     # trains on uint8 batches (item "trains") and evaluates
     pytest.param(["TPU.HOST_TRANSFER_UINT8", "True"], "trains", id="opts2-item 31"),
-    (["TPU.TP", "2"], "items 27 and 29"),
+    # data parallelism is ported (tests/test_torch_parallel*.py); FSDP, TP and
+    # PP, now items 35-37, keep their cases' names
+    pytest.param(["TPU.TP", "2"], "items 35-37", id="opts3-items 27 and 29"),
     (["MODEL.BACKBONE.NAME", "VGG_CNN_F"], "item 25"),
     # the meta Trainer is ported (tests/test_torch_meta.py); the case keeps
     # its name and holds pipeline parallelism instead
-    pytest.param(["TPU.PP", "True"], "items 27 and 29", id="opts5-item 23"),
+    pytest.param(["TPU.PP", "True"], "items 35-37", id="opts5-item 23"),
 ])
 def test_unported_run_options_raise(devkit, tmp_path, opts, item, monkeypatch):
     tdata.DatasetCatalog.clear()
@@ -238,9 +240,14 @@ def test_unported_run_options_raise(devkit, tmp_path, opts, item, monkeypatch):
         runner.run(cli(devkit, tmp_path, opts=opts), image_loader=seeded_image_loader)
 
 
-def test_more_than_one_device_raises(devkit, tmp_path):
+def test_more_than_one_device_raises(devkit, tmp_path, monkeypatch):
+    """More ranks than cards: refused, naming both counts (unit_tpu scales the
+    config for them and clamps its mesh: R15); nothing falls back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     args = cli(devkit, tmp_path, "--num-gpus", "4")
-    with pytest.raises(NotImplementedError, match="item 27"):
+    args.device = "cuda"
+    with pytest.raises(ValueError, match="--num-gpus 4 asks for 4 cards; 2 present"):
         runner.run(args)
 
 

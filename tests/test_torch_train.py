@@ -22,6 +22,7 @@ import torch
 
 from tests.test_torch_losses import jax_params, small_train_cfg, train_batches
 from tests.test_torch_note import two_threads  # noqa: F401  (autouse)
+from tests.test_torch_parallel_run import rank_tiny_trainer, spawn
 from unit_tpu.engine.train import TrainState as JTrainState
 from unit_tpu.engine.train import make_train_step as jmake_train_step
 from unit_tpu.models.meta_arch import ModelConfig as JModelConfig
@@ -199,13 +200,21 @@ def test_train_losses_selects_proposals_once_for_a_fused_batch(monkeypatch, same
     # the support stream is ported (tests/test_torch_meta.py); the case keeps
     # its name and holds pipeline parallelism with a support stream instead
     # (unit_tpu refuses that pair too)
-    pytest.param({"meta_iter": iter(()), "pp": True}, "items 27 and 29", id="kwargs0-item 23"),
-    ({"tp": True}, "items 27 and 29"),
-    ({"mesh": object()}, "items 27 and 29"),
-    ({"fsdp": True}, "items 27 and 29"),
-    ({"pp": True}, "items 27 and 29"),
+    pytest.param({"meta_iter": iter(()), "pp": True}, "items 35-37", id="kwargs0-item 23"),
+    pytest.param({"tp": True}, "items 35-37", id="kwargs1-items 27 and 29"),
+    # data parallelism is ported (tests/test_torch_parallel*.py): a trainer in
+    # a process group of two ranks trains; the case keeps its name
+    pytest.param({}, "trains", id="kwargs2-items 27 and 29"),
+    pytest.param({"fsdp": True}, "items 35-37", id="kwargs3-items 27 and 29"),
+    pytest.param({"pp": True}, "items 35-37", id="kwargs4-items 27 and 29"),
 ])
-def test_unported_trainer_options_raise(kwargs, item):
+def test_unported_trainer_options_raise(kwargs, item, tmp_path):
+    if item == "trains":
+        a, b = spawn(tmp_path, rank_tiny_trainer)
+        assert a["world"] == b["world"] == 2
+        assert a["digest"] == b["digest"] and a["losses"] == b["losses"]
+        assert all(np.isfinite(v) for v in a["losses"])
+        return
     cfg = get_cfg()
     cfg.merge_from_file("configs/VOC/VOC-RCNN-101-C4-split1.yaml")
     cfg.merge_from_list(["MODEL.RESNETS.DEPTH", "26", "MODEL.RESNETS.RES2_OUT_CHANNELS", "16"])

@@ -17,6 +17,11 @@ place and ``wait()`` is a no-op kept so the runner reads the same.  unit_tpu
 keeps its best snapshot in the orbax directory ``best/model``, and the
 fine-tune recipes name it so (``MODEL.WEIGHTS: <run>/best/model``):
 ``resolve_own_checkpoint`` maps that name to the port's ``best/model.pt``.
+
+Under data parallelism every rank holds the same state and the same
+evaluation results: rank 0 alone writes (checkpoints, the best snapshot and
+its info), and every rank waits at a barrier after each write, so none reads
+or moves on before the file is in place.  Every rank reads a checkpoint.
 """
 
 from __future__ import annotations
@@ -30,6 +35,8 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+
+from ..parallel import comm
 
 FORMAT = "unit_tpu_torch/1"
 _STEP_FILE = re.compile(r"^step_(\d+)\.pt$")
@@ -79,7 +86,9 @@ class Checkpointer:
 
     def __init__(self, directory: str, max_to_keep: int = 3):
         self.directory = os.path.abspath(directory)
-        os.makedirs(self.directory, exist_ok=True)
+        if comm.is_main():
+            os.makedirs(self.directory, exist_ok=True)
+        comm.barrier()
         self.max_to_keep = max_to_keep
         self._best_path = os.path.join(self.directory, "best_info.json")
         self.best_info = self._load_best_info()
@@ -102,12 +111,14 @@ class Checkpointer:
     def save(self, step: int, state, wait: bool = False) -> str:
         """Write ``state`` as the checkpoint of ``step`` and drop the oldest
         beyond ``max_to_keep``.  ``wait`` is accepted for unit_tpu's signature:
-        the write is always complete on return."""
+        the write is always complete on return, on every rank."""
         path = self._path(step)
-        _write(path, state_payload(state, self.best_info))
-        if self.max_to_keep:
-            for old in self.all_steps()[: -self.max_to_keep]:
-                os.remove(self._path(old))
+        if comm.is_main():
+            _write(path, state_payload(state, self.best_info))
+            if self.max_to_keep:
+                for old in self.all_steps()[: -self.max_to_keep]:
+                    os.remove(self._path(old))
+        comm.barrier()
         return path
 
     def wait(self) -> None:
@@ -139,11 +150,13 @@ class Checkpointer:
         if ap50 <= self.best_info.get("AP50", -1.0):
             return False
         self.best_info = {"AP50": float(ap50), "iteration": int(step)}
-        with open(self._best_path, "w") as f:
-            json.dump(self.best_info, f)
-        best_dir = os.path.join(self.directory, "best")
-        os.makedirs(best_dir, exist_ok=True)
-        _write(os.path.join(best_dir, "model.pt"), state_payload(state, self.best_info))
+        if comm.is_main():
+            with open(self._best_path, "w") as f:
+                json.dump(self.best_info, f)
+            best_dir = os.path.join(self.directory, "best")
+            os.makedirs(best_dir, exist_ok=True)
+            _write(os.path.join(best_dir, "model.pt"), state_payload(state, self.best_info))
+        comm.barrier()
         return True
 
 

@@ -29,8 +29,15 @@ TPU.HOST_TRANSFER_UINT8 (``TransformConfig.host_uint8``) a stream batch's
 images are rounded to uint8, 4x fewer bytes to upload; the model casts them
 to f32 on the device.
 
-Not ported: the host-shard and synchronized-orientation paths of
-multi-process runs (ROADMAP Queue 1 item 27).
+Under data parallelism (``parallel``, one process a rank) the strong,
+classifier, classifier-strong, test and TTA loaders read the records
+``[rank::world]`` of their list (``_host_shard``), SOLVER.IMS_PER_BATCH is
+the global batch, split evenly over the ranks (``_per_host_batch``), and
+the training streams draw each batch's canvas orientation from one schedule
+that every rank shares (``StreamLoader(sync_portrait_frac=...)``, the
+portrait share of the whole list): every rank's batch of a step has the same
+shape, so ``TPU.GRAD_ACCUM`` groups form alike everywhere.  The support
+stream is not split: every rank reads the same shots, as in unit_tpu.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
+from ..parallel import comm
 from . import native
 from .catalog import DatasetCatalog
 from .proposals import attach_proposals
@@ -136,6 +144,7 @@ class StreamLoader:
         seed: int = 0,
         training: bool = True,
         image_loader: Optional[Callable[[dict], np.ndarray]] = None,
+        sync_portrait_frac: Optional[float] = None,
     ):
         if not records:
             raise ValueError("empty dataset")
@@ -147,7 +156,13 @@ class StreamLoader:
         self.rng = np.random.RandomState(seed)
         self.training = training
         self.image_loader = image_loader
+        # Data parallelism: every rank must emit the same batch shape each
+        # step.  When set, a batch's canvas orientation is drawn from a
+        # schedule all ranks share (same seed, same global portrait share),
+        # while each rank samples its own record shard.
+        self.sync_portrait_frac = sync_portrait_frac
         self._resume = None
+        self._resume_synced = None
 
     def _draw_aug(self):
         """The ONLY rng draws per record (min-size choice + flip coin).  Both
@@ -192,10 +207,20 @@ class StreamLoader:
             out["image"] = np.clip(np.rint(out["image"]), 0, 255).astype(np.uint8)
         return out
 
+    def _synced(self) -> bool:
+        """Whether the shared orientation schedule applies: on a square
+        canvas every batch has one shape anyway, and the plain bucketing runs."""
+        return self.sync_portrait_frac is not None and self.tcfg.canvas[0] != self.tcfg.canvas[1]
+
     def __iter__(self) -> Iterator[dict]:
         """Aspect-ratio-grouped batching (d2 AspectRatioGroupedDataset):
         landscape and portrait samples go to separate buckets (two fixed
-        canvases), a batch is emitted whenever one bucket fills."""
+        canvases), a batch is emitted whenever one bucket fills.  With
+        ``sync_portrait_frac`` each batch's orientation follows the schedule
+        the ranks share (``_iter_synced``)."""
+        if self._synced():
+            yield from self._iter_synced()
+            return
         order: List[int] = []
         buckets: Dict[tuple, List[dict]] = {}
         if self._resume is not None:
@@ -218,6 +243,70 @@ class StreamLoader:
                 batch, buckets[key] = buckets[key], []
                 yield self._emit(batch)
 
+    def _orientations(self):
+        """(is_portrait of each record, the orientations present, the
+        schedule's generator): the schedule is seeded alike on every rank."""
+        is_portrait = [int(r["height"]) > int(r["width"]) for r in self.records]
+        have = {True: any(is_portrait), False: not all(is_portrait)}
+        return is_portrait, have, np.random.RandomState((self.seed + 0x5EED) % 2**31)
+
+    def _want(self, orient_rng, have) -> bool:
+        """The next batch's orientation (True: portrait); raises where this
+        rank's shard has none of it."""
+        want = bool(orient_rng.rand() < self.sync_portrait_frac)
+        if not have[want]:
+            raise RuntimeError(
+                f"this rank's record shard has no {'portrait' if want else 'landscape'} "
+                f"images but the whole list does: the orientation schedule the ranks "
+                f"share cannot be kept; use more records a rank or a square canvas")
+        return want
+
+    def _iter_synced(self) -> Iterator[dict]:
+        """The shared orientation schedule (unit_tpu's ``_iter_synced``): a
+        record's orientation is known from its height and width, so records
+        are picked to match the scheduled orientation, not loaded on the chance."""
+        is_portrait, have, orient_rng = self._orientations()
+        order: List[int] = []
+        pend: Dict[bool, List[int]] = {True: [], False: []}
+        if self._resume_synced is not None:
+            orient_rng, order, pend = self._resume_synced
+            self._resume_synced = None
+        while True:
+            want = self._want(orient_rng, have)
+            batch = []
+            while len(batch) < self.batch_size:
+                if pend[want]:
+                    batch.append(self._load(self.records[pend[want].pop()]))
+                    continue
+                if not order:
+                    order = list(self.rng.permutation(len(self.records)))
+                i = order.pop()
+                pend[is_portrait[i]].append(i)
+            yield self._emit(batch)
+
+    def _fast_forward_synced(self, n_batches: int) -> None:
+        """``fast_forward`` for the shared orientation schedule: replays its
+        orientation draws, record pops and augmentation draws (made as a
+        batch is assembled, so the pending lists carry no augmentation and
+        nothing is decoded)."""
+        is_portrait, have, orient_rng = self._orientations()
+        order: List[int] = []
+        pend: Dict[bool, List[int]] = {True: [], False: []}
+        for _ in range(n_batches):
+            want = self._want(orient_rng, have)
+            n = 0
+            while n < self.batch_size:
+                if pend[want]:
+                    pend[want].pop()
+                    self._draw_aug()
+                    n += 1
+                    continue
+                if not order:
+                    order = list(self.rng.permutation(len(self.records)))
+                i = order.pop()
+                pend[is_portrait[i]].append(i)
+        self._resume_synced = (orient_rng, order, pend)
+
     def fast_forward(self, n_batches: int) -> None:
         """Advance the stream past ``n_batches`` WITHOUT decoding any image.
 
@@ -227,6 +316,9 @@ class StreamLoader:
         bit-identical to an un-resumed run's.
         """
         if n_batches <= 0:
+            return
+        if self._synced():
+            self._fast_forward_synced(n_batches)
             return
         order: List[int] = []
         buckets: Dict[tuple, List[tuple]] = {}  # key -> [(rec_idx, aug)]
@@ -247,6 +339,33 @@ class StreamLoader:
         self._resume = (order, {k: v for k, v in buckets.items() if v})
 
 
+def _host_shard(records: List[dict]) -> List[dict]:
+    """This rank's records, ``[rank::world]`` (the reference's per-rank
+    DistributedSampler; unit_tpu's host shard).  One rank: all of them."""
+    n = comm.world()
+    return records[comm.rank()::n] if n > 1 else records
+
+
+def _sync_portrait_frac(records: List[dict]) -> Optional[float]:
+    """The portrait share of the WHOLE record list, for the orientation
+    schedule the ranks share; computed before ``_host_shard``, so every rank
+    derives the same value.  One rank: None (plain bucketing)."""
+    if comm.world() <= 1:
+        return None
+    n = sum(1 for r in records if int(r["height"]) > int(r["width"]))
+    return n / max(len(records), 1)
+
+
+def _per_host_batch(global_batch: int) -> int:
+    """SOLVER.IMS_PER_BATCH is the global batch (the reference's semantics:
+    split across workers), so each rank loads its share; it must divide."""
+    n = comm.world()
+    if global_batch % n:
+        raise ValueError(f"SOLVER.IMS_PER_BATCH={global_batch} is not divisible by the "
+                         f"{n} ranks")
+    return global_batch // n
+
+
 def _with_proposals(records: List[dict], tcfg: TransformConfig, files, topk: int) -> None:
     """Attach the files' top-``topk`` proposals to ``records`` (in place)
     and make ``tcfg`` pad them to ``topk`` slots."""
@@ -261,14 +380,17 @@ def build_strong_loader(cfg, dataset_names=None, seed=0, image_loader=None,
     RPN neither proposes nor trains on them)."""
     names = dataset_names or cfg.DATASETS.TRAIN
     records = list(itertools.chain.from_iterable(DatasetCatalog.get(n) for n in names))
+    sync_frac = _sync_portrait_frac(records)
+    records = _host_shard(records)
     keys = _STRONG_KEYS + (("gt_masks",) if cfg.MODEL.MASK_ON else ())
     tcfg = TransformConfig.train_from_cfg(cfg)
     if cfg.MODEL.LOAD_PROPOSALS and cfg.DATASETS.PROPOSAL_FILES_TRAIN:
         _with_proposals(records, tcfg, cfg.DATASETS.PROPOSAL_FILES_TRAIN,
                         cfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TRAIN)
         keys = keys + _PROPOSAL_KEYS
-    return StreamLoader(records, tcfg, batch_size or cfg.SOLVER.IMS_PER_BATCH, keys,
-                        seed=seed, image_loader=image_loader)
+    return StreamLoader(records, tcfg, batch_size or _per_host_batch(cfg.SOLVER.IMS_PER_BATCH),
+                        keys, seed=seed, image_loader=image_loader,
+                        sync_portrait_frac=sync_frac)
 
 
 def build_classifier_loader(cfg, seed=1, image_loader=None, batch_size=None) -> StreamLoader:
@@ -280,14 +402,17 @@ def build_classifier_loader(cfg, seed=1, image_loader=None, batch_size=None) -> 
         names = (names,)
     records = list(itertools.chain.from_iterable(DatasetCatalog.get(n) for n in names))
     records = sample_classifier_dataset(cfg, records)
+    sync_frac = _sync_portrait_frac(records)
+    records = _host_shard(records)
     tcfg = TransformConfig.train_from_cfg(cfg)
     keys = _WEAK_KEYS
     if cfg.MODEL.LOAD_PROPOSALS:
         _with_proposals(records, tcfg, cfg.DATASETS.PROPOSAL_FILES_CLASSIFIER_TRAIN,
                         cfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TRAIN)
         keys = keys + _PROPOSAL_KEYS
-    return StreamLoader(records, tcfg, batch_size or cfg.SOLVER.IMS_PER_BATCH, keys,
-                        seed=seed, image_loader=image_loader)
+    return StreamLoader(records, tcfg, batch_size or _per_host_batch(cfg.SOLVER.IMS_PER_BATCH),
+                        keys, seed=seed, image_loader=image_loader,
+                        sync_portrait_frac=sync_frac)
 
 
 def build_classifier_strong_loader(cfg, seed=0, image_loader=None,
@@ -300,11 +425,13 @@ def build_classifier_strong_loader(cfg, seed=0, image_loader=None,
         names = (names,)
     records = list(itertools.chain.from_iterable(DatasetCatalog.get(n) for n in names))
     records = [r for r in sample_classifier_dataset(cfg, records) if r.get("annotations")]
+    sync_frac = _sync_portrait_frac(records)
+    records = _host_shard(records)
     keys = _STRONG_KEYS + (("gt_masks",) if cfg.MODEL.MASK_ON else ())
     return StreamLoader(
         records, TransformConfig.train_from_cfg(cfg),
-        batch_size or cfg.SOLVER.IMS_PER_BATCH, keys, seed=seed,
-        image_loader=image_loader,
+        batch_size or _per_host_batch(cfg.SOLVER.IMS_PER_BATCH), keys, seed=seed,
+        image_loader=image_loader, sync_portrait_frac=sync_frac,
     )
 
 
@@ -314,8 +441,9 @@ def build_test_loader(cfg, dataset_name: str, image_loader=None, batch_size=1):
     with MODEL.LOAD_PROPOSALS and DATASETS.PROPOSAL_FILES_TEST the images'
     proposals.  The final partial batch is padded with copies whose
     ``image_id`` is None.  The iterator is a background Prefetcher, so host
-    prep overlaps the device."""
-    records = DatasetCatalog.get(dataset_name)
+    prep overlaps the device.  Under data parallelism a rank reads its shard
+    (``_host_shard``): whoever feeds the evaluator GT feeds the same shard."""
+    records = _host_shard(DatasetCatalog.get(dataset_name))
     tcfg = TransformConfig.test_from_cfg(cfg)
     extra_keys = ()
     if cfg.MODEL.LOAD_PROPOSALS and cfg.DATASETS.PROPOSAL_FILES_TEST:
@@ -434,8 +562,9 @@ def build_tta_test_loader(cfg, dataset_name: str, image_loader=None):
     the previous image.  With MODEL.LOAD_PROPOSALS and
     DATASETS.PROPOSAL_FILES_TEST each batch carries the image's proposals in
     the canonical frame; ``predict_tta`` rescales them for every variant.
-    Returns (loader, number of images); close the loader when done."""
-    records = DatasetCatalog.get(dataset_name)
+    Returns (loader, number of images of this rank's shard); close the
+    loader when done."""
+    records = _host_shard(DatasetCatalog.get(dataset_name))
     base_t = TransformConfig.test_from_cfg(cfg)
     if cfg.MODEL.LOAD_PROPOSALS and cfg.DATASETS.PROPOSAL_FILES_TEST:
         _with_proposals(records, base_t, cfg.DATASETS.PROPOSAL_FILES_TEST,

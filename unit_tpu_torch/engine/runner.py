@@ -1,7 +1,7 @@
 """CLI runner utilities: argument parsing, config setup, end-to-end train/eval.
 
-Port of unit_tpu/engine/runner.py for one device: build cfg from YAML and
-dotted overrides, register datasets, construct the trainer for the configured
+Port of unit_tpu/engine/runner.py: build cfg from YAML and dotted
+overrides, register datasets, construct the trainer for the configured
 meta-architecture, run training with checkpoint and evaluation hooks (with
 resume and a save on preemption), or run eval-only.
 
@@ -16,7 +16,10 @@ What differs from unit_tpu, on purpose:
     on a card (``data.loader.pin_batch``);
   * ``MODEL.WEIGHTS`` naming ``<run>/best/model`` (unit_tpu's orbax
     directory, as the fine-tune recipes spell it) reads the port's
-    ``<run>/best/model.pt``.
+    ``<run>/best/model.pt``;
+  * ``--num-gpus N`` above the cards present raises (unit_tpu scales the
+    config for N and then clamps its mesh to the devices it finds: ROADMAP
+    fault R15).
 Trainers: ``TrainerNoMeta`` (base training), ``Trainer`` (the meta recipe:
 a third, support stream for the visual attention head; its evaluations
 first compute the support prototypes, which inference does not read, and
@@ -24,14 +27,25 @@ run through ``inference_on_dataset_meta``), ``TrainerFineTune`` (k-shot
 fine-tuning, warm-started from a base run's snapshot), ``TrainerOnlyWeak``
 (the weak branch and the RPN; ``WeakRCNN`` configs) and
 ``TrainerOnlyWeakFineTune`` (the classifier datasets with their boxes as the
-strong stream).  Evaluations run the multi-scale + flip test-time
-augmentation under TEST.AUG.ENABLED; TEST.PRECISE_BN refreshes the FrozenBN
-statistics before each periodic evaluation (``PreciseBNHook``), and
-TPU.PROFILE_START_STEP traces a window of steps (``utils.profiling``).  Under
+strong stream).
+
+Data parallelism, one process a rank (``parallel``): ``--num-gpus N``
+spawns N ranks on cards 0..N-1 over NCCL (with ``--device cpu``, N CPU
+ranks over gloo); ``--dist`` joins the group torchrun describes in the
+environment; a caller that has initialised a group (``parallel.launch``)
+calls ``run`` in every rank.  ``auto_scale_workers`` scales the config to
+the world; IMS_PER_BATCH is the global batch.  Each rank trains and
+evaluates on its shard of the records, every rank reads checkpoints, rank 0
+alone writes files (checkpoints, the best snapshot, metrics, log.txt,
+traces), and every rank returns the same results.
+
+Evaluations run the multi-scale + flip test-time augmentation under
+TEST.AUG.ENABLED; TEST.PRECISE_BN refreshes the FrozenBN statistics before
+each periodic evaluation (``PreciseBNHook``), and TPU.PROFILE_START_STEP
+traces a window of steps on rank 0 (``utils.profiling``).  Under
 MODEL.LOAD_PROPOSALS the loaders carry the DATASETS.PROPOSAL_FILES_* proposals
 and every evaluation (TTA included) scores them in place of the RPN's.  Not
-ported, each raising with its ROADMAP item: more than one device,
-``--dist``, TP, PP and FSDP (27, 29).
+ported, each raising with its ROADMAP item: FSDP, TP and PP (35-37).
 """
 
 from __future__ import annotations
@@ -45,6 +59,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..checkpoint import (
     Checkpointer,
@@ -65,7 +80,7 @@ from ..data import (
     build_test_loader,
     build_tta_test_loader,
 )
-from ..data.loader import pin_batch
+from ..data.loader import _host_shard, pin_batch
 from ..data.utils import get_evaluator, register_datasets
 from ..evaluation import (
     inference_loop,
@@ -74,6 +89,7 @@ from ..evaluation import (
 )
 from ..models import WSRCNN, ModelConfig
 from ..models.meta_arch import _not_ported
+from ..parallel import comm, init_from_env, launch
 from ..solver import build_optimizer
 from ..solver.build import warmup_multistep
 from ..utils.events import MetricsHook, print_csv_format
@@ -129,10 +145,11 @@ def default_argument_parser():
     parser.add_argument("--eval-only", action="store_true")
     parser.add_argument("--resume", action="store_true")
     parser.add_argument("--num-gpus", type=int, default=1,
-                        help="number of devices (only 1 is ported)")
+                        help="data-parallel ranks, one process each on cards 0..N-1 "
+                             "(NCCL); with --device cpu, N CPU ranks (gloo)")
     parser.add_argument("--data-root", default=None)
     parser.add_argument("--dist", action="store_true",
-                        help="multi-process run (not ported)")
+                        help="join the process group torchrun describes in the environment")
     parser.add_argument("--device", default="cuda",
                         help="where the model runs: cuda (default) or cpu")
     parser.add_argument("opts", default=None, nargs=argparse.REMAINDER)
@@ -190,19 +207,23 @@ def resolve_device(name: Optional[str]) -> torch.device:
 
 
 def setup(args):
-    if getattr(args, "dist", False) or int(getattr(args, "num_gpus", 1) or 1) > 1:
-        raise _not_ported("more than one device (--num-gpus, --dist)",
-                          "ROADMAP Queue 1 item 27")
+    """The frozen config of a run, scaled to this process group's world
+    (``auto_scale_workers``); rank 0 makes OUTPUT_DIR and logs to its log.txt,
+    the other ranks log warnings to the console only."""
     cfg = get_cfg()
     if args.config_file:
         cfg.merge_from_file(args.config_file)
     if args.opts:
         cfg.merge_from_list(args.opts)
-    cfg = auto_scale_workers(cfg, 1)
+    cfg = auto_scale_workers(cfg, comm.world())
     cfg.freeze()
     validate_registry_names(cfg)  # reject unknown registry names at setup
-    os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
-    setup_logger(cfg.OUTPUT_DIR)
+    if comm.is_main():
+        os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
+        setup_logger(cfg.OUTPUT_DIR)
+    else:
+        setup_logger(None, level=logging.WARNING)
+    comm.barrier()  # OUTPUT_DIR exists for every rank
     if cfg.TPU.DEBUG_NANS:
         torch.autograd.set_detect_anomaly(True)
     register_datasets(cfg, args.data_root)
@@ -254,7 +275,7 @@ def build_everything(cfg, device: Optional[torch.device] = None, seed: int = 0,
     device = device if device is not None else resolve_device(None)
     if int(getattr(cfg.TPU, "TP", 1) or 1) > 1 or bool(getattr(cfg.TPU, "PP", False)) \
             or cfg.TPU.FSDP:
-        raise _not_ported("TPU.TP, TPU.PP and TPU.FSDP", "ROADMAP Queue 1 items 27 and 29")
+        raise _not_ported("TPU.TP, TPU.PP and TPU.FSDP", "ROADMAP Queue 1 items 35-37")
     trainer_cls = trainer_class_for(cfg)
     model = WSRCNN(ModelConfig.from_cfg(cfg),
                    generator=torch.Generator().manual_seed(seed)).to(device)
@@ -384,7 +405,10 @@ def make_eval_fn(cfg, model, image_loader: Optional[Callable] = None):
         try:
             for name in cfg.DATASETS.TEST:
                 evaluator = get_evaluator(cfg, name)
-                for rec in DatasetCatalog.get(name):
+                # this rank's shard, as its test loader reads: the evaluators
+                # are merged over the ranks before scoring, so the whole GT on
+                # every rank would be counted world times
+                for rec in _host_shard(DatasetCatalog.get(name)):
                     evaluator.process_gt_record(rec)
                 if use_tta:
                     loader, n = build_tta_test_loader(cfg, name, image_loader=image_loader)
@@ -437,8 +461,40 @@ class PreciseBNHook:
 
 
 def run(args, image_loader: Optional[Callable] = None):
+    """Train (or with ``--eval-only`` evaluate) as ``args`` say; returns the
+    final evaluation's results (rank 0's, equal to every rank's), or None
+    when preempted.  ``--dist`` joins torchrun's group; ``--num-gpus`` N > 1
+    spawns N ranks (``image_loader`` then goes to them by its import path);
+    in a group the caller made, this process is one rank."""
+    num = int(getattr(args, "num_gpus", 1) or 1)
+    device_type = resolve_device(getattr(args, "device", None)).type
+    if getattr(args, "dist", False):
+        device = init_from_env(device_type)
+        try:
+            return _run(device, args, image_loader)
+        finally:
+            dist.destroy_process_group()
+    if comm.world() > 1:
+        if num not in (1, comm.world()):
+            raise ValueError(f"--num-gpus {num} inside a process group of {comm.world()} ranks")
+        device = (torch.device("cuda", torch.cuda.current_device()) if device_type == "cuda"
+                  else torch.device("cpu"))
+        return _run(device, args, image_loader)
+    if num > 1:
+        if device_type == "cuda":
+            present = torch.cuda.device_count()
+            if num > present:
+                raise ValueError(f"--num-gpus {num} asks for {num} cards; {present} present")
+            devices, backend = list(range(num)), "nccl"
+        else:  # --device cpu, on purpose
+            devices, backend = ["cpu"] * num, "gloo"
+        return launch(_run, num, devices, backend, args=(args, image_loader))[0]
+    return _run(torch.device(args.device or "cuda"), args, image_loader)
+
+
+def _run(device: torch.device, args, image_loader: Optional[Callable] = None):
+    """One rank's run on ``device`` (one process: the only rank)."""
     cfg = setup(args)
-    device = resolve_device(getattr(args, "device", None))
     seed = cfg.SEED if cfg.SEED >= 0 else 0
     ckpt = Checkpointer(cfg.OUTPUT_DIR, max_to_keep=3)
     resume_step = ckpt.latest_step() if args.resume else None
@@ -454,6 +510,7 @@ def run(args, image_loader: Optional[Callable] = None):
         if resume_step is not None:
             ckpt.restore(state=trainer.state)
             logger.info("resuming from step %d", int(resume_step))
+        comm.broadcast_module(model)  # every rank starts from rank 0's state
 
         eval_fn = make_eval_fn(cfg, model, image_loader=image_loader)
         if args.eval_only:
@@ -469,7 +526,7 @@ def run(args, image_loader: Optional[Callable] = None):
         metrics_hook = MetricsHook(cfg.OUTPUT_DIR, period=20, max_iter=cfg.SOLVER.MAX_ITER,
                                    lr_fn=lr_schedule)
         hooks = [metrics_hook]
-        if cfg.TPU.PROFILE_START_STEP > 0:
+        if cfg.TPU.PROFILE_START_STEP > 0 and comm.is_main():
             profile_hook = ProfileHook(os.path.join(cfg.OUTPUT_DIR, "trace"),
                                        start=cfg.TPU.PROFILE_START_STEP,
                                        num_steps=cfg.TPU.PROFILE_NUM_STEPS)

@@ -1,8 +1,8 @@
 """Training engine: the train step and the trainer loop.
 
-Port of unit_tpu/engine/train.py:38-191,579-849 for one device.  PyTorch
-runs eagerly, so the step is a plain closure (zero_grad -> train_losses ->
-sum -> backward -> clip -> SGD step -> LR step) and the trainer moves each
+Port of unit_tpu/engine/train.py:38-191,579-849.  PyTorch runs eagerly, so
+the step is a plain closure (zero_grad -> train_losses -> sum -> backward ->
+all-reduce -> clip -> SGD step -> LR step) and the trainer moves each
 step's batches to the model's device (numpy arrays, or tensors in pinned
 memory from a ``data.Prefetcher`` with ``pin_batch``).  With
 ``TPU.GRAD_ACCUM`` = A > 1 a step takes A micro-batches of each stream that
@@ -24,8 +24,23 @@ What differs from unit_tpu, on purpose:
     could save a corrupt state: fault R3 of the reference);
   * ``LazyMetrics``, the remote-TPU fetch pipelining, is not ported
     (ROADMAP Queue 1 item 29).
-Mesh, FSDP, TP and pipeline parallelism (ROADMAP Queue 1 items 27 and 29)
-raise ``NotImplementedError``.
+
+Data parallelism (unit_tpu's 1-D ``data`` mesh): inside a process group
+(``parallel.launch``) every rank takes its share of the global batch, and
+the step all-reduces the gradients once, after the last micro-batch and
+before clipping, so every rank clips and applies the gradient of the global
+batch, as unit_tpu's jitted mesh step does.  No ``DistributedDataParallel``:
+the one coalesced all-reduce also covers the trainable tensors a step leaves
+out of its graph (zero-filled first) and ``TPU.GRAD_ACCUM`` without
+``no_sync``.  The losses that unit_tpu divides by a count over the global
+batch do so here too (``parallel.comm.global_normalizer``).  The rank is
+folded into the step's generator seeds (unit_tpu's pipeline step folds its
+``axis_index`` into the key), and the loss vector is averaged over the ranks
+before its one host fetch: every rank logs the global losses and raises on a
+non-finite one together, and a stop request on any rank stops every rank
+after the next step.  FSDP, TP and pipeline parallelism, and unit_tpu's
+``mesh`` argument, raise ``NotImplementedError`` (ROADMAP Queue 1 items
+35-37).
 """
 
 from __future__ import annotations
@@ -39,6 +54,7 @@ import torch
 
 from ..models.box_heads import VGG_HEADS
 from ..models.meta_arch import WSRCNN, _not_ported
+from ..parallel import comm
 from ..solver.build import Solver
 
 
@@ -70,7 +86,8 @@ def make_train_step(
     their gradients, and the dict holds the mean of their losses (A = 1
     divides by one: exact).  ``meta``, the support batch (``Trainer``), is
     one for the step: every micro-batch reads it, as in unit_tpu.
-    ``train_only_weak`` goes to ``train_losses`` (TrainerOnlyWeak)."""
+    ``train_only_weak`` goes to ``train_losses`` (TrainerOnlyWeak).  In a
+    process group the gradients are averaged over the ranks before ``clip``."""
     accum = int(grad_accum)
     trainable = [p for group in optimizer.param_groups for p in group["params"]]
 
@@ -93,6 +110,7 @@ def make_train_step(
         for p in trainable:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        comm.all_reduce_mean_tensors([p.grad for p in trainable])  # one rank: nothing
         if clip is not None:
             clip()
         optimizer.step()
@@ -102,10 +120,12 @@ def make_train_step(
     return step
 
 
-def step_seed(seed: int, step: int, micro: int = 0, grad_accum: int = 1) -> int:
-    """The generator seed of micro-batch ``micro`` of step ``step`` (fold_in's
-    counterpart); without accumulation, (seed, step) alone."""
-    return (int(seed) << 32) + int(step) * int(grad_accum) + int(micro)
+def step_seed(seed: int, step: int, micro: int = 0, grad_accum: int = 1, rank: int = 0) -> int:
+    """The generator seed of micro-batch ``micro`` of step ``step`` on rank
+    ``rank`` (fold_in's counterpart); without accumulation, on rank 0,
+    (seed, step) alone.  Ranks draw different samples for their different
+    images."""
+    return (int(seed) << 32) + (int(rank) << 48) + int(step) * int(grad_accum) + int(micro)
 
 
 def dropout_seed(seed: int) -> int:
@@ -139,14 +159,16 @@ class TrainerBase:
         if int(grad_accum) < 1:
             raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
         if mesh is not None or fsdp or tp or pp:
-            raise _not_ported("mesh, FSDP, TP and pipeline parallelism",
-                              "ROADMAP Queue 1 items 27 and 29")
+            raise _not_ported("a mesh, FSDP, TP and pipeline parallelism (data parallelism "
+                              "runs one process a rank: parallel.launch)",
+                              "ROADMAP Queue 1 items 35-37")
         self.model = model
         self.optimizer = optimizer
         self.strong_iter = strong_iter
         self.weak_iter = weak_iter
         self.meta_iter = meta_iter
         self.seed = int(seed)
+        self.rank, self.world = comm.rank(), comm.world()
         self.grad_accum = int(grad_accum)
         # micro-batches waiting for A of their canvas, per stream and canvas
         self._accum_buf: Dict[str, Dict[tuple, list]] = {"strong": {}, "weak": {}}
@@ -158,11 +180,14 @@ class TrainerBase:
                                           optimizer.clip, self.grad_accum, self.train_only_weak)
         self.state: Optional[TrainState] = None
         self.stop_requested = False
+        self._stop_agreed = False  # a stop request of some rank, seen by all (world > 1)
         self.metrics_history: List[Dict[str, float]] = []
 
     def init_state(self) -> TrainState:
-        """The state at step 0 (the model's current parameters)."""
+        """The state at step 0 (the model's current parameters; in a process
+        group rank 0's, broadcast to every rank)."""
         self.model.train()
+        comm.broadcast_module(self.model)
         self.state = TrainState(model=self.model, solver=self.optimizer, step=0)
         return self.state
 
@@ -196,7 +221,7 @@ class TrainerBase:
     def _generator(self, micro: int, dropout: bool = False) -> torch.Generator:
         """The sampling generator of micro-batch ``micro`` of this step, or
         with ``dropout`` its dropout generator."""
-        seed = step_seed(self.seed, self.state.step, micro, self.grad_accum)
+        seed = step_seed(self.seed, self.state.step, micro, self.grad_accum, self.rank)
         generator = torch.Generator(device=self.device)
         generator.manual_seed(dropout_seed(seed) if dropout else seed)
         return generator
@@ -220,8 +245,16 @@ class TrainerBase:
             dropouts = dropouts and dropouts[0]
         losses = self.train_step(strong, weak, generators, meta, dropouts)
         self.state.step += 1
-        # one device-to-host fetch per step
-        metrics = dict(zip(losses, torch.stack(list(losses.values())).tolist()))
+        values = torch.stack(list(losses.values()))
+        if self.world > 1:
+            # the ranks' mean, and whether any rank was asked to stop, in one
+            # all-reduce before the fetch: all ranks log, raise and stop alike
+            values = comm.all_reduce_mean(torch.cat(
+                [values.float(), values.new_full((1,), float(self.stop_requested))]))
+        values = values.tolist()  # one device-to-host fetch per step
+        if self.world > 1:
+            self._stop_agreed = values.pop() > 0
+        metrics = dict(zip(losses, values))
         metrics["data_time"] = data_time
         if not all(np.isfinite(v) for v in metrics.values()):
             raise FloatingPointError(f"non-finite loss at iter {self.state.step}: {metrics}")
@@ -233,13 +266,17 @@ class TrainerBase:
         continues from its step); ``request_stop()`` exits after the current
         step.  Hooks are called as ``hook(step, metrics, trainer)``."""
         assert self.state is not None, "call init_state() first"
-        self.stop_requested = False
+        self.stop_requested = self._stop_agreed = False
         for _ in range(self.state.step, max_iter):
-            if self.stop_requested:
+            # in a process group the ranks stop together, on the request that
+            # the last step's all-reduce carried (one step after the signal)
+            if self._stop_agreed if self.world > 1 else self.stop_requested:
                 break
             metrics = self.run_step()
             for hook in hooks:
                 hook(self.state.step, metrics, self)
+        if self.world > 1:
+            self.stop_requested = self._stop_agreed
         return self.state
 
     def request_stop(self):

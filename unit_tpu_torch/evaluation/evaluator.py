@@ -1,7 +1,7 @@
 """Inference loop: run a model over a test loader and feed an evaluator.
 
-Port of unit_tpu/evaluation/evaluator.py:21-142 for one process: warmup-aware
-timing, progress logging, the evaluator's process/evaluate protocol.
+Port of unit_tpu/evaluation/evaluator.py:21-142: warmup-aware timing,
+progress logging, the evaluator's process/evaluate protocol.
 Detections come back as padded arrays; boxes are rescaled from network-input
 to original-image coordinates here.
 
@@ -18,8 +18,13 @@ the test-time augmentation runs it directly, since its predict call takes
 the whole batch (the canonical image and its variants).
 ``inference_on_dataset`` binds it to an (images, image_sizes) predict call,
 and ``inference_on_dataset_meta``, the meta models' loop, binds the support
-prototypes to that call and delegates there.  The multi-process merge of
-unit_tpu (:96-105) is not ported (ROADMAP Queue 1 item 27).
+prototypes to that call and delegates there.
+
+Under data parallelism each rank runs its shard of the test set (the test
+loaders read ``[rank::world]``, and the runner feeds the evaluator the GT of
+that shard); before scoring, the ranks' evaluators are gathered and merged
+in rank order (``merge_gathered``, unit_tpu :96-104), so every rank scores
+the whole set and gets the same results.
 """
 
 from __future__ import annotations
@@ -30,6 +35,8 @@ from typing import Callable, Iterator, Optional
 
 import numpy as np
 import torch
+
+from ..parallel import comm
 
 logger = logging.getLogger("unit_tpu_torch")
 
@@ -132,10 +139,23 @@ def inference_loop(
         collect(*pending)
     if t_start is not None:
         total_time = time.perf_counter() - t_start
-    results = evaluator.evaluate()
+    results = merge_gathered(evaluator).evaluate()
     if t_start is not None and num_done > timed_base:
         results["inference_seconds_per_image"] = total_time / (num_done - timed_base)
     return results
+
+
+def merge_gathered(evaluator):
+    """The evaluator of the whole test set: every rank's evaluator (its GT
+    and predictions), gathered and merged in rank order (``merge_from``), the
+    same on every rank.  One process: ``evaluator`` itself."""
+    gathered = comm.gather_objects(evaluator)
+    if len(gathered) == 1:
+        return evaluator
+    merged = gathered[0]
+    for other in gathered[1:]:
+        merged.merge_from(other)
+    return merged
 
 
 def inference_on_dataset_meta(

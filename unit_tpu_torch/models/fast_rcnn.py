@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import nms as nms_ops
+from ..parallel.comm import global_normalizer
 from ..structures import boxes as box_ops
 from ..structures.instances import Detections, SampledProposals
 
@@ -48,10 +49,12 @@ def fast_rcnn_losses(
     cfg: FastRCNNConfig,
 ) -> Dict[str, torch.Tensor]:
     """CE (mean over the valid slots) + class-specific smooth-L1 (sum over
-    the foreground / valid slots): FastRCNNOutputs' two losses."""
+    the foreground / valid slots): FastRCNNOutputs' two losses.  The valid
+    slots are counted over the global batch (``global_normalizer``): a
+    collective under data parallelism."""
     c = cfg.num_classes
     valid = sampled.valid
-    n_valid = valid.float().sum().clamp_min(1.0)
+    n_valid = global_normalizer(valid.float().sum())
 
     logp = F.log_softmax(scores, dim=-1)
     nll = -logp.gather(1, sampled.gt_classes.clamp(0, c)[:, None])[:, 0]

@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.comm import global_normalizer
 from .predictors import _ids
 from .resnet import Conv2d
 
@@ -140,13 +141,14 @@ def mask_rcnn_loss(
     fg_valid: torch.Tensor,      # [N]
 ) -> torch.Tensor:
     """Per-class binary cross-entropy over the foreground proposals, each
-    proposal's mean over its M x M cells, averaged over the foreground."""
+    proposal's mean over its M x M cells, averaged over the foreground of the
+    global batch (``global_normalizer``: a collective under data parallelism)."""
     sel = _own_class(mask_logits, pred_classes)
     targets = (crop_mask_to_box(gt_masks, gt_boxes, roi_boxes, sel.shape[-1]) > 0.5).float()
     bce = torch.relu(sel) - sel * targets + torch.log1p(torch.exp(-sel.abs()))
     per = bce.mean(dim=(1, 2))
     num = torch.where(fg_valid, per, 0.0).sum()
-    return num / fg_valid.float().sum().clamp_min(1.0)
+    return num / global_normalizer(fg_valid.float().sum())
 
 
 def mask_rcnn_inference(mask_logits: torch.Tensor, classes: torch.Tensor) -> torch.Tensor:

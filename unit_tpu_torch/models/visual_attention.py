@@ -37,6 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import roi_align as roi_align_ops
+from ..parallel.comm import global_normalizer
 from .resnet import Res5
 
 MODES = ("mean", "mahalanobis", "matrix", "locatron")
@@ -186,12 +187,13 @@ class VisualAttentionHead(nn.Module):
         dist = gt_scores - sim_full
         is_gt = F.one_hot(gt, n_total).to(torch.bool)
         margin = torch.where(is_gt, dist, (0.5 - dist).clamp_min(0.0))[:, slot_ids]
-        n_valid = valid.to(torch.float32).sum().clamp_min(1.0)
+        # both counts span the global batch (a collective under data parallelism)
+        n_valid = global_normalizer(valid.to(torch.float32).sum())
         margin_loss = torch.where(valid[:, None], margin, 0.0).sum() / (n_valid * len(slots))
         reg = (1.0 - gt_scores[:, 0]).clamp_min(0.0)
         reg_valid = valid & (gt < self.num_classes) if self.is_matrix else valid
-        reg_loss = torch.where(reg_valid, reg, 0.0).sum() / reg_valid.to(
-            torch.float32).sum().clamp_min(1.0)
+        reg_loss = torch.where(reg_valid, reg, 0.0).sum() / global_normalizer(
+            reg_valid.to(torch.float32).sum())
 
         out = {"loss_rank_margin": margin_loss, "loss_rank_reg": reg_loss}
         if self.mode != "locatron":  # Locatron drops the prototype classification loss

@@ -1,0 +1,117 @@
+"""Rank queries and collectives over the default process group.
+
+Port of unit_tpu/parallel/comm.py (the cross-host gather of the evaluators)
+and of what unit_tpu's jitted mesh step does implicitly: the gradient
+all-reduce, and the counts over the global batch that some losses divide by.
+Every function works without a process group, as the identity of one rank,
+so single-process code calls them unconditionally.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Iterable, List
+
+import torch
+import torch.distributed as dist
+from torch import nn
+
+
+def _active() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def rank() -> int:
+    return dist.get_rank() if _active() else 0
+
+
+def world() -> int:
+    return dist.get_world_size() if _active() else 1
+
+
+def is_main() -> bool:
+    return rank() == 0
+
+
+def barrier() -> None:
+    if world() > 1:
+        if dist.get_backend() == "nccl":  # on this rank's card, not a guessed one
+            dist.barrier(device_ids=[torch.cuda.current_device()])
+        else:
+            dist.barrier()
+
+
+def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
+    """The sum over ranks, in place (``t`` itself is returned); one rank: ``t``."""
+    if world() > 1:
+        dist.all_reduce(t, op=dist.ReduceOp.SUM)
+    return t
+
+
+def all_reduce_mean(t: torch.Tensor) -> torch.Tensor:
+    """The mean over ranks, in place; one rank: ``t`` untouched.  Summed and
+    divided by the world (gloo has no average)."""
+    n = world()
+    if n > 1:
+        dist.all_reduce(t, op=dist.ReduceOp.SUM)
+        t.div_(n)
+    return t
+
+
+def _by_dtype(tensors: Iterable[torch.Tensor]) -> Dict[tuple, List[torch.Tensor]]:
+    groups: Dict[tuple, List[torch.Tensor]] = {}
+    for t in tensors:
+        groups.setdefault((t.dtype, t.device), []).append(t)
+    return groups
+
+
+def _coalesced(tensors: Iterable[torch.Tensor], collective) -> None:
+    """Apply ``collective`` (in place, on one flat tensor) to ``tensors`` with
+    one call per dtype and device: few large messages, not one a tensor."""
+    for group in _by_dtype(tensors).values():
+        flat = torch.cat([t.reshape(-1) for t in group])
+        collective(flat)
+        for t, chunk in zip(group, flat.split([t.numel() for t in group])):
+            t.copy_(chunk.view(t.shape))
+
+
+def all_reduce_mean_tensors(tensors: List[torch.Tensor]) -> None:
+    """Each tensor of ``tensors`` replaced by its mean over ranks, in place,
+    coalesced (the train step's gradient all-reduce).  One rank: nothing."""
+    if world() > 1:
+        _coalesced(tensors, all_reduce_mean)
+
+
+def broadcast_module(module: nn.Module) -> None:
+    """Copy rank 0's parameters and buffers to every rank, in place, so that
+    the ranks start from one state.  One rank: nothing."""
+    if world() > 1:
+        with torch.no_grad():
+            _coalesced(list(module.parameters()) + list(module.buffers()),
+                       lambda flat: dist.broadcast(flat, src=0))
+
+
+def gather_objects(obj: Any) -> List[Any]:
+    """One entry a rank, in rank order, on every rank (``all_gather_object``:
+    pickled, so only for objects this program made).  One process: ``[obj]``."""
+    n = world()
+    if n == 1:
+        return [obj]
+    out: List[Any] = [None] * n
+    dist.all_gather_object(out, obj)
+    return out
+
+
+def global_normalizer(count: torch.Tensor) -> torch.Tensor:
+    """The divisor of a loss that unit_tpu normalises by a count over the
+    GLOBAL batch (valid ROIs, foreground ROIs), given this rank's ``count``.
+
+    Every rank's gradient is averaged over the ranks, so a rank's loss
+    ``sum_rank / (N_global / world)`` averages to ``sum_all / N_global``:
+    the loss of the whole batch.  One rank: ``count.clamp_min(1)``.  A
+    collective: every rank must call it, in the same order."""
+    count = count.detach().to(torch.float32)
+    n = world()
+    if n == 1:
+        return count.clamp_min(1.0)
+    total = all_reduce_sum(count.clone())
+    return total.clamp_min(1.0) / n

@@ -3,9 +3,11 @@
 Scalars accumulated per step, written periodically to the terminal and to
 ``metrics.json`` (one JSON line per write, d2's JSONWriter format), and,
 under ``MetricsHook(tensorboard=True)``, to TensorBoard event files in
-``<output_dir>/tb``.  One difference from unit_tpu: the console writer
+``<output_dir>/tb``.  Two differences from unit_tpu: the console writer
 prints no ETA on its first line (unit_tpu divides a near-zero elapsed time
-by one step there and shows a false rate).
+by one step there and shows a false rate), and under data parallelism only
+rank 0 writes (the trainer's metrics are already the ranks' mean); unit_tpu
+opens ``metrics.json`` in every process.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ import os
 import time
 from collections import defaultdict, deque
 from typing import Dict, Optional
+
+from ..parallel import comm
 
 logger = logging.getLogger("unit_tpu_torch")
 
@@ -119,19 +123,21 @@ class TensorBoardWriter:
 
 class MetricsHook:
     """Trainer hook: accumulate every step's metrics, write every ``period``
-    (also to TensorBoard under ``tensorboard``)."""
+    (also to TensorBoard under ``tensorboard``); on rank 0 only."""
 
     def __init__(self, output_dir: str, period: int = 20, max_iter: Optional[int] = None,
                  tensorboard: bool = False, lr_fn=None):
         self.storage = EventStorage()
         self.period = period
         self.lr_fn = lr_fn  # step -> current lr (d2 logs lr per step)
-        self.writers = [
-            ConsoleWriter(max_iter),
-            JSONWriter(os.path.join(output_dir, "metrics.json")),
-        ]
-        if tensorboard:
-            self.writers.append(TensorBoardWriter(os.path.join(output_dir, "tb")))
+        self.writers = []
+        if comm.is_main():
+            self.writers = [
+                ConsoleWriter(max_iter),
+                JSONWriter(os.path.join(output_dir, "metrics.json")),
+            ]
+            if tensorboard:
+                self.writers.append(TensorBoardWriter(os.path.join(output_dir, "tb")))
 
     def __call__(self, step: int, metrics: dict, trainer):
         self.storage.iter = step

@@ -14,6 +14,12 @@ in the activations' dtype and are summed in it (in bf16 each addition rounds,
 as ``np.add`` of two bf16 arrays does), then divided by the count in f32.  In
 f32 that is the plain mean; in bf16 it loses precision as the count grows
 (ROADMAP, faults of the reference, R8).
+
+Under data parallelism each rank averages the batches of its own shard and
+the ranks' averages are then averaged (one coalesced all-reduce, in f32), so
+every rank installs the same statistics.  unit_tpu's mesh gets global
+statistics from its sharded forward; its hook then installs them in every
+process.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import torch
 from torch import nn
 
 from ..models.resnet import FrozenBN
+from ..parallel import comm
 
 Stats = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
 
@@ -46,7 +53,9 @@ def collect_bn_stats(model: nn.Module, images: torch.Tensor) -> Stats:
 def precise_bn(model: nn.Module, batches: Iterator, num_iters: int = 200) -> nn.Module:
     """Replace the backbone's FrozenBN mean/var by their averages over up to
     ``num_iters`` batches ({"image": [B, H, W, 3] f32 BGR, ...}) of
-    ``batches``, in place; returns ``model``.  No batch: nothing changes."""
+    ``batches``, in place; returns ``model``.  No batch: nothing changes
+    (under data parallelism every rank must have batches: the average is a
+    collective)."""
     device = model.embeddings.device
     acc, n = None, 0
     for _ in range(num_iters):
@@ -63,8 +72,10 @@ def precise_bn(model: nn.Module, batches: Iterator, num_iters: int = 200) -> nn.
     if n == 0:
         return model
     modules = dict(model.named_modules())
+    stats = [s.float() / n for pair in acc.values() for s in pair]
+    comm.all_reduce_mean_tensors(stats)  # one rank: unchanged
     with torch.no_grad():
-        for name, (mean, var) in acc.items():
-            modules[name].mean.copy_(mean.float() / n)
-            modules[name].var.copy_(var.float() / n)
+        for k, name in enumerate(acc):
+            modules[name].mean.copy_(stats[2 * k])
+            modules[name].var.copy_(stats[2 * k + 1])
     return model

@@ -52,7 +52,7 @@ Phases (any failure raises and the script exits non-zero):
      VOC devkit (XML and image sets on disk, images from a seeded loader):
      6 steps with checkpoints and evaluations every 3, a resume from step 3,
      --eval-only from step 6, one evaluation with TPU.FOLD_BN_AT_EVAL, and
-     12 steps without hooks for the loader's steady rate
+     8 steps without hooks for the loader's steady rate
  11  k-shot fine-tuning: engine.runner.run on the shipped 10-shot split1
      fine-tune recipe (8 strong images a step), warm-started from phase 10's
      best/model as the recipe spells it, 6 steps with checkpoints and
@@ -93,8 +93,9 @@ Phases (any failure raises and the script exits non-zero):
      its plain version at the support shapes ([75,14,14,1024] x 1 ROI, the
      step's own shots, and an evaluation's [750,14,14,1024] x 1);
      engine.runner.run with Trainer on phase 10's devkit: 4 steps, a
-     checkpoint at 2, the evaluation with its support precompute (50 shots a
-     class), and a resume from step 2
+     checkpoint at 2, the evaluation with its support precompute (10 shots a
+     class; the recipe's 50 make K1's [750,14,14,1024]), and a resume from
+     step 2
  15  test-time augmentation (TEST.AUG at its defaults: scales 480-1200,
      MAX_SIZE 2000, flip) on the flagship at full width: one 600x800 image's
      f32 path kernels vs plain (identical proposals, phase 5's bounds); in
@@ -137,7 +138,7 @@ Phases (any failure raises and the script exits non-zero):
      shapes-COCO devkit with proposal pickles: 4 steps, a checkpoint and an
      evaluation at 2, a resume from 2; one image under TEST.AUG.ENABLED with
      proposals (K3 1)
- 18  the serving surface at the flagship's full width (bf16): 32 seeded
+ 18  the serving surface at the flagship's full width (bf16): 16 seeded
      requests of 375x500 / 500x375 under 8 client threads
      (scripts/bench_serving_torch.py's load generator) through
      DetectionService at batch 1 and micro-batched at 4 (wait 10 ms): req/s,
@@ -149,7 +150,7 @@ Phases (any failure raises and the script exits non-zero):
      artifact served through the service; the dock recipe's artifact with
      5000 proposals a request against make_predict_fn (identical; K3 1, no
      K1, K2 or K4) and refused by the service; DetectionServer on 127.0.0.1
-     (/healthz, /metadata, 8 concurrent JPEG POSTs, 400, 404);
+     (/healthz, /metadata, 4 concurrent JPEG POSTs, 400, 404);
      scripts/serve_torch.py --artifact and scripts/export_model_torch.py
      --describe as subprocesses
  19  the flagship learns: a shapes-VOC devkit (scripts/make_shapes_voc_torch.py:
@@ -173,9 +174,9 @@ Phases (any failure raises and the script exits non-zero):
      canvas within 2^-8 of the numpy path's with equal dims and scale; (c)
      host ms an image, C against PIL + numpy, to the 800x1344 canvases; (d)
      engine.runner.run at full width on a devkit of JPEG files (no
-     image_loader), 10 steps through the C loader, then the same through PIL
+     image_loader), 6 steps through the C loader, then the same through PIL
      (the script patches data.native.available): step and data-wait medians,
-     every step K1 2, K2 2, K3 1, K4 124 + 103; (e) detect_bytes on 32 JPEGs
+     every step K1 2, K2 2, K3 1, K4 124 + 103; (e) detect_bytes on 16 JPEGs
      under 8 clients at batch 1 and micro-batched at 4, C against PIL: req/s,
      p50, images a device call; (f) TPU.HOST_TRANSFER_UINT8: served batch-4
      requests (uint8 canvases, launches as phase 18's) and 2 flagship train
@@ -183,18 +184,33 @@ Phases (any failure raises and the script exits non-zero):
      and ms against the f32 wire
  21  data parallelism (parallel.launch; NCCL refuses two ranks on one card, so
      two ranks share card 0 over gloo): (a) the flagship at full width at the
-     recipe's global batch, 4 + 4 images a rank, 2 warm-up + 6 timed steps:
+     recipe's global batch, 4 + 4 images a rank, 1 warm-up + 3 timed steps:
      per rank the step median, the gradient all-reduce's ms a step and the
      peak memory, every rank's launches (K1 2, K2 2, K3 1, K4 124 + 103 a
      step), one state on both ranks (a hash), finite losses; (b) f32 with
      TF32 off and every candidate kept: one step at world 2, 1 + 1 images a
      rank, against one process on the 2 + 2 global batch (losses 1e-4,
      gradients phase 8's bound); (c) engine.runner.run at world 2 on phase
-     20's devkit of JPEG files through the C loader: 4 steps, a checkpoint and
+     20's devkit of JPEG files through the C loader (in (a)'s and (b)'s
+     spawn): 4 steps, a checkpoint and
      an evaluation at 2 and 4, the gathered AP against a one-process
      --eval-only of the step-4 checkpoint (1e-6), a resume from step 2; (d)
      --dist at world 1 over NCCL from torchrun's environment: 2 steps, their
      launches, finite losses, one NCCL all-reduce
+ 22  FSDP and TP (parallel.mesh, two gloo ranks sharing card 0): (a) FSDP
+     (fully_shard; gloo stages its collectives through the host) at world
+     2, 4 + 4 images a rank, 1 warm-up + 3 steps (the last profiled): per
+     rank the step median, peak memory, the profiled step's collectives
+     (host ms by name), launches (K1 2, K2 2, K3 1, K4 124 + 103 a step),
+     res4's first conv half on each rank, one gathered state; (b) TP 2 (data 1 x model 2)
+     at 1 + 1 images, 1 + 2 steps: the launches of one process, every split
+     kernel half its output channels, the whole parameters bit-identical on
+     both ranks; (c) f32, TF32 off, every candidate kept: FSDP at world 2
+     (1 + 1 a rank) against one process (2 + 2) and TP 2 (1 + 1) against one
+     process (1 + 1), losses 1e-4 and gradients phase 8's bound; (d) each
+     split state's checkpoint restored by one process (state and momenta
+     hash as gathered), one process's restored under FSDP and TP (each
+     rank's parts the file's slices)
 The last three lines are the card (nvidia-smi), one JSON object describing
 the kernels (launches counted on the run loop of phase 10, and per path under
 launches_by_path), and {"ok": true, "device": {...}}.  Without a CUDA device, or without the
@@ -205,6 +221,7 @@ printed.
 from __future__ import annotations
 
 import argparse
+import atexit
 import concurrent.futures
 import dataclasses
 import io
@@ -310,7 +327,7 @@ K4_REPORTED = ((4, 50, 84, 1024), (True, True))  # the kernels line's K4 row
 RUN_STEPS = 6
 RUN_PERIOD = 3
 RUN_TEST_IMAGES = 8
-RUN_STEADY_STEPS = 12  # a longer run without hooks in the way: the loader's steady rate
+RUN_STEADY_STEPS = 8  # a longer run without hooks in the way: the loader's steady rate
 RUN_EXTRA_OPTS = ()  # more config overrides (a rehearsal at a small size sets them)
 RUN_DEVICE = "cuda"  # a rehearsal of the run loop's control flow sets "cpu"
 RESUME_LOSS_RTOL = 1e-3
@@ -359,6 +376,7 @@ WEAK_RUN_STEPS = 3
 META_RECIPE = ROOT / "configs" / "VOC" / "VOC-RCNN-101-C4-split1-meta.yaml"
 META_TRAIN_STEPS = 6
 META_RUN_STEPS = 4
+META_RUN_SHOTS = 10  # the run's support shots a class (the recipe's 50: K1's [750, ...] check)
 RANK_MARGIN_UNDERFLOW = 15 * 0.5 / 16
 # Test-time augmentation (phase 15): TEST.AUG at its defaults on the flagship
 # (scales 480-1200, MAX_SIZE 2000, flip: 10 variants in 5 groups); one image
@@ -3081,7 +3099,8 @@ def phase_meta(seed, workdir):
     runner.meta_attention = record_attention
     try:
         reset_launch_counts()
-        results_a, losses_a, trainer, secs = run(out_a)
+        results_a, losses_a, trainer, secs = run(
+            out_a, opts=["DATASETS.BASE_META_SHOTS", str(META_RUN_SHOTS)])
         launches = read_launch_counts()
         (att, att_secs), = attention
         bbox = results_a["bbox"]
@@ -3089,7 +3108,7 @@ def phase_meta(seed, workdir):
             log(f"[14]   run step {step}: " + ", ".join(f"{k} {v:.4g}" for k, v in m.items()))
         log(f"[14] Trainer run: {META_RUN_STEPS} steps, a checkpoint at {META_RUN_STEPS // 2} "
             f"and the final evaluation in {secs:.1f} s (the support precompute, "
-            f"{cfg.DATASETS.BASE_META_SHOTS} shots a class, {att_secs:.1f} s of it); AP "
+            f"{META_RUN_SHOTS} shots a class, {att_secs:.1f} s of it); AP "
             f"{bbox['AP']:.4g}, AP50 {bbox['AP50']:.4g}; prototypes "
             f"{list(att.mean.shape)} with {int(torch.isfinite(att.logdet).sum())} finite "
             f"slots; data wait a step, median "
@@ -3123,7 +3142,7 @@ def phase_meta(seed, workdir):
         log(f"[14] resumed from step {META_RUN_STEPS // 2} in {secs:.1f} s: steps "
             f"{sorted(losses_b)}, losses bit-identical to the uninterrupted run's {same} (max "
             f"rel diff {rel:.3g}, tol {RESUME_LOSS_RTOL}); the evaluation with prototypes of 5 "
-            f"shots a class equal to the one with {cfg.DATASETS.BASE_META_SHOTS}: "
+            f"shots a class equal to the one with {META_RUN_SHOTS}: "
             f"{results_b['bbox'] == results_a['bbox']}")
         if sorted(losses_b) != list(range(META_RUN_STEPS // 2 + 1, META_RUN_STEPS + 1)) \
                 or not rel <= RESUME_LOSS_RTOL:
@@ -4462,7 +4481,7 @@ def phase_dock(seed, workdir):
 # load generator), SERVE_REQUESTS seeded requests of a VOC image's size in both
 # orientations; torch.export artifacts of the flagship and of the dock recipe
 # with proposals; the HTTP front end; the serving CLIs as subprocesses.
-SERVE_REQUESTS = 32
+SERVE_REQUESTS = 16
 SERVE_CLIENTS = 8
 SERVE_BATCH = 4
 SERVE_WAIT_MS = 10.0
@@ -4478,7 +4497,7 @@ BATCH_SCORE_ATOL, BATCH_SCORE_RTOL = 1e-4, 1e-3
 # weights, so they should agree bit for bit; these bounds hold where not.
 EXPORT_BOX_ATOL, EXPORT_BOX_RTOL = 1e-5, 1e-6
 EXPORT_SCORE_ATOL, EXPORT_SCORE_RTOL = 1e-6, 1e-6
-HTTP_REQUESTS = 8
+HTTP_REQUESTS = 4
 CLI_START_S = 300   # the serving CLI's start: torch, the artifact, its warm-up
 CLI_STOP_S = 10     # SIGTERM to exit
 
@@ -4715,6 +4734,33 @@ def phase_serving(cfg, seed, workdir):
     del svc_a, art4, model, predict
     free()
 
+    # (f)'s CLIs start here, as a user starts them, and come up while (b),
+    # (e) and (d) run: their start-up (torch, the artifact, its warm-up) is
+    # most of their time
+    path4, meta4 = art_paths[SERVE_BATCH]
+    cmd = [sys.executable, str(ROOT / "scripts" / "serve_torch.py"), "--config-file",
+           str(FLAGSHIP), "--artifact", path4, "--host", "127.0.0.1", "--port", "0",
+           "--device", RUN_DEVICE, *RUN_EXTRA_OPTS, "OUTPUT_DIR", os.path.join(workdir, "serve")]
+    t_cli = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            cwd=workdir)
+    describe = subprocess.Popen([sys.executable, str(ROOT / "scripts" / "export_model_torch.py"),
+                                 "--describe", path4], stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+    for p in (proc, describe):  # stopped however this script ends
+        atexit.register(lambda p=p: p.poll() is None and (p.kill(), p.communicate()))
+    lines = []
+
+    def serving_line():
+        for out_line in iter(proc.stdout.readline, ""):
+            lines.append(out_line)
+            if out_line.startswith("serving on "):
+                return (out_line, time.perf_counter() - t_cli)
+        return None
+
+    reader = concurrent.futures.ThreadPoolExecutor(1)
+    serving = reader.submit(serving_line)
+
     # (b) micro-batched against batch 1 in f32 with TF32 off
     tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
@@ -4853,29 +4899,12 @@ def phase_serving(cfg, seed, workdir):
     del dart, dmodel, dpredict, dgot, dwant
     free()
 
-    # (f) the CLIs as a user starts them
-    path4, meta4 = art_paths[SERVE_BATCH]
-    cmd = [sys.executable, str(ROOT / "scripts" / "serve_torch.py"), "--config-file",
-           str(FLAGSHIP), "--artifact", path4, "--host", "127.0.0.1", "--port", "0",
-           "--device", RUN_DEVICE, *RUN_EXTRA_OPTS, "OUTPUT_DIR", os.path.join(workdir, "serve")]
-    t0 = time.perf_counter()
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                            cwd=workdir)
-    lines = []
-
-    def serving_line():
-        for out_line in iter(proc.stdout.readline, ""):
-            lines.append(out_line)
-            if out_line.startswith("serving on "):
-                return out_line
-        return None
-
+    # (f) the CLIs started after (c)
     try:
-        reader = concurrent.futures.ThreadPoolExecutor(1)
-        line = reader.submit(serving_line).result(timeout=CLI_START_S)
-        if line is None:
+        ready = serving.result(timeout=max(CLI_START_S - (time.perf_counter() - t_cli), 1.0))
+        if ready is None:
             raise AssertionError("serve_torch.py exited before serving:\n" + "".join(lines))
-        start_s = time.perf_counter() - t0
+        line, start_s = ready
         base = "http://127.0.0.1:" + line.strip().rsplit(":", 1)[1]
         health = http(base, "/healthz")
         code, body = http(base, "/predict", jpegs[0])
@@ -4888,15 +4917,19 @@ def phase_serving(cfg, seed, workdir):
         if proc.poll() is None:
             proc.kill()
             proc.communicate()
-    log(f"[18] (f) serve_torch.py --artifact: serving after {start_s:.1f} s, /healthz {health},"
+    log(f"[18] (f) serve_torch.py --artifact: serving after {start_s:.1f} s (started with (b), "
+        f"(e) and (d) running), /healthz {health},"
         f" POST {code} ({len(body.get('detections', []))} detections), exit {proc.returncode} "
         f"{stop_s:.2f} s after SIGTERM")
     if not (health == (200, {"status": "ok"}) and code == 200 and proc.returncode == 0
             and "signal 15: shutting down" in rest):
         raise AssertionError("serve_torch.py did not serve and stop cleanly:\n"
                              + "".join(lines) + rest)
-    described = json.loads(run([sys.executable, str(ROOT / "scripts" / "export_model_torch.py"),
-                                "--describe", path4]))
+    out, err = describe.communicate(timeout=CLI_START_S)
+    if describe.returncode != 0:
+        raise AssertionError(f"export_model_torch.py --describe exited {describe.returncode}: "
+                             f"{err[-2000:]}")
+    described = json.loads(out)
     log(f"[18] (f) export_model_torch.py --describe: {described['canvases']} batch "
         f"{described['batch_size']} {described['platforms']}")
     if described != meta4:
@@ -5250,8 +5283,8 @@ HOST_WIRE_SHAPES = ((375, 500), (500, 375))   # (h, w): VOC's two common sizes
 HOST_WIRE_IMAGES = 8       # JPEGs of each shape: prepare_batch's batch and threads
 HOST_WIRE_TIMED = 5        # host ms an image: the median of this many images
 HOST_WIRE_RUN_SHAPES = ((375, 500), (333, 500))  # landscape only: one canvas a step
-HOST_WIRE_STEPS = 10       # run-loop steps through each decode path
-HOST_WIRE_REQUESTS = 32
+HOST_WIRE_STEPS = 6        # run-loop steps through each decode path
+HOST_WIRE_REQUESTS = 16
 HOST_WIRE_UPLOADS = 10     # uploads timed a wire (median)
 C_VS_NUMPY_ATOL = 2.0 ** -8  # the C resize in f32 against the numpy one in f64
 
@@ -5604,7 +5637,7 @@ def phase_host_wire(cfg, seed, workdir):
 # through --dist.  No NCCL figure at world >= 2 can be taken here.
 DP_WORLD = 2
 DP_IMAGES_PER_RANK = 4      # the recipe's IMS_PER_BATCH 8: 4 + 4 images a rank
-DP_WARMUP, DP_STEPS = 2, 6
+DP_WARMUP, DP_STEPS = 1, 3
 DP_RUN_STEPS, DP_RUN_PERIOD = 4, 2
 DP_DIST_STEPS = 2
 DP_TIMEOUT = 600            # seconds a launch may take, collectives and join
@@ -5643,6 +5676,19 @@ def state_digest(model):
 
     h = hashlib.sha256()
     for name, t in itertools.chain(model.named_parameters(), model.named_buffers()):
+        h.update(name.encode())
+        h.update(t.detach().cpu().contiguous().view(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def buffers_digest(model):
+    """A hash of ``model``'s buffers (whole on every rank under FSDP and TP)."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for name, t in model.named_buffers():
         h.update(name.encode())
         h.update(t.detach().cpu().contiguous().view(-1).view(torch.uint8).numpy().tobytes())
     return h.hexdigest()
@@ -5793,51 +5839,109 @@ def voc_detections(evaluator):
     return np.asarray(sorted(rows), np.float64).reshape(-1, 7), images
 
 
-def dp_run_rank(device, argv):
+def dp_run_rank(device, argv, sharded=False, profile_step=None):
     """(c), one rank of engine.runner.run in the caller's group: the results,
     the detections of each merged evaluation, each step's launches and
-    losses, and the final state's digest."""
+    losses, and the final state's digest.  ``sharded`` (phase 22, a run
+    under TPU.FSDP or TPU.TP): also each step's host ms (step
+    ``profile_step`` under the profiler, with its gloo collectives' calls
+    and host ms), the digests of the gathered state and of the parameters
+    no mode split, each split parameter's (local, whole) elements, the
+    whole model's bytes, whether the buffers (the FrozenBN statistics)
+    changed from the first step to the end, the PreciseBN refreshes and,
+    on the card, each step's device memory (allocated at its start and
+    end, its peak, and the peak of the hooks before it: the
+    evaluations)."""
+    import torch
+
     from unit_tpu_torch.data import DatasetCatalog
     from unit_tpu_torch.engine import runner
     from unit_tpu_torch.engine.train import TrainerNoMeta
-
     from unit_tpu_torch.evaluation import evaluator as ev_mod
+    from unit_tpu_torch.parallel import comm
+    from unit_tpu_torch.parallel import mesh as mesh_lib
 
     made, merged = [], []
+    on_card = device.type == "cuda"
 
     class Recording(TrainerNoMeta):
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
-            self.launches = []
+            self.launches, self.memory, self.step_ms, self.collectives = [], [], [], {}
             made.append(self)
 
         def run_step(self):
+            if sharded and not self.launches:
+                self.buffers = buffers_digest(self.model)
+            if on_card and sharded:
+                start = torch.cuda.memory_allocated(device)
+                hooks_peak = torch.cuda.max_memory_allocated(device)
+                torch.cuda.reset_peak_memory_stats(device)
             reset_launch_counts()
-            metrics = super().run_step()
+            t = time.perf_counter()  # the step ends in its one fetch of the ranks' losses
+            if self.state.step + 1 == profile_step:
+                with torch.profiler.profile(
+                        activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+                    metrics = super().run_step()
+                # gloo's own ranges: each collective's host time, device copies included
+                self.collectives = {e.key: (e.count, e.cpu_time_total / 1e3)
+                                    for e in prof.key_averages() if e.key.startswith("gloo:")}
+            else:
+                metrics = super().run_step()
+            self.step_ms.append((time.perf_counter() - t) * 1e3)
             self.launches.append(read_launch_counts())
+            if on_card and sharded:
+                self.memory.append({"start": start, "hooks_peak": hooks_peak,
+                                    "peak": torch.cuda.max_memory_allocated(device),
+                                    "end": torch.cuda.memory_allocated(device)})
+                torch.cuda.reset_peak_memory_stats(device)
             return metrics
 
     real_trainer, runner.TrainerNoMeta = runner.TrainerNoMeta, Recording
     real_merge = recording_merges(merged)
+    refreshes = count_calls(runner, "precise_bn")
     DatasetCatalog.clear()
     try:
         results = runner.run(runner.default_argument_parser().parse_args(argv))
     finally:
         runner.TrainerNoMeta, ev_mod.merge_gathered = real_trainer, real_merge
+        runner.precise_bn = refreshes["real"]
     trainer = made[-1]
     first = trainer.state.step - len(trainer.metrics_history)
     n_backbone, n_res5, n_trainable = frozen_bn_counts(trainer.model)
-    return {"results": results, "launches": trainer.launches, "merged": merged,
-            "k4": (n_backbone + 3 * n_res5, n_trainable + 2 * n_res5),
-            "losses": {first + 1 + k: {n: v for n, v in m.items() if n != "data_time"}
-                       for k, m in enumerate(trainer.metrics_history)},
-            "digest": state_digest(trainer.model)}
+    out = {"results": results, "launches": trainer.launches, "merged": merged,
+           "k4": (n_backbone + 3 * n_res5, n_trainable + 2 * n_res5),
+           "losses": {first + 1 + k: {n: v for n, v in m.items() if n != "data_time"}
+                      for k, m in enumerate(trainer.metrics_history)}}
+    if not sharded:
+        out["digest"] = state_digest(trainer.model)
+        return out
+    model = trainer.model
+    split = {name: (p.to_local().numel() if hasattr(p, "to_local") else p.numel(),
+                    int(np.prod(mesh_lib.full_shape(p))))
+             for name, p in model.named_parameters() if comm.is_split(p)}
+    out.update(rank=comm.rank(), digests=sh_digests(model), memory=trainer.memory,
+               step_ms=trainer.step_ms, collectives=trainer.collectives, split=split,
+               buffers_changed=buffers_digest(model) != trainer.buffers,
+               refreshes=refreshes["n"],
+               finite=all(np.isfinite(v) for m in trainer.metrics_history for v in m.values()),
+               whole_bytes=sum(int(np.prod(mesh_lib.full_shape(t))) * t.element_size()
+                               for t in itertools.chain(model.parameters(), model.buffers())))
+    return out
 
 
-def dp_train_and_f32_rank(device, train_args, f32_args):
-    """(a) then (b) in one rank process: ``dp_train_rank(*train_args)``, then
-    ``dp_f32_step(*f32_args)`` (one spawn fewer)."""
-    return dp_train_rank(device, *train_args), dp_f32_step(device, *f32_args)
+def dp_all_rank(device, train_args, f32_args, run_args):
+    """(a), (b) and (c) in one rank process (one spawn): ``dp_train_rank(
+    *train_args)``, ``dp_f32_step(*f32_args)``, then the run and its resume
+    (``dp_run_and_resume_rank(*run_args)``) with their seconds."""
+    import torch
+
+    a, b = dp_train_rank(device, *train_args), dp_f32_step(device, *f32_args)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    t = time.perf_counter()
+    c = dp_run_and_resume_rank(device, *run_args)
+    return a, b, (c, time.perf_counter() - t)
 
 
 def dp_run_and_resume_rank(device, argv_a, argv_b, out_a, out_b):
@@ -5851,6 +5955,45 @@ def dp_run_and_resume_rank(device, argv_a, argv_b, out_a, out_b):
         shutil.copy(os.path.join(out_a, f"step_{DP_RUN_PERIOD}.pt"), out_b)
     comm.barrier()
     return a, dp_run_rank(device, argv_b)
+
+
+def dp_run_argv(seed, workdir, dev, opts):
+    """(argv(out, *flags), init): the flagship's run-loop command line on
+    phase 20's devkit of JPEG files, from ``init``, a checkpoint of the
+    seeded flagship (``flagship_model``; both made in ``workdir`` once,
+    shared by phases 21 and 22): 2 + 2 images a rank at world 2,
+    DP_RUN_STEPS steps, a checkpoint and an evaluation every DP_RUN_PERIOD
+    (later options override them)."""
+    import torch
+
+    from unit_tpu_torch.checkpoint import Checkpointer
+    from unit_tpu_torch.engine.train import TrainState
+    from unit_tpu_torch.solver import build_optimizer
+
+    devkit = os.path.join(workdir, "VOCdevkit_jpeg")
+    if not os.path.isdir(devkit):
+        write_devkit(devkit, seed, shapes=HOST_WIRE_RUN_SHAPES, jpegs=True)
+    cfg = dp_cfg(opts)
+    init = os.path.join(workdir, "dp_init", "step_0.pt")
+    if not os.path.isfile(init):
+        model = flagship_model(cfg, seed, dev)
+        init = Checkpointer(os.path.dirname(init)).save(
+            0, TrainState(model, build_optimizer(cfg, model), 0))
+        del model
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    def argv(out, *flags):
+        return ["--config-file", str(FLAGSHIP), "--data-root", devkit, "--device", RUN_DEVICE,
+                *flags, "MODEL.WEIGHTS", init, "OUTPUT_DIR", out,
+                "MODEL.ROI_HEADS.EMBEDDING_PATH", str(ROOT / cfg.MODEL.ROI_HEADS.EMBEDDING_PATH),
+                "DATASETS.CLASSIFIER_DATAROOT", devkit, "SEED", str(seed),
+                "SOLVER.IMS_PER_BATCH", str(2 * DP_WORLD), "SOLVER.MAX_ITER", str(DP_RUN_STEPS),
+                "SOLVER.CHECKPOINT_PERIOD", str(DP_RUN_PERIOD),
+                "TEST.EVAL_PERIOD", str(DP_RUN_PERIOD),
+                "SOLVER.CLIP_GRADIENTS.ENABLED", "True", "SOLVER.CLIP_GRADIENTS.CLIP_TYPE", "norm",
+                *opts]
+    return argv, init
 
 
 def phase_data_parallel(seed, workdir):
@@ -5873,12 +6016,11 @@ def phase_data_parallel(seed, workdir):
     import torch
     import torch.distributed as dist
 
-    from unit_tpu_torch.checkpoint import Checkpointer, read_checkpoint
+    from unit_tpu_torch.checkpoint import read_checkpoint
     from unit_tpu_torch.data import DatasetCatalog
     from unit_tpu_torch.engine import runner
-    from unit_tpu_torch.engine.train import TrainerNoMeta, TrainState
+    from unit_tpu_torch.engine.train import TrainerNoMeta
     from unit_tpu_torch.parallel import launch
-    from unit_tpu_torch.solver import build_optimizer
 
     dev = torch.device(RUN_DEVICE)
     on_card = dev.type == "cuda"
@@ -5902,14 +6044,19 @@ def phase_data_parallel(seed, workdir):
     if on_card:
         torch.cuda.empty_cache()
 
-    # (a) world 2 at the recipe's global batch, then (b) world 2, in one spawn
+    argv, _ = dp_run_argv(seed, workdir, dev, opts)
+
+    # (a) world 2 at the recipe's global batch, (b) world 2, then (c) the run
+    # loop at world 2 and its resume, in one spawn
     grads_path = os.path.join(workdir, "dp_f32_grads.pt")
+    out_a, out_b = os.path.join(workdir, "dp_run_a"), os.path.join(workdir, "dp_run_b")
     t = time.perf_counter()
-    both = spawn(dp_train_and_f32_rank,
+    both = spawn(dp_all_rank,
                  (opts, seed, DP_IMAGES_PER_RANK, TRAIN_CANVASES, DP_WARMUP, DP_STEPS),
-                 (opts, seed, strong, weak, grads_path))
+                 (opts, seed, strong, weak, grads_path),
+                 (argv(out_a), argv(out_b, "--resume"), out_a, out_b))
     secs = time.perf_counter() - t
-    ranks = [r for r, _ in both]
+    ranks = [r for r, _, _ in both]
     for r in ranks:
         log(f"[21] (a) rank {r['rank']}: {DP_STEPS} timed steps of {DP_IMAGES_PER_RANK} + "
             f"{DP_IMAGES_PER_RANK} images, median {np.median(r['step_ms']):.2f} ms (min "
@@ -5926,7 +6073,7 @@ def phase_data_parallel(seed, workdir):
             "bn_act_layout_copies": 2 * DP_STEPS}
     same = len({r["digest"] for r in ranks}) == 1
     slowest = max(np.median(r["step_ms"]) for r in ranks)
-    log(f"[21] (a) + (b) {DP_WORLD} ranks in {secs:.1f} s (spawn, builds, steps); (a)'s "
+    log(f"[21] (a) + (b) + (c) {DP_WORLD} ranks in {secs:.1f} s (spawn, builds, steps); (a)'s "
         f"state's hash equal on every rank {same}; global images/s "
         f"{1e3 * 2 * DP_IMAGES_PER_RANK * DP_WORLD / slowest:.2f}")
     if not (same and all(r["finite"] for r in ranks)) or len(
@@ -5960,31 +6107,7 @@ def phase_data_parallel(seed, workdir):
         torch.cuda.empty_cache()
 
     # (c) the run loop at world 2 on JPEG files (phase 20's devkit)
-    devkit = os.path.join(workdir, "VOCdevkit_jpeg")
-    if not os.path.isdir(devkit):
-        write_devkit(devkit, seed, shapes=HOST_WIRE_RUN_SHAPES, jpegs=True)
-    cfg = dp_cfg(opts)
-    model = flagship_model(cfg, seed, dev)
-    init = Checkpointer(os.path.join(workdir, "dp_init")).save(
-        0, TrainState(model, build_optimizer(cfg, model), 0))
-    del model
-
-    def argv(out, *flags):
-        return ["--config-file", str(FLAGSHIP), "--data-root", devkit, "--device", RUN_DEVICE,
-                *flags, "MODEL.WEIGHTS", init, "OUTPUT_DIR", out,
-                "MODEL.ROI_HEADS.EMBEDDING_PATH", str(ROOT / cfg.MODEL.ROI_HEADS.EMBEDDING_PATH),
-                "DATASETS.CLASSIFIER_DATAROOT", devkit, "SEED", str(seed),
-                "SOLVER.IMS_PER_BATCH", str(2 * DP_WORLD), "SOLVER.MAX_ITER", str(DP_RUN_STEPS),
-                "SOLVER.CHECKPOINT_PERIOD", str(DP_RUN_PERIOD),
-                "TEST.EVAL_PERIOD", str(DP_RUN_PERIOD),
-                "SOLVER.CLIP_GRADIENTS.ENABLED", "True", "SOLVER.CLIP_GRADIENTS.CLIP_TYPE", "norm",
-                *opts]
-
-    out_a, out_b = os.path.join(workdir, "dp_run_a"), os.path.join(workdir, "dp_run_b")
-    t = time.perf_counter()
-    (a, a2), (b, _) = spawn(dp_run_and_resume_rank, argv(out_a), argv(out_b, "--resume"),
-                            out_a, out_b)
-    secs_a = time.perf_counter() - t
+    ((a, a2), secs_a), ((b, _), _) = both[0][2], both[1][2]
     k4_fwd, k4_bwd = a["k4"]
     want = {"roi_align_fwd": 2, "roi_align_bwd": 2, "nms_mask": 1, "nms_mask_images": 4,
             "bn_act_fwd": k4_fwd, "bn_act_bwd": k4_bwd, "bn_act_layout_copies": 2}
@@ -5992,7 +6115,8 @@ def phase_data_parallel(seed, workdir):
     ap = a["results"]["bbox"]
     log(f"[21] (c) run at world 2 ({DP_RUN_STEPS} steps of 2 + 2 images a rank through the C "
         f"loader, checkpoints and evaluations at {DP_RUN_PERIOD} and {DP_RUN_STEPS}) and its "
-        f"resume in one spawn, {secs_a:.1f} s: AP50 {ap['AP50']:.6g}, AP {ap['AP']:.6g}, the "
+        f"resume in the spawn of (a) and (b), {secs_a:.1f} s of it: AP50 {ap['AP50']:.6g}, "
+        f"AP {ap['AP']:.6g}, the "
         f"ranks' results equal {strip_results(a['results']) == strip_results(b['results'])}, "
         f"states equal {a['digest'] == b['digest']}; OUTPUT_DIR holds {written}; rank 0's "
         f"launches a step {a['launches'][-1]}")
@@ -6101,6 +6225,400 @@ def phase_data_parallel(seed, workdir):
     return by_path
 
 
+# Phase 22: FSDP and tensor parallelism on one card.  As in phase 21, NCCL
+# refuses two ranks on one device, so the two ranks share card 0 over gloo,
+# which stages every collective's CUDA tensors through the host: FSDP2's
+# all-gathers and reduce-scatters, each TP layer's all-gather and
+# input-gradient all-reduce.  The step times are the cost of gloo on one
+# card, not FSDP or TP figures.
+SH_WORLD = 2
+SH_TIMEOUT = 900                    # seconds a launch may take, collectives and join
+SH_LOSS_RTOL = 1e-5                 # (c): the split f32 step's losses against one process's
+# (a) and (b) drive engine.runner.run under each mode on phase 20's JPEG
+# devkit from phase 21's initial checkpoint: a warm-up step, then the timed
+# ones, the last under the profiler; an evaluation on a whole replica and a
+# checkpoint every SH_RUN_PERIOD steps (so a step follows an evaluation)
+SH_RUN_PERIOD = 2
+SH_MODES = {  # mode: (images a rank and stream, warm-up steps, timed steps, options)
+    "fsdp": (4, 1, 3, ("TPU.FSDP", "True")),  # phase 21's 4 + 4 a rank
+    # 1 + 1 on its one data rank; PreciseBN before each evaluation, on the
+    # replica, the statistics copied back
+    "tp": (1, 1, 2, ("TPU.TP", str(SH_WORLD), "TEST.PRECISE_BN.ENABLED", "True",
+                     "TEST.PRECISE_BN.NUM_ITER", "1")),
+}
+SH_FSDP_LEAF = "backbone.res4.block0.conv1.weight"
+
+
+def sh_split(model, mode, device):
+    """(model split over two ranks as ``mode`` says, its mesh)."""
+    from unit_tpu_torch.parallel import comm
+    from unit_tpu_torch.parallel import mesh as mesh_lib
+
+    if mode == "fsdp":
+        mesh = mesh_lib.make_mesh(comm.world(), device.type)
+        mesh_lib.fsdp_shard(model, mesh)
+    else:
+        mesh = mesh_lib.make_mesh_tp(1, comm.world(), device.type)
+        mesh_lib.tp_shard(model, mesh)
+    return model, mesh
+
+
+def sh_digests(model, optimizer=None):
+    """Hashes of the gathered parameters and buffers (a collective), of the
+    parameters no mode split, and with ``optimizer`` of the gathered momenta."""
+    import hashlib
+
+    import torch
+
+    from unit_tpu_torch.parallel import comm
+    from unit_tpu_torch.parallel import mesh as mesh_lib
+
+    def h(items):
+        d = hashlib.sha256()
+        for name, t in items:
+            d.update(str(name).encode())
+            d.update(t.detach().cpu().contiguous().view(-1).view(torch.uint8).numpy().tobytes())
+        return d.hexdigest()
+
+    out = {"state": h(sorted(mesh_lib.full_state_dict(model).items())),
+           "whole": h((n, p) for n, p in model.named_parameters() if not comm.is_split(p))}
+    if optimizer is not None:
+        params = [p for g in optimizer.param_groups for p in g["params"]]
+        out["momentum"] = h((i, mesh_lib.full_tensor(optimizer.state[p]["momentum_buffer"], p))
+                            for i, p in enumerate(params) if p in optimizer.state)
+    return out
+
+
+def sh_f32_step(device, mode, opts, seed, strong, weak, grads_path=None, ckpt_dir=None,
+                restore_path=None):
+    """(c) and (d): one f32 step (TF32 off, every candidate kept) of the
+    flagship split as ``mode`` says ("plain": one process) on this data
+    rank's rows of ``strong``/``weak``: (losses, the whole gradient that
+    enters the optimizer; a rank saves it to ``grads_path`` on rank 0 and
+    returns None).  ``ckpt_dir``: then a checkpoint of the state there and
+    the digests of the gathered state.  ``restore_path``: the model restored
+    from that checkpoint after the step: whether each rank's parts equal
+    the file's slices, bit for bit."""
+    import torch
+
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        return sh_f32_run(device, mode, opts, seed, strong, weak, grads_path, ckpt_dir,
+                          restore_path)
+    finally:  # a rank's later runs in bf16 keep their own settings
+        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = flags
+
+
+def sh_f32_run(device, mode, opts, seed, strong, weak, grads_path, ckpt_dir, restore_path):
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from unit_tpu_torch.checkpoint import Checkpointer, read_checkpoint
+    from unit_tpu_torch.engine import TrainerNoMeta
+    from unit_tpu_torch.parallel import comm
+    from unit_tpu_torch.parallel import mesh as mesh_lib
+    from unit_tpu_torch.solver import build_optimizer
+
+    cfg = dp_cfg((*opts, *DP_KEEP_ALL_OPTS))
+
+    def build():
+        model = flagship_model(cfg, seed, device)
+        mesh = None
+        if mode != "plain":
+            model, mesh = sh_split(model, mode, device)
+        solver = build_optimizer(cfg, model)
+        n_model = comm.world() if mode == "tp" else 1
+        r, n = comm.data_rank(n_model), comm.data_world(n_model)
+        rows = len(strong["image"]) // n
+
+        def mine(batch):
+            return {k: v[r * rows:(r + 1) * rows] for k, v in batch.items()}
+
+        trainer = TrainerNoMeta(model, solver, itertools.repeat(mine(strong)),
+                                itertools.repeat(mine(weak)), seed=seed, mesh=mesh,
+                                fsdp=mode == "fsdp", tp=mode == "tp")
+        trainer.init_state()
+        return model, solver, trainer
+
+    model, solver, trainer = build()
+    names = [name for name, p in model.named_parameters()]
+    by_id = {id(p): name for name, p in model.named_parameters()}
+    grads = {}
+
+    def keep(optimizer, args, kwargs):  # the gradient that enters SGD, gathered whole
+        for g in optimizer.param_groups:
+            for p in g["params"]:
+                grads[by_id[id(p)]] = mesh_lib.full_tensor(p.grad, p).clone()
+
+    handle = solver.optimizer.register_step_pre_hook(keep)
+    metrics = trainer.run_step()
+    handle.remove()
+    out = {"metrics": metrics, "names": names}
+    if ckpt_dir is not None:
+        Checkpointer(ckpt_dir).save(int(trainer.state.step), trainer.state)
+        out["digests"] = sh_digests(model, solver.optimizer)
+    if restore_path is not None:  # into the same split model: every value is overwritten
+        Checkpointer(os.path.dirname(restore_path)).restore(state=trainer.state)
+        file = read_checkpoint(restore_path)
+        opt = solver.optimizer
+        equal = trainer.state.step == file["step"]
+        for name, t in itertools.chain(model.named_parameters(), model.named_buffers()):
+            local = t.to_local() if isinstance(t, DTensor) else t
+            equal &= torch.equal(local.detach().cpu(), mesh_lib.local_part(file["model"][name], t))
+        params = [p for g in opt.param_groups for p in g["params"]]
+        for i, p in enumerate(params):
+            buf = opt.state[p]["momentum_buffer"]
+            buf = buf.to_local() if isinstance(buf, DTensor) else buf
+            equal &= torch.equal(buf.cpu(), mesh_lib.local_part(
+                file["optimizer"]["state"][i]["momentum_buffer"], p))
+        out["restored_parts_equal"] = bool(equal)
+    if grads_path is None:
+        out["grads"] = grads
+        out["state"] = trainer.state  # one process: its model, restored into in (d)
+    elif comm.is_main():
+        torch.save({k: v.cpu() for k, v in grads.items()}, grads_path)
+    return out
+
+
+def sh_rank(device, args):
+    """In one rank process (one spawn), for each mode of ``args`` ({mode:
+    (run_argv, profile_step, f32_args)}): (a) or (b), the run loop, then
+    (c) and (d).  {mode: (run, its seconds, f32, the mode's seconds)}."""
+    import torch
+
+    out = {}
+    for mode, (run_argv, profile_step, f32_args) in args.items():
+        t = time.perf_counter()
+        run = dp_run_rank(device, run_argv, sharded=True, profile_step=profile_step)
+        run_secs = time.perf_counter() - t
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        f32 = sh_f32_step(device, mode, *f32_args)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        out[mode] = run, run_secs, f32, time.perf_counter() - t
+    return out
+
+
+def sh_compare_grads(tag, m1, g1, m2, g2):
+    """(c)'s gate: the split step's losses to SH_LOSS_RTOL and gradients to
+    phase 8's bound against the one process's."""
+    loss_rel = max(abs(m2[k] - m1[k]) / max(abs(m1[k]), 1e-12) for k in m1 if k != "data_time")
+    big = max(float(g.abs().max()) for g in g1.values())
+    over = {n: float((g2[n].to(g1[n].device) - g1[n]).abs().max())
+            / (TRAIN_GRAD_REL * float(g1[n].abs().max()) + TRAIN_GRAD_FLOOR * big) for n in g1}
+    worst = sorted(over, key=over.get, reverse=True)[:3]
+    log(f"[22] (c) {tag}: losses max rel diff {loss_rel:.3g} (tol {SH_LOSS_RTOL}); "
+        f"{len(g1)} gradients, worst max|diff|/bound {over[worst[0]]:.3g} (bound "
+        f"{TRAIN_GRAD_REL} * max|g_leaf| + {TRAIN_GRAD_FLOOR} * G, G = {big:.4g}): "
+        + ", ".join(f"{n} {over[n]:.3g}" for n in worst))
+    if set(g2) != set(g1) or loss_rel > SH_LOSS_RTOL or over[worst[0]] > 1.0:
+        raise AssertionError(f"the {tag} f32 step is not the one-process step")
+
+
+def sh_restored_digests(path, state):
+    """(d): one process restores ``path`` into the whole flagship's ``state``
+    (every value overwritten): the digests of its state and momenta."""
+    from unit_tpu_torch.checkpoint import Checkpointer
+
+    Checkpointer(os.path.dirname(path)).restore(state=state)
+    return sh_digests(state.model, state.solver.optimizer)
+
+
+def phase_sharded(seed, workdir):
+    """Phase 22: FSDP and TP on one card, two gloo ranks on card 0, in one
+    spawn.  (a) FSDP at world 2 and (b) TP 2 at world 2 (data 1 x model 2)
+    through engine.runner.run on phase 20's JPEG devkit, warm-started from
+    phase 21's initial checkpoint of the flagship (bf16, full width): the
+    runner builds the mesh, splits the model and builds the solver after.
+    (a) 4 + 4 images a rank, 1 warm-up + 3 steps; (b) 1 + 1, 1 + 2 steps.
+    Per rank the timed steps' ms, the last one under the profiler with its
+    gloo collectives' host ms by name, and their peak memory; every step's
+    launches (K1 2, K2 2, K3 1, K4 124 + 103, as one process at the rank's
+    images), finite losses equal on both ranks, one gathered state; (a)
+    res4's first conv half on each rank; (b) every split kernel half its
+    output channels, the parameters no mode splits bit-identical on both
+    ranks, and PreciseBN before each evaluation (on the replica, the
+    statistics copied back).  An evaluation on a whole replica and a
+    checkpoint every SH_RUN_PERIOD steps and at the end: finite AP, the
+    ranks' results equal, and the device memory an evaluation leaves behind
+    (under half the whole model's bytes: the replica is dropped), with the
+    peak of the step after it.  (c) f32, TF32 off, every candidate kept:
+    FSDP at world 2 (1 + 1 a rank) against one process (2 + 2), TP 2 (1 + 1
+    on the data rank) against one process (1 + 1): losses 1e-5, gradients
+    phase 8's bound.  (d) the checkpoint of (c)'s FSDP state and of its TP
+    state, each restored by one process (state and momenta hash as the
+    ranks' gathered state); the one-process (c) checkpoint restored under
+    FSDP and under TP (each rank's parts equal the file's slices).  Returns
+    {path: launch counts}."""
+    import torch
+
+    from unit_tpu_torch.parallel import launch
+
+    dev = torch.device(RUN_DEVICE)
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    devices = [0] * SH_WORLD if on_card else ["cpu"] * SH_WORLD
+    opts = list(RUN_EXTRA_OPTS)
+    by_path = {}
+
+    def free():
+        if on_card:
+            torch.cuda.empty_cache()
+
+    argv, _ = dp_run_argv(seed, workdir, dev, opts)
+    cfg32 = dp_cfg((*opts, *DP_KEEP_ALL_OPTS))
+    batch = synthetic_train_batches(cfg32, seed + 5, n_batches=1, per_stream=SH_WORLD)
+    strong, weak = batch[0][0], batch[1][0]
+    one_img = ({k: v[:1] for k, v in strong.items()}, {k: v[:1] for k, v in weak.items()})
+    results, args = {}, {}
+    for mode, (s, w) in (("fsdp", (strong, weak)), ("tp", one_img)):
+        # the one process's f32 step first, and its checkpoint
+        one_dir = os.path.join(workdir, f"sh_one_{mode}")
+        t = time.perf_counter()
+        one = sh_f32_step(dev, "plain", opts, seed, s, w, ckpt_dir=one_dir)
+        secs_one = time.perf_counter() - t
+        free()
+        paths = [os.path.join(workdir, f"sh_{mode}_{x}") for x in ("grads.pt", "ckpt", "run")]
+        grads_path, split_dir, run_dir = paths
+        images, warmup, steps, mode_opts = SH_MODES[mode]
+        data_ranks = 1 if mode == "tp" else SH_WORLD
+        args[mode] = (argv(run_dir) + ["SOLVER.IMS_PER_BATCH", str(images * data_ranks),
+                                       "SOLVER.MAX_ITER", str(warmup + steps),
+                                       "SOLVER.CHECKPOINT_PERIOD", str(SH_RUN_PERIOD),
+                                       "TEST.EVAL_PERIOD", str(SH_RUN_PERIOD), *mode_opts],
+                      warmup + steps,
+                      (opts, seed, s, w, grads_path, split_dir,
+                       os.path.join(one_dir, "step_1.pt")))
+        results[mode] = (one, secs_one, *paths)
+    # both modes in one spawn: the ranks start and reach the card once
+    t = time.perf_counter()
+    ranks = launch(sh_rank, SH_WORLD, devices, "gloo", args=(args,), timeout=SH_TIMEOUT)
+    log(f"[22] one spawn of {SH_WORLD} ranks for both modes: {time.perf_counter() - t:.1f} s "
+        f"(the start, then for each mode (a) or (b) and (c) and (d))")
+    free()
+
+    # (a) FSDP and (b) TP 2 through the run loop
+    for mode, tag, label in (("fsdp", "(a)", "FSDP"), ("tp", "(b)", f"TP {SH_WORLD}")):
+        images, warmup, steps, mode_opts = SH_MODES[mode]
+        runs = [r[mode][0] for r in ranks]
+        run_dir = results[mode][-1]
+        a, b = runs
+        k4_fwd, k4_bwd = a["k4"]
+        want = {"roi_align_fwd": 2, "roi_align_bwd": 2, "nms_mask": 1,
+                "nms_mask_images": 2 * images, "bn_act_fwd": k4_fwd, "bn_act_bwd": k4_bwd,
+                "bn_act_layout_copies": 2}
+        for r in runs:
+            timed = r["step_ms"][warmup:-1]
+            log(f"[22] {tag} {label} rank {r['rank']}: engine.runner.run, {steps} timed steps "
+                f"of {images} + {images} images after {warmup} warm-up, the last under the "
+                f"profiler: the others' median {np.median(timed):.2f} ms (min "
+                f"{min(timed):.2f}, max {max(timed):.2f}); the profiled one "
+                f"{r['step_ms'][-1]:.2f} ms, its collectives (calls, host ms) "
+                f"{ {k: (n, round(ms, 2)) for k, (n, ms) in r['collectives'].items()} }; "
+                + (f"peak device memory of the timed steps "
+                   f"{max(m['peak'] for m in r['memory'][warmup:]) / 2**30:.2f} GiB; "
+                   if on_card else "")
+                + f"{len(r['split'])} parameters split; launches a step {r['launches'][-1]}; "
+                f"total_loss {[round(m['total_loss'], 4) for m in r['losses'].values()]}")
+            if on_card:
+                # the step after the first evaluation against the one before it
+                before, after = r["memory"][SH_RUN_PERIOD - 1], r["memory"][SH_RUN_PERIOD]
+                left = after["start"] - before["end"]
+                log(f"[22] {tag} {label} rank {r['rank']}: device memory allocated after step "
+                    f"{SH_RUN_PERIOD} {before['end'] / 2**30:.3f} GiB, after its evaluation "
+                    f"{after['start'] / 2**30:.3f} GiB (left behind {left / 2**20:.1f} MiB; the "
+                    f"whole model {r['whole_bytes'] / 2**20:.1f} MiB); peak of the evaluation "
+                    f"{after['hooks_peak'] / 2**30:.2f} GiB; peak of step {SH_RUN_PERIOD} "
+                    f"{before['peak'] / 2**30:.2f} GiB, of step {SH_RUN_PERIOD + 1} after the "
+                    f"evaluation {after['peak'] / 2**30:.2f} GiB")
+                if not left < r["whole_bytes"] / 2:
+                    raise AssertionError(f"an evaluation under {label} left {left} bytes on "
+                                         f"the card: its whole replica was kept")
+        written = sorted(os.listdir(run_dir))
+        ap = a["results"]["bbox"]
+        dets, images_seen = a["merged"][-1]
+        leaf = [r["split"].get(SH_FSDP_LEAF) for r in runs]
+        halves = all(2 * local == whole for r in runs for local, whole in r["split"].values())
+        bn = "TEST.PRECISE_BN.ENABLED" in mode_opts
+        log(f"[22] {tag} {label}: the run and (c), (d) {max(r[mode][3] for r in ranks):.1f} s of "
+            f"the spawn, the run {max(r[mode][1] for r in ranks):.1f} s; "
+            + (f"{SH_FSDP_LEAF} {leaf} (local, whole) elements; " if mode == "fsdp" else
+               f"every split parameter half on each rank {halves}; the parameters no mode "
+               f"splits bit-identical on both ranks "
+               f"{a['digests']['whole'] == b['digests']['whole']}; ")
+            + f"the gathered states' hash equal {a['digests']['state'] == b['digests']['state']}; "
+            f"{len(a['merged'])} evaluations on a whole replica (the last {len(dets)} "
+            f"detections of {len(images_seen)} images): AP50 {ap['AP50']:.6g}, AP "
+            f"{ap['AP']:.6g}, the ranks' results equal "
+            f"{strip_results(a['results']) == strip_results(b['results'])}; PreciseBN "
+            f"refreshes {a['refreshes']}, the FrozenBN statistics changed "
+            f"{a['buffers_changed']}; OUTPUT_DIR holds {written}")
+        if not all(r["finite"] for r in runs) or a["losses"] != b["losses"] \
+                or a["digests"]["state"] != b["digests"]["state"] \
+                or any(len(r["launches"]) != warmup + steps for r in runs):
+            raise AssertionError(f"the {label} ranks' states or losses differ, or a loss is "
+                                 f"not finite")
+        if mode == "fsdp" and any(x is None or 2 * x[0] != x[1] for x in leaf):
+            raise AssertionError(f"{SH_FSDP_LEAF} is not split in half over the ranks: {leaf}")
+        if mode == "tp" and not (halves and len(a["split"]) >= 2
+                                 and a["digests"]["whole"] == b["digests"]["whole"]):
+            raise AssertionError("TP did not split the kernels, or its ranks differ")
+        # PreciseBN's statistics of one batch leave the random detector no
+        # box above the test threshold: detections are gated without it
+        if not np.isfinite(ap["AP50"]) \
+                or strip_results(a["results"]) != strip_results(b["results"]) \
+                or not {f"step_{SH_RUN_PERIOD}.pt", "metrics.json"} <= set(written) \
+                or (len(dets) == 0 and not bn):
+            raise AssertionError(f"the {label} run loop did not evaluate and checkpoint alike "
+                                 f"on both ranks")
+        if any((r["refreshes"], r["buffers_changed"]) != (
+                (warmup + steps) // SH_RUN_PERIOD if bn else 0, bn) for r in runs):
+            raise AssertionError(f"PreciseBN under {label} did not refresh the statistics "
+                                 f"once an evaluation and copy them back, or they moved "
+                                 f"without it")
+        if on_card and any(c != want for r in runs for c in r["launches"]):
+            raise AssertionError(f"a {label} rank did not launch {want} in a step: "
+                                 f"{[r['launches'] for r in runs]}")
+        for r in runs:
+            by_path[f"{mode}_train_rank{r['rank']}"] = {
+                k: sum(c[k] for c in r["launches"][warmup:]) for k in want}
+        shutil.rmtree(run_dir, ignore_errors=True)
+
+    # (c) f32 against one process, and (d) the checkpoints
+    for mode, tag in (
+            ("fsdp", "FSDP at world 2 (1 + 1 a rank) against one process (2 + 2)"),
+            ("tp", "TP 2 at world 2 (1 + 1 on the data rank) against one process (1 + 1)")):
+        one, secs_one, path, ckpt_dir, _ = results[mode]
+        f32 = [r[mode][2] for r in ranks]
+        g2 = torch.load(path, map_location=dev, weights_only=True)
+        os.remove(path)
+        sh_compare_grads(f"{tag}, the one process {secs_one:.1f} s", one["metrics"],
+                         one["grads"], f32[0]["metrics"], g2)
+        del g2
+        free()
+        restored = sh_restored_digests(os.path.join(ckpt_dir, "step_1.pt"), one.pop("state"))
+        gathered = f32[0]["digests"]
+        parts = [c["restored_parts_equal"] for c in f32]
+        log(f"[22] (d) {tag.split(' (')[0]}: its checkpoint restored by one process, state "
+            f"and momenta bit-identical to the ranks' gathered ones "
+            f"{restored['state'] == gathered['state']} and "
+            f"{restored['momentum'] == gathered['momentum']}; the one-process checkpoint "
+            f"restored at world 2, each rank's parts the file's slices {parts}")
+        if restored["state"] != gathered["state"] or restored["momentum"] != gathered[
+                "momentum"] or not all(parts):
+            raise AssertionError("a checkpoint did not move between the topologies intact")
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        free()
+    log(f"[22] phase 22 in {time.perf_counter() - t_phase:.1f} s")
+    return by_path
+
+
 def strip_results(results):
     return {k: v for k, v in results.items() if k != "inference_seconds_per_image"}
 
@@ -6172,6 +6690,7 @@ def main():
         by_path.update(trained_paths)
         by_path.update(timed(20, phase_host_wire, cfg, args.seed, workdir))
         by_path.update(timed(21, phase_data_parallel, args.seed, workdir))
+        by_path.update(timed(22, phase_sharded, args.seed, workdir))
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s; seconds a "
         f"phase {seconds}")
 

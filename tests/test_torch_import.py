@@ -97,6 +97,24 @@ def test_no_source_of_the_port_imports_unit_tpu():
         assert not dynamic.search(text), f"{path.relative_to(REPO)} imports unit_tpu dynamically"
 
 
+def test_sharding_modules_and_rank_modules_import_no_jax():
+    """The FSDP and TP modules of the port, and the jax-free test modules
+    whose functions the spawned ranks import, load neither jax nor unit_tpu."""
+    code = ("import sys\n"
+            "import unit_tpu_torch.parallel.mesh, unit_tpu_torch.parallel.tensor\n"
+            "import tests.test_torch_parallel_run, tests.test_torch_sharded_run\n"
+            "loaded = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'unit_tpu'))\n"
+            "assert not loaded, loaded\n"
+            "print('no jax')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("no jax")
+    for path in (PORT / "parallel" / "mesh.py", PORT / "parallel" / "tensor.py"):
+        assert path in _sources()
+
+
 def test_no_source_of_the_port_loads_unit_tpus_native_library():
     """The port builds its loader from unit_tpu_torch/csrc/dataloader.cc
     (data/native.py); it never loads native/libunit_native.so."""

@@ -202,17 +202,21 @@ def test_missing_weights_and_device_raise(devkit, tmp_path):
                   "TEST.AUG.MIN_SIZES", "(64,)", "TEST.AUG.MAX_SIZE", "160",
                   "DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TEST", "8"], None,
                  id="opts0-item 24"),
-    pytest.param(["TPU.FSDP", "True"], "items 35-37", id="opts1-item 26"),
+    # FSDP and TP are ported (tests/test_torch_fsdp.py, test_torch_tp.py,
+    # test_torch_sharded_run.py): TPU.FSDP in one process is the plain run, as
+    # unit_tpu ignores FSDP without a mesh (item "trains alone")
+    pytest.param(["TPU.FSDP", "True"], "trains alone", id="opts1-item 26"),
     # the uint8 wire is ported (tests/test_torch_host_uint8.py): its case
     # trains on uint8 batches (item "trains") and evaluates
     pytest.param(["TPU.HOST_TRANSFER_UINT8", "True"], "trains", id="opts2-item 31"),
-    # data parallelism is ported (tests/test_torch_parallel*.py); FSDP, TP and
-    # PP, now items 35-37, keep their cases' names
-    pytest.param(["TPU.TP", "2"], "items 35-37", id="opts3-items 27 and 29"),
+    # data parallelism is ported (tests/test_torch_parallel*.py); FSDP and TP
+    # too: TPU.TP 2 in one process refuses, as unit_tpu's assert does
+    # (runner.py:222), since 2 does not divide the one rank
+    pytest.param(["TPU.TP", "2"], "not divisible by TPU.TP=2", id="opts3-items 27 and 29"),
     (["MODEL.BACKBONE.NAME", "VGG_CNN_F"], "item 25"),
     # the meta Trainer is ported (tests/test_torch_meta.py); the case keeps
     # its name and holds pipeline parallelism instead
-    pytest.param(["TPU.PP", "True"], "items 35-37", id="opts5-item 23"),
+    pytest.param(["TPU.PP", "True"], "item 37", id="opts5-item 23"),
 ])
 def test_unported_run_options_raise(devkit, tmp_path, opts, item, monkeypatch):
     tdata.DatasetCatalog.clear()
@@ -230,6 +234,15 @@ def test_unported_run_options_raise(devkit, tmp_path, opts, item, monkeypatch):
         assert losses and all(np.isfinite(v) for m in losses.values() for v in m.values())
         assert np.isfinite(results["bbox"]["AP50"])
         assert dtypes and set(dtypes) == {np.dtype(np.uint8)}
+        return
+    if item == "trains alone":  # one process: the plain run trains and evaluates
+        results, losses = run_recorded(monkeypatch, cli(devkit, tmp_path, opts=opts))
+        assert losses and all(np.isfinite(v) for m in losses.values() for v in m.values())
+        assert np.isfinite(results["bbox"]["AP50"])
+        return
+    if item is not None and item.startswith("not divisible"):
+        with pytest.raises(ValueError, match=item):
+            runner.run(cli(devkit, tmp_path, opts=opts), image_loader=seeded_image_loader)
         return
     if item is None:  # ported since: the run evaluates
         results = runner.run(cli(devkit, tmp_path, "--eval-only", opts=opts),

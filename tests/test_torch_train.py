@@ -22,7 +22,7 @@ import torch
 
 from tests.test_torch_losses import jax_params, small_train_cfg, train_batches
 from tests.test_torch_note import two_threads  # noqa: F401  (autouse)
-from tests.test_torch_parallel_run import rank_tiny_trainer, spawn
+from tests.test_torch_parallel_run import params_digest, rank_tiny_trainer, spawn
 from unit_tpu.engine.train import TrainState as JTrainState
 from unit_tpu.engine.train import make_train_step as jmake_train_step
 from unit_tpu.models.meta_arch import ModelConfig as JModelConfig
@@ -198,15 +198,19 @@ def test_train_losses_selects_proposals_once_for_a_fused_batch(monkeypatch, same
 
 @pytest.mark.parametrize("kwargs,item", [
     # the support stream is ported (tests/test_torch_meta.py); the case keeps
-    # its name and holds pipeline parallelism with a support stream instead
-    # (unit_tpu refuses that pair too)
-    pytest.param({"meta_iter": iter(()), "pp": True}, "items 35-37", id="kwargs0-item 23"),
-    pytest.param({"tp": True}, "items 35-37", id="kwargs1-items 27 and 29"),
+    # its name and holds pipeline parallelism with a support stream instead:
+    # unit_tpu refuses it first for its single micro-batch (train.py:617)
+    pytest.param({"meta_iter": iter(()), "pp": True}, "GRAD_ACCUM", id="kwargs0-item 23"),
+    # FSDP and TP are ported (tests/test_torch_fsdp.py, test_torch_tp.py):
+    # without a mesh the trainer ignores them, as unit_tpu's does, and takes
+    # the plain step, bit for bit (item "plain")
+    pytest.param({"tp": True}, "plain", id="kwargs1-items 27 and 29"),
     # data parallelism is ported (tests/test_torch_parallel*.py): a trainer in
     # a process group of two ranks trains; the case keeps its name
     pytest.param({}, "trains", id="kwargs2-items 27 and 29"),
-    pytest.param({"fsdp": True}, "items 35-37", id="kwargs3-items 27 and 29"),
-    pytest.param({"pp": True}, "items 35-37", id="kwargs4-items 27 and 29"),
+    pytest.param({"fsdp": True}, "plain", id="kwargs3-items 27 and 29"),
+    # pipeline parallelism (at unit_tpu's least GRAD_ACCUM) is not ported
+    pytest.param({"pp": True, "grad_accum": 2}, "item 37", id="kwargs4-items 27 and 29"),
 ])
 def test_unported_trainer_options_raise(kwargs, item, tmp_path):
     if item == "trains":
@@ -218,9 +222,35 @@ def test_unported_trainer_options_raise(kwargs, item, tmp_path):
     cfg = get_cfg()
     cfg.merge_from_file("configs/VOC/VOC-RCNN-101-C4-split1.yaml")
     cfg.merge_from_list(["MODEL.RESNETS.DEPTH", "26", "MODEL.RESNETS.RES2_OUT_CHANNELS", "16"])
+    if item == "plain":
+        got, want = (tiny_steps(cfg, **kw) for kw in (kwargs, {}))
+        assert got == want and all(np.isfinite(v) for m in got[1] for v in m)
+        return
     model = WSRCNN(ModelConfig.from_cfg(cfg))
-    with pytest.raises(NotImplementedError, match=item):
+    error = NotImplementedError if item.startswith("item") else ValueError
+    with pytest.raises(error, match=item):
         TrainerNoMeta(model, build_optimizer(cfg, model), **kwargs)
+
+
+def tiny_steps(cfg, **kwargs):
+    """Two steps of a seeded tiny flagship on one seeded batch pair: (the
+    parameters' digest, the losses of each step)."""
+    rng = np.random.RandomState(0)
+    strong = dict(image=rng.uniform(0, 255, (1, 64, 96, 3)).astype(np.float32),
+                  image_size=np.asarray([[64, 96]], np.float32),
+                  gt_boxes=np.asarray([[[10, 8, 50, 40], [30, 20, 90, 60]]], np.float32),
+                  gt_classes=np.asarray([[0, 3]], np.int32), gt_valid=np.ones((1, 2), bool))
+    labels = np.zeros((1, 20), np.float32)
+    labels[0, [0, 3]] = 1.0
+    weak = dict(image=rng.uniform(0, 255, (1, 64, 96, 3)).astype(np.float32), labels=labels,
+                image_size=np.asarray([[64, 96]], np.float32))
+    model = WSRCNN(ModelConfig.from_cfg(cfg), generator=torch.Generator().manual_seed(1))
+    trainer = TrainerNoMeta(model, build_optimizer(cfg, model), itertools.repeat(strong),
+                            itertools.repeat(weak), seed=1, **kwargs)
+    trainer.init_state()
+    trainer.train(2)
+    return params_digest(model), [[v for k, v in m.items() if k != "data_time"]
+                                  for m in trainer.metrics_history]
 
 
 def test_model_config_training_fields():

@@ -22,6 +22,15 @@ Under data parallelism every rank holds the same state and the same
 evaluation results: rank 0 alone writes (checkpoints, the best snapshot and
 its info), and every rank waits at a barrier after each write, so none reads
 or moves on before the file is in place.  Every rank reads a checkpoint.
+
+One format for every topology: under FSDP and TP (``parallel.mesh``) the
+payload holds the whole model and the whole momentum, gathered from the
+ranks' parts (a collective: every rank builds it, rank 0 writes it), keyed
+as one process keys them (the optimizer's state by parameter index, in the
+order of a model that nobody split).  A restore, a fine-tune warm start and
+``load_torch_resnet`` give each rank its part of each whole tensor
+(``mesh.load_full_``), so a file written by any topology loads into any
+other.
 """
 
 from __future__ import annotations
@@ -35,8 +44,9 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
-from ..parallel import comm
+from ..parallel import comm, mesh
 
 FORMAT = "unit_tpu_torch/1"
 _STEP_FILE = re.compile(r"^step_(\d+)\.pt$")
@@ -44,15 +54,42 @@ logger = logging.getLogger("unit_tpu_torch")
 
 
 def state_payload(state, best_info: Optional[Mapping] = None) -> Dict[str, Any]:
-    """The dict that goes to disk for a ``engine.train.TrainState``."""
-    return {
-        "format": FORMAT,
-        "step": int(state.step),
-        "model": state.model.state_dict(),
-        "optimizer": state.solver.optimizer.state_dict(),
-        "scheduler": state.solver.scheduler.state_dict(),
-        "best_info": dict(best_info or {}),
-    }
+    """The dict that goes to disk for a ``engine.train.TrainState``, as one
+    process writes it: a split model's parameters and momentum are gathered
+    whole (a collective: every rank calls it)."""
+    optimizer = state.solver.optimizer
+    opt = optimizer.state_dict()
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+    opt["state"] = {i: {k: mesh.full_tensor(v, params[i]) if torch.is_tensor(v) and v.dim()
+                        else v for k, v in st.items()} for i, st in opt["state"].items()}
+    return {"format": FORMAT, "step": int(state.step),
+            "model": mesh.full_state_dict(state.model), "optimizer": opt,
+            "scheduler": state.solver.scheduler.state_dict(), "best_info": dict(best_info or {})}
+
+
+def load_payload(state, payload: Mapping[str, Any]) -> None:
+    """Load a payload (``state_payload``'s, of any topology) into ``state``
+    in place: each rank takes its part of each split tensor."""
+    optimizer = state.solver.optimizer
+    mesh.load_full_state_dict(state.model, payload["model"])
+    opt = dict(payload["optimizer"])
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+    opt["state"] = {int(i): {k: _part(v, params[int(i)]) for k, v in st.items()}
+                    for i, st in opt["state"].items()}
+    optimizer.load_state_dict(opt)
+    state.solver.scheduler.load_state_dict(payload["scheduler"])
+    state.step = int(payload["step"])
+
+
+def _part(value, param: torch.Tensor):
+    """This rank's part of a whole optimizer-state tensor of ``param``, in
+    ``param``'s kind (an FSDP shard's momentum is a DTensor like it)."""
+    if not torch.is_tensor(value) or not value.dim():
+        return value
+    part = mesh.local_part(value.to(param.device), param).clone()
+    if isinstance(param, DTensor):
+        return DTensor.from_local(part, param.device_mesh, param.placements, run_check=False)
+    return part
 
 
 def _write(path: str, payload: Dict[str, Any]) -> None:
@@ -113,8 +150,9 @@ class Checkpointer:
         beyond ``max_to_keep``.  ``wait`` is accepted for unit_tpu's signature:
         the write is always complete on return, on every rank."""
         path = self._path(step)
+        payload = state_payload(state, self.best_info)  # a collective on a split model
         if comm.is_main():
-            _write(path, state_payload(state, self.best_info))
+            _write(path, payload)
             if self.max_to_keep:
                 for old in self.all_steps()[: -self.max_to_keep]:
                     os.remove(self._path(old))
@@ -139,10 +177,7 @@ class Checkpointer:
         payload = read_checkpoint(self._path(step))
         if state is None:
             return payload
-        state.model.load_state_dict(payload["model"])
-        state.solver.optimizer.load_state_dict(payload["optimizer"])
-        state.solver.scheduler.load_state_dict(payload["scheduler"])
-        state.step = int(payload["step"])
+        load_payload(state, payload)
         return state
 
     def maybe_save_best(self, step: int, ap50: float, state) -> bool:
@@ -150,12 +185,13 @@ class Checkpointer:
         if ap50 <= self.best_info.get("AP50", -1.0):
             return False
         self.best_info = {"AP50": float(ap50), "iteration": int(step)}
+        payload = state_payload(state, self.best_info)  # a collective on a split model
         if comm.is_main():
             with open(self._best_path, "w") as f:
                 json.dump(self.best_info, f)
             best_dir = os.path.join(self.directory, "best")
             os.makedirs(best_dir, exist_ok=True)
-            _write(os.path.join(best_dir, "model.pt"), state_payload(state, self.best_info))
+            _write(os.path.join(best_dir, "model.pt"), payload)
         comm.barrier()
         return True
 
@@ -171,16 +207,15 @@ def merge_params_from_checkpoint(model: nn.Module, path: str) -> Tuple[nn.Module
     targets = dict(model.named_parameters())
     targets.update(dict(model.named_buffers()))
     loaded, skipped = 0, []
-    with torch.no_grad():
-        for name, value in src.items():
-            dst = targets.get(name)
-            if dst is None:
-                skipped.append(name)
-            elif tuple(dst.shape) != tuple(value.shape):
-                skipped.append(f"{name} (shape {tuple(value.shape)} vs {tuple(dst.shape)})")
-            else:
-                dst.copy_(value)
-                loaded += 1
+    for name, value in src.items():
+        dst = targets.get(name)
+        if dst is None:
+            skipped.append(name)
+        elif mesh.full_shape(dst) != tuple(value.shape):
+            skipped.append(f"{name} (shape {tuple(value.shape)} vs {mesh.full_shape(dst)})")
+        else:
+            mesh.load_full_(dst, value.to(dst.device))
+            loaded += 1
     new = [name for name in targets if name not in src]
     if new:
         logger.info("skipped %d tensors that %s lacks, kept at their initialisation: %s",
@@ -288,26 +323,25 @@ def load_torch_resnet(model: nn.Module, state_dict: Mapping[str, Any],
     targets.update(dict(model.named_buffers()))
     has_weak_head = any(n.startswith("weak_box_head.") for n in targets)
     loaded, skipped = 0, []
-    with torch.no_grad():
-        for key, value in state_dict.items():
-            value = torch.as_tensor(np.asarray(value))
-            name = d2_resnet_key_to_torch(key)
-            if name is None:
+    for key, value in state_dict.items():
+        value = torch.as_tensor(np.asarray(value))
+        name = d2_resnet_key_to_torch(key)
+        if name is None:
+            skipped.append(key)
+            continue
+        names = [name]
+        if name.startswith("box_head."):
+            if "weak_box_head" in load_res5_into and has_weak_head:
+                names.append("weak_" + name)
+            if "box_head" not in load_res5_into:
+                names = names[1:]
+        for tgt in names:
+            dst = targets.get(tgt)
+            if dst is None:
                 skipped.append(key)
-                continue
-            names = [name]
-            if name.startswith("box_head."):
-                if "weak_box_head" in load_res5_into and has_weak_head:
-                    names.append("weak_" + name)
-                if "box_head" not in load_res5_into:
-                    names = names[1:]
-            for tgt in names:
-                dst = targets.get(tgt)
-                if dst is None:
-                    skipped.append(key)
-                elif tuple(dst.shape) != tuple(value.shape):
-                    skipped.append(f"{key} (shape {tuple(value.shape)} vs {tuple(dst.shape)})")
-                else:
-                    dst.copy_(value.to(dst.dtype))
-                    loaded += 1
+            elif mesh.full_shape(dst) != tuple(value.shape):
+                skipped.append(f"{key} (shape {tuple(value.shape)} vs {mesh.full_shape(dst)})")
+            else:
+                mesh.load_full_(dst, value.to(dst.device))
+                loaded += 1
     return model, loaded, skipped

@@ -31,13 +31,17 @@ to f32 on the device.
 
 Under data parallelism (``parallel``, one process a rank) the strong,
 classifier, classifier-strong, test and TTA loaders read the records
-``[rank::world]`` of their list (``_host_shard``), SOLVER.IMS_PER_BATCH is
-the global batch, split evenly over the ranks (``_per_host_batch``), and
-the training streams draw each batch's canvas orientation from one schedule
-that every rank shares (``StreamLoader(sync_portrait_frac=...)``, the
-portrait share of the whole list): every rank's batch of a step has the same
-shape, so ``TPU.GRAD_ACCUM`` groups form alike everywhere.  The support
-stream is not split: every rank reads the same shots, as in unit_tpu.
+``[data_rank::data_world]`` of their list (``_host_shard``),
+SOLVER.IMS_PER_BATCH is the global batch, split evenly over the data ranks
+(``_per_host_batch``), and the training streams draw each batch's canvas
+orientation from one schedule that every rank shares
+(``StreamLoader(sync_portrait_frac=...)``, the portrait share of the whole
+list): every rank's batch of a step has the same shape, so
+``TPU.GRAD_ACCUM`` groups form alike everywhere.  The data ranks are the
+ranks, except in the training streams under TPU.TP, whose model ranks of
+one data rank read the same records (``parallel.comm.data_rank``); the test
+loaders feed whole replicas and split over every rank.  The support stream
+is not split: every rank reads the same shots, as in unit_tpu.
 """
 
 from __future__ import annotations
@@ -339,27 +343,35 @@ class StreamLoader:
         self._resume = (order, {k: v for k, v in buckets.items() if v})
 
 
-def _host_shard(records: List[dict]) -> List[dict]:
-    """This rank's records, ``[rank::world]`` (the reference's per-rank
-    DistributedSampler; unit_tpu's host shard).  One rank: all of them."""
-    n = comm.world()
-    return records[comm.rank()::n] if n > 1 else records
+def _model_ranks(cfg) -> int:
+    """The ranks that share each data rank's images in training: TPU.TP's
+    model ranks (``parallel.comm.data_rank``), else 1."""
+    return int(getattr(cfg.TPU, "TP", 1) or 1)
 
 
-def _sync_portrait_frac(records: List[dict]) -> Optional[float]:
+def _host_shard(records: List[dict], model_ranks: int = 1) -> List[dict]:
+    """This data rank's records, ``[data_rank::data_world]`` (the reference's
+    per-rank DistributedSampler; unit_tpu's host shard): the ``model_ranks``
+    ranks of one data rank read the same records.  One data rank: all of
+    them."""
+    n = comm.data_world(model_ranks)
+    return records[comm.data_rank(model_ranks)::n] if n > 1 else records
+
+
+def _sync_portrait_frac(records: List[dict], model_ranks: int = 1) -> Optional[float]:
     """The portrait share of the WHOLE record list, for the orientation
-    schedule the ranks share; computed before ``_host_shard``, so every rank
-    derives the same value.  One rank: None (plain bucketing)."""
-    if comm.world() <= 1:
+    schedule the data ranks share; computed before ``_host_shard``, so every
+    rank derives the same value.  One data rank: None (plain bucketing)."""
+    if comm.data_world(model_ranks) <= 1:
         return None
     n = sum(1 for r in records if int(r["height"]) > int(r["width"]))
     return n / max(len(records), 1)
 
 
-def _per_host_batch(global_batch: int) -> int:
+def _per_host_batch(global_batch: int, model_ranks: int = 1) -> int:
     """SOLVER.IMS_PER_BATCH is the global batch (the reference's semantics:
-    split across workers), so each rank loads its share; it must divide."""
-    n = comm.world()
+    split across workers), so each data rank loads its share; it must divide."""
+    n = comm.data_world(model_ranks)
     if global_batch % n:
         raise ValueError(f"SOLVER.IMS_PER_BATCH={global_batch} is not divisible by the "
                          f"{n} ranks")
@@ -380,17 +392,18 @@ def build_strong_loader(cfg, dataset_names=None, seed=0, image_loader=None,
     RPN neither proposes nor trains on them)."""
     names = dataset_names or cfg.DATASETS.TRAIN
     records = list(itertools.chain.from_iterable(DatasetCatalog.get(n) for n in names))
-    sync_frac = _sync_portrait_frac(records)
-    records = _host_shard(records)
+    m = _model_ranks(cfg)
+    sync_frac = _sync_portrait_frac(records, m)
+    records = _host_shard(records, m)
     keys = _STRONG_KEYS + (("gt_masks",) if cfg.MODEL.MASK_ON else ())
     tcfg = TransformConfig.train_from_cfg(cfg)
     if cfg.MODEL.LOAD_PROPOSALS and cfg.DATASETS.PROPOSAL_FILES_TRAIN:
         _with_proposals(records, tcfg, cfg.DATASETS.PROPOSAL_FILES_TRAIN,
                         cfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TRAIN)
         keys = keys + _PROPOSAL_KEYS
-    return StreamLoader(records, tcfg, batch_size or _per_host_batch(cfg.SOLVER.IMS_PER_BATCH),
-                        keys, seed=seed, image_loader=image_loader,
-                        sync_portrait_frac=sync_frac)
+    return StreamLoader(records, tcfg,
+                        batch_size or _per_host_batch(cfg.SOLVER.IMS_PER_BATCH, m), keys,
+                        seed=seed, image_loader=image_loader, sync_portrait_frac=sync_frac)
 
 
 def build_classifier_loader(cfg, seed=1, image_loader=None, batch_size=None) -> StreamLoader:
@@ -402,17 +415,18 @@ def build_classifier_loader(cfg, seed=1, image_loader=None, batch_size=None) -> 
         names = (names,)
     records = list(itertools.chain.from_iterable(DatasetCatalog.get(n) for n in names))
     records = sample_classifier_dataset(cfg, records)
-    sync_frac = _sync_portrait_frac(records)
-    records = _host_shard(records)
+    m = _model_ranks(cfg)
+    sync_frac = _sync_portrait_frac(records, m)
+    records = _host_shard(records, m)
     tcfg = TransformConfig.train_from_cfg(cfg)
     keys = _WEAK_KEYS
     if cfg.MODEL.LOAD_PROPOSALS:
         _with_proposals(records, tcfg, cfg.DATASETS.PROPOSAL_FILES_CLASSIFIER_TRAIN,
                         cfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TRAIN)
         keys = keys + _PROPOSAL_KEYS
-    return StreamLoader(records, tcfg, batch_size or _per_host_batch(cfg.SOLVER.IMS_PER_BATCH),
-                        keys, seed=seed, image_loader=image_loader,
-                        sync_portrait_frac=sync_frac)
+    return StreamLoader(records, tcfg,
+                        batch_size or _per_host_batch(cfg.SOLVER.IMS_PER_BATCH, m), keys,
+                        seed=seed, image_loader=image_loader, sync_portrait_frac=sync_frac)
 
 
 def build_classifier_strong_loader(cfg, seed=0, image_loader=None,
@@ -425,12 +439,13 @@ def build_classifier_strong_loader(cfg, seed=0, image_loader=None,
         names = (names,)
     records = list(itertools.chain.from_iterable(DatasetCatalog.get(n) for n in names))
     records = [r for r in sample_classifier_dataset(cfg, records) if r.get("annotations")]
-    sync_frac = _sync_portrait_frac(records)
-    records = _host_shard(records)
+    m = _model_ranks(cfg)
+    sync_frac = _sync_portrait_frac(records, m)
+    records = _host_shard(records, m)
     keys = _STRONG_KEYS + (("gt_masks",) if cfg.MODEL.MASK_ON else ())
     return StreamLoader(
         records, TransformConfig.train_from_cfg(cfg),
-        batch_size or _per_host_batch(cfg.SOLVER.IMS_PER_BATCH), keys, seed=seed,
+        batch_size or _per_host_batch(cfg.SOLVER.IMS_PER_BATCH, m), keys, seed=seed,
         image_loader=image_loader, sync_portrait_frac=sync_frac,
     )
 

@@ -44,8 +44,21 @@ TEST.AUG.ENABLED; TEST.PRECISE_BN refreshes the FrozenBN statistics before
 each periodic evaluation (``PreciseBNHook``), and TPU.PROFILE_START_STEP
 traces a window of steps on rank 0 (``utils.profiling``).  Under
 MODEL.LOAD_PROPOSALS the loaders carry the DATASETS.PROPOSAL_FILES_* proposals
-and every evaluation (TTA included) scores them in place of the RPN's.  Not
-ported, each raising with its ROADMAP item: FSDP, TP and PP (35-37).
+and every evaluation (TTA included) scores them in place of the RPN's.
+
+FSDP and TP (TPU.FSDP, TPU.TP; ``parallel.mesh``): ``build_everything``
+builds unit_tpu's mesh over the ranks (runner.py:207-225): ("data", "model")
+of world / TP x TP under TPU.TP > 1 (the ranks must divide), ("data",) under
+TPU.FSDP at world > 1; one process runs the plain step, as unit_tpu ignores
+FSDP without a mesh.  It splits the model over the mesh, then builds the
+solver and the trainer.  Checkpoints are one process's format whatever the
+topology (``checkpoint.checkpointer``), and each evaluation predicts on a
+whole replica of the model, loaded once an evaluation from the gathered
+state (``on_whole_replica``) and dropped after it: predict holds no
+collective, so ranks with unequal image counts cannot hang, and every rank
+evaluates its shard of the test set as data-parallel ranks do; PreciseBN
+runs on such a replica too and copies the statistics back.  Pipeline
+parallelism (TPU.PP) raises with its ROADMAP item (37).
 """
 
 from __future__ import annotations
@@ -90,6 +103,7 @@ from ..evaluation import (
 from ..models import WSRCNN, ModelConfig
 from ..models.meta_arch import _not_ported
 from ..parallel import comm, init_from_env, launch
+from ..parallel import mesh as mesh_lib
 from ..solver import build_optimizer
 from ..solver.build import warmup_multistep
 from ..utils.events import MetricsHook, print_csv_format
@@ -273,12 +287,18 @@ def build_everything(cfg, device: Optional[torch.device] = None, seed: int = 0,
     datasets as its strong stream.  ``Trainer`` also reads the support
     stream, seeded ``seed + 2``."""
     device = device if device is not None else resolve_device(None)
-    if int(getattr(cfg.TPU, "TP", 1) or 1) > 1 or bool(getattr(cfg.TPU, "PP", False)) \
-            or cfg.TPU.FSDP:
-        raise _not_ported("TPU.TP, TPU.PP and TPU.FSDP", "ROADMAP Queue 1 items 35-37")
+    if bool(getattr(cfg.TPU, "PP", False)):
+        raise _not_ported("TPU.PP (pipeline parallelism)", "ROADMAP Queue 1 item 37")
+    mesh, fsdp, tp = build_mesh(cfg, device)
     trainer_cls = trainer_class_for(cfg)
     model = WSRCNN(ModelConfig.from_cfg(cfg),
                    generator=torch.Generator().manual_seed(seed)).to(device)
+    if fsdp or tp:
+        (mesh_lib.fsdp_shard if fsdp else mesh_lib.tp_shard)(model, mesh)
+        logger.info("%s over the %s mesh %s: %d of %d parameters split", "FSDP" if fsdp else "TP",
+                    mesh.mesh_dim_names, tuple(mesh.shape),
+                    sum(comm.is_split(p) for p in model.parameters()),
+                    len(list(model.parameters())))
     grad_accum = int(getattr(cfg.TPU, "GRAD_ACCUM", 1) or 1)
     pin = pin_batch if device.type == "cuda" else None
 
@@ -308,13 +328,30 @@ def build_everything(cfg, device: Optional[torch.device] = None, seed: int = 0,
     solver = build_optimizer(cfg, model)
     try:
         trainer = trainer_cls(model, solver, strong_iter=strong_iter, weak_iter=weak_iter,
-                              meta_iter=meta_iter, seed=seed, grad_accum=grad_accum)
+                              meta_iter=meta_iter, seed=seed, grad_accum=grad_accum,
+                              mesh=mesh, fsdp=fsdp, tp=tp)
     except BaseException:
         for it in (strong_iter, weak_iter, meta_iter):
             if it is not None:
                 it.close()
         raise
     return model, solver, trainer
+
+
+def build_mesh(cfg, device: torch.device):
+    """(mesh, fsdp, tp) of a config over this process group, as unit_tpu's
+    runner builds them: TPU.TP = M > 1 -> the (world / M, M) mesh (M must
+    divide the ranks); TPU.FSDP at world > 1 -> the 1-D mesh; otherwise
+    (None, False, False): data parallelism or one process."""
+    tp = int(getattr(cfg.TPU, "TP", 1) or 1)
+    if tp > 1:
+        n_data = comm.data_world(tp)  # ValueError unless TP divides the ranks
+        if cfg.TPU.FSDP:
+            raise ValueError("TPU.FSDP and TPU.TP are mutually exclusive sharding modes")
+        return mesh_lib.make_mesh_tp(n_data, tp, device.type), False, True
+    if cfg.TPU.FSDP and comm.world() > 1:
+        return mesh_lib.make_mesh(comm.world(), device.type), True, False
+    return None, False, False
 
 
 def support_dataset_name(cfg) -> str:
@@ -375,25 +412,59 @@ def load_initial_weights(cfg, model):
     return model
 
 
+def on_whole_replica(model, fn: Callable):
+    """``fn(net)`` with ``net`` a whole copy of ``model`` where FSDP or TP
+    split it (``parallel.mesh``), for the passes that run without
+    collectives (predict, PreciseBN); ``model`` itself where it is whole.
+    The copy is loaded from the gathered state (a collective: every rank
+    calls this), lives for the call and is dropped after it, so the training
+    steps between evaluations never carry a second model."""
+    if not mesh_lib.is_sharded(model):
+        return fn(model)
+    device = model.embeddings.device
+    state = mesh_lib.full_state_dict(model)
+    with torch.device("meta"):  # no initialisation: the state overwrites everything
+        replica = WSRCNN(model.mc)
+    replica = replica.to_empty(device=device)
+    replica.load_state_dict(state)
+    del state
+    impls = {n: m.impl for n, m in model.named_modules() if hasattr(m, "impl")}
+    for n, m in replica.named_modules():
+        if n in impls:
+            m.impl = impls[n]
+    try:
+        return fn(replica.train(model.training))
+    finally:
+        del replica
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+
+
 def make_eval_fn(cfg, model, image_loader: Optional[Callable] = None):
     """state (or model) -> results of every dataset of DATASETS.TEST.
 
     Under TEST.AUG.ENABLED each image goes through the multi-scale + flip
     test-time augmentation (``build_tta_test_loader``, ``predict_tta``), at
     batch 1; a meta model then binds no prototypes, as in unit_tpu (its
-    ``_meta_attention`` runs on the other branch only)."""
+    ``_meta_attention`` runs on the other branch only).  A model split by
+    FSDP or TP predicts through a whole replica (``on_whole_replica``)."""
     use_tta = cfg.TEST.AUG.ENABLED
 
     def eval_fn(state):
-        # Accumulate per dataset; with a single test dataset return its
-        # metrics flat, matching d2's DefaultTrainer.test.
         net = state.model if hasattr(state, "model") else state
         was_training = net.training
-        eval_net = net
+        try:
+            return on_whole_replica(net, evaluate)
+        finally:
+            net.train(was_training)
+
+    def evaluate(eval_net):
+        # Accumulate per dataset; with a single test dataset return its
+        # metrics flat, matching d2's DefaultTrainer.test.
         if getattr(cfg.TPU, "FOLD_BN_AT_EVAL", False):
             from ..utils.bn_fold import fold_frozen_bn
 
-            eval_net = fold_frozen_bn(net)  # a copy: training goes on unfolded
+            eval_net = fold_frozen_bn(eval_net)  # a copy: training goes on unfolded
         if use_tta:
             predict = make_tta_predict_fn(eval_net, tta_topk=cfg.TPU.TTA_PROPOSAL_TOPK)
         else:
@@ -402,34 +473,31 @@ def make_eval_fn(cfg, model, image_loader: Optional[Callable] = None):
         attention = (meta_attention(cfg, eval_net, image_loader)
                      if eval_net.mc.use_meta and not use_tta else None)
         all_results = {}
-        try:
-            for name in cfg.DATASETS.TEST:
-                evaluator = get_evaluator(cfg, name)
-                # this rank's shard, as its test loader reads: the evaluators
-                # are merged over the ranks before scoring, so the whole GT on
-                # every rank would be counted world times
-                for rec in _host_shard(DatasetCatalog.get(name)):
-                    evaluator.process_gt_record(rec)
+        for name in cfg.DATASETS.TEST:
+            evaluator = get_evaluator(cfg, name)
+            # this rank's shard, as its test loader reads: the evaluators
+            # are merged over the ranks before scoring, so the whole GT on
+            # every rank would be counted world times
+            for rec in _host_shard(DatasetCatalog.get(name)):
+                evaluator.process_gt_record(rec)
+            if use_tta:
+                loader, n = build_tta_test_loader(cfg, name, image_loader=image_loader)
+            else:
+                loader, n = build_test_loader(
+                    cfg, name, image_loader=image_loader,
+                    batch_size=int(getattr(cfg.TPU, "EVAL_BATCH_SIZE", 1)),
+                )
+            try:
                 if use_tta:
-                    loader, n = build_tta_test_loader(cfg, name, image_loader=image_loader)
+                    all_results[name] = inference_loop(predict, loader, evaluator, n)
+                elif attention is None:
+                    all_results[name] = inference_on_dataset(predict, loader, evaluator, n)
                 else:
-                    loader, n = build_test_loader(
-                        cfg, name, image_loader=image_loader,
-                        batch_size=int(getattr(cfg.TPU, "EVAL_BATCH_SIZE", 1)),
-                    )
-                try:
-                    if use_tta:
-                        all_results[name] = inference_loop(predict, loader, evaluator, n)
-                    elif attention is None:
-                        all_results[name] = inference_on_dataset(predict, loader, evaluator, n)
-                    else:
-                        all_results[name] = inference_on_dataset_meta(
-                            lambda _attention, *a: predict(*a), loader, attention,
-                            evaluator, n)
-                finally:
-                    loader.close()
-        finally:
-            net.train(was_training)
+                    all_results[name] = inference_on_dataset_meta(
+                        lambda _attention, *a: predict(*a), loader, attention,
+                        evaluator, n)
+            finally:
+                loader.close()
         if len(all_results) == 1:
             return next(iter(all_results.values()))
         return all_results
@@ -452,12 +520,21 @@ class PreciseBNHook:
     def __call__(self, step: int, metrics: dict, trainer):
         if not self.eval_period or step % self.eval_period != 0:
             return
+        # a split model's statistics: on its whole replica
+        on_whole_replica(trainer.state.model, lambda net: self._refresh(net, trainer.state.model))
+        logger.info("PreciseBN: refreshed FrozenBN statistics over %d batches", self.num_iter)
+
+    def _refresh(self, net, model):
         loader = self.loader_factory()
         try:
-            precise_bn(trainer.state.model, iter(loader), self.num_iter)
+            precise_bn(net, iter(loader), self.num_iter)
         finally:
             loader.close()
-        logger.info("PreciseBN: refreshed FrozenBN statistics over %d batches", self.num_iter)
+        if net is not model:  # FrozenBN buffers are whole on every rank
+            buffers = dict(model.named_buffers())
+            with torch.no_grad():
+                for name, value in net.named_buffers():
+                    buffers[name].copy_(value)
 
 
 def run(args, image_loader: Optional[Callable] = None):

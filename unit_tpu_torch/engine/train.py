@@ -38,9 +38,24 @@ folded into the step's generator seeds (unit_tpu's pipeline step folds its
 ``axis_index`` into the key), and the loss vector is averaged over the ranks
 before its one host fetch: every rank logs the global losses and raises on a
 non-finite one together, and a stop request on any rank stops every rank
-after the next step.  FSDP, TP and pipeline parallelism, and unit_tpu's
-``mesh`` argument, raise ``NotImplementedError`` (ROADMAP Queue 1 items
-35-37).
+after the next step.
+
+FSDP and TP (unit_tpu's ``mesh`` with ``fsdp`` or ``tp``): the trainer takes
+a ``parallel.mesh`` ``DeviceMesh`` and a model already split over it
+(``mesh.fsdp_shard`` / ``mesh.tp_shard``, before its solver is built: the
+optimizer holds the split parameters).  The step adapts to the parameters
+it finds: FSDP's shards (DTensors) come out of backward reduce-scattered
+and averaged over the data ranks, and under ``TPU.GRAD_ACCUM`` their sync
+waits for the last micro-batch (``set_requires_gradient_sync``); TP's
+slices are averaged over the mesh's data dim; every other gradient, the
+losses and the global counts over the world (under TP the model ranks of a
+data rank hold the same values, so this is the data ranks' mean, and the
+ranks stay bit-identical).  Under TP the seeds and the training loaders'
+shards read the DATA rank (``comm.data_rank`` of the mesh's model dim or of
+TPU.TP), so the model ranks of one data rank see the same images and draw
+the same samples.  Without a mesh ``fsdp`` and ``tp`` are ignored, as in unit_tpu.
+Pipeline parallelism raises ``NotImplementedError`` (ROADMAP Queue 1 item
+37) after unit_tpu's ``ValueError``s for the pairs it refuses.
 """
 
 from __future__ import annotations
@@ -51,10 +66,13 @@ from typing import Callable, Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
+from torch.distributed.fsdp import FSDPModule
+from torch.distributed.tensor import DTensor
 
 from ..models.box_heads import VGG_HEADS
 from ..models.meta_arch import WSRCNN, _not_ported
 from ..parallel import comm
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, axis_size
 from ..solver.build import Solver
 
 
@@ -75,6 +93,7 @@ def make_train_step(
     clip: Optional[Callable[[], None]],
     grad_accum: int = 1,
     train_only_weak: bool = False,
+    mesh=None,
 ) -> Callable[..., Dict[str, torch.Tensor]]:
     """(strong, weak, generator, meta=None, dropout=None) -> detached loss
     dict with ``total_loss``, after one update of ``model``'s parameters.
@@ -87,17 +106,28 @@ def make_train_step(
     divides by one: exact).  ``meta``, the support batch (``Trainer``), is
     one for the step: every micro-batch reads it, as in unit_tpu.
     ``train_only_weak`` goes to ``train_losses`` (TrainerOnlyWeak).  In a
-    process group the gradients are averaged over the ranks before ``clip``."""
+    process group the gradients are averaged over the data ranks before
+    ``clip``: FSDP's by FSDP, TP's slices over the data dim of ``mesh``, the
+    rest over the world (``parallel.mesh``)."""
     accum = int(grad_accum)
     trainable = [p for group in optimizer.param_groups for p in group["params"]]
+    fsdp = model if isinstance(model, FSDPModule) else None
+    split = [p for p in trainable if hasattr(p, "tp_shard")]
+    if split and mesh is None:
+        raise ValueError("a model split by TP needs its mesh: make_train_step(mesh=...)")
+    data_group = mesh.get_group(DATA_AXIS) if split else None
+    whole = [p for p in trainable if not isinstance(p, DTensor) and not hasattr(p, "tp_shard")]
 
     def step(strong, weak, generator, meta=None, dropout=None) -> Dict[str, torch.Tensor]:
         if accum == 1:
             strong, weak, generator, dropout = [strong], [weak], [generator], [dropout]
         optimizer.zero_grad(set_to_none=True)
         sums: Dict[str, torch.Tensor] = {}
-        for s, w, g, d in zip(strong, weak if weak is not None else [None] * accum, generator,
-                              dropout if dropout is not None else [None] * accum, strict=True):
+        for i, (s, w, g, d) in enumerate(zip(
+                strong, weak if weak is not None else [None] * accum, generator,
+                dropout if dropout is not None else [None] * accum, strict=True)):
+            if fsdp is not None and accum > 1:  # reduce-scatter after the last one
+                fsdp.set_requires_gradient_sync(i == accum - 1)
             losses = model.train_losses(g, s, w, train_only_weak=train_only_weak, meta=meta,
                                         dropout_generator=d)
             total = torch.stack(list(losses.values())).sum()
@@ -107,10 +137,13 @@ def make_train_step(
                 sums[k] = sums[k] + v.detach() if k in sums else v.detach()
         # a trainable tensor outside this step's graph (the weak detector in a
         # strong-only step) still decays: unit_tpu's gradient for it is zero
+        # (an FSDP shard's zeros are a DTensor like it)
         for p in trainable:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        comm.all_reduce_mean_tensors([p.grad for p in trainable])  # one rank: nothing
+        if split:  # TP's slices
+            comm.all_reduce_mean_tensors([p.grad for p in split], data_group)
+        comm.all_reduce_mean_tensors([p.grad for p in whole])  # one rank: nothing
         if clip is not None:
             clip()
         optimizer.step()
@@ -121,10 +154,10 @@ def make_train_step(
 
 
 def step_seed(seed: int, step: int, micro: int = 0, grad_accum: int = 1, rank: int = 0) -> int:
-    """The generator seed of micro-batch ``micro`` of step ``step`` on rank
-    ``rank`` (fold_in's counterpart); without accumulation, on rank 0,
-    (seed, step) alone.  Ranks draw different samples for their different
-    images."""
+    """The generator seed of micro-batch ``micro`` of step ``step`` on data
+    rank ``rank`` (fold_in's counterpart); without accumulation, on rank 0,
+    (seed, step) alone.  Data ranks draw different samples for their
+    different images; the model ranks of one data rank the same ones."""
     return (int(seed) << 32) + (int(rank) << 48) + int(step) * int(grad_accum) + int(micro)
 
 
@@ -133,6 +166,18 @@ def dropout_seed(seed: int) -> int:
     top byte, as unit_tpu folds 7 into the step key; another Philox stream
     than the sampling generator's."""
     return (int(seed) + (7 << 56)) % (1 << 64)
+
+
+def _check_split(model, mesh, fsdp: bool) -> None:
+    """Refuse a model that the mesh's mode has not split: its solver would
+    hold the whole parameters."""
+    if fsdp and not isinstance(model, FSDPModule):
+        raise ValueError("fsdp: split the model with parallel.mesh.fsdp_shard(model, mesh) "
+                         "before building its solver")
+    if not fsdp and axis_size(mesh, MODEL_AXIS) > 1 and not any(
+            hasattr(p, "tp_shard") for p in model.parameters()):
+        raise ValueError("tp: split the model with parallel.mesh.tp_shard(model, mesh) "
+                         "before building its solver")
 
 
 class TrainerBase:
@@ -158,17 +203,31 @@ class TrainerBase:
     ):
         if int(grad_accum) < 1:
             raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
-        if mesh is not None or fsdp or tp or pp:
-            raise _not_ported("a mesh, FSDP, TP and pipeline parallelism (data parallelism "
-                              "runs one process a rank: parallel.launch)",
-                              "ROADMAP Queue 1 items 35-37")
+        # unit_tpu's refusals (train.py:613-624), in its order
+        if fsdp and tp:
+            raise ValueError("fsdp and tp are mutually exclusive sharding modes")
+        if pp and (fsdp or tp):
+            raise ValueError("pipeline parallelism does not compose with FSDP/TP")
+        if pp and int(grad_accum) < 2:
+            raise ValueError("pipeline parallelism pipelines the TPU.GRAD_ACCUM microbatches; "
+                             "set TPU.GRAD_ACCUM >= 2")
+        if pp and meta_iter is not None:
+            raise ValueError("pipeline parallelism does not support the meta stream")
+        if pp:
+            raise _not_ported("pipeline parallelism", "ROADMAP Queue 1 item 37")
+        if mesh is not None and (fsdp or tp):
+            _check_split(model, mesh, fsdp)
+        self.mesh = mesh
         self.model = model
         self.optimizer = optimizer
         self.strong_iter = strong_iter
         self.weak_iter = weak_iter
         self.meta_iter = meta_iter
         self.seed = int(seed)
-        self.rank, self.world = comm.rank(), comm.world()
+        # the seeds fold the data rank (TP's model ranks of one share it); the
+        # losses' mean and the stop request span the world
+        model_ranks = axis_size(mesh, MODEL_AXIS) if mesh is not None and tp else 1
+        self.rank, self.world = comm.data_rank(model_ranks), comm.world()
         self.grad_accum = int(grad_accum)
         # micro-batches waiting for A of their canvas, per stream and canvas
         self._accum_buf: Dict[str, Dict[tuple, list]] = {"strong": {}, "weak": {}}
@@ -177,7 +236,8 @@ class TrainerBase:
         self.dropout = model.mc.box_head_name in VGG_HEADS
         self.train_only_weak = bool(train_only_weak)
         self.train_step = make_train_step(model, optimizer.optimizer, optimizer.scheduler,
-                                          optimizer.clip, self.grad_accum, self.train_only_weak)
+                                          optimizer.clip, self.grad_accum, self.train_only_weak,
+                                          mesh=mesh)
         self.state: Optional[TrainState] = None
         self.stop_requested = False
         self._stop_agreed = False  # a stop request of some rank, seen by all (world > 1)
@@ -248,7 +308,9 @@ class TrainerBase:
         values = torch.stack(list(losses.values()))
         if self.world > 1:
             # the ranks' mean, and whether any rank was asked to stop, in one
-            # all-reduce before the fetch: all ranks log, raise and stop alike
+            # all-reduce before the fetch: all ranks log, raise and stop alike.
+            # Under TP the model ranks of a data rank hold the same losses, so
+            # the world's mean is the data ranks' mean
             values = comm.all_reduce_mean(torch.cat(
                 [values.float(), values.new_full((1,), float(self.stop_requested))]))
         values = values.tolist()  # one device-to-host fetch per step

@@ -24,7 +24,10 @@ Under data parallelism each rank runs its shard of the test set (the test
 loaders read ``[rank::world]``, and the runner feeds the evaluator the GT of
 that shard); before scoring, the ranks' evaluators are gathered and merged
 in rank order (``merge_gathered``, unit_tpu :96-104), so every rank scores
-the whole set and gets the same results.
+the whole set and gets the same results.  Under FSDP and TP the runner
+predicts on a whole replica of the model (no collective in predict, so
+unequal shards cannot hang), and every rank, a model rank too, evaluates
+its own shard as data-parallel ranks do.
 """
 
 from __future__ import annotations

@@ -30,6 +30,19 @@ from .predictors import _ids
 from .resnet import Conv2d
 
 
+class Deconv2d(nn.ConvTranspose2d):
+    """The 2x2 stride-2 transposed convolution, weight [in, out, 2, 2] (f32)
+    run in ``dtype`` on a channels_last map."""
+
+    def __init__(self, in_ch: int, out_ch: int, dtype: torch.dtype = torch.float32):
+        super().__init__(in_ch, out_ch, 2, stride=2)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight.to(dtype=self.dtype, memory_format=torch.channels_last)
+        return F.conv_transpose2d(x, w, self.bias.to(self.dtype), stride=2)
+
+
 class MaskRCNNConvUpsampleHead(nn.Module):
     """[N, H, W, in_channels] ROI features -> mask logits [N, 2H, 2W, C] f32,
     and the ``predictor_delta`` logits (or None without ``finetune``)."""
@@ -48,7 +61,7 @@ class MaskRCNNConvUpsampleHead(nn.Module):
                 init_std=math.sqrt(2.0 / (9 * conv_dim)), generator=generator))
             ch = conv_dim
         # weight [in, out, 2, 2]: torch's transposed-convolution layout
-        self.deconv = nn.ConvTranspose2d(ch, conv_dim, 2, stride=2)
+        self.deconv = Deconv2d(ch, conv_dim, dtype)
         with torch.no_grad():
             self.deconv.weight.normal_(0.0, math.sqrt(2.0 / (4 * conv_dim)), generator=generator)
             self.deconv.bias.zero_()
@@ -63,8 +76,7 @@ class MaskRCNNConvUpsampleHead(nn.Module):
         x = x.permute(0, 3, 1, 2).to(self.dtype)
         for i in range(self.num_conv):
             x = torch.relu(getattr(self, f"mask_fcn{i + 1}")(x))
-        w = self.deconv.weight.to(dtype=self.dtype, memory_format=torch.channels_last)
-        x = torch.relu(F.conv_transpose2d(x, w, self.deconv.bias.to(self.dtype), stride=2))
+        x = torch.relu(self.deconv(x))
         logits = self.predictor(x).float().permute(0, 2, 3, 1)
         if self.predictor_delta is None:
             return logits, None

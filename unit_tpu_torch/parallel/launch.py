@@ -22,6 +22,7 @@ global batch.
 from __future__ import annotations
 
 import datetime
+import faulthandler
 import os
 import queue
 import shutil
@@ -73,6 +74,7 @@ def _timeout(seconds: Optional[float]):
 def _worker(rank: int, main: Callable, world: int, devices: List[torch.device], backend: str,
             init_method: str, timeout: Optional[float], cpu_threads: int, args: tuple,
             results) -> None:
+    faulthandler.enable()  # a rank that dies in C prints where
     try:
         device = devices[rank]
         _bind(device, cpu_threads)

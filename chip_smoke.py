@@ -92,19 +92,20 @@ Phases (any failure raises and the script exits non-zero):
      one profiled step; the f32 meta train path kernels vs plain; K1 against
      its plain version at the support shapes ([75,14,14,1024] x 1 ROI, the
      step's own shots, and an evaluation's [750,14,14,1024] x 1);
-     engine.runner.run with Trainer on phase 10's devkit: 4 steps, a
-     checkpoint at 2, the evaluation with its support precompute (10 shots a
+     engine.runner.run with Trainer on phase 10's devkit: 2 steps, a
+     checkpoint at 1, the evaluation with its support precompute (10 shots a
      class; the recipe's 50 make K1's [750,14,14,1024]), and a resume from
-     step 2
+     step 1
  15  test-time augmentation (TEST.AUG at its defaults: scales 480-1200,
      MAX_SIZE 2000, flip) on the flagship at full width: one 600x800 image's
      f32 path kernels vs plain (identical proposals, phase 5's bounds); in
      bf16 its launches (K1 5, one a group of a scale's flip pair; K3 2; K4
      94 + 5 x (94 + 20)), time, memory and profile; K1 at the five group
      shapes and K3 at the final NMS on that image's own inputs;
-     engine.runner.run --eval-only with TTA on phase 10's devkit (seconds per
-     image, the loader's wait apart); precise_bn over 4 pre-made batches with
-     K4 and with the plain epilogue (bit-identical buffers), then run with
+     engine.runner.run --eval-only with TTA from phase 10's checkpoint on a
+     2-image devkit (seconds per image, the loader's wait apart); precise_bn
+     over 4 pre-made batches with K4 and with the plain epilogue
+     (bit-identical buffers), then run with
      TEST.PRECISE_BN (NUM_ITER 4): the checkpoint holds the refreshed
      statistics; run with TPU.PROFILE_START_STEP 2: its trace names K1-K4
  16  the note recipe (COCO-RCNN-50-C4-split1-note.yaml: InceptionResNetV2 to
@@ -145,11 +146,12 @@ Phases (any failure raises and the script exits non-zero):
      p50/p99, each device call's batch and its launches (K1 1, K3 1 + b, K4
      114 a call); micro-batched against batch 1 in f32 with TF32 off (counts
      and classes equal, boxes 1e-2 px, scores 1e-4); torch.export artifacts
-     at batch 1 (both orientations) and at 4 (landscape): export seconds,
-     MiB, the artifact against the live predict and its launches, the batch
-     artifact served through the service; the dock recipe's artifact with
-     5000 proposals a request against make_predict_fn (identical; K3 1, no
-     K1, K2 or K4) and refused by the service; DetectionServer on 127.0.0.1
+     at batch 4 (landscape) and at batch 1 (portrait): export seconds, MiB,
+     each artifact against the live predict (one batch, one portrait request)
+     and its launches, the batch artifact served through the service; the
+     dock recipe's artifact with 5000 proposals on one request against
+     make_predict_fn (identical; K3 1, no K1, K2 or K4) and refused by the
+     service; DetectionServer on 127.0.0.1
      (/healthz, /metadata, 4 concurrent JPEG POSTs, 400, 404);
      scripts/serve_torch.py --artifact and scripts/export_model_torch.py
      --describe as subprocesses
@@ -157,7 +159,7 @@ Phases (any failure raises and the script exits non-zero):
      JPEGs of the 20 classes as (shape, hue) pairs), engine.runner.run on
      the recipe from random weights (MODEL.WEIGHTS "", FREEZE_AT 0, LR 0.002
      with 100 warm-up steps, 320-pixel INPUT sizes: the accuracy pipeline's
-     settings) for 150 steps of 4 + 4 images, one checkpoint and one
+     settings) for 90 steps of 4 + 4 images, one checkpoint and one
      evaluation; the median total_loss of the last 20 steps under 0.7x that
      of the first 20, loss_rpn_cls and loss_im_cls lower, every loss finite
      (AP reported, not gated); on the trained checkpoint: the proposals an
@@ -210,7 +212,19 @@ Phases (any failure raises and the script exits non-zero):
      process (1 + 1), losses 1e-4 and gradients phase 8's bound; (d) each
      split state's checkpoint restored by one process (state and momenta
      hash as gathered), one process's restored under FSDP and TP (each
-     rank's parts the file's slices)
+     rank's parts the file's slices); then pipeline parallelism in the same
+     two ranks, stage 0 and stage 1 of TPU.PP_STAGES 2: (f) the flagship at
+     full width, 2 micro-batches (TPU.GRAD_ACCUM) of 2 + 2 images, 1 warm-up
+     + 2 timed steps and one with its hand-off and gradient combine timed:
+     per rank the step median, those ms, peak memory, launches (stage 0 the
+     backbone's K4, its forwards twice: remat; stage 1 K1 2, K2 2, K3 1 and
+     Res5's K4 a micro-batch; summed, one process's plus the recompute), one
+     state hash, finite losses; (g) f32, TF32 off, every candidate kept: the
+     pipelined step against one process at GRAD_ACCUM 2 on the same
+     micro-batches (losses 1e-5, gradients phase 8's bound); (h)
+     engine.runner.run under TPU.PP on phase 20's JPEG devkit: 2 steps, a
+     checkpoint, an evaluation, the gathered AP against a one-process
+     --eval-only of the checkpoint (1e-6)
 The last three lines are the card (nvidia-smi), one JSON object describing
 the kernels (launches counted on the run loop of phase 10, and per path under
 launches_by_path), and {"ok": true, "device": {...}}.  Without a CUDA device, or without the
@@ -375,7 +389,7 @@ WEAK_RUN_STEPS = 3
 # (S - 1) * 0.5 / S over S = 16 slots and the regression loss exactly 1.
 META_RECIPE = ROOT / "configs" / "VOC" / "VOC-RCNN-101-C4-split1-meta.yaml"
 META_TRAIN_STEPS = 6
-META_RUN_STEPS = 4
+META_RUN_STEPS = 2
 META_RUN_SHOTS = 10  # the run's support shots a class (the recipe's 50: K1's [750, ...] check)
 RANK_MARGIN_UNDERFLOW = 15 * 0.5 / 16
 # Test-time augmentation (phase 15): TEST.AUG at its defaults on the flagship
@@ -384,6 +398,7 @@ RANK_MARGIN_UNDERFLOW = 15 * 0.5 / 16
 # PreciseBN's run cuts the recipe's TEST.PRECISE_BN.NUM_ITER of 200 to 4.
 TTA_IMAGE = (600, 800)
 TTA_TIMED = 3
+TTA_EVAL_IMAGES = 2  # (c)'s --eval-only: a devkit of its own (each image ~2 s of resizes)
 PRECISE_BN_ITERS = 4
 PRECISE_BN_PERIOD = 3
 # The note recipe (phase 16): InceptionResNetV2 cut at block17 (1088
@@ -586,14 +601,14 @@ def k1_check(feat, rois, label, tag="[2]", p=14):
     return err16
 
 
-def k1_timed(feat, rois, label, tag="[2]", p=14):
+def k1_timed(feat, rois, label, tag="[2]", p=14, plain_iters=3):
     """K1's kernel, plain and bound ms; the wrapper's host time a call."""
     from unit_tpu_torch.ops import roi_align as ra
     from unit_tpu_torch.ops.roi_align_cuda import roi_align_cuda
 
     k_ms = cuda_ms(lambda: roi_align_cuda(feat, rois, p), 20)
     q_ms, host_ms = cuda_ms_queued(lambda: roi_align_cuda(feat, rois, p), 20)
-    p_ms = cuda_ms(lambda: ra.roi_align_batched(feat, rois, p, impl="plain"), 3)
+    p_ms = cuda_ms(lambda: ra.roi_align_batched(feat, rois, p, impl="plain"), plain_iters)
     out_elems = rois.shape[0] * rois.shape[1] * p * p * feat.shape[-1]
     least = bound(nbytes(feat, rois) + out_elems * feat.element_size(),
                   out_elems * ROI_ALIGN_FLOPS)
@@ -3039,7 +3054,8 @@ def phase_meta(seed, workdir):
         rois = torch.as_tensor(big.reshape(n, 1, 4), device=dev)
         label = f"support {list(feats.shape)} x 1 ROI (an evaluation's shots)"
         err = max(err, k1_check(feats, rois, label, tag="[14]"))
-        k_big, p_big, least_big = k1_timed(feats, rois, label, tag="[14]")
+        # the plain version takes ~1.5 s a call at this shape: one timed call
+        k_big, p_big, least_big = k1_timed(feats, rois, label, tag="[14]", plain_iters=1)
         k1_support = {"support_b75_ms": k_ms, "support_b75_plain_ms": p_ms,
                       "support_b75_bound_ms": least["bound_ms"],
                       "support_b750_ms": k_big, "support_b750_plain_ms": p_big,
@@ -3129,7 +3145,7 @@ def phase_meta(seed, workdir):
         by_path["meta_run"] = launches
         del trainer
 
-        # the resume from the checkpoint at step 2; its evaluation binds
+        # the resume from the checkpoint half way; its evaluation binds
         # prototypes of 5 shots a class, which inference does not read
         os.makedirs(out_b)
         shutil.copy(os.path.join(out_a, f"step_{META_RUN_STEPS // 2}.pt"), out_b)
@@ -3191,7 +3207,8 @@ def phase_tta(cfg, seed, workdir):
     image: the f32 path with the kernels vs the plain versions; in bf16 its
     launches, time, memory and profile; (b) K1 at the five group shapes and
     K3 at the final NMS, on the inputs of (a); (c) engine.runner.run
-    --eval-only with TTA on phase 10's devkit; (d) precise_bn over 4
+    --eval-only with TTA from phase 10's checkpoint on a devkit of
+    TTA_EVAL_IMAGES images; (d) precise_bn over 4
     pre-made batches with K4 and with the plain epilogue, then run with
     TEST.PRECISE_BN; (e) run with the profile hook.  Returns ({path: launch
     counts}, K1's numbers at the largest group, K3's at the final NMS)."""
@@ -3366,8 +3383,10 @@ def phase_tta(cfg, seed, workdir):
     if on_card:
         torch.cuda.empty_cache()
 
-    # (c) engine.runner.run --eval-only with TTA on phase 10's devkit
-    devkit = os.path.join(workdir, "VOCdevkit")
+    # (c) engine.runner.run --eval-only with TTA from phase 10's checkpoint,
+    # on a devkit of TTA_EVAL_IMAGES test images (each costs ~2 s of host resizes)
+    devkit = write_devkit(os.path.join(workdir, "VOCdevkit_tta"), seed,
+                          n_images=TTA_EVAL_IMAGES)
     waits = []
     real_loader = runner.build_tta_test_loader
 
@@ -3419,7 +3438,7 @@ def phase_tta(cfg, seed, workdir):
         runner.build_tta_test_loader = real_loader
     per_image = results["inference_seconds_per_image"]
     wait = float(np.mean(waits[1:])) if len(waits) > 1 else float("nan")
-    log(f"[15] run --eval-only with TTA over {RUN_TEST_IMAGES} images in {secs:.1f} s: AP50 "
+    log(f"[15] run --eval-only with TTA over {TTA_EVAL_IMAGES} images in {secs:.1f} s: AP50 "
         f"{results['bbox']['AP50']:.4g}; {per_image:.4f} s per evaluated image (host clock, "
         f"after one warm-up image), of which waiting for the loader {wait:.4f} s (mean of "
         f"{len(waits) - 1}; first image {waits[0]:.3f} s) and the device's forward the rest; "
@@ -3427,7 +3446,7 @@ def phase_tta(cfg, seed, workdir):
     want = {"roi_align_fwd": groups, "roi_align_bwd": 0, "nms_mask": 2, "nms_mask_images": 2,
             "bn_act_fwd": k4_per_image, "bn_act_bwd": 0, "bn_act_layout_copies": 0}
     if not (np.isfinite(results["bbox"]["AP50"]) and np.isfinite(per_image)
-            and launches == {k: v * RUN_TEST_IMAGES for k, v in want.items()}):
+            and launches == {k: v * TTA_EVAL_IMAGES for k, v in want.items()}):
         raise AssertionError(f"the TTA evaluation is not finite or did not run K1 x{groups}, "
                              f"K3 x2 and K4 x{k4_per_image} an image: {launches}")
 
@@ -4535,11 +4554,12 @@ def phase_serving(cfg, seed, workdir):
     live DetectionService at batch 1 and micro-batched at SERVE_BATCH under
     SERVE_CLIENTS clients: req/s, p50/p99, each device call's batch size and
     its launches; (b) micro-batched against batch 1 in f32 with TF32 off;
-    (c) torch.export artifacts at batch 1 (both orientations) and at
-    SERVE_BATCH (landscape): export seconds, MiB, the artifact against the
-    live predict, its launches, and the batch artifact served through the
-    service; (d) the dock recipe's artifact with 5000 proposals a request
-    against make_predict_fn, its launches, and the service refusing it; (e)
+    (c) torch.export artifacts at SERVE_BATCH (landscape) and at batch 1
+    (portrait): export seconds, MiB, each artifact against the live predict
+    (one batch, one portrait request), its launches, and the batch artifact
+    served through the service; (d) the dock recipe's artifact with 5000
+    proposals on one request against make_predict_fn, its launches, and the
+    service refusing it; (e)
     DetectionServer on 127.0.0.1 over (b)'s batch service; (f)
     scripts/serve_torch.py --artifact and scripts/export_model_torch.py
     --describe as subprocesses.  Returns {path: launch counts}."""
@@ -4664,52 +4684,46 @@ def phase_serving(cfg, seed, workdir):
 
     # (c) artifacts of the live model, in this process
     tcfg = TransformConfig.test_from_cfg(cfg)
-    art_paths = {}
-    for b, orientations in ((1, "both"), (SERVE_BATCH, "landscape")):
-        path = os.path.join(workdir, f"flagship_b{b}.pt2.pkl")
-        reset_peak()
-        t0 = time.perf_counter()
-        meta = export_predict(cfg, model, path, class_names=VOC_CLASSES, batch_size=b,
-                              orientations=orientations)
-        log(f"[18] (c) exported {meta['canvases']} at batch {b} in "
-            f"{time.perf_counter() - t0:.1f} s: {file_mib(path):.1f} MiB, peak {peak_mib():.1f} "
-            f"MiB, {meta['platforms']}, torch {meta['torch_version']}")
-        art_paths[b] = (path, meta)
-    art1 = load_exported(art_paths[1][0])
+    path4 = os.path.join(workdir, f"flagship_b{SERVE_BATCH}.pt2.pkl")
+    reset_peak()
+    t0 = time.perf_counter()
+    meta4 = export_predict(cfg, model, path4, class_names=VOC_CLASSES, batch_size=SERVE_BATCH,
+                           orientations="landscape")
+    log(f"[18] (c) exported {meta4['canvases']} at batch {SERVE_BATCH} in "
+        f"{time.perf_counter() - t0:.1f} s: {file_mib(path4):.1f} MiB, peak {peak_mib():.1f} "
+        f"MiB, {meta4['platforms']}, torch {meta4['torch_version']}")
+    art4 = load_exported(path4)
     predict = make_predict_fn(model)
-    prepared = [prepare_test_image(images[i], tcfg) for i in range(2)]  # both orientations
+    prepared = [prepare_test_image(im, tcfg) for im in images[0::2][:SERVE_BATCH]]
+    batch = [np.stack([p[k] for p in prepared]) for k in ("image", "image_size")]
     reset_launch_counts()
-    got = [art1(s["image"][None], s["image_size"][None]) for s in prepared]
+    got = art4(*batch)
     sync()
     launches = read_launch_counts()
-    want = [predict(s["image"][None], s["image_size"][None]) for s in prepared]
-    identical = all(torch.equal(getattr(g, f), getattr(w, f)) for g, w in zip(got, want)
+    want = predict(*batch)
+    identical = all(torch.equal(getattr(got, f), getattr(want, f))
                     for f in ("boxes", "scores", "classes", "valid"))
-    worst = [0.0, 0.0]
-    for g, w in zip(got, want):
-        v = w.valid
-        if not torch.equal(g.valid, v) or not torch.equal(g.classes[v], w.classes[v]):
-            raise AssertionError("the artifact's valid detections or classes differ from the "
-                                 "live predict's")
-        box_ok = torch.allclose(g.boxes[v], w.boxes[v], rtol=EXPORT_BOX_RTOL, atol=EXPORT_BOX_ATOL)
-        score_ok = torch.allclose(g.scores[v], w.scores[v], rtol=EXPORT_SCORE_RTOL,
-                                  atol=EXPORT_SCORE_ATOL)
-        if not (box_ok and score_ok):
-            raise AssertionError("the artifact's boxes or scores differ from the live predict's "
-                                 "beyond tests/test_serving.py's bounds")
-        if v.any():
-            worst = [max(worst[0], float((g.boxes[v] - w.boxes[v]).abs().max())),
-                     max(worst[1], float((g.scores[v] - w.scores[v]).abs().max()))]
-    log(f"[18] (c) batch-1 artifact against the live predict, one request each orientation: "
-        f"valid and classes identical, bit-identical {identical}, max |box diff| {worst[0]:.3g}"
-        f", max |score diff| {worst[1]:.3g}; launches {launches}")
-    if on_card and launches != want_launches([1, 1]):
-        raise AssertionError(f"the artifact did not launch K1 x1, K3 x2 and K4 x{k4_call} a "
-                             f"call: {launches}")
-    by_path["serving_artifact_b1"] = launches
-    del art1, got, want
+    v = want.valid
+    if not torch.equal(got.valid, v) or not torch.equal(got.classes[v], want.classes[v]):
+        raise AssertionError("the artifact's valid detections or classes differ from the "
+                             "live predict's")
+    if not (torch.allclose(got.boxes[v], want.boxes[v], rtol=EXPORT_BOX_RTOL,
+                           atol=EXPORT_BOX_ATOL)
+            and torch.allclose(got.scores[v], want.scores[v], rtol=EXPORT_SCORE_RTOL,
+                               atol=EXPORT_SCORE_ATOL)):
+        raise AssertionError("the artifact's boxes or scores differ from the live predict's "
+                             "beyond tests/test_serving.py's bounds")
+    worst = ((float((got.boxes[v] - want.boxes[v]).abs().max()),
+              float((got.scores[v] - want.scores[v]).abs().max())) if v.any() else (0.0, 0.0))
+    log(f"[18] (c) batch-{SERVE_BATCH} artifact against the live predict on {SERVE_BATCH} "
+        f"landscape requests: valid and classes identical, bit-identical {identical}, max "
+        f"|box diff| {worst[0]:.3g}, max |score diff| {worst[1]:.3g}; launches {launches}")
+    if on_card and launches != want_launches([SERVE_BATCH]):
+        raise AssertionError(f"the artifact's call did not launch "
+                             f"{want_launches([SERVE_BATCH])}: {launches}")
+    by_path["serving_artifact_predict"] = launches
+    del got, want
     free()
-    art4 = load_exported(art_paths[SERVE_BATCH][0])
     svc_a = DetectionService(cfg, exported=art4)
     if svc_a.batch_size != SERVE_BATCH or svc_a.class_names != list(VOC_CLASSES):
         raise AssertionError("the service did not take the artifact's batch size and names")
@@ -4731,13 +4745,12 @@ def phase_serving(cfg, seed, workdir):
                              f"{want_launches(calls)}")
     by_path["serving_artifact"] = launches
     svc_a.close()
-    del svc_a, art4, model, predict
+    del svc_a, art4
     free()
 
-    # (f)'s CLIs start here, as a user starts them, and come up while (b),
-    # (e) and (d) run: their start-up (torch, the artifact, its warm-up) is
-    # most of their time
-    path4, meta4 = art_paths[SERVE_BATCH]
+    # (f)'s CLIs start here, as a user starts them, and come up while the
+    # batch-1 artifact, (b), (e) and (d) run: their start-up (torch, the
+    # artifact, its warm-up) is most of their time
     cmd = [sys.executable, str(ROOT / "scripts" / "serve_torch.py"), "--config-file",
            str(FLAGSHIP), "--artifact", path4, "--host", "127.0.0.1", "--port", "0",
            "--device", RUN_DEVICE, *RUN_EXTRA_OPTS, "OUTPUT_DIR", os.path.join(workdir, "serve")]
@@ -4760,6 +4773,44 @@ def phase_serving(cfg, seed, workdir):
 
     reader = concurrent.futures.ThreadPoolExecutor(1)
     serving = reader.submit(serving_line)
+
+    # (c) the batch-1 artifact of the portrait canvas, on one portrait
+    # request, while the CLIs come up
+    path1 = os.path.join(workdir, "flagship_b1.pt2.pkl")
+    reset_peak()
+    t0 = time.perf_counter()
+    meta1 = export_predict(cfg, model, path1, class_names=VOC_CLASSES, batch_size=1,
+                           orientations="portrait")
+    log(f"[18] (c) exported {meta1['canvases']} at batch 1 in {time.perf_counter() - t0:.1f} s: "
+        f"{file_mib(path1):.1f} MiB, peak {peak_mib():.1f} MiB")
+    art1 = load_exported(path1)
+    s = prepare_test_image(images[1], tcfg)
+    if s["image"].shape[0] <= s["image"].shape[1]:
+        raise AssertionError(f"request 1 is not on the portrait canvas: {s['image'].shape}")
+    args1 = (s["image"][None], s["image_size"][None])
+    reset_launch_counts()
+    got = art1(*args1)
+    sync()
+    launches = read_launch_counts()
+    want = predict(*args1)
+    identical = all(torch.equal(getattr(got, f), getattr(want, f))
+                    for f in ("boxes", "scores", "classes", "valid"))
+    v = want.valid
+    if not (torch.equal(got.valid, v) and torch.equal(got.classes[v], want.classes[v])
+            and torch.allclose(got.boxes[v], want.boxes[v], rtol=EXPORT_BOX_RTOL,
+                               atol=EXPORT_BOX_ATOL)
+            and torch.allclose(got.scores[v], want.scores[v], rtol=EXPORT_SCORE_RTOL,
+                               atol=EXPORT_SCORE_ATOL)):
+        raise AssertionError("the batch-1 artifact's detections differ from the live predict's "
+                             "beyond tests/test_serving.py's bounds")
+    log(f"[18] (c) batch-1 artifact against the live predict on a portrait request: valid and "
+        f"classes identical, bit-identical {identical}; launches {launches}")
+    if on_card and launches != want_launches([1]):
+        raise AssertionError(f"the batch-1 artifact did not launch {want_launches([1])}: "
+                             f"{launches}")
+    by_path["serving_artifact_b1"] = launches
+    del art1, got, want, model, predict
+    free()
 
     # (b) micro-batched against batch 1 in f32 with TF32 off
     tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
@@ -4834,60 +4885,50 @@ def phase_serving(cfg, seed, workdir):
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
     free()
 
-    # (d) the dock recipe's artifact with proposals at full width
+    # (d) the dock recipe's artifact with proposals at full width: one
+    # landscape request
     dcfg = get_cfg()
     dcfg.merge_from_file(str(DOCK_RECIPE))
     dcfg.merge_from_list(list(RUN_EXTRA_OPTS))
     topk = dcfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TEST
     dtcfg = TransformConfig.test_from_cfg(dcfg)
     dtcfg.proposal_capacity = topk
-    table, records, dimages = {}, [], []
-    for i in range(DOCK_REQUESTS):
-        h, w = DOCK_REQUEST_SHAPES[i % 2]
-        dimages.append(rng.uniform(0, 255, (h, w, 3)).astype(np.float32))
-        gt = rng.uniform(0, 1, (3, 4)) * [w / 2, h / 2, w / 2, h / 2]
-        gt[:, 2:] += gt[:, :2] + 16
-        boxes, scores = writer["mcg_like_proposals"](gt, w, h, rng, per_image=topk)
-        table[str(i)] = {"boxes": boxes, "scores": scores}
-        records.append({"image_id": str(i), "height": h, "width": w, "annotations": []})
+    h, w = DOCK_REQUEST_SHAPES[0]
+    dimage = rng.uniform(0, 255, (h, w, 3)).astype(np.float32)
+    gt = rng.uniform(0, 1, (3, 4)) * [w / 2, h / 2, w / 2, h / 2]
+    gt[:, 2:] += gt[:, :2] + 16
+    boxes, scores = writer["mcg_like_proposals"](gt, w, h, rng, per_image=topk)
     prop_path = os.path.join(workdir, "serving_proposals.pkl")
     with open(prop_path, "wb") as f:
-        pickle.dump(table, f)
+        pickle.dump({"0": {"boxes": boxes, "scores": scores}}, f)
+    records = [{"image_id": "0", "height": h, "width": w, "annotations": []}]
     attach_proposals(records, [prop_path], topk)
-    dprep = [prepare_detection_record(r, dtcfg, None, image=im, training=False)
-             for r, im in zip(records, dimages)]
+    s = prepare_detection_record(records[0], dtcfg, None, image=dimage, training=False)
+    dargs = (s["image"][None], s["image_size"][None], s["proposals"][None],
+             s["proposals_valid"][None])
     dcfg.DATASETS.PROPOSAL_FILES_TEST = (prop_path,)
     dmodel = flagship_model(dcfg, seed, dev)
     dpath = os.path.join(workdir, "dock_b1.pt2.pkl")
     reset_peak()
     t0 = time.perf_counter()
-    dmeta = export_predict(dcfg, dmodel, dpath)
+    dmeta = export_predict(dcfg, dmodel, dpath, orientations="landscape")
     log(f"[18] (d) dock artifact {dmeta['canvases']} with {dmeta['proposal_capacity']} proposals "
         f"a request exported in {time.perf_counter() - t0:.1f} s: {file_mib(dpath):.1f} MiB, "
         f"peak {peak_mib():.1f} MiB")
     dart = load_exported(dpath)
-    dpredict = make_predict_fn(dmodel)
-
-    def args_of(s):
-        return (s["image"][None], s["image_size"][None], s["proposals"][None],
-                s["proposals_valid"][None])
-
     reset_launch_counts()
-    dgot = [dart(*args_of(s)) for s in dprep]
+    dgot = dart(*dargs)
     sync()
     launches = read_launch_counts()
-    dwant = [dpredict(*args_of(s)) for s in dprep]
-    identical = [all(torch.equal(getattr(g, f), getattr(w, f))
-                     for f in ("boxes", "scores", "classes", "valid"))
-                 for g, w in zip(dgot, dwant)]
-    log(f"[18] (d) dock artifact against make_predict_fn on {DOCK_REQUESTS} requests of "
-        f"{DOCK_REQUEST_SHAPES}: identical {identical}, detections "
-        f"{[int(g.valid.sum()) for g in dgot]}; launches {launches}")
-    if not all(identical):
+    dwant = make_predict_fn(dmodel)(*dargs)
+    identical = all(torch.equal(getattr(dgot, f), getattr(dwant, f))
+                    for f in ("boxes", "scores", "classes", "valid"))
+    log(f"[18] (d) dock artifact against make_predict_fn on a {h}x{w} request: identical "
+        f"{identical}, detections {int(dgot.valid.sum())}; launches {launches}")
+    if not identical:
         raise AssertionError("the dock artifact's detections differ from make_predict_fn's")
-    want = dict(none, nms_mask=DOCK_REQUESTS, nms_mask_images=DOCK_REQUESTS)
-    if on_card and launches != want:
-        raise AssertionError(f"the dock artifact did not launch K3 x1 a call and nothing else: "
+    if on_card and launches != dict(none, nms_mask=1, nms_mask_images=1):
+        raise AssertionError(f"the dock artifact did not launch K3 x1 and nothing else: "
                              f"{launches}")
     by_path["dock_artifact"] = launches
     try:
@@ -4896,7 +4937,7 @@ def phase_serving(cfg, seed, workdir):
         log(f"[18] (d) DetectionService refuses the artifact: {str(e)[:80]}...")
     else:
         raise AssertionError("DetectionService took an artifact exported with proposals")
-    del dart, dmodel, dpredict, dgot, dwant
+    del dart, dmodel, dgot, dwant
     free()
 
     # (f) the CLIs started after (c)
@@ -4917,8 +4958,8 @@ def phase_serving(cfg, seed, workdir):
         if proc.poll() is None:
             proc.kill()
             proc.communicate()
-    log(f"[18] (f) serve_torch.py --artifact: serving after {start_s:.1f} s (started with (b), "
-        f"(e) and (d) running), /healthz {health},"
+    log(f"[18] (f) serve_torch.py --artifact: serving after {start_s:.1f} s (started with (c)'s "
+        f"batch-1 artifact, (b), (e) and (d) running), /healthz {health},"
         f" POST {code} ({len(body.get('detections', []))} detections), exit {proc.returncode} "
         f"{stop_s:.2f} s after SIGTERM")
     if not (health == (200, {"status": "ok"}) and code == 200 and proc.returncode == 0
@@ -4941,7 +4982,7 @@ def phase_serving(cfg, seed, workdir):
 # Phase 19: the flagship learns on shapes-VOC from random weights, at the
 # accuracy pipeline's size and learning rate (scripts/run_shapes_pipeline_torch.sh,
 # 6000 steps there); then the kernels on the trained weights.
-TRAINED_STEPS = 150        # total_loss falls ~14x by step 76 on the card: the 0.7 gate holds
+TRAINED_STEPS = 90         # total_loss falls ~14x by step 76 on the card: the 0.7 gate holds
 TRAINED_IMS_PER_BATCH = 4  # 4 strong + 4 weak images a step
 TRAINED_BASE_LR = 0.002
 TRAINED_WARMUP_ITERS = 100
@@ -5911,6 +5952,8 @@ def dp_run_rank(device, argv, sharded=False, profile_step=None):
     n_backbone, n_res5, n_trainable = frozen_bn_counts(trainer.model)
     out = {"results": results, "launches": trainer.launches, "merged": merged,
            "k4": (n_backbone + 3 * n_res5, n_trainable + 2 * n_res5),
+           "frozen_bn": (n_backbone, n_res5, n_trainable),
+           "stage": getattr(trainer, "_stage", None),
            "losses": {first + 1 + k: {n: v for n, v in m.items() if n != "data_time"}
                       for k, m in enumerate(trainer.metrics_history)}}
     if not sharded:
@@ -5928,6 +5971,36 @@ def dp_run_rank(device, argv, sharded=False, profile_step=None):
                whole_bytes=sum(int(np.prod(mesh_lib.full_shape(t))) * t.element_size()
                                for t in itertools.chain(model.parameters(), model.buffers())))
     return out
+
+
+def check_eval_alone(tag, step, argv, ap, gathered):
+    """A one-process ``--eval-only`` (``argv``) of the ``step`` checkpoint
+    against a run's gathered evaluation: its AP ``ap`` within DP_AP_ATOL, and
+    the merged evaluator's detections ``gathered`` (``voc_detections``)
+    within DP_DET_ATOL of the one process's."""
+    from unit_tpu_torch.data import DatasetCatalog
+    from unit_tpu_torch.engine import runner
+    from unit_tpu_torch.evaluation import evaluator as ev_mod
+
+    DatasetCatalog.clear()
+    merged = []
+    real_merge = recording_merges(merged)
+    try:
+        alone = runner.run(runner.default_argument_parser().parse_args(argv))
+    finally:
+        ev_mod.merge_gathered = real_merge
+    off = max(abs(alone["bbox"][k] - ap[k]) for k in ("AP", "AP50", "AP75"))
+    (dets, images), (ref, ref_images) = gathered, merged[-1]
+    same_dets = dets.shape == ref.shape and images == ref_images
+    det_off = float(np.abs(dets - ref).max()) if same_dets and dets.size else 0.0
+    log(f"{tag} one-process --eval-only of the {step} checkpoint: AP50 "
+        f"{alone['bbox']['AP50']:.6g}, max |diff| from the gathered AP {off:.3g} "
+        f"(tol {DP_AP_ATOL}); the gathered evaluator's {len(dets)} detections of "
+        f"{len(images)} images against the one process's {len(ref)}: bit-identical "
+        f"{same_dets and np.array_equal(dets, ref)}, max |diff| (score, box px) {det_off:.3g} "
+        f"(tol {DP_DET_ATOL})")
+    if not (off <= DP_AP_ATOL and same_dets and len(dets) > 0 and det_off <= DP_DET_ATOL):
+        raise AssertionError("the gathered evaluation is not the one-process evaluation")
 
 
 def dp_all_rank(device, train_args, f32_args, run_args):
@@ -6128,28 +6201,8 @@ def phase_data_parallel(seed, workdir):
         raise AssertionError("the ranks' runs differ, or a checkpoint is missing")
     by_path["dp_run_loop"] = {k: sum(c[k] for c in a["launches"]) for k in want}
 
-    DatasetCatalog.clear()
-    merged = []
-    real_merge = recording_merges(merged)
-    try:
-        alone = runner.run(runner.default_argument_parser().parse_args(
-            argv(out_a, "--eval-only", "--resume")))
-    finally:
-        from unit_tpu_torch.evaluation import evaluator as ev_mod
-
-        ev_mod.merge_gathered = real_merge
-    off = max(abs(alone["bbox"][k] - ap[k]) for k in ("AP", "AP50", "AP75"))
-    (dets, images), (ref, ref_images) = a["merged"][-1], merged[-1]
-    same_dets = dets.shape == ref.shape and images == ref_images
-    det_off = float(np.abs(dets - ref).max()) if same_dets and dets.size else 0.0
-    log(f"[21] (c) one-process --eval-only of the step-4 checkpoint: AP50 "
-        f"{alone['bbox']['AP50']:.6g}, max |diff| from the gathered AP {off:.3g} "
-        f"(tol {DP_AP_ATOL}); the gathered evaluator's {len(dets)} detections of "
-        f"{len(images)} images against the one process's {len(ref)}: bit-identical "
-        f"{same_dets and np.array_equal(dets, ref)}, max |diff| (score, box px) {det_off:.3g} "
-        f"(tol {DP_DET_ATOL})")
-    if not (off <= DP_AP_ATOL and same_dets and len(dets) > 0 and det_off <= DP_DET_ATOL):
-        raise AssertionError("the gathered evaluation is not the one-process evaluation")
+    check_eval_alone("[21] (c)", f"step-{DP_RUN_STEPS}", argv(out_a, "--eval-only", "--resume"),
+                     ap, a["merged"][-1])
 
     rel = max(abs(a2["losses"][s][k] - a["losses"][s][k]) / max(abs(a["losses"][s][k]), 1e-12)
               for s in a2["losses"] for k in a2["losses"][s])
@@ -6388,11 +6441,18 @@ def sh_f32_run(device, mode, opts, seed, strong, weak, grads_path, ckpt_dir, res
 def sh_rank(device, args):
     """In one rank process (one spawn), for each mode of ``args`` ({mode:
     (run_argv, profile_step, f32_args)}): (a) or (b), the run loop, then
-    (c) and (d).  {mode: (run, its seconds, f32, the mode's seconds)}."""
+    (c) and (d).  {mode: (run, its seconds, f32, the mode's seconds)}; for
+    the mode "pp", (f), (g) and (h) (``pp_rank``'s arguments and result,
+    and its seconds)."""
     import torch
 
     out = {}
-    for mode, (run_argv, profile_step, f32_args) in args.items():
+    for mode, mode_args in args.items():
+        if mode == "pp":
+            t = time.perf_counter()
+            out[mode] = pp_rank(device, *mode_args), time.perf_counter() - t
+            continue
+        run_argv, profile_step, f32_args = mode_args
         t = time.perf_counter()
         run = dp_run_rank(device, run_argv, sharded=True, profile_step=profile_step)
         run_secs = time.perf_counter() - t
@@ -6405,20 +6465,21 @@ def sh_rank(device, args):
     return out
 
 
-def sh_compare_grads(tag, m1, g1, m2, g2):
-    """(c)'s gate: the split step's losses to SH_LOSS_RTOL and gradients to
-    phase 8's bound against the one process's."""
+def sh_compare_grads(tag, m1, g1, m2, g2, part="(c)"):
+    """(c)'s and (g)'s gate: the split or pipelined step's losses to
+    SH_LOSS_RTOL and gradients to phase 8's bound against the one process's."""
     loss_rel = max(abs(m2[k] - m1[k]) / max(abs(m1[k]), 1e-12) for k in m1 if k != "data_time")
     big = max(float(g.abs().max()) for g in g1.values())
     over = {n: float((g2[n].to(g1[n].device) - g1[n]).abs().max())
             / (TRAIN_GRAD_REL * float(g1[n].abs().max()) + TRAIN_GRAD_FLOOR * big) for n in g1}
     worst = sorted(over, key=over.get, reverse=True)[:3]
-    log(f"[22] (c) {tag}: losses max rel diff {loss_rel:.3g} (tol {SH_LOSS_RTOL}); "
+    log(f"[22] {part} {tag}: losses max rel diff {loss_rel:.3g} (tol {SH_LOSS_RTOL}); "
         f"{len(g1)} gradients, worst max|diff|/bound {over[worst[0]]:.3g} (bound "
         f"{TRAIN_GRAD_REL} * max|g_leaf| + {TRAIN_GRAD_FLOOR} * G, G = {big:.4g}): "
         + ", ".join(f"{n} {over[n]:.3g}" for n in worst))
     if set(g2) != set(g1) or loss_rel > SH_LOSS_RTOL or over[worst[0]] > 1.0:
         raise AssertionError(f"the {tag} f32 step is not the one-process step")
+    return loss_rel, over[worst[0]]
 
 
 def sh_restored_digests(path, state):
@@ -6428,6 +6489,187 @@ def sh_restored_digests(path, state):
 
     Checkpointer(os.path.dirname(path)).restore(state=state)
     return sh_digests(state.model, state.solver.optimizer)
+
+
+# (f)-(h): pipeline parallelism (TPU.PP) as a third mode of the same two
+# ranks, stage 0 and stage 1 of one data rank; the hand-off of each map and
+# gradient, and the gradient combine, go through the host as gloo's
+PP_STAGES = 2
+PP_MICRO = 2                 # TPU.GRAD_ACCUM: the micro-batches a step pipelines
+PP_IMAGES = 2                # images a micro-batch and stream: the recipe's 4 + 4 a step
+PP_WARMUP, PP_STEPS = 1, 2   # then one more step with the hand-off and the combine timed
+PP_OPTS = ("TPU.PP", "True", "TPU.PP_STAGES", str(PP_STAGES), "TPU.GRAD_ACCUM", str(PP_MICRO))
+PP_RUN_STEPS = 2             # (h): a checkpoint and an evaluation after step 2
+
+
+def pp_launches(k4, stage, images=PP_IMAGES):
+    """The launches of one pipelined step on ``stage`` (2 stages, PP_MICRO
+    micro-batches of ``images`` + ``images``), from ``k4`` = (backbone
+    FrozenBNs, one Res5 head's, the backbone's behind a trainable conv).
+    Their sum over the stages is one process's at GRAD_ACCUM PP_MICRO (K1 2,
+    K2 2, K3 1, K4 (backbone + 3 Res5) + (trainable + 2 Res5) a micro-batch),
+    plus the backbone's K4 forwards once more: stage 0 recomputes its range
+    in backward (remat)."""
+    n_backbone, n_res5, n_trainable = k4
+    m = PP_MICRO
+    if stage == 0:
+        return {"roi_align_fwd": 0, "roi_align_bwd": 0, "nms_mask": 0, "nms_mask_images": 0,
+                "bn_act_fwd": 2 * m * n_backbone, "bn_act_bwd": m * n_trainable,
+                "bn_act_layout_copies": 0}
+    return {"roi_align_fwd": 2 * m, "roi_align_bwd": 2 * m, "nms_mask": m,
+            "nms_mask_images": 2 * images * m, "bn_act_fwd": 3 * m * n_res5,
+            "bn_act_bwd": 2 * m * n_res5, "bn_act_layout_copies": 2 * m}
+
+
+def pp_trainer(device, cfg, seed, strong, weak, pp=True):
+    """The flagship under TPU.PP on the (1, 2) stage mesh (``pp``), or one
+    process at GRAD_ACCUM PP_MICRO, over cycles of ``strong`` and ``weak``."""
+    from unit_tpu_torch.engine import TrainerNoMeta
+    from unit_tpu_torch.parallel import mesh as mesh_lib
+    from unit_tpu_torch.solver import build_optimizer
+
+    model = flagship_model(cfg, seed, device)
+    mesh = mesh_lib.make_mesh_pp(1, PP_STAGES, device.type) if pp else None
+    trainer = TrainerNoMeta(model, build_optimizer(cfg, model), itertools.cycle(strong),
+                            itertools.cycle(weak), seed=seed, grad_accum=PP_MICRO, mesh=mesh,
+                            pp=pp)
+    trainer.init_state()
+    return model, trainer
+
+
+def timed_pipeline_comm(sync, into):
+    """Time the pipeline step's hand-off calls (comm.send_map, recv_map,
+    send_header, recv_header, wait_all) and its gradient combine
+    (comm.all_reduce_mean_tensors), each between two device synchronisations,
+    into ``into["handoff"]`` / ``into["combine"]`` (ms, summed); returns the
+    function that restores them."""
+    from unit_tpu_torch.parallel import comm
+
+    names = {"send_map": "handoff", "recv_map": "handoff", "send_header": "handoff",
+             "recv_header": "handoff", "wait_all": "handoff",
+             "all_reduce_mean_tensors": "combine"}
+    real = {n: getattr(comm, n) for n in names}
+
+    def timed(name):
+        def call(*a, **kw):
+            sync()
+            t = time.perf_counter()
+            out = real[name](*a, **kw)
+            sync()
+            into[names[name]] += (time.perf_counter() - t) * 1e3
+            return out
+        return call
+
+    for n in names:
+        setattr(comm, n, timed(n))
+    return lambda: [setattr(comm, n, f) for n, f in real.items()]
+
+
+def pp_train_rank(device, opts, seed, canvases):
+    """(f), one stage rank: the flagship under TPU.PP at full width, PP_IMAGES
+    + PP_IMAGES images a micro-batch, PP_WARMUP + PP_STEPS steps, then one
+    step with the hand-off and the combine timed: the step times, the
+    timed step's hand-off and combine ms, peak memory, each step's launches,
+    the losses and the state's digest."""
+    import torch
+
+    from unit_tpu_torch.parallel import comm
+
+    on_card = device.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    cfg = dp_cfg((*opts, *PP_OPTS))
+    strong, weak = synthetic_train_batches(cfg, seed + 2000, per_stream=PP_IMAGES,
+                                           canvases=canvases)
+    model, trainer = pp_trainer(device, cfg, seed, strong, weak)
+    for _ in range(PP_WARMUP):
+        trainer.run_step()
+    sync()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    step_ms, launches = [], []
+    for _ in range(PP_STEPS):
+        reset_launch_counts()
+        t = time.perf_counter()
+        trainer.run_step()  # ends in the one fetch of the combined losses
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        launches.append(read_launch_counts())
+    peak = torch.cuda.max_memory_allocated(device) if on_card else 0
+    split = {"handoff": 0.0, "combine": 0.0}
+    restore = timed_pipeline_comm(sync, split)
+    t = time.perf_counter()
+    trainer.run_step()
+    timed_ms = (time.perf_counter() - t) * 1e3
+    restore()
+    out = {"rank": comm.rank(), "stage": trainer._stage, "step_ms": step_ms,
+           "timed_ms": timed_ms, "split": split, "peak": peak, "launches": launches,
+           "k4": frozen_bn_counts(model),
+           "losses": [{k: v for k, v in m.items() if k != "data_time"}
+                      for m in trainer.metrics_history],
+           "finite": all(np.isfinite(v) for m in trainer.metrics_history for v in m.values()),
+           "digest": state_digest(model)}
+    del trainer, model
+    return out
+
+
+def pp_f32_step(device, opts, seed, micro, pp, grads_path=None):
+    """(g): one f32 step (TF32 off, every candidate kept) of the flagship at
+    GRAD_ACCUM PP_MICRO on the micro-batches ``micro`` ([(strong, weak)]),
+    under TPU.PP at world 2 (``pp``) or in one process: (losses, the
+    gradient that enters SGD; under PP rank 0 saves it to ``grads_path``)."""
+    import torch
+
+    from unit_tpu_torch.parallel import comm
+
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        cfg = dp_cfg((*opts, *DP_KEEP_ALL_OPTS, *(PP_OPTS if pp else ())))
+        model, trainer = pp_trainer(device, cfg, seed, [s for s, _ in micro],
+                                    [w for _, w in micro], pp=pp)
+        names = {id(p): name for name, p in model.named_parameters()}
+        grads = {}
+
+        def keep(optimizer, args, kwargs):  # the combined gradient, as SGD takes it
+            for g in optimizer.param_groups:
+                for p in g["params"]:
+                    grads[names[id(p)]] = p.grad.detach().clone()
+
+        trainer.optimizer.optimizer.register_step_pre_hook(keep)
+        metrics = trainer.run_step()
+        del trainer, model
+    finally:
+        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = flags
+    if grads_path is None:
+        return metrics, grads
+    if comm.is_main():
+        torch.save({k: v.cpu() for k, v in grads.items()}, grads_path)
+    return metrics, None
+
+
+def pp_rank(device, opts, seed, canvases, micro, grads_path, run_argv):
+    """(f), (g) and (h) in one stage rank: ((f)'s results, (g)'s losses, (h)'s
+    run, and each one's seconds)."""
+    import torch
+
+    out = []
+    for fn, args in ((pp_train_rank, (opts, seed, canvases)),
+                     (pp_f32_step, (opts, seed, micro, True, grads_path)),
+                     (dp_run_rank, (run_argv,))):
+        t = time.perf_counter()
+        result = fn(device, *args)
+        out.append((result if fn is not pp_f32_step else result[0],
+                    time.perf_counter() - t))
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
 
 
 def phase_sharded(seed, workdir):
@@ -6454,8 +6696,12 @@ def phase_sharded(seed, workdir):
     phase 8's bound.  (d) the checkpoint of (c)'s FSDP state and of its TP
     state, each restored by one process (state and momenta hash as the
     ranks' gathered state); the one-process (c) checkpoint restored under
-    FSDP and under TP (each rank's parts equal the file's slices).  Returns
-    {path: launch counts}."""
+    FSDP and under TP (each rank's parts equal the file's slices).  Then
+    TPU.PP with 2 stages in the same ranks (``pp_rank``, gated by
+    ``pp_checks``): (f) the flagship at full width, 2 micro-batches of 2 + 2
+    images; (g) the f32 pipelined step against one process at GRAD_ACCUM
+    2; (h) engine.runner.run under PP with a checkpoint and an evaluation
+    against a one-process --eval-only.  Returns {path: launch counts}."""
     import torch
 
     from unit_tpu_torch.parallel import launch
@@ -6496,11 +6742,26 @@ def phase_sharded(seed, workdir):
                       (opts, seed, s, w, grads_path, split_dir,
                        os.path.join(one_dir, "step_1.pt")))
         results[mode] = (one, secs_one, *paths)
-    # both modes in one spawn: the ranks start and reach the card once
+    # (g)'s one process, then (f)-(h) as the spawn's third mode
+    pp_batch = synthetic_train_batches(cfg32, seed + 6, n_batches=1, per_stream=PP_MICRO)
+    micro = [tuple({k: v[i:i + 1] for k, v in b[0].items()} for b in pp_batch)
+             for i in range(PP_MICRO)]
+    t = time.perf_counter()
+    pp_one = pp_f32_step(dev, opts, seed, micro, pp=False)
+    secs_pp_one = time.perf_counter() - t
+    free()
+    pp_grads, pp_run = (os.path.join(workdir, f"sh_pp_{x}") for x in ("grads.pt", "run"))
+    args["pp"] = (opts, seed, TRAIN_CANVASES, micro, pp_grads,
+                  argv(pp_run) + ["SOLVER.IMS_PER_BATCH", str(PP_IMAGES),
+                                  "SOLVER.MAX_ITER", str(PP_RUN_STEPS),
+                                  "SOLVER.CHECKPOINT_PERIOD", str(PP_RUN_STEPS),
+                                  "TEST.EVAL_PERIOD", str(PP_RUN_STEPS), *PP_OPTS])
+    # the three modes in one spawn: the ranks start and reach the card once
     t = time.perf_counter()
     ranks = launch(sh_rank, SH_WORLD, devices, "gloo", args=(args,), timeout=SH_TIMEOUT)
-    log(f"[22] one spawn of {SH_WORLD} ranks for both modes: {time.perf_counter() - t:.1f} s "
-        f"(the start, then for each mode (a) or (b) and (c) and (d))")
+    log(f"[22] one spawn of {SH_WORLD} ranks for the three modes: "
+        f"{time.perf_counter() - t:.1f} s (the start, then (a) or (b) and (c) and (d) for "
+        f"FSDP and TP, then (f), (g) and (h) for PP)")
     free()
 
     # (a) FSDP and (b) TP 2 through the run loop
@@ -6615,7 +6876,83 @@ def phase_sharded(seed, workdir):
             raise AssertionError("a checkpoint did not move between the topologies intact")
         shutil.rmtree(ckpt_dir, ignore_errors=True)
         free()
+    by_path.update(pp_checks([r["pp"] for r in ranks], pp_one, secs_pp_one, pp_grads, pp_run,
+                             argv, dev))
     log(f"[22] phase 22 in {time.perf_counter() - t_phase:.1f} s")
+    return by_path
+
+
+def pp_checks(ranks, one, secs_one, grads_path, run_dir, argv, dev):
+    """(f)-(h)'s gates on the two stage ranks' results (``pp_rank``'s, with
+    its seconds); ``one``: (g)'s one process.  Returns {path: launches}."""
+    import torch
+
+    on_card = dev.type == "cuda"
+    by_path = {}
+    f = [r[0][0][0] for r in ranks]
+    for r, (_, secs) in zip(f, (r[0][0] for r in ranks)):
+        log(f"[22] (f) PP rank {r['rank']} (stage {r['stage']}): {PP_STEPS} timed steps of "
+            f"{PP_MICRO} micro-batches of {PP_IMAGES} + {PP_IMAGES} images after {PP_WARMUP} "
+            f"warm-up: median {np.median(r['step_ms']):.2f} ms (min {min(r['step_ms']):.2f}, "
+            f"max {max(r['step_ms']):.2f}); one more step with each call synchronised "
+            f"{r['timed_ms']:.2f} ms, of it in the hand-off calls (copies through the host and "
+            f"the wait for the other stage) {r['split']['handoff']:.2f} ms and in the gradient "
+            f"combine (gloo all-reduce through the host) {r['split']['combine']:.2f} ms; "
+            + (f"peak device memory of the timed steps {r['peak'] / 2**30:.2f} GiB; "
+               if on_card else "")
+            + f"launches a step {r['launches'][-1]}; total_loss "
+            f"{[round(m['total_loss'], 4) for m in r['losses']]}; {secs:.1f} s with the build")
+    summed = {k: sum(r["launches"][-1][k] for r in f) for k in f[0]["launches"][-1]}
+    n_backbone = f[0]["k4"][0]
+    alone = dict(summed, bn_act_fwd=summed["bn_act_fwd"] - PP_MICRO * n_backbone)
+    log(f"[22] (f) launches a step over the two stages {summed}: one process's at GRAD_ACCUM "
+        f"{PP_MICRO} {alone} and the backbone's {PP_MICRO} x {n_backbone} K4 forwards again "
+        f"(stage 0 recomputes its range in backward); the states' hash equal "
+        f"{f[0]['digest'] == f[1]['digest']}")
+    if not all(r["finite"] for r in f) or f[0]["losses"] != f[1]["losses"] \
+            or f[0]["digest"] != f[1]["digest"] or {r["stage"] for r in f} != {0, 1}:
+        raise AssertionError("the PP ranks' states or losses differ, or a loss is not finite")
+    if on_card and any(c != pp_launches(r["k4"], r["stage"]) for r in f for c in r["launches"]):
+        raise AssertionError(f"a PP stage did not launch {[pp_launches(r['k4'], r['stage']) for r in f]} "
+                             f"a step: {[r['launches'] for r in f]}")
+    for r in f:
+        by_path[f"pp_train_stage{r['stage']}"] = {
+            k: sum(c[k] for c in r["launches"]) for k in r["launches"][0]}
+
+    # (g) f32: the pipelined step against one process's accumulated step
+    g2 = torch.load(grads_path, map_location=dev, weights_only=True)
+    os.remove(grads_path)
+    sh_compare_grads(f"PP at world 2 ({PP_MICRO} micro-batches of 1 + 1) against one process "
+                     f"at GRAD_ACCUM {PP_MICRO}, the one process {secs_one:.1f} s",
+                     one[0], one[1], ranks[0][0][1][0], g2, part="(g)")
+    del g2
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (h) engine.runner.run under PP on phase 20's devkit of JPEG files
+    (a, secs_a), (b, _) = ranks[0][0][2], ranks[1][0][2]
+    written = sorted(os.listdir(run_dir))
+    ap = a["results"]["bbox"]
+    log(f"[22] (h) engine.runner.run under PP ({PP_RUN_STEPS} steps of {PP_MICRO} micro-batches "
+        f"of {PP_IMAGES} + {PP_IMAGES} images through the C loader, a checkpoint and an "
+        f"evaluation at {PP_RUN_STEPS}) in {secs_a:.1f} s: stages {a['stage']}, {b['stage']}; "
+        f"AP50 {ap['AP50']:.6g}, AP {ap['AP']:.6g}, the ranks' results equal "
+        f"{strip_results(a['results']) == strip_results(b['results'])}, states equal "
+        f"{a['digest'] == b['digest']}; OUTPUT_DIR holds {written}; launches a step "
+        f"{[r['launches'][-1] for r in (a, b)]}")
+    if a["digest"] != b["digest"] or strip_results(a["results"]) != strip_results(
+            b["results"]) or not {f"step_{PP_RUN_STEPS}.pt", "metrics.json"} <= set(written):
+        raise AssertionError("the PP ranks' runs differ, or a checkpoint is missing")
+    if on_card and any(c != pp_launches(r["frozen_bn"], r["stage"]) for r in (a, b)
+                       for c in r["launches"]):
+        raise AssertionError(f"a PP run-loop step did not launch its stage's share: "
+                             f"{[r['launches'] for r in (a, b)]}")
+    for r in (a, b):
+        by_path[f"pp_run_stage{r['stage']}"] = {
+            k: sum(c[k] for c in r["launches"]) for k in r["launches"][0]}
+    check_eval_alone("[22] (h)", f"step-{PP_RUN_STEPS}",
+                     argv(run_dir, "--eval-only", "--resume"), ap, a["merged"][-1])
+    shutil.rmtree(run_dir, ignore_errors=True)
     return by_path
 
 
@@ -6720,7 +7057,13 @@ def main():
                "dock_yaml": no_k1_k2_k4, "dock_yaml_serving": no_k1_k2_k4,
                "dock_run": no_k1_k2_k4, "dock_tta": no_k1_k2_k4,
                "serving_micro": ("roi_align_bwd", "bn_act_bwd"),
+               "serving_artifact_predict": ("roi_align_bwd", "bn_act_bwd"),
                "serving_artifact_b1": ("roi_align_bwd", "bn_act_bwd"),
+               # a pipeline's first stage runs the backbone alone
+               "pp_train_stage0": ("roi_align_fwd", "roi_align_bwd", "nms_mask",
+                                   "nms_mask_images"),
+               "pp_run_stage0": ("roi_align_fwd", "roi_align_bwd", "nms_mask",
+                                 "nms_mask_images"),
                "serving_artifact": ("roi_align_bwd", "bn_act_bwd"),
                "dock_artifact": no_k1_k2_k4,
                "host_wire_serving_C": ("roi_align_bwd", "bn_act_bwd"),

@@ -12,6 +12,10 @@ cards 0..N-1 (NCCL); with ``--device cpu``, N CPU ranks (gloo).  Under
 torchrun, ``--dist`` joins the group it describes:
   torchrun --nproc_per_node N scripts/train_VOC_torch.py --dist --config-file ...
 SOLVER.IMS_PER_BATCH is the global batch, split over the ranks.
+Pipeline parallelism: ``--num-gpus N TPU.PP True TPU.PP_STAGES S
+TPU.GRAD_ACCUM A`` (A >= 2) runs N / S data ranks of S stage ranks each;
+IMS_PER_BATCH is then split over the N / S data ranks, and
+SOLVER.REFERENCE_WORLD_SIZE scales the config by N, as unit_tpu does.
 """
 
 import os

@@ -33,6 +33,7 @@ from tests.test_torch_losses import jax_params
 from tests.test_torch_parallel import LOSS_RTOL, global_batch, jax_cfg, worst_update
 from tests.test_torch_parallel_run import FLAGSHIP, SMALL_OPTS, spawn
 from tests.test_torch_parallel_run import four_threads  # noqa: F401  (autouse)
+from tests.test_torch_pipeline_run import rank_builds
 from tests.test_torch_sharded_run import FSDP_LEAF, TIMEOUT, rank_fsdp
 from unit_tpu.engine.train import TrainState as JTrainState
 from unit_tpu.engine.train import make_train_step as jmake_train_step
@@ -173,9 +174,10 @@ def small_model():
     return model, build_optimizer(cfg, model)
 
 
-def test_sharding_knob_validation():
+def test_sharding_knob_validation(tmp_path):
     """unit_tpu's refusals (train.py:613-624), in its order; pipeline
-    parallelism alone is not ported."""
+    parallelism (ported since) builds on a stage mesh, and without one
+    refuses as unit_tpu's pipeline step asserts (train.py:274)."""
     model, opt = small_model()
     with pytest.raises(ValueError, match="mutually exclusive"):
         TrainerBase(model, opt, fsdp=True, tp=True)
@@ -187,8 +189,11 @@ def test_sharding_knob_validation():
         TrainerBase(model, opt, pp=True, grad_accum=2, tp=True)
     with pytest.raises(ValueError, match="meta stream"):
         TrainerBase(model, opt, pp=True, grad_accum=2, meta_iter=iter(()))
-    with pytest.raises(NotImplementedError, match="item 37"):
+    with pytest.raises(ValueError, match="'stage' mesh axis"):
         TrainerBase(model, opt, pp=True, grad_accum=2)
+    # on a (1, 2) stage mesh: rank 0 the first stage, rank 1 the last, one data rank
+    assert spawn(tmp_path, rank_builds, {"pp": True, "grad_accum": 2}) == [
+        (0, False, 0, 1), (1, True, 0, 1)]
     # without a mesh, fsdp and tp are ignored, as in unit_tpu: the plain trainer
     for kwargs in ({"fsdp": True}, {"tp": True}):
         assert TrainerBase(model, opt, **kwargs).mesh is None

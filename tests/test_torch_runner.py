@@ -215,8 +215,14 @@ def test_missing_weights_and_device_raise(devkit, tmp_path):
     pytest.param(["TPU.TP", "2"], "not divisible by TPU.TP=2", id="opts3-items 27 and 29"),
     (["MODEL.BACKBONE.NAME", "VGG_CNN_F"], "item 25"),
     # the meta Trainer is ported (tests/test_torch_meta.py); the case keeps
-    # its name and holds pipeline parallelism instead
-    pytest.param(["TPU.PP", "True"], "item 37", id="opts5-item 23"),
+    # its name and holds pipeline parallelism instead, which is ported too
+    # (tests/test_torch_pipeline*.py): in one process PP_STAGES 2 does not
+    # divide the one rank, and unit_tpu's assert refuses (runner.py:214)
+    pytest.param(["TPU.PP", "True"], "divisible by TPU.PP_STAGES=2, got 1",
+                 id="opts5-item 23"),
+    # PP with TP refuses before anything is built, as unit_tpu's assert does
+    pytest.param(["TPU.PP", "True", "TPU.TP", "2"], "does not compose with TPU.TP",
+                 id="opts6-PP with TP"),
 ])
 def test_unported_run_options_raise(devkit, tmp_path, opts, item, monkeypatch):
     tdata.DatasetCatalog.clear()
@@ -240,7 +246,8 @@ def test_unported_run_options_raise(devkit, tmp_path, opts, item, monkeypatch):
         assert losses and all(np.isfinite(v) for m in losses.values() for v in m.values())
         assert np.isfinite(results["bbox"]["AP50"])
         return
-    if item is not None and item.startswith("not divisible"):
+    if item is not None and item.startswith(("not divisible", "divisible by",
+                                             "does not compose")):
         with pytest.raises(ValueError, match=item):
             runner.run(cli(devkit, tmp_path, opts=opts), image_loader=seeded_image_loader)
         return

@@ -209,8 +209,11 @@ def test_train_losses_selects_proposals_once_for_a_fused_batch(monkeypatch, same
     # a process group of two ranks trains; the case keeps its name
     pytest.param({}, "trains", id="kwargs2-items 27 and 29"),
     pytest.param({"fsdp": True}, "plain", id="kwargs3-items 27 and 29"),
-    # pipeline parallelism (at unit_tpu's least GRAD_ACCUM) is not ported
-    pytest.param({"pp": True, "grad_accum": 2}, "item 37", id="kwargs4-items 27 and 29"),
+    # pipeline parallelism is ported (tests/test_torch_pipeline*.py): at
+    # unit_tpu's least GRAD_ACCUM and without a mesh it refuses, as unit_tpu's
+    # pipeline step asserts its stage axis (train.py:274)
+    pytest.param({"pp": True, "grad_accum": 2}, "'stage' mesh axis",
+                 id="kwargs4-items 27 and 29"),
 ])
 def test_unported_trainer_options_raise(kwargs, item, tmp_path):
     if item == "trains":

@@ -38,8 +38,10 @@ orientation from one schedule that every rank shares
 (``StreamLoader(sync_portrait_frac=...)``, the portrait share of the whole
 list): every rank's batch of a step has the same shape, so
 ``TPU.GRAD_ACCUM`` groups form alike everywhere.  The data ranks are the
-ranks, except in the training streams under TPU.TP, whose model ranks of
-one data rank read the same records (``parallel.comm.data_rank``); the test
+ranks, except in the training streams under TPU.TP and TPU.PP, whose model
+(or stage) ranks of one data rank read the same records
+(``parallel.comm.data_rank``): under PP the first and the last stage then
+pair the same strong and weak groups on one canvas without a message; the test
 loaders feed whole replicas and split over every rank.  The support stream
 is not split: every rank reads the same shots, as in unit_tpu.
 """
@@ -344,8 +346,11 @@ class StreamLoader:
 
 
 def _model_ranks(cfg) -> int:
-    """The ranks that share each data rank's images in training: TPU.TP's
-    model ranks (``parallel.comm.data_rank``), else 1."""
+    """The ranks that share each data rank's images in training: TPU.PP's
+    stage ranks (TPU.PP_STAGES) or TPU.TP's model ranks
+    (``parallel.comm.data_rank``), else 1."""
+    if getattr(cfg.TPU, "PP", False):
+        return int(cfg.TPU.PP_STAGES or 2)
     return int(getattr(cfg.TPU, "TP", 1) or 1)
 
 

@@ -10,8 +10,10 @@ from .train import (
     TrainerOnlyWeak,
     TrainerOnlyWeakFineTune,
     TrainState,
+    make_pipeline_train_step,
     make_train_step,
 )
 
 __all__ = ["TrainState", "Trainer", "TrainerBase", "TrainerFineTune", "TrainerNoMeta",
-           "TrainerOnlyWeak", "TrainerOnlyWeakFineTune", "make_predict_fn", "make_train_step"]
+           "TrainerOnlyWeak", "TrainerOnlyWeakFineTune", "make_pipeline_train_step",
+           "make_predict_fn", "make_train_step"]

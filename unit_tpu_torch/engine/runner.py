@@ -57,8 +57,17 @@ whole replica of the model, loaded once an evaluation from the gathered
 state (``on_whole_replica``) and dropped after it: predict holds no
 collective, so ranks with unequal image counts cannot hang, and every rank
 evaluates its shard of the test set as data-parallel ranks do; PreciseBN
-runs on such a replica too and copies the statistics back.  Pipeline
-parallelism (TPU.PP) raises with its ROADMAP item (37).
+runs on such a replica too and copies the statistics back.
+
+Pipeline parallelism (TPU.PP, TPU.PP_STAGES = S): the ("data", "stage")
+mesh of world / S x S (S must divide the ranks; not with TPU.TP or
+TPU.FSDP), every rank holding the whole model, and the pipeline trainer
+(``engine.train.make_pipeline_train_step``).  Its evaluations are the data
+parallel ones, each rank on its shard of the test set with the replica it
+holds, and rank 0 writes its checkpoints, as under data parallelism.  A
+resume fast-forwards each stream by start_step * TPU.GRAD_ACCUM batches, as
+unit_tpu's does, and so drops the batches that the joint pairing had left
+waiting for a group (ROADMAP R18, kept for parity).
 """
 
 from __future__ import annotations
@@ -101,7 +110,6 @@ from ..evaluation import (
     inference_on_dataset_meta,
 )
 from ..models import WSRCNN, ModelConfig
-from ..models.meta_arch import _not_ported
 from ..parallel import comm, init_from_env, launch
 from ..parallel import mesh as mesh_lib
 from ..solver import build_optimizer
@@ -159,8 +167,9 @@ def default_argument_parser():
     parser.add_argument("--eval-only", action="store_true")
     parser.add_argument("--resume", action="store_true")
     parser.add_argument("--num-gpus", type=int, default=1,
-                        help="data-parallel ranks, one process each on cards 0..N-1 "
-                             "(NCCL); with --device cpu, N CPU ranks (gloo)")
+                        help="ranks, one process each on cards 0..N-1 (NCCL); with "
+                             "--device cpu, N CPU ranks (gloo); under TPU.PP, N / "
+                             "TPU.PP_STAGES data ranks of PP_STAGES stage ranks")
     parser.add_argument("--data-root", default=None)
     parser.add_argument("--dist", action="store_true",
                         help="join the process group torchrun describes in the environment")
@@ -287,13 +296,11 @@ def build_everything(cfg, device: Optional[torch.device] = None, seed: int = 0,
     datasets as its strong stream.  ``Trainer`` also reads the support
     stream, seeded ``seed + 2``."""
     device = device if device is not None else resolve_device(None)
-    if bool(getattr(cfg.TPU, "PP", False)):
-        raise _not_ported("TPU.PP (pipeline parallelism)", "ROADMAP Queue 1 item 37")
-    mesh, fsdp, tp = build_mesh(cfg, device)
+    mesh, fsdp, tp, pp = build_mesh(cfg, device)
     trainer_cls = trainer_class_for(cfg)
     model = WSRCNN(ModelConfig.from_cfg(cfg),
                    generator=torch.Generator().manual_seed(seed)).to(device)
-    if fsdp or tp:
+    if (fsdp or tp) and not pp:
         (mesh_lib.fsdp_shard if fsdp else mesh_lib.tp_shard)(model, mesh)
         logger.info("%s over the %s mesh %s: %d of %d parameters split", "FSDP" if fsdp else "TP",
                     mesh.mesh_dim_names, tuple(mesh.shape),
@@ -329,7 +336,7 @@ def build_everything(cfg, device: Optional[torch.device] = None, seed: int = 0,
     try:
         trainer = trainer_cls(model, solver, strong_iter=strong_iter, weak_iter=weak_iter,
                               meta_iter=meta_iter, seed=seed, grad_accum=grad_accum,
-                              mesh=mesh, fsdp=fsdp, tp=tp)
+                              mesh=mesh, fsdp=fsdp, tp=tp, pp=pp)
     except BaseException:
         for it in (strong_iter, weak_iter, meta_iter):
             if it is not None:
@@ -339,19 +346,31 @@ def build_everything(cfg, device: Optional[torch.device] = None, seed: int = 0,
 
 
 def build_mesh(cfg, device: torch.device):
-    """(mesh, fsdp, tp) of a config over this process group, as unit_tpu's
-    runner builds them: TPU.TP = M > 1 -> the (world / M, M) mesh (M must
-    divide the ranks); TPU.FSDP at world > 1 -> the 1-D mesh; otherwise
-    (None, False, False): data parallelism or one process."""
+    """(mesh, fsdp, tp, pp) of a config over this process group, as
+    unit_tpu's runner builds them (runner.py:207-225): TPU.PP -> the
+    (world / S, S) mesh of S = TPU.PP_STAGES (S must divide the ranks; not
+    with TPU.TP); TPU.TP = M > 1 -> the (world / M, M) mesh (M must divide
+    the ranks); TPU.FSDP at world > 1 -> the 1-D mesh; otherwise (None,
+    False, False, False): data parallelism or one process.  Under PP
+    ``fsdp`` is TPU.FSDP as given: the trainer refuses the pair."""
     tp = int(getattr(cfg.TPU, "TP", 1) or 1)
+    if getattr(cfg.TPU, "PP", False):
+        if tp != 1:
+            raise ValueError("TPU.PP does not compose with TPU.TP")
+        stages, n = int(cfg.TPU.PP_STAGES or 2), comm.world()
+        if n % stages:
+            raise ValueError(f"TPU.PP needs a device count divisible by "
+                             f"TPU.PP_STAGES={stages}, got {n}")
+        return (mesh_lib.make_mesh_pp(n // stages, stages, device.type), bool(cfg.TPU.FSDP),
+                False, True)
     if tp > 1:
         n_data = comm.data_world(tp)  # ValueError unless TP divides the ranks
         if cfg.TPU.FSDP:
             raise ValueError("TPU.FSDP and TPU.TP are mutually exclusive sharding modes")
-        return mesh_lib.make_mesh_tp(n_data, tp, device.type), False, True
+        return mesh_lib.make_mesh_tp(n_data, tp, device.type), False, True, False
     if cfg.TPU.FSDP and comm.world() > 1:
-        return mesh_lib.make_mesh(comm.world(), device.type), True, False
-    return None, False, False
+        return mesh_lib.make_mesh(comm.world(), device.type), True, False, False
+    return None, False, False, False
 
 
 def support_dataset_name(cfg) -> str:

@@ -54,8 +54,19 @@ ranks stay bit-identical).  Under TP the seeds and the training loaders'
 shards read the DATA rank (``comm.data_rank`` of the mesh's model dim or of
 TPU.TP), so the model ranks of one data rank see the same images and draw
 the same samples.  Without a mesh ``fsdp`` and ``tp`` are ignored, as in unit_tpu.
-Pipeline parallelism raises ``NotImplementedError`` (ROADMAP Queue 1 item
-37) after unit_tpu's ``ValueError``s for the pairs it refuses.
+
+Pipeline parallelism (unit_tpu's ``make_pipeline_train_step``, TPU.PP):
+the trainer takes a ("data", "stage") mesh (``parallel.mesh.make_mesh_pp``)
+and a whole model on every rank.  Stage ranks 0 .. S-2 run balanced groups
+of backbone units, the last stage the RPN, the ROI heads and the losses;
+the TPU.GRAD_ACCUM micro-batches go through as a GPipe
+(``make_pipeline_train_step``).  The S stage ranks of a data rank read the
+same batches (the loaders split over the data ranks), pair the strong and
+weak groups on one canvas (``_next_pair``, unit_tpu's
+``_next_stacked_pair``) and seed with the data rank r // S, so the step
+equals the one-process accumulated step on the same micro-batches.  The
+losses come from the last stage: summed over the stage ranks and averaged
+over the data ranks before the one host fetch.
 """
 
 from __future__ import annotations
@@ -68,11 +79,13 @@ import numpy as np
 import torch
 from torch.distributed.fsdp import FSDPModule
 from torch.distributed.tensor import DTensor
+from torch.utils.checkpoint import checkpoint
 
 from ..models.box_heads import VGG_HEADS
-from ..models.meta_arch import WSRCNN, _not_ported
+from ..models.meta_arch import WSRCNN
+from ..models.resnet import ResNetC4, num_units
 from ..parallel import comm
-from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, axis_size
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, STAGE_AXIS, axis_size
 from ..solver.build import Solver
 
 
@@ -118,6 +131,11 @@ def make_train_step(
     data_group = mesh.get_group(DATA_AXIS) if split else None
     whole = [p for p in trainable if not isinstance(p, DTensor) and not hasattr(p, "tp_shard")]
 
+    def reduce(_grads):  # FSDP's shards are reduced by FSDP
+        if split:  # TP's slices
+            comm.all_reduce_mean_tensors([p.grad for p in split], data_group)
+        comm.all_reduce_mean_tensors([p.grad for p in whole])  # one rank: nothing
+
     def step(strong, weak, generator, meta=None, dropout=None) -> Dict[str, torch.Tensor]:
         if accum == 1:
             strong, weak, generator, dropout = [strong], [weak], [generator], [dropout]
@@ -128,27 +146,206 @@ def make_train_step(
                 dropout if dropout is not None else [None] * accum, strict=True)):
             if fsdp is not None and accum > 1:  # reduce-scatter after the last one
                 fsdp.set_requires_gradient_sync(i == accum - 1)
-            losses = model.train_losses(g, s, w, train_only_weak=train_only_weak, meta=meta,
-                                        dropout_generator=d)
-            total = torch.stack(list(losses.values())).sum()
-            (total / accum).backward()
-            losses["total_loss"] = total
-            for k, v in losses.items():
-                sums[k] = sums[k] + v.detach() if k in sums else v.detach()
-        # a trainable tensor outside this step's graph (the weak detector in a
-        # strong-only step) still decays: unit_tpu's gradient for it is zero
-        # (an FSDP shard's zeros are a DTensor like it)
-        for p in trainable:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        if split:  # TP's slices
-            comm.all_reduce_mean_tensors([p.grad for p in split], data_group)
-        comm.all_reduce_mean_tensors([p.grad for p in whole])  # one rank: nothing
-        if clip is not None:
-            clip()
-        optimizer.step()
-        scheduler.step()
+            _backward_micro(model.train_losses(g, s, w, train_only_weak=train_only_weak,
+                                               meta=meta, dropout_generator=d), accum, sums)
+        _apply_update(trainable, reduce, clip, optimizer, scheduler)
         return {k: v / accum for k, v in sums.items()}
+
+    return step
+
+
+def _backward_micro(losses: Dict[str, torch.Tensor], accum: int,
+                    sums: Dict[str, torch.Tensor]) -> None:
+    """Backpropagate one micro-batch's total / ``accum`` and add its detached
+    losses, ``total_loss`` among them, to ``sums``."""
+    total = torch.stack(list(losses.values())).sum()
+    (total / accum).backward()
+    losses["total_loss"] = total
+    for k, v in losses.items():
+        sums[k] = sums[k] + v.detach() if k in sums else v.detach()
+
+
+def _apply_update(trainable, reduce, clip, optimizer, scheduler) -> None:
+    """The update both steps share: a zero gradient for a trainable tensor
+    outside the step's graph (the weak detector in a strong-only step, the
+    other stages' units: it still decays, as unit_tpu's zero gradient does;
+    an FSDP shard's zeros are a DTensor like it), ``reduce(grads)`` over the
+    ranks, then the clip, the SGD step and the schedule."""
+    for p in trainable:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    reduce([p.grad for p in trainable])
+    if clip is not None:
+        clip()
+    optimizer.step()
+    scheduler.step()
+
+
+def _balanced_unit_groups(costs, g):
+    """Minimax contiguous partition of ``costs`` into ``g`` non-empty groups
+    (unit_tpu train.py:194-223, the linear-partition DP): ``[(start, stop),
+    ...]`` half-open ranges."""
+    n = len(costs)
+    if not 1 <= g <= n:
+        raise ValueError(f"{g} groups of {n} units")
+    prefix = [0.0]
+    for c in costs:
+        prefix.append(prefix[-1] + c)
+    inf = float("inf")
+    best = [[inf] * (n + 1) for _ in range(g + 1)]
+    cut = [[0] * (n + 1) for _ in range(g + 1)]
+    best[0][0] = 0.0
+    for k in range(1, g + 1):
+        for i in range(k, n + 1):
+            for j in range(k - 1, i):
+                v = max(best[k - 1][j], prefix[i] - prefix[j])
+                if v < best[k][i]:
+                    best[k][i] = v
+                    cut[k][i] = j
+    bounds = [n]
+    for k in range(g, 0, -1):
+        bounds.append(cut[k][bounds[-1]])
+    bounds.reverse()
+    return [(bounds[t], bounds[t + 1]) for t in range(g)]
+
+
+def make_pipeline_train_step(
+    model: WSRCNN,
+    optimizer: torch.optim.Optimizer,
+    scheduler: torch.optim.lr_scheduler.LRScheduler,
+    clip: Optional[Callable[[], None]],
+    mesh,
+    n_micro: int,
+    train_only_weak: bool = False,
+    remat: bool = True,
+) -> Callable[..., Dict[str, torch.Tensor]]:
+    """The GPipe step of one stage rank of the ("data", "stage") ``mesh``
+    (unit_tpu train.py:226-467): (strong, weak, generator, meta=None,
+    dropout=None) -> detached loss dict with ``total_loss``, after one
+    update; each argument but ``meta`` a list of ``n_micro`` micro-batches
+    (``weak`` may be None), as ``make_train_step`` takes them under
+    accumulation.
+
+    Stages 0 .. S-2 run ``_balanced_unit_groups`` of the ResNet-C4 units
+    (costs 0.5 for the stem, 1 a bottleneck block); another backbone splits
+    only at its end (S = 2, ``backbone_features``).  Stage 0 reads the
+    images, every later stage the [B, h, w, C] map its neighbour hands on
+    (``comm.send_map``; a header gives the shape once per canvas), and the
+    last runs ``train_losses(backbone_feats=...)`` with ``generator[i]``,
+    its global counts local (``comm.local_counts``).  Forward, each stage
+    takes the micro-batches in order and hands each map on as it is made;
+    the last stage backpropagates each micro-batch's total / M at once and
+    sends the maps' gradients back after the last map has come, and the
+    stages before it then backpropagate in order, so every link carries the
+    forward maps before the gradients (no cycle, whichever backend).  With
+    ``remat`` a backbone range keeps only its input and recomputes in
+    backward (``torch.utils.checkpoint``: exact, the backbone draws nothing
+    random); the last stage keeps each micro-batch's graph only until its
+    backward, as a replay would draw other samples from its generators.
+    Each rank's gradients are non-zero on its own units alone: they are
+    summed over the world and divided by the data ranks (unit_tpu's psum
+    over 'stage', pmean over 'data'), then clipped and applied on every
+    rank, which all hold the whole model.  The losses are the last stage's
+    micro-batch means; other stages return zeros under the same keys (agreed
+    at the first step), for the trainer's sum over the world."""
+    names = (mesh.mesh_dim_names or ()) if mesh is not None else ()
+    if STAGE_AXIS not in names:
+        raise ValueError("pipeline step needs a 'stage' mesh axis")
+    n_stage, n_data = axis_size(mesh, STAGE_AXIS), axis_size(mesh, DATA_AXIS)
+    n_units = num_units(model.mc.depth) if isinstance(model.backbone, ResNetC4) else 1
+    if not 2 <= n_stage <= n_units + 1:
+        raise ValueError(f"pipeline stages must be in [2, {n_units + 1}] for this backbone, "
+                         f"got {n_stage}")
+    accum = int(n_micro)
+    if accum < 2:
+        raise ValueError("pipeline parallelism pipelines TPU.GRAD_ACCUM microbatches; "
+                         "set GRAD_ACCUM >= 2")
+    groups = _balanced_unit_groups([0.5] + [1.0] * (n_units - 1), n_stage - 1)
+    stage = mesh.get_local_rank(STAGE_AXIS)
+    last = stage == n_stage - 1
+    ranks = torch.distributed.get_process_group_ranks(mesh.get_group(STAGE_AXIS))
+    prev, nxt = (ranks[stage - 1] if stage > 0 else None), (None if last else ranks[stage + 1])
+    device = model.embeddings.device
+    trainable = [p for group in optimizer.param_groups for p in group["params"]]
+    headers_in: Dict[tuple, tuple] = {}  # canvas -> (shape, dtype, requires_grad)
+    headers_out: set = set()
+    loss_keys: List[str] = []
+
+    def segment(strong, weak, feats):
+        start, stop = groups[stage]
+        if start == 0 and stop == n_units:
+            return model.backbone_features(strong, weak)
+        return model.backbone_segment(strong, weak, feats, start, stop)
+
+    def canvas(strong, weak):  # the micro-batch's key: the same on every stage rank
+        return tuple(None if b is None else tuple(b["image"].shape) for b in (strong, weak))
+
+    def receive(key):
+        if key not in headers_in:
+            headers_in[key] = comm.recv_header(prev, device)
+        shape, dtype, wants_grad = headers_in[key]
+        return comm.recv_map(shape, dtype, prev, device).requires_grad_(wants_grad)
+
+    def hand_on(y, key, pending):
+        if key not in headers_out:
+            comm.send_header(y, nxt, y.requires_grad)
+            headers_out.add(key)
+        pending += comm.send_map(y.detach(), nxt)
+
+    def backbone_stage(strong, weak):
+        pending, ins, outs = [], [], []
+        for s, w in zip(strong, weak):
+            key = canvas(s, w)
+            x = None if stage == 0 else receive(key)
+            args = (s, w, None) if stage == 0 else (None, None, x)
+            y = (checkpoint(segment, *args, use_reentrant=False, preserve_rng_state=False)
+                 if remat else segment(*args))
+            hand_on(y, key, pending)
+            ins.append(x)
+            outs.append(y)
+        for x, y in zip(ins, outs):
+            if y.requires_grad:
+                y.backward(comm.recv_map(y.shape, y.dtype, nxt, device))
+            if x is not None and x.requires_grad:
+                pending += comm.send_map(torch.zeros_like(x) if x.grad is None else x.grad,
+                                         prev)
+        comm.wait_all(pending)
+        return {}
+
+    def heads_stage(strong, weak, generator, dropout):
+        sums: Dict[str, torch.Tensor] = {}
+        back = []
+        for s, w, g, d in zip(strong, weak, generator, dropout):
+            x = receive(canvas(s, w))
+            with comm.local_counts():
+                losses = model.train_losses(g, s, w, train_only_weak=train_only_weak,
+                                            dropout_generator=d, backbone_feats=x)
+            _backward_micro(losses, accum, sums)
+            if x.requires_grad:
+                back.append(torch.zeros_like(x) if x.grad is None else x.grad)
+        pending = []
+        for gx in back:  # after the last map: the link's maps before its gradients
+            pending += comm.send_map(gx, prev)
+        comm.wait_all(pending)
+        return {k: v / accum for k, v in sums.items()}
+
+    def step(strong, weak, generator, meta=None, dropout=None) -> Dict[str, torch.Tensor]:
+        if meta is not None:
+            raise ValueError("pipeline parallelism does not support the meta/support stream")
+        weak = weak if weak is not None else [None] * accum
+        optimizer.zero_grad(set_to_none=True)
+        if last:
+            losses = heads_stage(strong, weak, generator,
+                                 dropout if dropout is not None else [None] * accum)
+        else:
+            losses = backbone_stage(strong, weak)
+        if not loss_keys:  # the last stage's keys, in its order, on every rank
+            loss_keys.extend(next(keys for keys in comm.gather_objects(
+                list(losses) if last else None) if keys is not None))
+        _apply_update(trainable, lambda grads: comm.all_reduce_mean_tensors(
+            grads, divisor=n_data), clip, optimizer, scheduler)
+        zero = torch.zeros((), device=device)
+        return {k: losses.get(k, zero) for k in loss_keys}
 
     return step
 
@@ -213,8 +410,6 @@ class TrainerBase:
                              "set TPU.GRAD_ACCUM >= 2")
         if pp and meta_iter is not None:
             raise ValueError("pipeline parallelism does not support the meta stream")
-        if pp:
-            raise _not_ported("pipeline parallelism", "ROADMAP Queue 1 item 37")
         if mesh is not None and (fsdp or tp):
             _check_split(model, mesh, fsdp)
         self.mesh = mesh
@@ -224,10 +419,19 @@ class TrainerBase:
         self.weak_iter = weak_iter
         self.meta_iter = meta_iter
         self.seed = int(seed)
-        # the seeds fold the data rank (TP's model ranks of one share it); the
-        # losses' mean and the stop request span the world
-        model_ranks = axis_size(mesh, MODEL_AXIS) if mesh is not None and tp else 1
+        self.pp = bool(pp)
+        # the seeds fold the data rank (TP's model ranks of one share it, and
+        # PP's stage ranks); the losses' combine and the stop request span
+        # the world
+        if self.pp:
+            model_ranks = axis_size(mesh, STAGE_AXIS) if mesh is not None else 1
+        else:
+            model_ranks = axis_size(mesh, MODEL_AXIS) if mesh is not None and tp else 1
         self.rank, self.world = comm.data_rank(model_ranks), comm.world()
+        # the losses are averaged over the world, or under PP (where only the
+        # last stage has them) summed over the stage ranks, averaged over the
+        # data ranks
+        self._loss_ranks = comm.data_world(model_ranks) if self.pp else self.world
         self.grad_accum = int(grad_accum)
         # micro-batches waiting for A of their canvas, per stream and canvas
         self._accum_buf: Dict[str, Dict[tuple, list]] = {"strong": {}, "weak": {}}
@@ -235,9 +439,16 @@ class TrainerBase:
         # train-mode dropout for the VGG fc heads alone, as unit_tpu's step
         self.dropout = model.mc.box_head_name in VGG_HEADS
         self.train_only_weak = bool(train_only_weak)
-        self.train_step = make_train_step(model, optimizer.optimizer, optimizer.scheduler,
-                                          optimizer.clip, self.grad_accum, self.train_only_weak,
-                                          mesh=mesh)
+        if self.pp:
+            self.train_step = make_pipeline_train_step(
+                model, optimizer.optimizer, optimizer.scheduler, optimizer.clip, mesh,
+                self.grad_accum, self.train_only_weak)
+            self._stage = mesh.get_local_rank(STAGE_AXIS)
+            self._last_stage = self._stage == axis_size(mesh, STAGE_AXIS) - 1
+        else:
+            self.train_step = make_train_step(model, optimizer.optimizer, optimizer.scheduler,
+                                              optimizer.clip, self.grad_accum,
+                                              self.train_only_weak, mesh=mesh)
         self.state: Optional[TrainState] = None
         self.stop_requested = False
         self._stop_agreed = False  # a stop request of some rank, seen by all (world > 1)
@@ -251,7 +462,9 @@ class TrainerBase:
         self.state = TrainState(model=self.model, solver=self.optimizer, step=0)
         return self.state
 
-    def _to_device(self, batch):
+    def _to_device(self, batch, host_keys=()):
+        """``batch`` as tensors on the model's device, but for ``host_keys``,
+        which stay on the host."""
         if batch is None:
             return None
         # a Prefetcher with data.loader.pin_batch hands out tensors in pinned
@@ -261,7 +474,8 @@ class TrainerBase:
         # WSRCNN.preprocess casts them to f32 on the device
         host = {k: v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
                 for k, v in batch.items()}
-        out = {k: v.to(self.device, non_blocking=True) for k, v in host.items()}
+        out = {k: v if k in host_keys else v.to(self.device, non_blocking=True)
+               for k, v in host.items()}
         if "labels" in host:  # the PCL losses read the classes present from the host
             out["labels_host"] = host["labels"]
         return out
@@ -278,6 +492,42 @@ class TrainerBase:
             if len(group) == self.grad_accum:
                 return buffers.pop(tuple(batch["image"].shape))
 
+    def _next_pair(self):
+        """Under PP, the strong and the weak group drawn together until one
+        canvas holds ``grad_accum`` batches of each (unit_tpu's
+        ``_next_stacked_pair``, unstacked, in its order): the first stage's
+        fused pass needs both on one canvas.  Batches of other canvases wait
+        in the buffers."""
+        sb, wb = self._accum_buf["strong"], self._accum_buf["weak"]
+        a = self.grad_accum
+
+        def ready():
+            for k_s, v_s in sb.items():
+                if len(v_s) < a:
+                    continue
+                for k_w, v_w in wb.items():
+                    if len(v_w) >= a and k_s[1:3] == k_w[1:3]:  # the same (H, W)
+                        return k_s, k_w
+            return None
+
+        while (keys := ready()) is None:
+            for it, buf in ((self.strong_iter, sb), (self.weak_iter, wb)):
+                batch = next(it)
+                buf.setdefault(tuple(batch["image"].shape), []).append(batch)
+        k_s, k_w = keys
+        group_s, sb[k_s] = sb[k_s][:a], sb[k_s][a:]
+        group_w, wb[k_w] = wb[k_w][:a], wb[k_w][a:]
+        return group_s, group_w
+
+    def _stage_batch(self, batch):
+        """Under PP, what this stage reads of a micro-batch: the images on the
+        device at the first stage, everything else on the device and the
+        images on the host (for their shape) at the last, and nothing on the
+        device in between (the shapes key the hand-off)."""
+        if self._stage == 0:
+            return self._to_device({"image": batch["image"]})
+        return self._to_device(batch, ("image",) if self._last_stage else tuple(batch))
+
     def _generator(self, micro: int, dropout: bool = False) -> torch.Generator:
         """The sampling generator of micro-batch ``micro`` of this step, or
         with ``dropout`` its dropout generator."""
@@ -289,17 +539,24 @@ class TrainerBase:
     def run_step(self) -> Dict[str, float]:
         assert self.state is not None, "call init_state() first"
         t0 = time.perf_counter()
-        strong, weak = (None if it is None else self._next_group(it, self._accum_buf[name])
-                        for name, it in (("strong", self.strong_iter), ("weak", self.weak_iter)))
+        if self.pp and self.strong_iter is not None and self.weak_iter is not None:
+            strong, weak = self._next_pair()
+        else:
+            strong, weak = (
+                None if it is None else self._next_group(it, self._accum_buf[name])
+                for name, it in (("strong", self.strong_iter), ("weak", self.weak_iter)))
         # one support batch a step, shared by the micro-batches
         meta = None if self.meta_iter is None else next(self.meta_iter)
         data_time = time.perf_counter() - t0
-        strong, weak = (None if group is None else [self._to_device(b) for b in group]
+        move = self._stage_batch if self.pp else self._to_device
+        strong, weak = (None if group is None else [move(b) for b in group]
                         for group in (strong, weak))
         meta = self._to_device(meta)  # pinned by the runner's Prefetcher: asynchronous
-        generators = [self._generator(i) for i in range(self.grad_accum)]
+        # the draws are the last stage's alone under PP
+        draws = not self.pp or self._last_stage
+        generators = [self._generator(i) if draws else None for i in range(self.grad_accum)]
         dropouts = ([self._generator(i, dropout=True) for i in range(self.grad_accum)]
-                    if self.dropout else None)
+                    if self.dropout and draws else None)
         if self.grad_accum == 1:  # make_train_step's arguments without accumulation
             strong, weak, generators = strong and strong[0], weak and weak[0], generators[0]
             dropouts = dropouts and dropouts[0]
@@ -310,9 +567,12 @@ class TrainerBase:
             # the ranks' mean, and whether any rank was asked to stop, in one
             # all-reduce before the fetch: all ranks log, raise and stop alike.
             # Under TP the model ranks of a data rank hold the same losses, so
-            # the world's mean is the data ranks' mean
-            values = comm.all_reduce_mean(torch.cat(
-                [values.float(), values.new_full((1,), float(self.stop_requested))]))
+            # the world's mean is the data ranks' mean; under PP the stages
+            # before the last hold zeros, so the sum over the world divided by
+            # the data ranks is theirs
+            values = comm.all_reduce_sum(torch.cat(
+                [values.float(), values.new_full((1,), float(self.stop_requested))])
+            ).div_(self._loss_ranks)
         values = values.tolist()  # one device-to-host fetch per step
         if self.world > 1:
             self._stop_agreed = values.pop() > 0

@@ -34,7 +34,10 @@ weak images against the weak detector's own confident detections
 batch into class prototypes through a backbone pass without gradient and K1
 over the shots, and ``train_losses(meta=...)`` adds the rank losses over the
 first ``rank_loss_slots`` sampled slots of each strong image.  The attention
-does not feed inference, as in unit_tpu.  ``predict_tta`` is the multi-scale +
+does not feed inference, as in unit_tpu.  Pipeline parallelism splits the
+step at ``backbone_features`` / ``backbone_segment`` (a range of ResNet-C4
+units) and ``train_losses(backbone_feats=...)`` (the rest, from a map the
+stage before handed over).  ``predict_tta`` is the multi-scale +
 flip test-time augmentation: proposals from the canonical image (or
 precomputed ones in its frame), each scale's flip pair scored in one batch-2
 pass.  The VGG heads' dropout runs only when the train step passes a
@@ -80,7 +83,7 @@ from .predictors import (
 from ..ops.roi_pool import roi_pool_max
 from .backbones import BACKBONE_REGISTRY, INCEPTION_BACKBONES, VGG_BACKBONES, build_backbone
 from .box_heads import BOX_HEAD_REGISTRY, VGG_HEADS, build_box_head
-from .resnet import set_bn_act_impl
+from .resnet import ResNetC4, set_bn_act_impl
 from .visual_attention import MetaAttention, VisualAttentionHead
 
 # TPU.ROI_ALIGN_IMPL / TPU.NMS_IMPL keep their meaning: the hand-written CUDA
@@ -412,6 +415,45 @@ class WSRCNN(nn.Module):
             feats.reshape((c, k) + feats.shape[1:]), support["boxes"], support["class_valid"],
             self.mc.base_ids)
 
+    # ------------------------------------------------- pipeline stages
+    @staticmethod
+    def _stage_images(strong, weak, what: str) -> torch.Tensor:
+        """The first stage's image batch: cat(strong, weak) on their shared
+        canvas (the fused pass of ``train_losses``), or the one stream's."""
+        if strong is not None and weak is not None:
+            if strong["image"].shape[1:] != weak["image"].shape[1:]:
+                raise ValueError(f"{what} requires a shared strong/weak canvas, got "
+                                 f"{tuple(strong['image'].shape)} vs "
+                                 f"{tuple(weak['image'].shape)}")
+            return torch.cat([strong["image"], weak["image"]])
+        return (strong if strong is not None else weak)["image"]
+
+    def backbone_features(self, strong: Optional[Dict[str, torch.Tensor]] = None,
+                          weak: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+        """The backbone pass ``train_losses`` would run, [B, h, w, C] (unit_tpu
+        meta_arch.py:364-384): the first stage of a two-stage pipeline, for
+        every backbone family."""
+        return self.features(self._stage_images(strong, weak, "backbone_features"))
+
+    def backbone_segment(self, strong: Optional[Dict[str, torch.Tensor]] = None,
+                         weak: Optional[Dict[str, torch.Tensor]] = None,
+                         feats: Optional[torch.Tensor] = None, start_unit: int = 0,
+                         stop_unit: Optional[int] = None) -> torch.Tensor:
+        """ResNet-C4 units ``[start_unit, stop_unit)`` (``resnet.num_units``),
+        [B, h, w, C] out (unit_tpu meta_arch.py:386-427): from unit 0 the
+        preprocessed image batch of ``backbone_features``, later ``feats``,
+        the [B, h, w, C] map of the range before."""
+        if not isinstance(self.backbone, ResNetC4):
+            raise ValueError("backbone_segment (N-stage pipeline parallelism) requires a "
+                             f"ResNet-C4 backbone, got {type(self.backbone).__name__}")
+        if start_unit == 0:
+            x = self.preprocess(self._stage_images(strong, weak, "backbone_segment"))
+        elif feats is None:
+            raise ValueError("segments past the stem need `feats`")
+        else:
+            x = feats.permute(0, 3, 1, 2)  # NCHW, channels_last memory
+        return self.backbone(x, start_unit, stop_unit).permute(0, 2, 3, 1)
+
     def _train_proposals(self, feats, logits, deltas, image_sizes) -> Proposals:
         """Training-time proposals (no gradient) of the images behind ``feats``."""
         anchors = rpn_lib.get_anchors(feats.shape[1], feats.shape[2], self.mc.rpn,
@@ -428,6 +470,7 @@ class WSRCNN(nn.Module):
         train_only_weak: bool = False,
         meta: Optional[Dict[str, torch.Tensor]] = None,
         dropout_generator: Optional[torch.Generator] = None,
+        backbone_feats: Optional[torch.Tensor] = None,
     ) -> Dict[str, torch.Tensor]:
         """One training step's loss dict (unit_tpu meta_arch.py:429-651).
 
@@ -454,6 +497,9 @@ class WSRCNN(nn.Module):
                 model without the meta ROI heads, as in unit_tpu.
         dropout_generator: the VGG heads' dropout draws (the train step
                 passes one for them alone); None, no dropout.
+        backbone_feats: the [B, h, w, C] map ``backbone_features(strong,
+                weak)`` would give (a pipeline's hand-off): the backbone is
+                not run.  Both streams must then share one canvas.
         """
         mc = self.mc
         losses: Dict[str, torch.Tensor] = {}
@@ -469,10 +515,15 @@ class WSRCNN(nn.Module):
         # are independent).  Precomputed proposals take a stream out of the
         # RPN.
         feats = feats_w = logits = deltas = logits_w = deltas_w = proposals = props_w = None
-        if (strong is not None and weak is not None
-                and strong["image"].shape[1:] == weak["image"].shape[1:]):
+        both = strong is not None and weak is not None
+        fused = both and strong["image"].shape[1:] == weak["image"].shape[1:]
+        if backbone_feats is not None and both and not fused:
+            raise ValueError("backbone_feats requires a shared strong/weak canvas "
+                             "(the fused backbone pass)")
+        if fused:
             bs = strong["image"].shape[0]
-            all_feats = self.features(torch.cat([strong["image"], weak["image"]]))
+            all_feats = (backbone_feats if backbone_feats is not None
+                         else self.features(torch.cat([strong["image"], weak["image"]])))
             feats, feats_w = all_feats[:bs], all_feats[bs:]
             if rpn_s and rpn_w:
                 all_logits, all_deltas = self.rpn(all_feats)
@@ -495,7 +546,8 @@ class WSRCNN(nn.Module):
             gt = GTInstances(boxes=strong["gt_boxes"], classes=strong["gt_classes"].long(),
                              valid=strong["gt_valid"].bool())
             if feats is None:
-                feats = self.features(strong["image"])
+                feats = (backbone_feats if backbone_feats is not None
+                         else self.features(strong["image"]))
         if rpn_s:
             if logits is None:
                 logits, deltas = self.rpn(feats)
@@ -567,7 +619,8 @@ class WSRCNN(nn.Module):
 
         if weak is not None:
             if feats_w is None:
-                feats_w = self.features(weak["image"])
+                feats_w = (backbone_feats if backbone_feats is not None
+                           else self.features(weak["image"]))
             if rpn_w and logits_w is None:
                 logits_w, deltas_w = self.rpn(feats_w)
             if weak_pre:

@@ -176,15 +176,35 @@ class ResNetStage(nn.Module):
                 use_shortcut=(i == 0), dtype=dtype, generator=generator,
             ))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for i in range(self.num_blocks):
+    def forward(self, x: torch.Tensor, start_block: int = 0,
+                stop_block: Optional[int] = None) -> torch.Tensor:
+        """Blocks ``[start_block, stop_block)`` (default: all of them)."""
+        stop = self.num_blocks if stop_block is None else stop_block
+        if not 0 <= start_block < stop <= self.num_blocks:
+            raise ValueError(f"blocks [{start_block}, {stop}) of {self.num_blocks}")
+        for i in range(start_block, stop):
             x = getattr(self, f"block{i}")(x)
         return x
 
 
+def num_units(depth: int) -> int:
+    """The pipeline-splittable units of a ResNet-C4 backbone (unit_tpu
+    resnet.py:152-165): unit 0 is the stem (7x7 conv and max pool), units
+    1.. the bottleneck blocks of res2..res4 in order.  Every interior block
+    costs about the same: the map shrinks 4x as the channels' cost grows 4x."""
+    blocks = BLOCKS_PER_STAGE[depth]
+    return 1 + blocks[0] + blocks[1] + blocks[2]
+
+
 class ResNetC4(nn.Module):
     """Stem + res2..res4: [B, H, W, 3] -> NCHW channels_last, stride 16,
-    ``res2_out_channels * 4`` channels (1024 for the published widths)."""
+    ``res2_out_channels * 4`` channels (1024 for the published widths).
+
+    ``forward(x, start_unit, stop_unit)`` runs the contiguous units
+    ``[start_unit, stop_unit)`` (``num_units``): from unit 0 ``x`` is the
+    image batch, later ``x`` is the NCHW map the range before it returned, so
+    chained ranges give the whole pass (a pipeline stage runs one range).
+    """
 
     def __init__(self, depth: int = 50, stride_in_1x1: bool = True,
                  stem_channels: int = 64, res2_out_channels: int = 256,
@@ -192,6 +212,7 @@ class ResNetC4(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         blocks = BLOCKS_PER_STAGE[depth]
+        self.depth = depth
         self.dtype = dtype
         self.stem_conv1 = Conv2d(3, stem_channels, 7, stride=2, padding=3,
                                  dtype=dtype, generator=generator)
@@ -206,12 +227,24 @@ class ResNetC4(nn.Module):
             in_ch, out_ch = out_ch, out_ch * 2
         self.out_channels = in_ch
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, start_unit: int = 0,
+                stop_unit: Optional[int] = None) -> torch.Tensor:
         """x [B, H, W, 3] -> [B, C, H/16, W/16] (channels_last memory)."""
-        x = x.permute(0, 3, 1, 2).to(self.dtype)
-        x = self.stem_conv1_bn(self.stem_conv1(x), relu=True)
-        x = F.max_pool2d(x, 3, stride=2, padding=1)
-        return self.res4(self.res3(self.res2(x)))
+        n = num_units(self.depth)
+        stop = n if stop_unit is None else stop_unit
+        if not 0 <= start_unit < stop <= n:
+            raise ValueError(f"units [{start_unit}, {stop}) of {n}")
+        if start_unit == 0:
+            x = x.permute(0, 3, 1, 2).to(self.dtype)
+            x = self.stem_conv1_bn(self.stem_conv1(x), relu=True)
+            x = F.max_pool2d(x, 3, stride=2, padding=1)
+        unit = 1  # res2's first block
+        for stage in (self.res2, self.res3, self.res4):
+            lo, hi = max(start_unit - unit, 0), min(stop - unit, stage.num_blocks)
+            if hi > lo:
+                x = stage(x, lo, hi)
+            unit += stage.num_blocks
+        return x
 
 
 class Res5(nn.Module):

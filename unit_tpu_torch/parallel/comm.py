@@ -11,12 +11,23 @@ parallelism over M model ranks (``parallel.mesh.make_mesh_tp``) rank r sits
 at (r // M, r % M), so ``data_rank(M)`` is r // M and the M model ranks of
 one data rank read the same images; without it M is 1 and the data rank is
 the rank.  The caller passes M (the loaders TPU.TP, the trainer its mesh's
-model dim): nothing here remembers a mesh.
+model dim): nothing here remembers a mesh.  Under pipeline parallelism
+(``parallel.mesh.make_mesh_pp``) the S stage ranks of a data rank are the
+neighbours r // S * S .. + S - 1, and ``data_rank(S)`` is r // S as well.
+
+The pipeline's hand-off (``send_map`` / ``recv_map``) moves one tensor
+between neighbouring stage ranks.  Over NCCL the device tensor goes as it
+is; over gloo a CUDA tensor is staged through pinned host memory here
+(gloo's point-to-point ops take host memory).  Inside a pipeline's last
+stage (``local_counts``) ``global_normalizer`` counts this rank's batch
+alone: the stage ranks before it never reach that call.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterable, List
+import contextlib
+import contextvars
+from typing import Any, Dict, Iterable, List, Optional
 
 import torch
 import torch.distributed as dist
@@ -104,12 +115,16 @@ def _coalesced(tensors: Iterable[torch.Tensor], collective) -> None:
             t.copy_(chunk.view(t.shape))
 
 
-def all_reduce_mean_tensors(tensors: List[torch.Tensor], group=None) -> None:
-    """Each tensor of ``tensors`` replaced by its mean over the ranks of
-    ``group`` (None: the world), in place, coalesced (the train step's
-    gradient all-reduce).  One rank: nothing."""
-    if group_size(group) > 1:
-        _coalesced(tensors, lambda flat: all_reduce_mean(flat, group))
+def all_reduce_mean_tensors(tensors: List[torch.Tensor], group=None,
+                            divisor: Optional[int] = None) -> None:
+    """Each tensor of ``tensors`` replaced by its sum over the ranks of
+    ``group`` (None: the world) divided by ``divisor`` (None: their count,
+    the mean), in place, coalesced (the train step's gradient all-reduce;
+    the pipeline step's divides by the data ranks alone: the stage ranks'
+    parts summed, the data ranks averaged).  One rank: nothing."""
+    n = group_size(group)
+    if n > 1:
+        _coalesced(tensors, lambda flat: all_reduce_sum(flat, group).div_(divisor or n))
 
 
 def is_split(t: torch.Tensor) -> bool:
@@ -141,6 +156,22 @@ def gather_objects(obj: Any) -> List[Any]:
     return out
 
 
+_LOCAL_COUNTS = contextvars.ContextVar("local_counts", default=False)
+
+
+@contextlib.contextmanager
+def local_counts():
+    """Within the block ``global_normalizer`` counts this rank's batch and
+    makes no collective: a pipeline's last stage, which alone computes the
+    losses, on its local micro-batch, as unit_tpu's pipeline step does
+    inside ``shard_map``."""
+    token = _LOCAL_COUNTS.set(True)
+    try:
+        yield
+    finally:
+        _LOCAL_COUNTS.reset(token)
+
+
 def global_normalizer(count: torch.Tensor) -> torch.Tensor:
     """The divisor of a loss that unit_tpu normalises by a count over the
     GLOBAL batch (valid ROIs, foreground ROIs), given this rank's ``count``.
@@ -154,7 +185,70 @@ def global_normalizer(count: torch.Tensor) -> torch.Tensor:
     collective: every rank must call it, in the same order."""
     count = count.detach().to(torch.float32)
     n = world()
-    if n == 1:
+    if n == 1 or _LOCAL_COUNTS.get():
         return count.clamp_min(1.0)
     total = all_reduce_sum(count.clone())
     return total.clamp_min(1.0) / n
+
+
+# ----------------------------------------------------------- the hand-off
+def _through_host(device: torch.device) -> bool:
+    """Whether a tensor on ``device`` must be staged through the host: a
+    card's, over gloo."""
+    return device.type == "cuda" and dist.get_backend() == "gloo"
+
+
+def send_map(t: torch.Tensor, dst: int) -> List[Any]:
+    """Start sending ``t`` (contiguous) to rank ``dst``; returns what
+    ``wait_all`` must wait for (the request and the buffer it reads).  Over
+    gloo a CUDA tensor is first copied to pinned host memory (which waits
+    for the kernels that made it)."""
+    if _through_host(t.device):
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t)
+        t = host
+    return [(dist.isend(t, dst), t)]
+
+
+def recv_map(shape, dtype: torch.dtype, src: int, device: torch.device) -> torch.Tensor:
+    """The tensor of ``shape`` and ``dtype`` that rank ``src`` sends, on
+    ``device`` (over gloo to a card: received in pinned host memory, then
+    copied up asynchronously)."""
+    if _through_host(device):
+        host = torch.empty(shape, dtype=dtype, pin_memory=True)
+        dist.recv(host, src)
+        return host.to(device, non_blocking=True)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    dist.recv(out, src)
+    return out
+
+
+def wait_all(pending: List[Any]) -> None:
+    """Wait for the sends ``send_map`` started (and keep their buffers alive
+    until then)."""
+    for work, _ in pending:
+        work.wait()
+    pending.clear()
+
+
+_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.float64)
+
+
+def send_header(t: torch.Tensor, dst: int, requires_grad: bool) -> None:
+    """Tell rank ``dst`` the shape (4-D) and dtype of a map to come, and
+    whether a gradient for it is wanted back."""
+    header = torch.tensor([*t.shape, _DTYPES.index(t.dtype), int(requires_grad)],
+                          dtype=torch.int64)
+    if dist.get_backend() == "nccl":
+        header = header.to(t.device)
+    dist.send(header, dst)
+
+
+def recv_header(src: int, device: Optional[torch.device] = None):
+    """(shape, dtype, requires_grad) that ``send_header`` of rank ``src`` sent."""
+    header = torch.empty(6, dtype=torch.int64)
+    if dist.get_backend() == "nccl":
+        header = header.to(device)
+    dist.recv(header, src)
+    values = header.tolist()
+    return tuple(values[:4]), _DTYPES[values[4]], bool(values[5])

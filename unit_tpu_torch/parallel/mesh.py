@@ -7,7 +7,12 @@ a rank and splits the model's parameters explicitly:
   * ``make_mesh(n)``: a 1-D ``DeviceMesh`` ("data",) over the n ranks of the
     process group; ``make_mesh_tp(n_data, n_model)``: ("data", "model"), rank
     r at (r // n_model, r % n_model), so the model ranks of one data rank
-    are neighbours (``comm.data_rank(n_model)`` is r // n_model).
+    are neighbours (``comm.data_rank(n_model)`` is r // n_model);
+    ``make_mesh_pp(n_data, n_stage)``: ("data", "stage") for pipeline
+    parallelism, rank r at (r // n_stage, r % n_stage), unit_tpu's
+    ``make_mesh_pp`` reshape (mesh.py:177-184).  Each rank holds the whole
+    model: the pipeline step (``engine.train.make_pipeline_train_step``)
+    splits the work, not the parameters.
   * FSDP (``fsdp_shard``): FSDP2's ``fully_shard`` on each bottleneck block,
     each box head, the RPN head, the supervised predictor, the mask head
     and the root, ``reshard_after_forward=True``: the per-layer all-gather
@@ -57,6 +62,7 @@ from . import comm
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
+STAGE_AXIS = "stage"
 FSDP_MIN_SHARD_ELEMS = 2 ** 14
 TP_MIN_CHANNELS = 256
 
@@ -81,6 +87,14 @@ def make_mesh_tp(n_data: int, n_model: int, device_type: str = "cuda"):
     """The (data, model) mesh: rank r at (r // n_model, r % n_model), so
     ``comm.data_rank(n_model)`` is its data coordinate."""
     return _device_mesh((n_data, n_model), (DATA_AXIS, MODEL_AXIS), device_type)
+
+
+def make_mesh_pp(n_data: int, n_stage: int, device_type: str = "cuda"):
+    """The (data, stage) mesh: rank r at (r // n_stage, r % n_stage), so the
+    stage ranks of one data rank are neighbours and ``comm.data_rank(n_stage)``
+    is its data coordinate; ``mesh.get_group("stage")`` / ``("data")`` are
+    this rank's stage and data groups."""
+    return _device_mesh((n_data, n_stage), (DATA_AXIS, STAGE_AXIS), device_type)
 
 
 def axis_size(mesh, axis: str) -> int:

@@ -41,9 +41,14 @@ Phases (any failure raises and the script exits non-zero):
      every step ran K1 x2, K2 x2, K3 x1 (one launch for the step's 4 images)
      and K4 once per FrozenBN forward and
      once per differentiated FrozenBN backward; 1 + 4 steps a turn with the
-     plain epilogue and K4, in turns
+     plain epilogue and K4, in turns; then TPU.REMAT_BACKBONE on and off in
+     turns (1 + 4 steps each, on, off, on, off): step medians, peak memory,
+     and with the key on K4 (124 + 94) + 103 a step (the backbone's
+     forwards again in backward)
   8  whole train path in f32 (TF32 off): train_losses + backward with the
-     kernels vs with the plain versions, same weights and generator seed
+     kernels vs with the plain versions, same weights and generator seed;
+     then with TPU.REMAT_BACKBONE on against off (losses 1e-5, gradients
+     phase 8's bound, the launches: the backbone's K4 forwards twice)
   9  K4 fused FrozenBN + residual + ReLU epilogue vs its plain version,
      forward and backward, bf16 and f32, at the flagship shapes and two narrow
      ones (bit-identical); times beside the four-op chain it replaces and the
@@ -199,11 +204,11 @@ Phases (any failure raises and the script exits non-zero):
      --eval-only of the step-4 checkpoint (1e-6), a resume from step 2; (d)
      --dist at world 1 over NCCL from torchrun's environment: 2 steps, their
      launches, finite losses, one NCCL all-reduce
- 22  FSDP and TP (parallel.mesh, two gloo ranks sharing card 0): (a) FSDP
+ 22  FSDP and TP (parallel.mesh, two gloo ranks sharing card 0, the ranks of
+     phase 21's spawn: phases 21 and 22 share one, phase_multi_rank): (a) FSDP
      (fully_shard; gloo stages its collectives through the host) at world
-     2, 4 + 4 images a rank, 1 warm-up + 3 steps (the last profiled): per
-     rank the step median, peak memory, the profiled step's collectives
-     (host ms by name), launches (K1 2, K2 2, K3 1, K4 124 + 103 a step),
+     2, 4 + 4 images a rank, 1 warm-up + 3 steps: per rank the step
+     median, peak memory, launches (K1 2, K2 2, K3 1, K4 124 + 103 a step),
      res4's first conv half on each rank, one gathered state; (b) TP 2 (data 1 x model 2)
      at 1 + 1 images, 1 + 2 steps: the launches of one process, every split
      kernel half its output channels, the whole parameters bit-identical on
@@ -224,7 +229,16 @@ Phases (any failure raises and the script exits non-zero):
      micro-batches (losses 1e-5, gradients phase 8's bound); (h)
      engine.runner.run under TPU.PP on phase 20's JPEG devkit: 2 steps, a
      checkpoint, an evaluation, the gathered AP against a one-process
-     --eval-only of the checkpoint (1e-6)
+     --eval-only of the checkpoint (1e-6); then the 2-D (data x spatial)
+     mesh at (1, 2) in the same ranks, each holding half the canvas rows:
+     (i) the flagship at full width, 2 + 2 images a step, 1 warm-up + 3
+     steps and one with its collectives timed: per rank the step median,
+     the halo exchanges' ms and calls (32 forward, 27 backward), the map's
+     gather and its backward, the gradient all-reduce, peak memory,
+     launches as one process's at 2 + 2 (K1 2, K2 2, K3 1, K4 124 + 103,
+     the backbone's on half-height bands), one state hash; (j) f32, TF32
+     off, every candidate kept: the 2-D step against (c)'s one process on
+     the same 2 + 2 batch (losses 1e-5, gradients phase 8's bound)
 The last three lines are the card (nvidia-smi), one JSON object describing
 the kernels (launches counted on the run loop of phase 10, and per path under
 launches_by_path), and {"ok": true, "device": {...}}.  Without a CUDA device, or without the
@@ -299,6 +313,7 @@ TRAIN_CANVASES = (((800, 1344), (800, 1067)), ((1344, 800), (1067, 800)))
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_REL = 1e-3
 TRAIN_GRAD_FLOOR = 1e-6
+REMAT_LOSS_RTOL = 1e-5  # [8]: the f32 path with TPU.REMAT_BACKBONE against the key off
 # The card's published peaks (NVIDIA H100 SXM data sheet), for each kernel's
 # bound: the least time the card could take for the same work.
 HBM_BYTES_PER_S = 3.35e12
@@ -1407,6 +1422,31 @@ def phase_train(cfg, seed):
     set_bn_act_impl(model, "cuda")
     log(f"[7] step medians ms, bn_act_impl in turns: cuda {medians['cuda']}, plain "
         f"{medians['plain']}")
+    # TPU.REMAT_BACKBONE in turns with the key off: the step, the peak, and
+    # the launches (the backbone's K4 forwards run again in backward)
+    remat = {True: [], False: []}
+    for on in (True, False, True, False):
+        model.mc = dataclasses.replace(model.mc, remat_backbone=on)
+        step(f"warm-up, remat {on}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        turn = float(np.median([step(f"remat {on}") for _ in range(TRAIN_TURN_STEPS)]))
+        remat[on].append((turn, torch.cuda.max_memory_allocated()))
+        got = read_launch_counts()
+        want_turn = {k: v // TRAIN_STEPS * TRAIN_TURN_STEPS for k, v in want.items()}
+        want_turn["bn_act_fwd"] += on * n_backbone * TRAIN_TURN_STEPS
+        if got != want_turn:
+            raise AssertionError(f"the train path with TPU.REMAT_BACKBONE {on} did not launch "
+                                 f"{want_turn} in {TRAIN_TURN_STEPS} steps: {got}")
+    model.mc = dataclasses.replace(model.mc, remat_backbone=False)
+    log(f"[7] TPU.REMAT_BACKBONE in turns (on, off, on, off; each {TRAIN_TURN_STEPS} steps "
+        f"after a warm-up): step medians ms on {[round(t, 2) for t, _ in remat[True]]}, off "
+        f"{[round(t, 2) for t, _ in remat[False]]}; peak device memory MiB on "
+        f"{[round(m / 2**20, 1) for _, m in remat[True]]}, off "
+        f"{[round(m / 2**20, 1) for _, m in remat[False]]}; launches a step with the key on "
+        f"K4 {k4_fwd + n_backbone} + {k4_bwd} (the backbone's {n_backbone} forwards again), "
+        f"K1 2, K2 2, K3 1, as gated")
     for metrics in trainer.metrics_history:
         if not all(np.isfinite(v) for v in metrics.values()):
             raise AssertionError(f"non-finite loss: {metrics}")
@@ -1525,8 +1565,49 @@ def phase_train_whole_path(cfg, seed):
     strong = {k: torch.as_tensor(v, device=dev) for k, v in strong[0].items()}
     weak = {k: torch.as_tensor(v, device=dev) for k, v in weak[0].items()}
     train_path_kernels_vs_plain(model, strong, weak, seed, "[8]")
+    remat_against_off(model, strong, weak, seed, "[8]")
     del model
     torch.cuda.empty_cache()
+
+
+def remat_against_off(model, strong, weak, seed, tag):
+    """train_losses + backward with the kernels and TPU.REMAT_BACKBONE on
+    against off (same weights and generator seed): the losses within
+    REMAT_LOSS_RTOL, every gradient within phase 8's bound (and how many are
+    bit-identical), and the launches: the backbone's K4 forwards once more."""
+    import torch
+
+    runs = {}
+    for on in (False, True):
+        model.mc = dataclasses.replace(model.mc, roi_align_impl="cuda", nms_impl="cuda",
+                                       remat_backbone=on)
+        model.zero_grad(set_to_none=True)
+        reset_launch_counts()
+        gen = torch.Generator(device=strong["image"].device)
+        gen.manual_seed(seed)
+        losses = model.train_losses(gen, strong, weak)
+        torch.stack(list(losses.values())).sum().backward()
+        runs[on] = ({k: float(v.detach()) for k, v in losses.items()},
+                    {n: p.grad.detach().clone() for n, p in model.named_parameters()
+                     if p.grad is not None}, read_launch_counts())
+    model.mc = dataclasses.replace(model.mc, remat_backbone=False)
+    model.zero_grad(set_to_none=True)
+    (l0, g0, c0), (l1, g1, c1) = runs[False], runs[True]
+    loss_rel = max(abs(l1[k] - l0[k]) / max(abs(l0[k]), 1e-12) for k in l0)
+    big = max(float(g.abs().max()) for g in g0.values())
+    over = {n: float((g1[n] - g0[n]).abs().max()) / (TRAIN_GRAD_REL * float(g0[n].abs().max())
+                                                      + TRAIN_GRAD_FLOOR * big) for n in g0}
+    equal = sum(torch.equal(g1[n], g0[n]) for n in g0)
+    n_backbone = frozen_bn_counts(model)[0]
+    want = dict(c0, bn_act_fwd=c0["bn_act_fwd"] + n_backbone)
+    log(f"{tag} f32, TPU.REMAT_BACKBONE on against off: losses max rel diff {loss_rel:.3g} "
+        f"(tol {REMAT_LOSS_RTOL}), identical {l1 == l0}; {len(g0)} gradients, "
+        f"{equal} bit-identical, worst max|diff|/bound {max(over.values()):.3g}; launches on "
+        f"{c1} (off {c0})")
+    if set(g1) != set(g0) or loss_rel > REMAT_LOSS_RTOL or max(over.values()) > 1.0:
+        raise AssertionError("the train path with TPU.REMAT_BACKBONE disagrees with the key off")
+    if c1 != want:
+        raise AssertionError(f"TPU.REMAT_BACKBONE did not launch {want}: {c1}")
 
 
 def k4_case(rng, shape, has_res, relu, tag="[9]"):
@@ -5737,19 +5818,21 @@ def buffers_digest(model):
 
 def timed_grad_reduce(sync, into):
     """Wrap the train step's gradient all-reduce (parallel.comm): its host ms,
-    the device synchronised on both sides, go to ``into``."""
+    the device synchronised on both sides, go to ``into``; returns the
+    function that restores it (the rank process goes on to phase 22)."""
     from unit_tpu_torch.parallel import comm
 
     real = comm.all_reduce_mean_tensors
 
-    def timed(tensors):
+    def timed(*a, **kw):
         sync()
         t = time.perf_counter()
-        real(tensors)
+        real(*a, **kw)
         sync()
         into.append((time.perf_counter() - t) * 1e3)
 
     comm.all_reduce_mean_tensors = timed
+    return lambda: setattr(comm, "all_reduce_mean_tensors", real)
 
 
 def dp_train_rank(device, opts, seed, per_rank, canvases, warmup, steps):
@@ -5777,7 +5860,7 @@ def dp_train_rank(device, opts, seed, per_rank, canvases, warmup, steps):
                             itertools.cycle(weak), seed=seed)
     trainer.init_state()
     reduce_ms = []
-    timed_grad_reduce(sync, reduce_ms)
+    restore = timed_grad_reduce(sync, reduce_ms)
     for _ in range(warmup):
         trainer.run_step()
     setup_s = time.perf_counter() - t0
@@ -5791,6 +5874,7 @@ def dp_train_rank(device, opts, seed, per_rank, canvases, warmup, steps):
         t = time.perf_counter()
         trainer.run_step()  # ends in the one fetch of the ranks' mean losses
         step_ms.append((time.perf_counter() - t) * 1e3)
+    restore()
     launches = read_launch_counts()
     n_backbone, n_res5, n_trainable = frozen_bn_counts(model)
     return {"rank": comm.rank(), "step_ms": step_ms, "reduce_ms": reduce_ms,
@@ -5880,13 +5964,12 @@ def voc_detections(evaluator):
     return np.asarray(sorted(rows), np.float64).reshape(-1, 7), images
 
 
-def dp_run_rank(device, argv, sharded=False, profile_step=None):
+def dp_run_rank(device, argv, sharded=False):
     """(c), one rank of engine.runner.run in the caller's group: the results,
     the detections of each merged evaluation, each step's launches and
     losses, and the final state's digest.  ``sharded`` (phase 22, a run
-    under TPU.FSDP or TPU.TP): also each step's host ms (step
-    ``profile_step`` under the profiler, with its gloo collectives' calls
-    and host ms), the digests of the gathered state and of the parameters
+    under TPU.FSDP or TPU.TP): also each step's host ms, the digests of the
+    gathered state and of the parameters
     no mode split, each split parameter's (local, whole) elements, the
     whole model's bytes, whether the buffers (the FrozenBN statistics)
     changed from the first step to the end, the PreciseBN refreshes and,
@@ -5908,7 +5991,7 @@ def dp_run_rank(device, argv, sharded=False, profile_step=None):
     class Recording(TrainerNoMeta):
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
-            self.launches, self.memory, self.step_ms, self.collectives = [], [], [], {}
+            self.launches, self.memory, self.step_ms = [], [], []
             made.append(self)
 
         def run_step(self):
@@ -5920,15 +6003,7 @@ def dp_run_rank(device, argv, sharded=False, profile_step=None):
                 torch.cuda.reset_peak_memory_stats(device)
             reset_launch_counts()
             t = time.perf_counter()  # the step ends in its one fetch of the ranks' losses
-            if self.state.step + 1 == profile_step:
-                with torch.profiler.profile(
-                        activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
-                    metrics = super().run_step()
-                # gloo's own ranges: each collective's host time, device copies included
-                self.collectives = {e.key: (e.count, e.cpu_time_total / 1e3)
-                                    for e in prof.key_averages() if e.key.startswith("gloo:")}
-            else:
-                metrics = super().run_step()
+            metrics = super().run_step()
             self.step_ms.append((time.perf_counter() - t) * 1e3)
             self.launches.append(read_launch_counts())
             if on_card and sharded:
@@ -5964,7 +6039,7 @@ def dp_run_rank(device, argv, sharded=False, profile_step=None):
                     int(np.prod(mesh_lib.full_shape(p))))
              for name, p in model.named_parameters() if comm.is_split(p)}
     out.update(rank=comm.rank(), digests=sh_digests(model), memory=trainer.memory,
-               step_ms=trainer.step_ms, collectives=trainer.collectives, split=split,
+               step_ms=trainer.step_ms, split=split,
                buffers_changed=buffers_digest(model) != trainer.buffers,
                refreshes=refreshes["n"],
                finite=all(np.isfinite(v) for m in trainer.metrics_history for v in m.values()),
@@ -6082,8 +6157,10 @@ def phase_data_parallel(seed, workdir):
     evaluation at 2 and 4, only rank 0 writing, the gathered AP against a
     one-process --eval-only of the step-4 checkpoint, a resume from step 2;
     (d) --dist at world 1 over NCCL (torchrun's environment): 2 steps, their
-    launches, finite losses, one NCCL all-reduce.  Returns {path: launch
-    counts}."""
+    launches, finite losses, one NCCL all-reduce.  A generator
+    (``phase_multi_rank``): it yields ``dp_all_rank``'s arguments, gets
+    back each rank's (result, seconds) from the spawn phases 21 and 22
+    share, and returns {path: launch counts}."""
     import socket
 
     import torch
@@ -6093,19 +6170,13 @@ def phase_data_parallel(seed, workdir):
     from unit_tpu_torch.data import DatasetCatalog
     from unit_tpu_torch.engine import runner
     from unit_tpu_torch.engine.train import TrainerNoMeta
-    from unit_tpu_torch.parallel import launch
 
     dev = torch.device(RUN_DEVICE)
     on_card = dev.type == "cuda"
-    t_phase = time.perf_counter()
-    devices = [0] * DP_WORLD if on_card else ["cpu"] * DP_WORLD
     opts = list(RUN_EXTRA_OPTS)
     by_path = {}
     if on_card:
         torch.cuda.empty_cache()
-
-    def spawn(main, *args):
-        return launch(main, DP_WORLD, devices, "gloo", args=args, timeout=DP_TIMEOUT)
 
     # (b)'s one process first: its gradient waits on the card for the ranks'
     cfg32 = dp_cfg((*opts, *DP_KEEP_ALL_OPTS))
@@ -6120,15 +6191,14 @@ def phase_data_parallel(seed, workdir):
     argv, _ = dp_run_argv(seed, workdir, dev, opts)
 
     # (a) world 2 at the recipe's global batch, (b) world 2, then (c) the run
-    # loop at world 2 and its resume, in one spawn
+    # loop at world 2 and its resume, in the shared spawn
     grads_path = os.path.join(workdir, "dp_f32_grads.pt")
     out_a, out_b = os.path.join(workdir, "dp_run_a"), os.path.join(workdir, "dp_run_b")
-    t = time.perf_counter()
-    both = spawn(dp_all_rank,
-                 (opts, seed, DP_IMAGES_PER_RANK, TRAIN_CANVASES, DP_WARMUP, DP_STEPS),
-                 (opts, seed, strong, weak, grads_path),
-                 (argv(out_a), argv(out_b, "--resume"), out_a, out_b))
-    secs = time.perf_counter() - t
+    spawned = yield ((opts, seed, DP_IMAGES_PER_RANK, TRAIN_CANVASES, DP_WARMUP, DP_STEPS),
+                     (opts, seed, strong, weak, grads_path),
+                     (argv(out_a), argv(out_b, "--resume"), out_a, out_b))
+    both = [r for r, _ in spawned]
+    secs = max(t for _, t in spawned)
     ranks = [r for r, _, _ in both]
     for r in ranks:
         log(f"[21] (a) rank {r['rank']}: {DP_STEPS} timed steps of {DP_IMAGES_PER_RANK} + "
@@ -6146,8 +6216,8 @@ def phase_data_parallel(seed, workdir):
             "bn_act_layout_copies": 2 * DP_STEPS}
     same = len({r["digest"] for r in ranks}) == 1
     slowest = max(np.median(r["step_ms"]) for r in ranks)
-    log(f"[21] (a) + (b) + (c) {DP_WORLD} ranks in {secs:.1f} s (spawn, builds, steps); (a)'s "
-        f"state's hash equal on every rank {same}; global images/s "
+    log(f"[21] (a) + (b) + (c) {DP_WORLD} ranks in {secs:.1f} s of the spawn (builds, steps); "
+        f"(a)'s state's hash equal on every rank {same}; global images/s "
         f"{1e3 * 2 * DP_IMAGES_PER_RANK * DP_WORLD / slowest:.2f}")
     if not (same and all(r["finite"] for r in ranks)) or len(
             {tuple(r["losses"]) for r in ranks}) != 1:
@@ -6274,7 +6344,6 @@ def phase_data_parallel(seed, workdir):
     made.clear()
     if on_card:
         torch.cuda.empty_cache()
-    log(f"[21] phase 21 in {time.perf_counter() - t_phase:.1f} s")
     return by_path
 
 
@@ -6439,22 +6508,23 @@ def sh_f32_run(device, mode, opts, seed, strong, weak, grads_path, ckpt_dir, res
 
 
 def sh_rank(device, args):
-    """In one rank process (one spawn), for each mode of ``args`` ({mode:
-    (run_argv, profile_step, f32_args)}): (a) or (b), the run loop, then
-    (c) and (d).  {mode: (run, its seconds, f32, the mode's seconds)}; for
-    the mode "pp", (f), (g) and (h) (``pp_rank``'s arguments and result,
-    and its seconds)."""
+    """In one rank process, for each mode of ``args`` ({mode: (run_argv,
+    f32_args)}): (a) or (b), the run loop, then (c) and (d).  {mode: (run,
+    its seconds, f32, the mode's seconds)}; for the mode "pp", (f), (g) and
+    (h) (``pp_rank``'s arguments and result, and its seconds), for the mode
+    "spatial" (i) and (j) (``sp_rank``'s)."""
     import torch
 
     out = {}
     for mode, mode_args in args.items():
-        if mode == "pp":
+        if mode in ("pp", "spatial"):
             t = time.perf_counter()
-            out[mode] = pp_rank(device, *mode_args), time.perf_counter() - t
+            rank_fn = pp_rank if mode == "pp" else sp_rank
+            out[mode] = rank_fn(device, *mode_args), time.perf_counter() - t
             continue
-        run_argv, profile_step, f32_args = mode_args
+        run_argv, f32_args = mode_args
         t = time.perf_counter()
-        run = dp_run_rank(device, run_argv, sharded=True, profile_step=profile_step)
+        run = dp_run_rank(device, run_argv, sharded=True)
         run_secs = time.perf_counter() - t
         if device.type == "cuda":
             torch.cuda.empty_cache()
@@ -6537,32 +6607,40 @@ def pp_trainer(device, cfg, seed, strong, weak, pp=True):
     return model, trainer
 
 
-def timed_pipeline_comm(sync, into):
-    """Time the pipeline step's hand-off calls (comm.send_map, recv_map,
-    send_header, recv_header, wait_all) and its gradient combine
-    (comm.all_reduce_mean_tensors), each between two device synchronisations,
-    into ``into["handoff"]`` / ``into["combine"]`` (ms, summed); returns the
-    function that restores them."""
-    from unit_tpu_torch.parallel import comm
+def timed_calls(sync, into, targets):
+    """Time each call of ``module.name`` for the (module, name, key) of
+    ``targets`` between two device synchronisations, into ``into[key]`` (ms,
+    summed) and ``into[key + "_calls"]``; returns the function that
+    restores them."""
+    real = [(module, name, getattr(module, name)) for module, name, _ in targets]
 
-    names = {"send_map": "handoff", "recv_map": "handoff", "send_header": "handoff",
-             "recv_header": "handoff", "wait_all": "handoff",
-             "all_reduce_mean_tensors": "combine"}
-    real = {n: getattr(comm, n) for n in names}
-
-    def timed(name):
+    def timed(fn, key):
         def call(*a, **kw):
             sync()
             t = time.perf_counter()
-            out = real[name](*a, **kw)
+            out = fn(*a, **kw)
             sync()
-            into[names[name]] += (time.perf_counter() - t) * 1e3
+            into[key] = into.get(key, 0.0) + (time.perf_counter() - t) * 1e3
+            into[key + "_calls"] = into.get(key + "_calls", 0) + 1
             return out
         return call
 
-    for n in names:
-        setattr(comm, n, timed(n))
-    return lambda: [setattr(comm, n, f) for n, f in real.items()]
+    for (module, name, fn), (_, _, key) in zip(real, targets):
+        setattr(module, name, timed(fn, key))
+    return lambda: [setattr(module, name, fn) for module, name, fn in real]
+
+
+def timed_pipeline_comm(sync, into):
+    """Time the pipeline step's hand-off calls (comm.send_map, recv_map,
+    send_header, recv_header, wait_all) and its gradient combine
+    (comm.all_reduce_mean_tensors) into ``into["handoff"]`` /
+    ``into["combine"]`` (``timed_calls``)."""
+    from unit_tpu_torch.parallel import comm
+
+    return timed_calls(sync, into, [
+        (comm, n, "handoff") for n in ("send_map", "recv_map", "send_header", "recv_header",
+                                       "wait_all")] + [(comm, "all_reduce_mean_tensors",
+                                                        "combine")])
 
 
 def pp_train_rank(device, opts, seed, canvases):
@@ -6701,15 +6779,17 @@ def phase_sharded(seed, workdir):
     ``pp_checks``): (f) the flagship at full width, 2 micro-batches of 2 + 2
     images; (g) the f32 pipelined step against one process at GRAD_ACCUM
     2; (h) engine.runner.run under PP with a checkpoint and an evaluation
-    against a one-process --eval-only.  Returns {path: launch counts}."""
+    against a one-process --eval-only.  Then the 2-D (data x spatial) mesh at
+    (1, 2) in the same ranks (``sp_rank``, gated by ``sp_checks``): (i) the
+    flagship at full width on 2 + 2 images, half the canvas rows a rank;
+    (j) its f32 step against (c)'s one process on the same 2 + 2 batch.  A
+    generator (``phase_multi_rank``): it yields ``sh_rank``'s arguments,
+    gets back each rank's result from the shared spawn, and returns {path:
+    launch counts}."""
     import torch
-
-    from unit_tpu_torch.parallel import launch
 
     dev = torch.device(RUN_DEVICE)
     on_card = dev.type == "cuda"
-    t_phase = time.perf_counter()
-    devices = [0] * SH_WORLD if on_card else ["cpu"] * SH_WORLD
     opts = list(RUN_EXTRA_OPTS)
     by_path = {}
 
@@ -6738,7 +6818,6 @@ def phase_sharded(seed, workdir):
                                        "SOLVER.MAX_ITER", str(warmup + steps),
                                        "SOLVER.CHECKPOINT_PERIOD", str(SH_RUN_PERIOD),
                                        "TEST.EVAL_PERIOD", str(SH_RUN_PERIOD), *mode_opts],
-                      warmup + steps,
                       (opts, seed, s, w, grads_path, split_dir,
                        os.path.join(one_dir, "step_1.pt")))
         results[mode] = (one, secs_one, *paths)
@@ -6756,12 +6835,15 @@ def phase_sharded(seed, workdir):
                                   "SOLVER.MAX_ITER", str(PP_RUN_STEPS),
                                   "SOLVER.CHECKPOINT_PERIOD", str(PP_RUN_STEPS),
                                   "TEST.EVAL_PERIOD", str(PP_RUN_STEPS), *PP_OPTS])
-    # the three modes in one spawn: the ranks start and reach the card once
-    t = time.perf_counter()
-    ranks = launch(sh_rank, SH_WORLD, devices, "gloo", args=(args,), timeout=SH_TIMEOUT)
-    log(f"[22] one spawn of {SH_WORLD} ranks for the three modes: "
-        f"{time.perf_counter() - t:.1f} s (the start, then (a) or (b) and (c) and (d) for "
-        f"FSDP and TP, then (f), (g) and (h) for PP)")
+    # (i) and (j): the 2-D mesh on (c)'s FSDP batch of 2 + 2 images, whose
+    # one-process f32 step (j) is held against
+    sp_grads = os.path.join(workdir, "sh_spatial_grads.pt")
+    args["spatial"] = (opts, seed, TRAIN_CANVASES, strong, weak, sp_grads)
+    # the four modes after phase 21's in the shared spawn: the ranks start and
+    # reach the card once
+    ranks = yield args
+    log(f"[22] the ranks' seconds a mode: "
+        f"{[{m: round(r[m][-1], 1) for m in r} for r in ranks]}")
     free()
 
     # (a) FSDP and (b) TP 2 through the run loop
@@ -6775,13 +6857,10 @@ def phase_sharded(seed, workdir):
                 "nms_mask_images": 2 * images, "bn_act_fwd": k4_fwd, "bn_act_bwd": k4_bwd,
                 "bn_act_layout_copies": 2}
         for r in runs:
-            timed = r["step_ms"][warmup:-1]
+            timed = r["step_ms"][warmup:]
             log(f"[22] {tag} {label} rank {r['rank']}: engine.runner.run, {steps} timed steps "
-                f"of {images} + {images} images after {warmup} warm-up, the last under the "
-                f"profiler: the others' median {np.median(timed):.2f} ms (min "
-                f"{min(timed):.2f}, max {max(timed):.2f}); the profiled one "
-                f"{r['step_ms'][-1]:.2f} ms, its collectives (calls, host ms) "
-                f"{ {k: (n, round(ms, 2)) for k, (n, ms) in r['collectives'].items()} }; "
+                f"of {images} + {images} images after {warmup} warm-up: median "
+                f"{np.median(timed):.2f} ms (min {min(timed):.2f}, max {max(timed):.2f}); "
                 + (f"peak device memory of the timed steps "
                    f"{max(m['peak'] for m in r['memory'][warmup:]) / 2**30:.2f} GiB; "
                    if on_card else "")
@@ -6878,7 +6957,8 @@ def phase_sharded(seed, workdir):
         free()
     by_path.update(pp_checks([r["pp"] for r in ranks], pp_one, secs_pp_one, pp_grads, pp_run,
                              argv, dev))
-    log(f"[22] phase 22 in {time.perf_counter() - t_phase:.1f} s")
+    one, secs_one = results["fsdp"][:2]
+    by_path.update(sp_checks([r["spatial"] for r in ranks], one, secs_one, sp_grads, dev))
     return by_path
 
 
@@ -6956,6 +7036,293 @@ def pp_checks(ranks, one, secs_one, grads_path, run_dir, argv, dev):
     return by_path
 
 
+# (i)-(j): the 2-D (data x spatial) mesh at (1, 2) in the same two ranks:
+# each holds half the canvas rows; the halo rows of the stem, the max pool and
+# every 3x3 convolution, the gather of the stride-16 map and the gradient's
+# all-reduce go through the host as gloo's
+SP_IMAGES = 2                # 2 + 2 images a step: phase 7's flagship step
+SP_WARMUP, SP_STEPS = 1, 3   # then one more step with its collectives timed
+
+
+def sp_mesh_step(device, cfg, seed):
+    """(model, its solver, the (1, 2) mesh, the 2-D train step) of the
+    flagship, rank 0's weights on both ranks."""
+    from unit_tpu_torch.engine import make_train_step
+    from unit_tpu_torch.parallel import comm
+    from unit_tpu_torch.parallel import mesh as mesh_lib
+    from unit_tpu_torch.solver import build_optimizer
+
+    model = flagship_model(cfg, seed, device).train()
+    comm.broadcast_module(model)
+    mesh = mesh_lib.make_mesh_2d(1, comm.world(), device.type)
+    solver = build_optimizer(cfg, model)
+    step = make_train_step(model, solver.optimizer, solver.scheduler, solver.clip, mesh=mesh)
+    return model, solver, mesh, step
+
+
+def sp_part(mesh, batch, device):
+    """This rank's ``shard_batch_spatial`` part of a numpy batch, on ``device``."""
+    import torch
+
+    from unit_tpu_torch.parallel import mesh as mesh_lib
+
+    return {k: torch.as_tensor(v).to(device)
+            for k, v in mesh_lib.shard_batch_spatial(mesh, batch).items()}
+
+
+def sp_run_step(step, strong, weak, device, seed, k):
+    """Step ``k`` (its generator seeded as one process's, data rank 0) and its
+    losses averaged over the ranks, fetched once."""
+    import torch
+
+    from unit_tpu_torch.engine.train import step_seed
+    from unit_tpu_torch.parallel import comm
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(step_seed(seed, k))
+    losses = step(strong, weak, gen)
+    values = comm.all_reduce_mean(torch.stack(list(losses.values())).float()).tolist()
+    return dict(zip(losses, values))
+
+
+def sp_halo_calls(model):
+    """The halo exchanges of one 2-D step: forward the stem, the max pool and
+    each block's 3x3 conv; backward each 3x3 conv whose input needs a
+    gradient (behind the first trainable convolution)."""
+    blocks = [getattr(stage, f"block{i}") for stage in (model.backbone.res2, model.backbone.res3,
+                                                        model.backbone.res4)
+              for i in range(stage.num_blocks)]
+    grad = model.backbone.stem_conv1.weight.requires_grad
+    backward = 0
+    for block in blocks:
+        grad = grad or block.conv1.weight.requires_grad
+        backward += grad
+    return 2 + len(blocks), backward
+
+
+def sp_train_rank(device, opts, seed, canvases):
+    """(i), one rank: the flagship at full width on the (1, 2) mesh, 2 + 2
+    images a step of which it holds half the rows, SP_WARMUP + SP_STEPS
+    steps, then one step with its halo exchanges, the map's gather (and its
+    backward) and the gradient all-reduce timed: the step times, those ms
+    and calls, peak memory, each step's launches, the losses and the
+    state's digest."""
+    import torch
+
+    from unit_tpu_torch.parallel import comm, spatial
+
+    on_card = device.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    cfg = dp_cfg(opts)
+    model, _, mesh, step = sp_mesh_step(device, cfg, seed)
+    strong, weak = synthetic_train_batches(cfg, seed + 3000, per_stream=SP_IMAGES,
+                                           canvases=canvases)
+    batches = [(sp_part(mesh, s, device), sp_part(mesh, w, device)) for s, w in zip(strong, weak)]
+    losses = []
+
+    def run():
+        s, w = batches[len(losses) % len(batches)]
+        losses.append(sp_run_step(step, s, w, device, seed, len(losses)))
+
+    for _ in range(SP_WARMUP):
+        run()
+    sync()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    step_ms, launches = [], []
+    for _ in range(SP_STEPS):
+        reset_launch_counts()
+        t = time.perf_counter()
+        run()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        launches.append(read_launch_counts())
+    peak = torch.cuda.max_memory_allocated(device) if on_card else 0
+    split = {}
+    restore = timed_calls(sync, split, [
+        (spatial, "_exchange", "halo"), (spatial, "_gather", "gather"),
+        (spatial, "_scatter_sum", "gather_backward"), (comm, "all_reduce_mean_tensors",
+                                                       "all_reduce")])
+    t = time.perf_counter()
+    run()
+    timed_ms = (time.perf_counter() - t) * 1e3
+    restore()
+    out = {"rank": comm.rank(), "step_ms": step_ms, "timed_ms": timed_ms, "split": split,
+           "peak": peak, "launches": launches, "k4": frozen_bn_counts(model),
+           "halo_calls": sp_halo_calls(model), "band": tuple(batches[0][0]["image"].shape),
+           "losses": losses, "finite": all(np.isfinite(v) for m in losses for v in m.values()),
+           "digest": state_digest(model)}
+    del model, step, batches
+    return out
+
+
+def sp_f32_step(device, opts, seed, strong, weak, grads_path):
+    """(j): one f32 step (TF32 off, every candidate kept) of the flagship on
+    the (1, 2) mesh over the 2 + 2 batch ``strong``/``weak``: its losses;
+    rank 0 saves the gradient that enters SGD to ``grads_path``."""
+    import torch
+
+    from unit_tpu_torch.parallel import comm
+
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        cfg = dp_cfg((*opts, *DP_KEEP_ALL_OPTS))
+        model, solver, mesh, step = sp_mesh_step(device, cfg, seed)
+        names = {id(p): name for name, p in model.named_parameters()}
+        grads = {}
+
+        def keep(optimizer, args, kwargs):  # the world's mean, as SGD takes it
+            for g in optimizer.param_groups:
+                for p in g["params"]:
+                    grads[names[id(p)]] = p.grad.detach().clone()
+
+        solver.optimizer.register_step_pre_hook(keep)
+        metrics = sp_run_step(step, sp_part(mesh, strong, device), sp_part(mesh, weak, device),
+                              device, seed, 0)
+        del model, step
+    finally:
+        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = flags
+    if comm.is_main():
+        torch.save({k: v.cpu() for k, v in grads.items()}, grads_path)
+    return metrics
+
+
+def sp_rank(device, opts, seed, canvases, strong, weak, grads_path):
+    """(i) and (j) in one rank: [((i)'s results, seconds), ((j)'s losses, seconds)]."""
+    import torch
+
+    out = []
+    for fn, args in ((sp_train_rank, (opts, seed, canvases)),
+                     (sp_f32_step, (opts, seed, strong, weak, grads_path))):
+        t = time.perf_counter()
+        out.append((fn(device, *args), time.perf_counter() - t))
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def sp_checks(ranks, one, secs_one, grads_path, dev):
+    """(i)-(j)'s gates on the two ranks' results (``sp_rank``'s, with its
+    seconds); ``one``: (c)'s one-process f32 step on the same 2 + 2 batch.
+    Returns {path: launches}."""
+    import torch
+
+    on_card = dev.type == "cuda"
+    by_path = {}
+    runs = [r[0][0][0] for r in ranks]
+    for r, (_, secs) in zip(runs, (r[0][0] for r in ranks)):
+        split = r["split"]
+        log(f"[22] (i) 2-D rank {r['rank']} (spatial {r['rank']} of 2, its band of the images "
+            f"{r['band']}): {SP_STEPS} timed steps of {SP_IMAGES} + {SP_IMAGES} images after "
+            f"{SP_WARMUP} warm-up: median {np.median(r['step_ms']):.2f} ms (min "
+            f"{min(r['step_ms']):.2f}, max {max(r['step_ms']):.2f}); one more step with each "
+            f"collective synchronised {r['timed_ms']:.2f} ms, of it the halo exchanges "
+            f"{split.get('halo', 0.0):.2f} ms ({split.get('halo_calls', 0)} calls, forward and "
+            f"backward), the map's gather {split.get('gather', 0.0):.2f} ms and its backward "
+            f"{split.get('gather_backward', 0.0):.2f} ms, the gradient all-reduce "
+            f"{split.get('all_reduce', 0.0):.2f} ms; "
+            + (f"peak device memory of the timed steps {r['peak'] / 2**30:.2f} GiB; "
+               if on_card else "")
+            + f"launches a step {r['launches'][-1]}; total_loss "
+            f"{[round(m['total_loss'], 4) for m in r['losses']]}; {secs:.1f} s with the build")
+    n_backbone, n_res5, n_trainable = runs[0]["k4"]
+    want = {"roi_align_fwd": 2, "roi_align_bwd": 2, "nms_mask": 1,
+            "nms_mask_images": 2 * SP_IMAGES, "bn_act_fwd": n_backbone + 3 * n_res5,
+            "bn_act_bwd": n_trainable + 2 * n_res5, "bn_act_layout_copies": 2}
+    halo = sum(runs[0]["halo_calls"])
+    log(f"[22] (i) launches a step on each rank as one process's at 2 + 2 {want} (the "
+        f"backbone's K4 on half-height bands); halo exchanges a step {runs[0]['halo_calls']} "
+        f"(forward, backward); the states' hash equal {runs[0]['digest'] == runs[1]['digest']}")
+    if not all(r["finite"] for r in runs) or runs[0]["losses"] != runs[1]["losses"] \
+            or runs[0]["digest"] != runs[1]["digest"]:
+        raise AssertionError("the 2-D ranks' states or losses differ, or a loss is not finite")
+    if any(r["split"].get("halo_calls") != halo for r in runs):
+        raise AssertionError(f"a 2-D rank did not exchange {halo} halos in a step: "
+                             f"{[r['split'].get('halo_calls') for r in runs]}")
+    if on_card and any(c != want for r in runs for c in r["launches"]):
+        raise AssertionError(f"a 2-D rank did not launch {want} a step: "
+                             f"{[r['launches'] for r in runs]}")
+    for r in runs:
+        by_path[f"spatial_train_rank{r['rank']}"] = {
+            k: sum(c[k] for c in r["launches"]) for k in want}
+
+    # (j) f32: the 2-D step against one process on the same batch
+    g2 = torch.load(grads_path, map_location=dev, weights_only=True)
+    os.remove(grads_path)
+    sh_compare_grads(f"the 2-D step at (1, 2) (half the rows a rank) against one process "
+                     f"(2 + 2), the one process {secs_one:.1f} s, the ranks "
+                     f"{ranks[0][0][1][1]:.1f} s", one["metrics"], one["grads"],
+                     ranks[0][0][1][0], g2, part="(j)")
+    del g2
+    if on_card:
+        torch.cuda.empty_cache()
+    return by_path
+
+
+def multi_rank(device, dp_args, sh_args):
+    """One rank of the spawn phases 21 and 22 share: ``dp_all_rank(
+    *dp_args)`` with its seconds, then ``sh_rank(sh_args)``."""
+    import torch
+
+    # phase 21's f32 step turns TF32 off and cuDNN deterministic for its run
+    # loop after it; phase 22's ranks start from a fresh process's settings
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    t = time.perf_counter()
+    dp = dp_all_rank(device, *dp_args)
+    secs = time.perf_counter() - t
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.deterministic) = flags
+    return (dp, secs), sh_rank(device, sh_args)
+
+
+def phase_multi_rank(seed, workdir):
+    """Phases 21 and 22 in one spawn of two gloo ranks on card 0, so that the
+    ranks start and reach the card once: each phase runs its one-process
+    parts and yields its ranks' arguments, the ranks run phase 21's
+    functions and then phase 22's, and each phase then checks its ranks'
+    results.  Returns {path: launch counts}."""
+    import torch
+
+    from unit_tpu_torch.parallel import launch
+
+    on_card = RUN_DEVICE == "cuda"
+    devices = [0] * DP_WORLD if on_card else ["cpu"] * DP_WORLD
+    phases = {21: phase_data_parallel(seed, workdir), 22: phase_sharded(seed, workdir)}
+    t = time.perf_counter()
+    dp_args, sh_args = (next(p) for p in phases.values())
+    log(f"[21-22] the one-process parts in {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    ranks = launch(multi_rank, DP_WORLD, devices, "gloo", args=(dp_args, sh_args),
+                   timeout=DP_TIMEOUT + SH_TIMEOUT)
+    log(f"[21-22] one spawn of {DP_WORLD} ranks for phases 21 and 22: "
+        f"{time.perf_counter() - t:.1f} s (the start, then 21's (a), (b) and (c), then 22's "
+        f"modes)")
+    if on_card:
+        torch.cuda.empty_cache()
+    by_path = {}
+    for (number, phase), results in zip(phases.items(), zip(*ranks)):
+        t = time.perf_counter()
+        try:
+            phase.send(list(results))
+        except StopIteration as done:
+            by_path.update(done.value)
+        else:
+            raise AssertionError(f"phase {number} yielded twice")
+        log(f"[{number}] its checks in {time.perf_counter() - t:.1f} s")
+    return by_path
+
+
 def strip_results(results):
     return {k: v for k, v in results.items() if k != "inference_seconds_per_image"}
 
@@ -7026,8 +7393,7 @@ def main():
         trained_paths, k3_trained = timed(19, phase_trained, cfg, args.seed, workdir)
         by_path.update(trained_paths)
         by_path.update(timed(20, phase_host_wire, cfg, args.seed, workdir))
-        by_path.update(timed(21, phase_data_parallel, args.seed, workdir))
-        by_path.update(timed(22, phase_sharded, args.seed, workdir))
+        by_path.update(timed("21-22", phase_multi_rank, args.seed, workdir))
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s; seconds a "
         f"phase {seconds}")
 

@@ -18,6 +18,7 @@ and global batch of 4 + 4 images, weights carried across by
   * ``TPU.GRAD_ACCUM`` 2 at world 2 (the reduce-scatter waits for the last
     micro-batch) against one process at GRAD_ACCUM 2 on the global
     micro-batches;
+  * TPU.REMAT_BACKBONE under FSDP: 3 steps bit-identical to the key off;
   * the trainer's wiring (``TrainerNoMeta(mesh=..., fsdp=True)``, as
     tests/test_parallel.py::test_trainer_fsdp_knob holds unit_tpu's) and
     the refusals of unit_tpu's trainer (tests/test_pipeline.py
@@ -164,6 +165,20 @@ def test_trainer_fsdp_knob(fsdp):
         assert wiring["leaf_local"] * 2 == wiring["leaf_numel"]
         assert "fsdp_shard" in wiring["refusal"]
         assert all(np.isfinite(v) for m in out["run"]["metrics"] for v in m.values())
+
+
+def test_fsdp_with_remat_is_bit_identical(fsdp):
+    """TPU.REMAT_BACKBONE under FSDP at world 2: the recompute runs the
+    blocks' all-gathers again in backward, in one order on both ranks; the
+    first 3 steps' losses equal those of the run with the key off, bit for
+    bit."""
+    *_, (a, b) = fsdp
+    for out in (a, b):
+        on, metrics = out["remat"]
+        assert on and len(metrics) == 4
+        for got, want in zip(metrics, out["run"]["metrics"], strict=False):
+            assert {k: v for k, v in got.items() if k != "data_time"} == \
+                {k: v for k, v in want.items() if k != "data_time"}
 
 
 def small_model():

@@ -14,10 +14,12 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "unit_tpu_torch"
 # the serving CLIs of the port, the benchmark of its operators' host cost,
-# the shapes-VOC writer, the step profiler and its analyzer, and K4's bench
+# the shapes-VOC writer, the step profiler and its analyzer, K4's bench, the
+# k-shot split writer and the soak's verifier
 SCRIPTS = [REPO / "scripts" / f"{name}_torch.py"
            for name in ("serve", "export_model", "bench_serving", "bench_nograd",
-                        "make_shapes_voc", "profile_train_step", "analyze_trace", "bench_k4")]
+                        "make_shapes_voc", "profile_train_step", "analyze_trace", "bench_k4",
+                        "prepare_voc", "verify_soak")]
 
 _RUN_WITHOUT_JAX = r"""
 import importlib, pkgutil, sys
@@ -98,11 +100,14 @@ def test_no_source_of_the_port_imports_unit_tpu():
 
 
 def test_sharding_modules_and_rank_modules_import_no_jax():
-    """The FSDP and TP modules of the port, and the jax-free test modules
-    whose functions the spawned ranks import, load neither jax nor unit_tpu."""
+    """The FSDP, TP and 2-D mesh modules of the port, and the jax-free test
+    modules whose functions the spawned ranks import, load neither jax nor
+    unit_tpu."""
     code = ("import sys\n"
             "import unit_tpu_torch.parallel.mesh, unit_tpu_torch.parallel.tensor\n"
+            "import unit_tpu_torch.parallel.spatial\n"
             "import tests.test_torch_parallel_run, tests.test_torch_sharded_run\n"
+            "import tests.test_torch_spatial_run\n"
             "loaded = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'unit_tpu'))\n"
             "assert not loaded, loaded\n"
@@ -111,7 +116,8 @@ def test_sharding_modules_and_rank_modules_import_no_jax():
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().endswith("no jax")
-    for path in (PORT / "parallel" / "mesh.py", PORT / "parallel" / "tensor.py"):
+    for path in (PORT / "parallel" / "mesh.py", PORT / "parallel" / "tensor.py",
+                 PORT / "parallel" / "spatial.py"):
         assert path in _sources()
 
 

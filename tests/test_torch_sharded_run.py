@@ -172,7 +172,9 @@ def rank_accumulate_sharded(device, mode, n_model, params, micro_strong, micro_w
 
 def rank_fsdp(device, params, strong, weak, micro_strong, micro_weak):
     """FSDP at this world: ``rank_sharded``'s 3 steps, a step at
-    TPU.GRAD_ACCUM 2, and the trainer's wiring."""
+    TPU.GRAD_ACCUM 2, and the trainer's wiring, checked on a 4-step run
+    with TPU.REMAT_BACKBONE on (its metrics: FSDP's all-gathers run again
+    in the recompute)."""
     from torch.distributed.fsdp import FSDPModule
 
     from unit_tpu_torch.checkpoint import load_jax_params
@@ -184,8 +186,10 @@ def rank_fsdp(device, params, strong, weak, micro_strong, micro_weak):
     out = {"run": rank_sharded(device, "fsdp", 1, params, strong, weak),
            "accum": rank_accumulate_sharded(device, "fsdp", 1, params, micro_strong,
                                             micro_weak)}
-    model, tr, _ = sharded_trainer(params, [strong], [weak], "fsdp")
+    model, tr, _ = sharded_trainer(params, [strong], [weak], "fsdp", 1,
+                                   "TPU.REMAT_BACKBONE", "True")
     tr.train(4)
+    out["remat"] = (model.mc.remat_backbone, tr.metrics_history)
     leaf = model.get_parameter(FSDP_LEAF)
     cfg = get_cfg()
     cfg.merge_from_file(FLAGSHIP)

@@ -72,6 +72,7 @@ over the data ranks before the one host fetch.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Callable, Dict, Iterator, List, Optional
 
@@ -84,8 +85,8 @@ from torch.utils.checkpoint import checkpoint
 from ..models.box_heads import VGG_HEADS
 from ..models.meta_arch import WSRCNN
 from ..models.resnet import ResNetC4, num_units
-from ..parallel import comm
-from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, STAGE_AXIS, axis_size
+from ..parallel import comm, spatial
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, SPATIAL_AXIS, STAGE_AXIS, axis_size
 from ..solver.build import Solver
 
 
@@ -121,8 +122,23 @@ def make_train_step(
     ``train_only_weak`` goes to ``train_losses`` (TrainerOnlyWeak).  In a
     process group the gradients are averaged over the data ranks before
     ``clip``: FSDP's by FSDP, TP's slices over the data dim of ``mesh``, the
-    rest over the world (``parallel.mesh``)."""
+    rest over the world (``parallel.mesh``).
+
+    On a ``make_mesh_2d`` (data, spatial) ``mesh`` each rank's batches are
+    its ``shard_batch_spatial`` part (its data rank's images, its band of
+    their rows) and ``generator`` is seeded by its data rank (rank // S):
+    the backbone runs on the bands and the rest of the step on the gathered
+    map (``parallel.spatial``), every spatial rank of a data rank computing
+    its losses whole; the world's mean of the gradients is then the data
+    ranks' mean (S times each share over S times the ranks).  A ResNet-C4
+    backbone and ``grad_accum`` 1 only."""
     accum = int(grad_accum)
+    bands = None
+    if mesh is not None and SPATIAL_AXIS in (mesh.mesh_dim_names or ()):
+        if accum > 1:  # unit_tpu asserts grad_accum <= 1 here
+            raise ValueError("grad accumulation + spatial mesh not supported: the 2-D "
+                             f"(data x spatial) step takes GRAD_ACCUM 1, got {accum}")
+        bands = spatial.bands_of(mesh)
     trainable = [p for group in optimizer.param_groups for p in group["params"]]
     fsdp = model if isinstance(model, FSDPModule) else None
     split = [p for p in trainable if hasattr(p, "tp_shard")]
@@ -146,8 +162,10 @@ def make_train_step(
                 dropout if dropout is not None else [None] * accum, strict=True)):
             if fsdp is not None and accum > 1:  # reduce-scatter after the last one
                 fsdp.set_requires_gradient_sync(i == accum - 1)
-            _backward_micro(model.train_losses(g, s, w, train_only_weak=train_only_weak,
-                                               meta=meta, dropout_generator=d), accum, sums)
+            with spatial.banded(bands):
+                losses = model.train_losses(g, s, w, train_only_weak=train_only_weak,
+                                            meta=meta, dropout_generator=d)
+            _backward_micro(losses, accum, sums)
         _apply_update(trainable, reduce, clip, optimizer, scheduler)
         return {k: v / accum for k, v in sums.items()}
 
@@ -209,6 +227,27 @@ def _balanced_unit_groups(costs, g):
     return [(bounds[t], bounds[t + 1]) for t in range(g)]
 
 
+def _stage_segment(model: WSRCNN, units, n_units: int, remat: bool) -> Callable:
+    """(strong, weak, feats) -> the map of a backbone stage's ``units``
+    (start, stop): the whole backbone (``backbone_features``, every family)
+    or a ResNet-C4 range (``backbone_segment``).  With ``remat`` the range
+    runs under one ``torch.utils.checkpoint``, and the model's own
+    (TPU.REMAT_BACKBONE) is skipped inside it: nested, the inner range
+    would run a third time in backward (unit_tpu nests a second
+    ``jax.checkpoint`` there)."""
+    start, stop = units
+    inner = False if remat else None
+
+    def segment(strong, weak, feats):
+        if start == 0 and stop == n_units:
+            return model.backbone_features(strong, weak, remat=inner)
+        return model.backbone_segment(strong, weak, feats, start, stop, remat=inner)
+
+    if not remat:
+        return segment
+    return functools.partial(checkpoint, segment, use_reentrant=False, preserve_rng_state=False)
+
+
 def make_pipeline_train_step(
     model: WSRCNN,
     optimizer: torch.optim.Optimizer,
@@ -240,8 +279,10 @@ def make_pipeline_train_step(
     forward maps before the gradients (no cycle, whichever backend).  With
     ``remat`` a backbone range keeps only its input and recomputes in
     backward (``torch.utils.checkpoint``: exact, the backbone draws nothing
-    random); the last stage keeps each micro-batch's graph only until its
-    backward, as a replay would draw other samples from its generators.
+    random), whatever TPU.REMAT_BACKBONE says, as in unit_tpu
+    (``_stage_segment``); the last stage keeps each micro-batch's graph
+    only until its backward, as a replay would draw other samples from its
+    generators.
     Each rank's gradients are non-zero on its own units alone: they are
     summed over the world and divided by the data ranks (unit_tpu's psum
     over 'stage', pmean over 'data'), then clipped and applied on every
@@ -271,11 +312,7 @@ def make_pipeline_train_step(
     headers_out: set = set()
     loss_keys: List[str] = []
 
-    def segment(strong, weak, feats):
-        start, stop = groups[stage]
-        if start == 0 and stop == n_units:
-            return model.backbone_features(strong, weak)
-        return model.backbone_segment(strong, weak, feats, start, stop)
+    run_segment = None if last else _stage_segment(model, groups[stage], n_units, remat)
 
     def canvas(strong, weak):  # the micro-batch's key: the same on every stage rank
         return tuple(None if b is None else tuple(b["image"].shape) for b in (strong, weak))
@@ -298,8 +335,7 @@ def make_pipeline_train_step(
             key = canvas(s, w)
             x = None if stage == 0 else receive(key)
             args = (s, w, None) if stage == 0 else (None, None, x)
-            y = (checkpoint(segment, *args, use_reentrant=False, preserve_rng_state=False)
-                 if remat else segment(*args))
+            y = run_segment(*args)
             hand_on(y, key, pending)
             ins.append(x)
             outs.append(y)
@@ -410,6 +446,12 @@ class TrainerBase:
                              "set TPU.GRAD_ACCUM >= 2")
         if pp and meta_iter is not None:
             raise ValueError("pipeline parallelism does not support the meta stream")
+        if mesh is not None and SPATIAL_AXIS in (mesh.mesh_dim_names or ()):
+            # unit_tpu's trainer shards only the batch there (train.py:742-745):
+            # its spatial ranks would each run their data rank's whole step
+            raise ValueError("the trainer does not run the 2-D (data x spatial) mesh: build "
+                             "the step with engine.train.make_train_step(mesh=...) and give "
+                             "each rank parallel.mesh.shard_batch_spatial(mesh, batch)")
         if mesh is not None and (fsdp or tp):
             _check_split(model, mesh, fsdp)
         self.mesh = mesh

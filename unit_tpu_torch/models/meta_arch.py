@@ -52,14 +52,17 @@ softmax math are f32; pooled features keep the feature dtype.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import validate_registry_names
 from ..ops import roi_align as roi_align_ops
 from ..ops import sampling as sampling_ops
+from ..parallel import spatial
 from ..structures.instances import (
     Detections,
     GTInstances,
@@ -159,6 +162,7 @@ class ModelConfig:
     pixel_std: Tuple[float, ...] = (1.0, 1.0, 1.0)
     normalize_images: bool = False
     compute_dtype: str = "float32"
+    remat_backbone: bool = False  # TPU.REMAT_BACKBONE: recompute the backbone in backward
     roi_align_impl: str = "auto"  # auto | cuda | plain
     nms_impl: str = "auto"        # auto | cuda | plain
     bn_act_impl: str = "auto"     # auto | cuda | plain (no YAML key: auto)
@@ -234,6 +238,7 @@ class ModelConfig:
             pixel_std=tuple(cfg.MODEL.PIXEL_STD),
             normalize_images=cfg.INPUT.NORMALIZE_IMAGES,
             compute_dtype=cfg.TPU.COMPUTE_DTYPE,
+            remat_backbone=cfg.TPU.REMAT_BACKBONE,
             roi_align_impl=_IMPLS.get(cfg.TPU.ROI_ALIGN_IMPL, cfg.TPU.ROI_ALIGN_IMPL),
             nms_impl=_IMPLS.get(cfg.TPU.NMS_IMPL, cfg.TPU.NMS_IMPL),
             mask_on=cfg.MODEL.MASK_ON,
@@ -359,13 +364,36 @@ class WSRCNN(nn.Module):
         std = torch.tensor(self.mc.pixel_std, device=x.device)
         return (x - mean) / std
 
-    def features(self, images: torch.Tensor) -> torch.Tensor:
+    def _run_backbone(self, fn, x: torch.Tensor, remat: Optional[bool], *args) -> torch.Tensor:
+        """``fn(x, *args)``, the backbone or a part of it on the preprocessed
+        ``x``, under ``torch.utils.checkpoint`` where ``remat`` (None:
+        TPU.REMAT_BACKBONE) asks for it and a gradient is taken: it keeps its
+        input alone and runs again in backward (unit_tpu's
+        ``jax.checkpoint``).  Exact: the backbone draws nothing random and
+        FrozenBN is constant."""
+        if (self.mc.remat_backbone if remat is None else remat) and torch.is_grad_enabled():
+            return checkpoint(fn, x, *args, use_reentrant=False, preserve_rng_state=False)
+        return fn(x, *args)
+
+    def features(self, images: torch.Tensor, remat: Optional[bool] = None) -> torch.Tensor:
         """images [B, H, W, 3] -> stride-16 features [B, h, w, C] (a
         contiguous view of the channels_last backbone output): ResNet-C4's
         res4, h = ceil(H / 16); InceptionResNetV2's block17, smaller (its
         unpadded stem), while the pooler's scale stays 1/16 as in unit_tpu.
-        Anchors are laid on the map as it comes."""
-        return self.backbone(self.preprocess(images)).permute(0, 2, 3, 1)
+        Anchors are laid on the map as it comes.  Inside a 2-D step
+        (``parallel.spatial.banded``) ``images`` is this rank's band of the
+        canvas rows: the backbone runs on the band, exchanging halo rows with
+        the neighbouring bands, and the map is gathered whole.  ``remat``:
+        ``_run_backbone``; the preprocess stays outside the recompute."""
+        x = self.preprocess(images)
+        bands = spatial.active()
+        if bands is None:
+            return self._run_backbone(self.backbone, x, remat).permute(0, 2, 3, 1)
+        if not isinstance(self.backbone, ResNetC4):  # unpadded strided ops: uneven bands
+            raise _not_ported(f"the 2-D (data x spatial) mesh over "
+                              f"{type(self.backbone).__name__}", "ROADMAP Queue 1 item 41")
+        run = functools.partial(spatial.resnet_c4_bands, self.backbone, bands=bands)
+        return spatial.gather_rows(self._run_backbone(run, x, remat).permute(0, 2, 3, 1), bands)
 
     def rpn(self, feats: torch.Tensor):
         return self.rpn_head(feats)
@@ -409,7 +437,7 @@ class WSRCNN(nn.Module):
         trains."""
         image = support["image"]
         c, k = image.shape[:2]
-        with torch.no_grad():
+        with torch.no_grad(), spatial.banded(None):  # the shots are whole under a 2-D step
             feats = self.features(image.reshape((c * k,) + image.shape[2:]))
         return self.visual_attention.support_prototypes(
             feats.reshape((c, k) + feats.shape[1:]), support["boxes"], support["class_valid"],
@@ -429,20 +457,22 @@ class WSRCNN(nn.Module):
         return (strong if strong is not None else weak)["image"]
 
     def backbone_features(self, strong: Optional[Dict[str, torch.Tensor]] = None,
-                          weak: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+                          weak: Optional[Dict[str, torch.Tensor]] = None,
+                          remat: Optional[bool] = None) -> torch.Tensor:
         """The backbone pass ``train_losses`` would run, [B, h, w, C] (unit_tpu
         meta_arch.py:364-384): the first stage of a two-stage pipeline, for
-        every backbone family."""
-        return self.features(self._stage_images(strong, weak, "backbone_features"))
+        every backbone family.  ``remat``: ``_run_backbone``."""
+        return self.features(self._stage_images(strong, weak, "backbone_features"), remat)
 
     def backbone_segment(self, strong: Optional[Dict[str, torch.Tensor]] = None,
                          weak: Optional[Dict[str, torch.Tensor]] = None,
                          feats: Optional[torch.Tensor] = None, start_unit: int = 0,
-                         stop_unit: Optional[int] = None) -> torch.Tensor:
+                         stop_unit: Optional[int] = None,
+                         remat: Optional[bool] = None) -> torch.Tensor:
         """ResNet-C4 units ``[start_unit, stop_unit)`` (``resnet.num_units``),
         [B, h, w, C] out (unit_tpu meta_arch.py:386-427): from unit 0 the
         preprocessed image batch of ``backbone_features``, later ``feats``,
-        the [B, h, w, C] map of the range before."""
+        the [B, h, w, C] map of the range before.  ``remat``: ``_run_backbone``."""
         if not isinstance(self.backbone, ResNetC4):
             raise ValueError("backbone_segment (N-stage pipeline parallelism) requires a "
                              f"ResNet-C4 backbone, got {type(self.backbone).__name__}")
@@ -452,7 +482,8 @@ class WSRCNN(nn.Module):
             raise ValueError("segments past the stem need `feats`")
         else:
             x = feats.permute(0, 3, 1, 2)  # NCHW, channels_last memory
-        return self.backbone(x, start_unit, stop_unit).permute(0, 2, 3, 1)
+        return self._run_backbone(self.backbone, x, remat, start_unit,
+                                  stop_unit).permute(0, 2, 3, 1)
 
     def _train_proposals(self, feats, logits, deltas, image_sizes) -> Proposals:
         """Training-time proposals (no gradient) of the images behind ``feats``."""

@@ -12,7 +12,11 @@ a rank and splits the model's parameters explicitly:
     parallelism, rank r at (r // n_stage, r % n_stage), unit_tpu's
     ``make_mesh_pp`` reshape (mesh.py:177-184).  Each rank holds the whole
     model: the pipeline step (``engine.train.make_pipeline_train_step``)
-    splits the work, not the parameters.
+    splits the work, not the parameters.  ``make_mesh_2d(n_data,
+    n_spatial)``: ("data", "spatial"), rank r at (r // n_spatial, r %
+    n_spatial); ``shard_batch_spatial`` gives a rank its data rank's rows
+    and its band of the image rows, and the train step runs the backbone
+    on the bands (``parallel.spatial``).
   * FSDP (``fsdp_shard``): FSDP2's ``fully_shard`` on each bottleneck block,
     each box head, the RPN head, the supervised predictor, the mask head
     and the root, ``reshard_after_forward=True``: the per-layer all-gather
@@ -63,6 +67,7 @@ from . import comm
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 STAGE_AXIS = "stage"
+SPATIAL_AXIS = "spatial"
 FSDP_MIN_SHARD_ELEMS = 2 ** 14
 TP_MIN_CHANNELS = 256
 
@@ -95,6 +100,42 @@ def make_mesh_pp(n_data: int, n_stage: int, device_type: str = "cuda"):
     is its data coordinate; ``mesh.get_group("stage")`` / ``("data")`` are
     this rank's stage and data groups."""
     return _device_mesh((n_data, n_stage), (DATA_AXIS, STAGE_AXIS), device_type)
+
+
+def make_mesh_2d(n_data: int, n_spatial: int, device_type: str = "cuda"):
+    """The (data, spatial) mesh: rank r at (r // n_spatial, r % n_spatial),
+    so the spatial ranks of one data rank are neighbours, each holding a
+    band of the canvas rows (``parallel.spatial``), and
+    ``comm.data_rank(n_spatial)`` is its data coordinate."""
+    return _device_mesh((n_data, n_spatial), (DATA_AXIS, SPATIAL_AXIS), device_type)
+
+
+def shard_batch_spatial(mesh, batch):
+    """This rank's part of a global batch dict (unit_tpu mesh.py:203-220):
+    its data rank's rows of every array and, for the key ``image`` alone,
+    its band of the canvas rows (``spatial.band_rows``: the height must
+    split evenly at stride 16).  Keyed on the name, not on the rank: other
+    4-D arrays (``gt_masks`` [B, G, m, m]) carry no image rows in dim 1 and
+    stay whole.  Numpy arrays or tensors; other values as they are."""
+    from . import spatial
+
+    n_data, n_spatial = axis_size(mesh, DATA_AXIS), axis_size(mesh, SPATIAL_AXIS)
+    d, s = mesh.get_local_rank(DATA_AXIS), mesh.get_local_rank(SPATIAL_AXIS)
+
+    def part(key, x):
+        if not hasattr(x, "shape") or len(x.shape) == 0:
+            return x
+        if x.shape[0] % n_data:
+            raise ValueError(f"{key}: a batch of {x.shape[0]} does not split over "
+                             f"{n_data} data ranks")
+        n = x.shape[0] // n_data
+        x = x[d * n:(d + 1) * n]
+        if key == "image":
+            start, stop = spatial.band_rows(x.shape[1], n_spatial, s)
+            x = x[:, start:stop]
+        return x
+
+    return {k: part(k, v) for k, v in batch.items()}
 
 
 def axis_size(mesh, axis: str) -> int:

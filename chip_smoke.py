@@ -55,9 +55,16 @@ Phases (any failure raises and the script exits non-zero):
      bound of the bytes it must move
  10  the run loop at full width and depth: engine.runner.run on a synthetic
      VOC devkit (XML and image sets on disk, images from a seeded loader):
-     6 steps with checkpoints and evaluations every 3, a resume from step 3,
-     --eval-only from step 6, one evaluation with TPU.FOLD_BN_AT_EVAL, and
-     8 steps without hooks for the loader's steady rate
+     6 steps with checkpoints and evaluations every 3; a checkpoint written
+     synchronously and in the background (the ms save() takes to return and
+     to land, the state changed in place as it returns, the landed file
+     equal to the synchronous write), a resume from step 3, --eval-only from
+     step 6, one evaluation with TPU.FOLD_BN_AT_EVAL, and 14 steps without
+     hooks for the loader's steady rate at metrics_pipeline_depth 0 and 8
+     in turns (0, 8, 0, 8): every step's losses bit-identical, launches a
+     step equal, peak memory within 2%, the wall time of a window of steps
+     that ends in a drain a step, and the device's busy share of the last
+     turns' profiled window
  11  k-shot fine-tuning: engine.runner.run on the shipped 10-shot split1
      fine-tune recipe (8 strong images a step), warm-started from phase 10's
      best/model as the recipe spells it, 6 steps with checkpoints and
@@ -181,9 +188,11 @@ Phases (any failure raises and the script exits non-zero):
      canvas within 2^-8 of the numpy path's with equal dims and scale; (c)
      host ms an image, C against PIL + numpy, to the 800x1344 canvases; (d)
      engine.runner.run at full width on a devkit of JPEG files (no
-     image_loader), 6 steps through the C loader, then the same through PIL
-     (the script patches data.native.available): step and data-wait medians,
-     every step K1 2, K2 2, K3 1, K4 124 + 103; (e) detect_bytes on 16 JPEGs
+     image_loader), 12 steps through the C loader at metrics_pipeline_depth
+     0 and 8 in turns (0, 8, 0, 8; gated as phase 10's), then the same at 8
+     through PIL (the script patches data.native.available): windowed step
+     ms and data-wait medians, every step K1 2, K2 2, K3 1, K4 124 + 103; (e)
+     detect_bytes on 16 JPEGs
      under 8 clients at batch 1 and micro-batched at 4, C against PIL: req/s,
      p50, images a device call; (f) TPU.HOST_TRANSFER_UINT8: served batch-4
      requests (uint8 canvases, launches as phase 18's) and 2 flagship train
@@ -203,14 +212,17 @@ Phases (any failure raises and the script exits non-zero):
      an evaluation at 2 and 4, the gathered AP against a one-process
      --eval-only of the step-4 checkpoint (1e-6), a resume from step 2; (d)
      --dist at world 1 over NCCL from torchrun's environment: 2 steps, their
-     launches, finite losses, one NCCL all-reduce
+     launches, finite losses, one NCCL all-reduce; (e) in (a)'s spawn, 2 + 2
+     images a rank at metrics_pipeline_depth 8 with a stop asked on rank 1
+     alone after step 1: both ranks stop after step 9, the first resolution,
+     with the same losses
  22  FSDP and TP (parallel.mesh, two gloo ranks sharing card 0, the ranks of
      phase 21's spawn: phases 21 and 22 share one, phase_multi_rank): (a) FSDP
      (fully_shard; gloo stages its collectives through the host) at world
      2, 4 + 4 images a rank, 1 warm-up + 3 steps: per rank the step
      median, peak memory, launches (K1 2, K2 2, K3 1, K4 124 + 103 a step),
      res4's first conv half on each rank, one gathered state; (b) TP 2 (data 1 x model 2)
-     at 1 + 1 images, 1 + 2 steps: the launches of one process, every split
+     at 1 + 1 images, 1 + 1 steps: the launches of one process, every split
      kernel half its output channels, the whole parameters bit-identical on
      both ranks; (c) f32, TF32 off, every candidate kept: FSDP at world 2
      (1 + 1 a rank) against one process (2 + 2) and TP 2 (1 + 1) against one
@@ -238,7 +250,14 @@ Phases (any failure raises and the script exits non-zero):
      launches as one process's at 2 + 2 (K1 2, K2 2, K3 1, K4 124 + 103,
      the backbone's on half-height bands), one state hash; (j) f32, TF32
      off, every candidate kept: the 2-D step against (c)'s one process on
-     the same 2 + 2 batch (losses 1e-5, gradients phase 8's bound)
+     the same 2 + 2 batch (losses 1e-5, gradients phase 8's bound); (k) the
+     note (InceptionResNetV2) and the dock (VGG-CNN-F, proposals for both
+     streams) recipes at full width on the same mesh, in f32 with every
+     candidate kept, 1 + 2 steps of 2 + 2 images on bands of unequal height
+     below their unpadded strided ops: every step's losses within 1e-5 of
+     one process's, launches a rank as one process's (the note K1 2, K2 2,
+     K3 1; the dock none), one state hash; step ms, the halo exchanges' ms
+     and calls, the gather's ms, peak memory a rank
 The last three lines are the card (nvidia-smi), one JSON object describing
 the kernels (launches counted on the run loop of phase 10, and per path under
 launches_by_path), and {"ok": true, "device": {...}}.  Without a CUDA device, or without the
@@ -356,8 +375,11 @@ K4_REPORTED = ((4, 50, 84, 1024), (True, True))  # the kernels line's K4 row
 RUN_STEPS = 6
 RUN_PERIOD = 3
 RUN_TEST_IMAGES = 8
-RUN_STEADY_STEPS = 8  # a longer run without hooks in the way: the loader's steady rate
+RUN_STEADY_STEPS = 14  # a longer run without hooks in the way: the loader's steady rate
 RUN_EXTRA_OPTS = ()  # more config overrides (a rehearsal at a small size sets them)
+DEPTH_TURNS = (0, 8, 0, 8)  # the run loop's metrics_pipeline_depth in turns (phases 10, 20)
+PROFILED_STEPS = 3  # the busy share's window: a turn's last steps and train()'s drain
+PEAK_REL = 0.02  # peak device memory of the depths' turns, relative
 RUN_DEVICE = "cuda"  # a rehearsal of the run loop's control flow sets "cpu"
 RESUME_LOSS_RTOL = 1e-3
 # Folded vs unfolded evaluation.  In f32 with TF32 off the fold moves one f32
@@ -1085,6 +1107,74 @@ def profile_request(svc, image):
     profile_run(lambda: svc.detect_array(image), "[4]", "request")
 
 
+def device_rows(prof):
+    """(device ms, count, name) of a finished torch.profiler's device-side
+    events only (kernels, copies): the CPU-side aten ops carry the same
+    device time again, and so do annotated ranges such as
+    Optimizer.step#SGD.step."""
+    return [(e.self_device_time_total / 1e3, e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def loop_recording(made):
+    """A TrainerNoMeta class for the run loop's turns (phases 10 and 20)
+    whose trainers keep themselves in ``made``.  Its class attributes set a
+    turn: ``depth``, the trainer's metrics_pipeline_depth (the deferred loss
+    fetch), and ``profile_last`` = n, the last n steps and train()'s drain
+    under torch.profiler.  A trainer keeps the host clock at each step's
+    start (``starts``) and after train()'s drain (``end``), so
+    ``window_ms(k)`` is the wall time of the steps from k on a step, in a
+    window that ends in a drain; ``launches``, each step's kernel launches
+    (the counters' growth: their totals stay the run's); ``busy``, the
+    device's busy ms and share of the profiled window."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from unit_tpu_torch.engine.train import TrainerNoMeta
+
+    class Recording(TrainerNoMeta):
+        depth, profile_last = 8, 0
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.metrics_pipeline_depth = type(self).depth
+            self.starts, self.launches, self.end, self.busy = [], [], None, None
+            self._profile_from = self._prof = None
+            made.append(self)
+
+        def run_step(self):
+            if self.state.step == self._profile_from:  # the device's events alone: cheap
+                self._prof = profile(activities=[ProfilerActivity.CUDA]
+                                     if torch.cuda.is_available() else [ProfilerActivity.CPU])
+                self._prof.start()
+            self.starts.append(time.perf_counter())
+            before = read_launch_counts()
+            metrics = super().run_step()
+            self.launches.append({k: v - before[k] for k, v in read_launch_counts().items()})
+            return metrics
+
+        def train(self, max_iter, hooks=()):
+            self._profile_from = max_iter - self.profile_last if self.profile_last else None
+            try:
+                return super().train(max_iter, hooks)
+            finally:  # super().train() drained the losses in flight
+                self.end = time.perf_counter()
+                if self._prof is not None:
+                    if torch.cuda.is_available():
+                        torch.cuda.synchronize()
+                    self._prof.stop()
+                    wall = (self.end - self.starts[-self.profile_last]) * 1e3
+                    busy = sum(r[0] for r in device_rows(self._prof))
+                    self.busy, self._prof = (busy, busy / wall), None
+
+        def window_ms(self, first):
+            return (self.end - self.starts[first]) * 1e3 / (len(self.starts) - first)
+
+    return Recording
+
+
 def profile_run(fn, tag, what, top=15):
     """torch.profiler over one fn() that ends in a device-to-host copy:
     wall time, device busy share and the kernels with the most device time."""
@@ -1097,13 +1187,7 @@ def profile_run(fn, tag, what, top=15):
         t0 = time.perf_counter()
         fn()
         wall = (time.perf_counter() - t0) * 1e3
-    # device-side events only (kernels, copies): the CPU-side aten ops carry
-    # the same device time again, and so do annotated ranges such as
-    # Optimizer.step#SGD.step
-    rows = [(e.self_device_time_total / 1e3, e.count, e.key)
-            for e in prof.key_averages()
-            if e.device_type.name == "CUDA" and e.self_device_time_total > 0
-            and not getattr(e, "is_user_annotation", False)]
+    rows = device_rows(prof)
     busy = sum(r[0] for r in rows)
     n_ops = sum(r[1] for r in rows)
     log(f"{tag} profiled {what}: wall {wall:.2f} ms, device busy {busy:.2f} ms "
@@ -1368,7 +1452,7 @@ def phase_train(cfg, seed):
     def step(label):
         lr = solver.optimizer.param_groups[0]["lr"]
         t = time.perf_counter()
-        m = trainer.run_step()  # ends in one device-to-host copy of the losses
+        m = trainer.run_step().resolve()  # read now: the clock holds the device's time
         ms = (time.perf_counter() - t) * 1e3
         for n, flag in had_grad.items():
             if params[n].grad is not None:
@@ -1773,6 +1857,132 @@ def seeded_image_loader(rec):
     return rng.uniform(0, 255, (rec["height"], rec["width"], 3)).astype(np.float32)
 
 
+def loop_turn(trainer, losses, secs, dev):
+    """One run-loop turn of a ``loop_recording`` trainer: its depth, the
+    windowed step ms over the second half of its steps, each step's
+    launches, its losses (without data_time) and the data wait of the
+    window's steps, the profiled window's busy ms and share, and the
+    device's peak memory of the run."""
+    import torch
+
+    half = len(trainer.starts) // 2
+    return {"depth": trainer.metrics_pipeline_depth, "ms": trainer.window_ms(half),
+            "launches": trainer.launches, "busy": trainer.busy, "secs": secs,
+            "losses": [{k: v for k, v in losses[s].items() if k != "data_time"}
+                       for s in sorted(losses)],
+            "waits": [1e3 * losses[s]["data_time"] for s in sorted(losses)[half:]],
+            "peak": torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0}
+
+
+def depth_turns(tag, turns, steps, images):
+    """Print the run loop's turns at each depth and gate them: the losses of
+    every step bit-identical and the launches of every step the same in
+    every turn, the peak device memory of the two depths within PEAK_REL."""
+    for i, t in enumerate(turns):
+        busy = (f"; under the profiler, the last {PROFILED_STEPS} steps and the drain: device "
+                f"busy {t['busy'][0]:.2f} ms, {100 * t['busy'][1]:.1f}% of the window"
+                if t["busy"] else "")
+        log(f"{tag} turn {i + 1}, metrics_pipeline_depth {t['depth']}: {steps} steps in "
+            f"{t['secs']:.1f} s with the runner's set-up and final evaluation; the last "
+            f"{steps - steps // 2} steps and the drain {t['ms']:.2f} ms a step "
+            f"({images * 1e3 / t['ms']:.2f} images/s), data wait median "
+            f"{np.median(t['waits']):.2f} ms; peak device memory {t['peak'] / 2**30:.3f} GiB"
+            + busy)
+    depths = sorted({t["depth"] for t in turns})
+    lo, hi = depths[0], depths[-1]
+    # like against like: the turns without the profiler, then those under it
+    ms = {(d, p): float(np.median([t["ms"] for t in turns
+                                   if t["depth"] == d and bool(t["busy"]) == p]))
+          for d in depths for p in (False, True) if any(
+              t["depth"] == d and bool(t["busy"]) == p for t in turns)}
+    peak = {d: max(t["peak"] for t in turns if t["depth"] == d) for d in depths}
+    same_losses = all(t["losses"] == turns[0]["losses"] for t in turns)
+    same_launches = all(t["launches"] == turns[0]["launches"] for t in turns)
+    peak_rel = abs(peak[hi] - peak[lo]) / max(peak[lo], 1)
+    pairs = "; ".join(
+        f"{label} {ms[hi, p]:.2f} vs {ms[lo, p]:.2f} ms ({100 * (ms[hi, p] / ms[lo, p] - 1):+.1f}%)"
+        for p, label in ((False, "windowed step"), (True, "under the profiler"))
+        if (hi, p) in ms and (lo, p) in ms)
+    log(f"{tag} depth {hi} against {lo}: {pairs}; every step's losses bit-identical "
+        f"{same_losses}; launches a step equal {same_launches} ({turns[0]['launches'][-1]}); "
+        f"peak memory {peak[hi] / 2**30:.3f} vs {peak[lo] / 2**30:.3f} GiB "
+        f"({100 * peak_rel:.2f}%, tol {100 * PEAK_REL:.0f}%)")
+    if not (same_losses and same_launches and peak_rel <= PEAK_REL):
+        raise AssertionError(f"{tag}: the depths' turns differ in losses, launches or peak "
+                             f"memory")
+    return {d: ms[d, False] for d in depths if (d, False) in ms}
+
+
+def payload_equal(a, b) -> bool:
+    """Two checkpoint payloads equal: every tensor bit for bit, every other value."""
+    import torch
+
+    if torch.is_tensor(a):
+        return torch.is_tensor(b) and a.dtype == b.dtype and torch.equal(a, b)
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            payload_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return type(a) is type(b) and len(a) == len(b) and all(map(payload_equal, a, b))
+    return a == b
+
+
+def background_save(state, directory, dev):
+    """Phase 10's checkpoint writes of a trainer's ``state`` in
+    ``directory``: a synchronous write (the payload and torch.save), then the
+    background save: the ms save() takes to return and to land (wait()), the
+    state changed in place right after save() returns, and the landed file
+    gated equal to the synchronous write; a second background save of the
+    changed state, timed (the pinned snapshot's memory then comes from the
+    host allocator's cache).  Returns the ms."""
+    import torch
+
+    from unit_tpu_torch.checkpoint import Checkpointer, read_checkpoint
+    from unit_tpu_torch.checkpoint.checkpointer import state_payload
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    ckpt = Checkpointer(directory)
+    sync()
+    t = time.perf_counter()
+    payload = state_payload(state, ckpt.best_info)
+    plain = os.path.join(directory, "synchronous.pt")
+    torch.save(payload, plain)
+    ms = {"synchronous": (time.perf_counter() - t) * 1e3}
+    mib = sum(v.numel() * v.element_size() for v in payload["model"].values()) / 2**20
+    mib += sum(v.numel() * v.element_size() for st in payload["optimizer"]["state"].values()
+               for v in st.values() if torch.is_tensor(v)) / 2**20
+    del payload
+    for turn in (1, 2):
+        sync()
+        t = time.perf_counter()
+        path = ckpt.save(RUN_STEPS + turn, state)
+        ms[f"returned{turn}"] = (time.perf_counter() - t) * 1e3
+        if turn == 1:  # the next step's in-place changes, queued behind the snapshot
+            with torch.no_grad():
+                for p in state.model.parameters():
+                    p.add_(1.0)
+                for st in state.solver.optimizer.state.values():
+                    for v in st.values():
+                        if torch.is_tensor(v) and v.dim():
+                            v.mul_(2.0)
+        ckpt.wait()
+        ms[f"landed{turn}"] = (time.perf_counter() - t) * 1e3
+        if turn == 1:
+            same = payload_equal(read_checkpoint(path), read_checkpoint(plain))
+    log(f"[10] checkpoint (model, momentum, schedule, step; {mib:.1f} MiB of tensors, "
+        f"{os.path.getsize(plain) / 2**20:.1f} MiB on disk): synchronous payload + torch.save "
+        f"{ms['synchronous']:.1f} ms; background save returned in {ms['returned1']:.1f} ms "
+        f"and landed (wait()) at {ms['landed1']:.1f} ms, a second one {ms['returned2']:.1f} "
+        f"and {ms['landed2']:.1f} ms; the landed file equal to the synchronous write of the "
+        f"state it was taken from, though the state changed as save() returned: {same}")
+    if not same:
+        raise AssertionError("the background checkpoint is not the state at save()")
+    return ms
+
+
 def phase_run_loop(cfg, seed, workdir):
     """Phase 10 in the directory ``workdir``; phase 11 fine-tunes from the run
     it leaves in ``workdir/run_a``."""
@@ -1782,7 +1992,7 @@ def phase_run_loop(cfg, seed, workdir):
     from unit_tpu_torch.data import DatasetCatalog
     from unit_tpu_torch.data.transforms import TransformConfig, prepare_test_image
     from unit_tpu_torch.engine import runner
-    from unit_tpu_torch.engine.train import TrainerNoMeta, TrainState
+    from unit_tpu_torch.engine.train import TrainState
     from unit_tpu_torch.models import WSRCNN, ModelConfig
     from unit_tpu_torch.solver import build_optimizer
     from unit_tpu_torch.utils.bn_fold import fold_frozen_bn
@@ -1793,20 +2003,7 @@ def phase_run_loop(cfg, seed, workdir):
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
     made = []
-
-    class Recording(TrainerNoMeta):
-        """TrainerNoMeta that keeps itself, so the script can read its losses."""
-
-        def __init__(self, *a, **kw):
-            super().__init__(*a, **kw)
-            self.step_ms = []
-            made.append(self)
-
-        def run_step(self):
-            t = time.perf_counter()
-            metrics = super().run_step()  # ends in the loss fetch
-            self.step_ms.append((time.perf_counter() - t) * 1e3)
-            return metrics
+    Recording = loop_recording(made)
 
     def strip_time(results):
         return {k: v for k, v in results.items() if k != "inference_seconds_per_image"}
@@ -1821,7 +2018,7 @@ def phase_run_loop(cfg, seed, workdir):
     t0 = time.perf_counter()
     model = flagship_model(cfg, seed, dev)
     init = Checkpointer(os.path.join(tmp, "init")).save(
-        0, TrainState(model, build_optimizer(cfg, model), 0))
+        0, TrainState(model, build_optimizer(cfg, model), 0), wait=True)
     del model
     torch.cuda.empty_cache()
     log(f"[10] devkit of {RUN_TEST_IMAGES} images a split and the initial checkpoint "
@@ -1877,11 +2074,7 @@ def phase_run_loop(cfg, seed, workdir):
         if not ok:
             raise AssertionError("the run loop left out a checkpoint, a step, a finite "
                                  "result or a kernel")
-        t = time.perf_counter()
-        path = Checkpointer(os.path.join(tmp, "timed")).save(RUN_STEPS, trainer.state)
-        log(f"[10] checkpoint (model, momentum, schedule, step): "
-            f"{os.path.getsize(path) / 2**20:.1f} MiB, written and renamed in "
-            f"{time.perf_counter() - t:.2f} s")
+        background_save(trainer.state, os.path.join(tmp, "timed"), dev)
         del trainer
 
         # (b) resume from a copy that holds only step 3
@@ -1951,22 +2144,22 @@ def phase_run_loop(cfg, seed, workdir):
         torch.backends.cuda.matmul.allow_tf32 = True
 
         # (e) the loader's steady rate: more steps, no checkpoint or evaluation
-        # between them, so the prefetch queues drain to what the host can make
-        _, losses_e, trainer, secs = run(
-            os.path.join(tmp, "run_e"),
-            opts=["SOLVER.MAX_ITER", str(RUN_STEADY_STEPS), "SOLVER.CHECKPOINT_PERIOD", "0",
-                  "TEST.EVAL_PERIOD", "0"])
-        half = RUN_STEADY_STEPS // 2
-        waits = [1e3 * losses_e[s]["data_time"] for s in sorted(losses_e)[half:]]
-        steps = trainer.step_ms[half:]
-        del trainer
-        log(f"[10] {RUN_STEADY_STEPS} steps without hooks in {secs:.1f} s; over the last "
-            f"{len(steps)}: step median {np.median(steps):.2f} ms "
-            f"({4e3 / np.median(steps):.2f} images/s), of which waiting for the two "
-            f"prefetched streams {np.median(waits):.2f} ms (median; min {min(waits):.2f}, "
-            f"max {max(waits):.2f})")
-        if len(losses_e) != RUN_STEADY_STEPS:
-            raise AssertionError("the steady run did not take its steps")
+        # between them, so the prefetch queues drain to what the host can
+        # make; at each depth of the deferred loss fetch in turns
+        turns = []
+        for i, depth in enumerate(DEPTH_TURNS):
+            Recording.depth, Recording.profile_last = depth, PROFILED_STEPS * (i >= 2)
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            _, losses_e, trainer, secs = run(
+                os.path.join(tmp, f"run_e{i}"),
+                opts=["SOLVER.MAX_ITER", str(RUN_STEADY_STEPS), "SOLVER.CHECKPOINT_PERIOD", "0",
+                      "TEST.EVAL_PERIOD", "0"])
+            turns.append(loop_turn(trainer, losses_e, secs, dev))
+            del trainer
+            if len(losses_e) != RUN_STEADY_STEPS:
+                raise AssertionError("the steady run did not take its steps")
+        depth_turns("[10] (e)", turns, RUN_STEADY_STEPS, 4)
     finally:
         runner.TrainerNoMeta = real_trainer
         made.clear()
@@ -2086,7 +2279,7 @@ def phase_finetune(cfg, seed, workdir):
 
     def step(label):
         t = time.perf_counter()
-        m = ft.run_step()  # ends in one device-to-host copy of the losses
+        m = ft.run_step().resolve()  # read now: the clock holds the device's time
         ms = (time.perf_counter() - t) * 1e3
         log(f"[11] step {ft.state.step} ({label}) {ms:.1f} ms: "
             + ", ".join(f"{k} {v:.4g}" for k, v in m.items() if k != "data_time"))
@@ -2325,7 +2518,7 @@ def phase_coco_segm(seed, workdir):
 
     def step(tr, label):
         t = time.perf_counter()
-        m = tr.run_step()  # ends in one device-to-host copy of the losses
+        m = tr.run_step().resolve()  # read now: the clock holds the device's time
         ms = (time.perf_counter() - t) * 1e3
         log(f"[12] step {tr.state.step} ({label}) {ms:.1f} ms: "
             + ", ".join(f"{k} {v:.4g}" for k, v in m.items() if k != "data_time"))
@@ -2389,7 +2582,7 @@ def phase_coco_segm(seed, workdir):
     written = runpy.run_path(str(ROOT / "scripts" / "make_shapes_coco_torch.py"))[
         "write_shapes_coco"](root, COCO_TRAIN_IMAGES, COCO_VAL_IMAGES, COCO_IMAGE_SIZE, seed)
     init = Checkpointer(os.path.join(workdir, "coco_init")).save(
-        0, TrainState(ckpt_model, build_optimizer(cfg, ckpt_model), 0))
+        0, TrainState(ckpt_model, build_optimizer(cfg, ckpt_model), 0), wait=True)
     del ckpt_model
     log(f"[12] shapes-COCO devkit {written} and the initial checkpoint written in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -2584,7 +2777,7 @@ def phase_weak_variants(seed, workdir):
         """TRAIN_WARMUP + ``timed`` steps -> (timed step ms, launches a timed step)."""
         def one(kind):
             t = time.perf_counter()
-            m = trainer.run_step()  # ends in one device-to-host copy of the losses
+            m = trainer.run_step().resolve()  # read now: the clock holds the device's time
             ms = (time.perf_counter() - t) * 1e3
             log(f"[13] {label} step {trainer.state.step} ({kind}) {ms:.1f} ms: "
                 + ", ".join(f"{k} {v:.4g}" for k, v in m.items() if k != "data_time"))
@@ -3047,7 +3240,7 @@ def phase_meta(seed, workdir):
 
     def one(label):
         t = time.perf_counter()
-        m = trainer.run_step()  # ends in one device-to-host copy of the losses
+        m = trainer.run_step().resolve()  # read now: the clock holds the device's time
         ms = (time.perf_counter() - t) * 1e3
         log(f"[14] meta step {trainer.state.step} ({label}) {ms:.1f} ms: "
             + ", ".join(f"{k} {v:.4g}" for k, v in m.items() if k != "data_time"))
@@ -3807,7 +4000,7 @@ def phase_note(seed, workdir):
 
     def step(tr, label):
         t = time.perf_counter()
-        m = tr.run_step()  # ends in one device-to-host copy of the losses
+        m = tr.run_step().resolve()  # read now: the clock holds the device's time
         ms = (time.perf_counter() - t) * 1e3
         log(f"[16] step {tr.state.step} ({label}) {ms:.1f} ms: "
             + ", ".join(f"{k} {v:.4g}" for k, v in m.items() if k != "data_time"))
@@ -4294,7 +4487,7 @@ def phase_dock(seed, workdir):
 
     def step(tr, label):
         t = time.perf_counter()
-        m = tr.run_step()  # ends in one device-to-host copy of the losses
+        m = tr.run_step().resolve()  # read now: the clock holds the device's time
         ms = (time.perf_counter() - t) * 1e3
         log(f"[17] step {tr.state.step} ({label}) {ms:.1f} ms: "
             + ", ".join(f"{k} {v:.4g}" for k, v in m.items() if k != "data_time"))
@@ -5341,7 +5534,7 @@ def phase_trained(cfg, seed, workdir):
     finally:
         nms_ops.nms_sorted_mask_cuda = real_k3
     reset_launch_counts()
-    m = step_trainer.run_step()
+    m = step_trainer.run_step().resolve()
     launches = read_launch_counts()
     n_backbone, n_res5, n_trainable = frozen_bn_counts(model)
     want = {"roi_align_fwd": 2, "roi_align_bwd": 2, "nms_mask": 1, "nms_mask_images": 4,
@@ -5405,7 +5598,7 @@ HOST_WIRE_SHAPES = ((375, 500), (500, 375))   # (h, w): VOC's two common sizes
 HOST_WIRE_IMAGES = 8       # JPEGs of each shape: prepare_batch's batch and threads
 HOST_WIRE_TIMED = 5        # host ms an image: the median of this many images
 HOST_WIRE_RUN_SHAPES = ((375, 500), (333, 500))  # landscape only: one canvas a step
-HOST_WIRE_STEPS = 6        # run-loop steps through each decode path
+HOST_WIRE_STEPS = 12       # run-loop steps through each decode path
 HOST_WIRE_REQUESTS = 16
 HOST_WIRE_UPLOADS = 10     # uploads timed a wire (median)
 C_VS_NUMPY_ATOL = 2.0 ** -8  # the C resize in f32 against the numpy one in f64
@@ -5418,9 +5611,10 @@ def phase_host_wire(cfg, seed, workdir):
     VOC-sized JPEGs, and the C canvas within C_VS_NUMPY_ATOL of the numpy
     path's with equal dims and scale; (c) host ms an image, C against PIL +
     numpy, and a threaded batch; (d) engine.runner.run at full width on a
-    devkit of JPEG files (no image_loader) through the C loader, then the same
-    steps through PIL (the script patches data.native.available): step time,
-    data wait and each step's launches; (e) detect_bytes on JPEGs at batch 1
+    devkit of JPEG files (no image_loader) through the C loader at
+    metrics_pipeline_depth 0 and 8 in turns (``depth_turns``), then the same
+    steps through PIL (the script patches data.native.available): windowed
+    step time, data wait and each step's launches; (e) detect_bytes on JPEGs at batch 1
     and micro-batched at 4 under 8 clients, C against PIL: req/s, p50, images
     a device call; (f) TPU.HOST_TRANSFER_UINT8: served batch-4 requests and
     train steps on uint8 batches, upload bytes and ms against the f32 wire,
@@ -5536,31 +5730,17 @@ def phase_host_wire(cfg, seed, workdir):
                           shapes=HOST_WIRE_RUN_SHAPES, jpegs=True)
     model = flagship_model(cfg, seed, dev)
     init = Checkpointer(os.path.join(workdir, "host_wire_init")).save(
-        0, TrainState(model, build_optimizer(cfg, model), 0))
+        0, TrainState(model, build_optimizer(cfg, model), 0), wait=True)
     made = []
+    Recording = loop_recording(made)
 
-    class Recording(TrainerNoMeta):
-        """TrainerNoMeta that keeps each step's time and launches."""
-
-        def __init__(self, *a, **kw):
-            super().__init__(*a, **kw)
-            self.step_ms, self.launches = [], []
-            made.append(self)
-
-        def run_step(self):
-            reset_launch_counts()
-            t = time.perf_counter()
-            metrics = super().run_step()  # ends in the loss fetch
-            self.step_ms.append((time.perf_counter() - t) * 1e3)
-            self.launches.append(read_launch_counts())
-            return metrics
-
-    def run_loop(path):
+    def run_loop(path, turn=""):
         DatasetCatalog.clear()
         made.clear()
         args = runner.default_argument_parser().parse_args([
             "--config-file", str(FLAGSHIP), "--data-root", devkit, "--device", RUN_DEVICE,
-            "MODEL.WEIGHTS", init, "OUTPUT_DIR", os.path.join(workdir, f"host_wire_{path}"),
+            "MODEL.WEIGHTS", init,
+            "OUTPUT_DIR", os.path.join(workdir, f"host_wire_{path}{turn}"),
             "MODEL.ROI_HEADS.EMBEDDING_PATH", str(ROOT / cfg.MODEL.ROI_HEADS.EMBEDDING_PATH),
             "DATASETS.CLASSIFIER_DATAROOT", devkit, "SEED", str(seed),
             "SOLVER.IMS_PER_BATCH", "2", "SOLVER.MAX_ITER", str(HOST_WIRE_STEPS),
@@ -5568,6 +5748,8 @@ def phase_host_wire(cfg, seed, workdir):
             "SOLVER.CLIP_GRADIENTS.ENABLED", "True", "SOLVER.CLIP_GRADIENTS.CLIP_TYPE", "norm",
             *RUN_EXTRA_OPTS])
         calls = count_calls(native, "prepare_image_native")
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
         try:
             results = runner.run(args)  # no image_loader: the devkit's JPEG files
@@ -5579,17 +5761,15 @@ def phase_host_wire(cfg, seed, workdir):
         want = {"roi_align_fwd": 2, "roi_align_bwd": 2, "nms_mask": 1, "nms_mask_images": 4,
                 "bn_act_fwd": n_backbone + 3 * n_res5, "bn_act_bwd": n_trainable + 2 * n_res5,
                 "bn_act_layout_copies": 2}
-        half = HOST_WIRE_STEPS // 2
-        waits = [1e3 * m["data_time"] for m in trainer.metrics_history[half:]]
-        steps = trainer.step_ms[half:]
         total = {k: sum(c[k] for c in trainer.launches) for k in want}
         finite = all(np.isfinite(v) for m in trainer.metrics_history for v in m.values())
-        log(f"[20] (d) run loop through {path}: {HOST_WIRE_STEPS} steps and the final "
-            f"evaluation of {RUN_TEST_IMAGES} images in {secs:.1f} s ({calls['n']} C calls); "
-            f"over the last {len(steps)}: step median {np.median(steps):.2f} ms "
-            f"({4e3 / np.median(steps):.2f} images/s), data wait median {np.median(waits):.2f} "
-            f"ms (max {max(waits):.2f}); AP50 {results['bbox']['AP50']:.4g}; launches a step "
-            f"{trainer.launches[-1]}")
+        out = loop_turn(trainer, dict(enumerate(trainer.metrics_history, 1)), secs, dev)
+        log(f"[20] (d) run loop through {path}{turn}: {HOST_WIRE_STEPS} steps and the final "
+            f"evaluation of {RUN_TEST_IMAGES} images in {secs:.1f} s ({calls['n']} C calls), "
+            f"metrics_pipeline_depth {out['depth']}: the last {len(out['waits'])} steps and "
+            f"the drain {out['ms']:.2f} ms a step ({4e3 / out['ms']:.2f} images/s), data wait "
+            f"median {np.median(out['waits']):.2f} ms (max {max(out['waits']):.2f}); AP50 "
+            f"{results['bbox']['AP50']:.4g}; launches a step {trainer.launches[-1]}")
         if on_card and any(c != want for c in trainer.launches):
             raise AssertionError(f"a run-loop step through {path} did not launch {want}: "
                                  f"{trainer.launches}")
@@ -5598,7 +5778,6 @@ def phase_host_wire(cfg, seed, workdir):
             raise AssertionError(f"the run through {path} has a non-finite result or took "
                                  "the other decode path")
         by_path[f"host_wire_run_{path}"] = total
-        out = {"step_ms": float(np.median(steps)), "wait_ms": float(np.median(waits))}
         del trainer
         made.clear()
         return out
@@ -5606,17 +5785,25 @@ def phase_host_wire(cfg, seed, workdir):
     real_trainer, runner.TrainerNoMeta = runner.TrainerNoMeta, Recording
     real_available = native.available
     try:
-        loop = {"C": run_loop("C")}
+        turns = []  # through C at each depth of the deferred loss fetch, in turns
+        for i, depth in enumerate(DEPTH_TURNS):
+            Recording.depth, Recording.profile_last = depth, PROFILED_STEPS * (i >= 2)
+            turns.append(run_loop("C", f" (turn {i + 1})"))
+        ms = depth_turns("[20] (d) through C:", turns, HOST_WIRE_STEPS, 4)
+        Recording.depth, Recording.profile_last = max(DEPTH_TURNS), 0
+        loop = {"C": {"step_ms": ms[max(DEPTH_TURNS)],
+                      "wait_ms": float(np.median([w for t in turns for w in t["waits"]]))}}
         native.available = lambda: False  # the script's switch: the PIL path
-        loop["PIL"] = run_loop("PIL")
+        pil = run_loop("PIL")
+        loop["PIL"] = {"step_ms": pil["ms"], "wait_ms": float(np.median(pil["waits"]))}
     finally:
         native.available = real_available
         runner.TrainerNoMeta = real_trainer
     if on_card:
         torch.cuda.empty_cache()
-    log(f"[20] (d) run loop, C against PIL in one call: step median {loop['C']['step_ms']:.2f} "
-        f"vs {loop['PIL']['step_ms']:.2f} ms, data wait {loop['C']['wait_ms']:.2f} vs "
-        f"{loop['PIL']['wait_ms']:.2f} ms")
+    log(f"[20] (d) run loop at depth {max(DEPTH_TURNS)}, C against PIL in one call: windowed "
+        f"step {loop['C']['step_ms']:.2f} vs {loop['PIL']['step_ms']:.2f} ms, data wait "
+        f"{loop['C']['wait_ms']:.2f} vs {loop['PIL']['wait_ms']:.2f} ms")
 
     # (e) detect_bytes on JPEGs, C against PIL, batch 1 and micro-batched
     bench = runpy.run_path(str(ROOT / "scripts" / "bench_serving_torch.py"))
@@ -5723,6 +5910,7 @@ def phase_host_wire(cfg, seed, workdir):
     reset_launch_counts()
     t = time.perf_counter()
     metrics = [trainer.run_step() for _ in range(2)]
+    trainer.drain()  # the window ends in the drain: the clock holds the device's time
     step_ms = (time.perf_counter() - t) * 1e3 / 2
     launches = read_launch_counts()
     n_backbone, n_res5, n_trainable = frozen_bn_counts(model)
@@ -5762,6 +5950,8 @@ DP_IMAGES_PER_RANK = 4      # the recipe's IMS_PER_BATCH 8: 4 + 4 images a rank
 DP_WARMUP, DP_STEPS = 1, 3
 DP_RUN_STEPS, DP_RUN_PERIOD = 4, 2
 DP_DIST_STEPS = 2
+DP_STOP_DEPTH, DP_STOP_AT, DP_STOP_MAX = 8, 1, 12  # (e): stop asked on rank 1 after step 1
+DP_STOP_IMAGES = 2          # (e): 2 + 2 images a rank
 DP_TIMEOUT = 600            # seconds a launch may take, collectives and join
 DP_AP_ATOL = 1e-6
 # the merged evaluator's detections against one process's (class, image,
@@ -5872,7 +6062,7 @@ def dp_train_rank(device, opts, seed, per_rank, canvases, warmup, steps):
     step_ms = []
     for _ in range(steps):
         t = time.perf_counter()
-        trainer.run_step()  # ends in the one fetch of the ranks' mean losses
+        trainer.run_step().resolve()  # read now: the clock holds the device's time
         step_ms.append((time.perf_counter() - t) * 1e3)
     restore()
     launches = read_launch_counts()
@@ -5926,7 +6116,7 @@ def dp_f32_step(device, opts, seed, strong, weak, out_path=None):
 
     comm.all_reduce_mean_tensors = keep
     try:
-        metrics = trainer.run_step()
+        metrics = dict(trainer.run_step())  # resolved on every rank here
     finally:
         comm.all_reduce_mean_tensors = real
     del trainer, model
@@ -5992,6 +6182,8 @@ def dp_run_rank(device, argv, sharded=False):
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
             self.launches, self.memory, self.step_ms = [], [], []
+            if sharded:  # each step read at its end: its clock holds the device's time
+                self.metrics_pipeline_depth = 0
             made.append(self)
 
         def run_step(self):
@@ -6078,10 +6270,53 @@ def check_eval_alone(tag, step, argv, ap, gathered):
         raise AssertionError("the gathered evaluation is not the one-process evaluation")
 
 
-def dp_all_rank(device, train_args, f32_args, run_args):
-    """(a), (b) and (c) in one rank process (one spawn): ``dp_train_rank(
+class StopOnRankOne:
+    """A trainer hook that takes a step's losses in flight and asks rank 1
+    alone to stop after step ``at``."""
+
+    takes_lazy_metrics = True
+
+    def __init__(self, at):
+        self.at = at
+
+    def __call__(self, step, metrics, trainer):
+        from unit_tpu_torch.parallel import comm
+
+        if comm.rank() == 1 and step == self.at:
+            trainer.request_stop()
+
+
+def dp_stop_rank(device, opts, seed, per_rank, canvases):
+    """(e), one rank: the flagship at full width on this rank's own images,
+    trained to DP_STOP_MAX steps at metrics_pipeline_depth DP_STOP_DEPTH
+    with a stop requested on rank 1 alone after step DP_STOP_AT: (the step
+    it stopped at, whether it saw the request, each step's total_loss, the
+    seconds)."""
+    from unit_tpu_torch.engine import TrainerNoMeta
+    from unit_tpu_torch.parallel import comm
+    from unit_tpu_torch.solver import build_optimizer
+
+    t = time.perf_counter()
+    cfg = dp_cfg(opts)
+    model = flagship_model(cfg, seed, device)
+    strong, weak = synthetic_train_batches(cfg, seed + 4000 * (comm.rank() + 1),
+                                           n_batches=2, per_stream=per_rank, canvases=canvases)
+    trainer = TrainerNoMeta(model, build_optimizer(cfg, model), itertools.cycle(strong),
+                            itertools.cycle(weak), seed=seed)
+    trainer.metrics_pipeline_depth = DP_STOP_DEPTH
+    trainer.init_state()
+    trainer.train(DP_STOP_MAX, hooks=[StopOnRankOne(DP_STOP_AT)])
+    out = (trainer.state.step, trainer.stop_requested,
+           [m["total_loss"] for m in trainer.metrics_history], time.perf_counter() - t)
+    trainer.close()
+    return out
+
+
+def dp_all_rank(device, train_args, f32_args, run_args, stop_args):
+    """(a), (b), (c) and (e) in one rank process (one spawn): ``dp_train_rank(
     *train_args)``, ``dp_f32_step(*f32_args)``, then the run and its resume
-    (``dp_run_and_resume_rank(*run_args)``) with their seconds."""
+    (``dp_run_and_resume_rank(*run_args)``) with their seconds, then
+    ``dp_stop_rank(*stop_args)``."""
     import torch
 
     a, b = dp_train_rank(device, *train_args), dp_f32_step(device, *f32_args)
@@ -6089,7 +6324,10 @@ def dp_all_rank(device, train_args, f32_args, run_args):
         torch.cuda.empty_cache()
     t = time.perf_counter()
     c = dp_run_and_resume_rank(device, *run_args)
-    return a, b, (c, time.perf_counter() - t)
+    c = (c, time.perf_counter() - t)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return a, b, c, dp_stop_rank(device, *stop_args)
 
 
 def dp_run_and_resume_rank(device, argv_a, argv_b, out_a, out_b):
@@ -6126,7 +6364,7 @@ def dp_run_argv(seed, workdir, dev, opts):
     if not os.path.isfile(init):
         model = flagship_model(cfg, seed, dev)
         init = Checkpointer(os.path.dirname(init)).save(
-            0, TrainState(model, build_optimizer(cfg, model), 0))
+            0, TrainState(model, build_optimizer(cfg, model), 0), wait=True)
         del model
         if dev.type == "cuda":
             torch.cuda.empty_cache()
@@ -6157,7 +6395,10 @@ def phase_data_parallel(seed, workdir):
     evaluation at 2 and 4, only rank 0 writing, the gathered AP against a
     one-process --eval-only of the step-4 checkpoint, a resume from step 2;
     (d) --dist at world 1 over NCCL (torchrun's environment): 2 steps, their
-    launches, finite losses, one NCCL all-reduce.  A generator
+    launches, finite losses, one NCCL all-reduce; (e) in the spawn, a stop
+    asked on rank 1 alone at metrics_pipeline_depth 8 (``dp_stop_rank``):
+    both ranks on one step, within the depth, with the same losses.  A
+    generator
     (``phase_multi_rank``): it yields ``dp_all_rank``'s arguments, gets
     back each rank's (result, seconds) from the spawn phases 21 and 22
     share, and returns {path: launch counts}."""
@@ -6196,10 +6437,11 @@ def phase_data_parallel(seed, workdir):
     out_a, out_b = os.path.join(workdir, "dp_run_a"), os.path.join(workdir, "dp_run_b")
     spawned = yield ((opts, seed, DP_IMAGES_PER_RANK, TRAIN_CANVASES, DP_WARMUP, DP_STEPS),
                      (opts, seed, strong, weak, grads_path),
-                     (argv(out_a), argv(out_b, "--resume"), out_a, out_b))
+                     (argv(out_a), argv(out_b, "--resume"), out_a, out_b),
+                     (opts, seed, DP_STOP_IMAGES, TRAIN_CANVASES))
     both = [r for r, _ in spawned]
     secs = max(t for _, t in spawned)
-    ranks = [r for r, _, _ in both]
+    ranks = [r[0] for r in both]
     for r in ranks:
         log(f"[21] (a) rank {r['rank']}: {DP_STEPS} timed steps of {DP_IMAGES_PER_RANK} + "
             f"{DP_IMAGES_PER_RANK} images, median {np.median(r['step_ms']):.2f} ms (min "
@@ -6287,6 +6529,20 @@ def phase_data_parallel(seed, workdir):
             or not rel <= RESUME_LOSS_RTOL:
         raise AssertionError("the resumed world-2 run does not reproduce its steps")
 
+    # (e) a stop on rank 1 alone with the losses read 8 steps late: the
+    # request reaches rank 0 in the all-reduce of the first resolution
+    stops = [r[3] for r in both]
+    log(f"[21] (e) metrics_pipeline_depth {DP_STOP_DEPTH}, a stop asked on rank 1 alone after "
+        f"step {DP_STOP_AT} of {DP_STOP_MAX}: the ranks stopped after steps "
+        f"{[x[0] for x in stops]}, saw the request {[x[1] for x in stops]}, logged the same "
+        f"losses {stops[0][2] == stops[1][2]} (total_loss {[round(v, 4) for v in stops[0][2]]}); "
+        f"{max(x[3] for x in stops):.1f} s with the build")
+    if not (stops[0][:2] == stops[1][:2] == (DP_STOP_AT + DP_STOP_DEPTH, True)
+            and stops[0][2] == stops[1][2] and len(stops[0][2]) == stops[0][0]
+            and all(np.isfinite(v) for v in stops[0][2])):
+        raise AssertionError("the ranks did not stop together, within the depth of the "
+                             "request, with the same losses")
+
     # (d) --dist: one rank over NCCL, from torchrun's environment
     made = []
 
@@ -6359,13 +6615,15 @@ SH_LOSS_RTOL = 1e-5                 # (c): the split f32 step's losses against o
 # (a) and (b) drive engine.runner.run under each mode on phase 20's JPEG
 # devkit from phase 21's initial checkpoint: a warm-up step, then the timed
 # ones, the last under the profiler; an evaluation on a whole replica and a
-# checkpoint every SH_RUN_PERIOD steps (so a step follows an evaluation)
+# checkpoint every SH_RUN_PERIOD steps (under FSDP a step follows an
+# evaluation: the memory it leaves; TP's evaluation goes through the same
+# whole replica, ``runner.on_whole_replica``)
 SH_RUN_PERIOD = 2
 SH_MODES = {  # mode: (images a rank and stream, warm-up steps, timed steps, options)
     "fsdp": (4, 1, 3, ("TPU.FSDP", "True")),  # phase 21's 4 + 4 a rank
-    # 1 + 1 on its one data rank; PreciseBN before each evaluation, on the
-    # replica, the statistics copied back
-    "tp": (1, 1, 2, ("TPU.TP", str(SH_WORLD), "TEST.PRECISE_BN.ENABLED", "True",
+    # 1 + 1 on its one data rank, 5-9 s a step through gloo; PreciseBN before
+    # each evaluation, on the replica, the statistics copied back
+    "tp": (1, 1, 1, ("TPU.TP", str(SH_WORLD), "TEST.PRECISE_BN.ENABLED", "True",
                      "TEST.PRECISE_BN.NUM_ITER", "1")),
 }
 SH_FSDP_LEAF = "backbone.res4.block0.conv1.weight"
@@ -6478,11 +6736,11 @@ def sh_f32_run(device, mode, opts, seed, strong, weak, grads_path, ckpt_dir, res
                 grads[by_id[id(p)]] = mesh_lib.full_tensor(p.grad, p).clone()
 
     handle = solver.optimizer.register_step_pre_hook(keep)
-    metrics = trainer.run_step()
+    metrics = dict(trainer.run_step())  # resolved on every rank here
     handle.remove()
     out = {"metrics": metrics, "names": names}
     if ckpt_dir is not None:
-        Checkpointer(ckpt_dir).save(int(trainer.state.step), trainer.state)
+        Checkpointer(ckpt_dir).save(int(trainer.state.step), trainer.state, wait=True)
         out["digests"] = sh_digests(model, solver.optimizer)
     if restore_path is not None:  # into the same split model: every value is overwritten
         Checkpointer(os.path.dirname(restore_path)).restore(state=trainer.state)
@@ -6512,14 +6770,15 @@ def sh_rank(device, args):
     f32_args)}): (a) or (b), the run loop, then (c) and (d).  {mode: (run,
     its seconds, f32, the mode's seconds)}; for the mode "pp", (f), (g) and
     (h) (``pp_rank``'s arguments and result, and its seconds), for the mode
-    "spatial" (i) and (j) (``sp_rank``'s)."""
+    "spatial" (i) and (j) (``sp_rank``'s), for "spatial_other" (k)
+    (``sp_other_rank``'s)."""
     import torch
 
     out = {}
     for mode, mode_args in args.items():
-        if mode in ("pp", "spatial"):
+        if mode in ("pp", "spatial", "spatial_other"):
             t = time.perf_counter()
-            rank_fn = pp_rank if mode == "pp" else sp_rank
+            rank_fn = {"pp": pp_rank, "spatial": sp_rank, "spatial_other": sp_other_rank}[mode]
             out[mode] = rank_fn(device, *mode_args), time.perf_counter() - t
             continue
         run_argv, f32_args = mode_args
@@ -6672,7 +6931,7 @@ def pp_train_rank(device, opts, seed, canvases):
     for _ in range(PP_STEPS):
         reset_launch_counts()
         t = time.perf_counter()
-        trainer.run_step()  # ends in the one fetch of the combined losses
+        trainer.run_step().resolve()  # read now: the clock holds the device's time
         step_ms.append((time.perf_counter() - t) * 1e3)
         launches.append(read_launch_counts())
     peak = torch.cuda.max_memory_allocated(device) if on_card else 0
@@ -6720,7 +6979,7 @@ def pp_f32_step(device, opts, seed, micro, pp, grads_path=None):
                     grads[names[id(p)]] = p.grad.detach().clone()
 
         trainer.optimizer.optimizer.register_step_pre_hook(keep)
-        metrics = trainer.run_step()
+        metrics = dict(trainer.run_step())  # resolved on every rank here
         del trainer, model
     finally:
         (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
@@ -6756,7 +7015,7 @@ def phase_sharded(seed, workdir):
     through engine.runner.run on phase 20's JPEG devkit, warm-started from
     phase 21's initial checkpoint of the flagship (bf16, full width): the
     runner builds the mesh, splits the model and builds the solver after.
-    (a) 4 + 4 images a rank, 1 warm-up + 3 steps; (b) 1 + 1, 1 + 2 steps.
+    (a) 4 + 4 images a rank, 1 warm-up + 3 steps; (b) 1 + 1, 1 + 1 steps.
     Per rank the timed steps' ms, the last one under the profiler with its
     gloo collectives' host ms by name, and their peak memory; every step's
     launches (K1 2, K2 2, K3 1, K4 124 + 103, as one process at the rank's
@@ -6766,9 +7025,9 @@ def phase_sharded(seed, workdir):
     ranks, and PreciseBN before each evaluation (on the replica, the
     statistics copied back).  An evaluation on a whole replica and a
     checkpoint every SH_RUN_PERIOD steps and at the end: finite AP, the
-    ranks' results equal, and the device memory an evaluation leaves behind
-    (under half the whole model's bytes: the replica is dropped), with the
-    peak of the step after it.  (c) f32, TF32 off, every candidate kept:
+    ranks' results equal, and under FSDP the device memory an evaluation
+    leaves behind (under half the whole model's bytes: the replica is
+    dropped), with the peak of the step after it.  (c) f32, TF32 off, every candidate kept:
     FSDP at world 2 (1 + 1 a rank) against one process (2 + 2), TP 2 (1 + 1
     on the data rank) against one process (1 + 1): losses 1e-5, gradients
     phase 8's bound.  (d) the checkpoint of (c)'s FSDP state and of its TP
@@ -6782,7 +7041,9 @@ def phase_sharded(seed, workdir):
     against a one-process --eval-only.  Then the 2-D (data x spatial) mesh at
     (1, 2) in the same ranks (``sp_rank``, gated by ``sp_checks``): (i) the
     flagship at full width on 2 + 2 images, half the canvas rows a rank;
-    (j) its f32 step against (c)'s one process on the same 2 + 2 batch.  A
+    (j) its f32 step against (c)'s one process on the same 2 + 2 batch;
+    (k) the note and the dock recipes on the mesh in f32 against one
+    process's steps (``sp_other_steps``, ``sp_other_checks``).  A
     generator (``phase_multi_rank``): it yields ``sh_rank``'s arguments,
     gets back each rank's result from the shared spawn, and returns {path:
     launch counts}."""
@@ -6839,6 +7100,13 @@ def phase_sharded(seed, workdir):
     # one-process f32 step (j) is held against
     sp_grads = os.path.join(workdir, "sh_spatial_grads.pt")
     args["spatial"] = (opts, seed, TRAIN_CANVASES, strong, weak, sp_grads)
+    # (k): the note and the dock on the 2-D mesh, after their one process's steps
+    sp_ones = {}
+    for recipe in SP_RECIPES:
+        t = time.perf_counter()
+        sp_ones[recipe] = (sp_other_steps(dev, recipe, opts, seed, NOTE_CANVASES, False),
+                           time.perf_counter() - t)
+    args["spatial_other"] = (opts, seed, NOTE_CANVASES)
     # the four modes after phase 21's in the shared spawn: the ranks start and
     # reach the card once
     ranks = yield args
@@ -6866,7 +7134,7 @@ def phase_sharded(seed, workdir):
                    if on_card else "")
                 + f"{len(r['split'])} parameters split; launches a step {r['launches'][-1]}; "
                 f"total_loss {[round(m['total_loss'], 4) for m in r['losses'].values()]}")
-            if on_card:
+            if on_card and len(r["memory"]) > SH_RUN_PERIOD:
                 # the step after the first evaluation against the one before it
                 before, after = r["memory"][SH_RUN_PERIOD - 1], r["memory"][SH_RUN_PERIOD]
                 left = after["start"] - before["end"]
@@ -6959,6 +7227,7 @@ def phase_sharded(seed, workdir):
                              argv, dev))
     one, secs_one = results["fsdp"][:2]
     by_path.update(sp_checks([r["spatial"] for r in ranks], one, secs_one, sp_grads, dev))
+    by_path.update(sp_other_checks([r["spatial_other"][0] for r in ranks], sp_ones))
     return by_path
 
 
@@ -7267,6 +7536,154 @@ def sp_checks(ranks, one, secs_one, grads_path, dev):
     return by_path
 
 
+# (k): the 2-D mesh at (1, 2) over the note (InceptionResNetV2) and the dock
+# (VGG-CNN-F) recipes at full width, in f32 (TF32 off, every candidate
+# kept): 1 + 2 steps of 2 + 2 images, each rank holding half the canvas rows;
+# their unpadded strided ops leave bands of unequal height
+SP_RECIPES = ("note", "dock")
+SP_OTHER_STEPS = 3  # a warm-up, a timed step, a step with its collectives timed
+SP_OTHER_RTOL = 1e-5
+
+
+def sp_other_setup(recipe, opts, seed, note_canvases):
+    """(cfg, its 2 seeded (strong, weak) numpy batches of 2 + 2 images in both
+    orientations) of the note (on ``note_canvases``) or the dock recipe (on
+    its largest train canvas), the dock's with seeded MCG-style proposals for
+    both streams; the same in every process."""
+    import runpy
+
+    from unit_tpu_torch.config import get_cfg
+    from unit_tpu_torch.data.transforms import TransformConfig
+
+    cfg = get_cfg()
+    cfg.merge_from_file(str(NOTE_RECIPE if recipe == "note" else DOCK_RECIPE))
+    cfg.merge_from_list([*opts, *DP_KEEP_ALL_OPTS])
+    if recipe == "note":
+        return cfg, list(zip(*synthetic_train_batches(cfg, seed + 5100, n_batches=2,
+                                                      canvases=note_canvases)))
+    canvas = TransformConfig.train_from_cfg(cfg).canvas
+    short = max(cfg.INPUT.MIN_SIZE_TRAIN)
+    content = (short, min(int(round(short * 4 / 3)), cfg.INPUT.MAX_SIZE_TRAIN))
+    writer = runpy.run_path(str(ROOT / "scripts" / "make_shapes_proposals_torch.py"))
+    strong, weak = with_dock_proposals(
+        writer["mcg_like_proposals"], np.random.RandomState(seed + 5200),
+        *synthetic_train_batches(cfg, seed + 5200, n_batches=2,
+                                 canvases=((canvas, content), (canvas[::-1], content[::-1]))),
+        cfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TRAIN)
+    return cfg, list(zip(strong, weak))
+
+
+def sp_other_steps(device, recipe, opts, seed, note_canvases, mesh_2d):
+    """SP_OTHER_STEPS f32 steps (TF32 off) of ``recipe`` at full width, on
+    the (1, 2) mesh (``mesh_2d``: each rank its band of the rows) or in one
+    process on the whole batches: the losses (the ranks' mean), each step's
+    launches and ms, the last step's collectives' ms and calls (on the
+    mesh), the peak memory of the last two, the state's digest."""
+    import torch
+
+    from unit_tpu_torch.engine import make_train_step
+    from unit_tpu_torch.parallel import comm, spatial
+    from unit_tpu_torch.solver import build_optimizer
+
+    on_card = device.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        cfg, batches = sp_other_setup(recipe, opts, seed, note_canvases)
+        if mesh_2d:
+            model, _, mesh, step = sp_mesh_step(device, cfg, seed)
+            batches = [(sp_part(mesh, s, device), sp_part(mesh, w, device)) for s, w in batches]
+        else:
+            model = flagship_model(cfg, seed, device).train()
+            solver = build_optimizer(cfg, model)
+            step = make_train_step(model, solver.optimizer, solver.scheduler, solver.clip)
+            batches = [tuple({k: torch.as_tensor(v).to(device) for k, v in b.items()}
+                             for b in pair) for pair in batches]
+        out = {"rank": comm.rank(), "losses": [], "launches": [], "step_ms": [], "split": {},
+               "band": tuple(batches[0][0]["image"].shape)}
+        restore = None
+        for k in range(SP_OTHER_STEPS):
+            if k == 1 and on_card:
+                torch.cuda.reset_peak_memory_stats(device)
+            if k == SP_OTHER_STEPS - 1 and mesh_2d:
+                restore = timed_calls(sync, out["split"], [
+                    (spatial, "_exchange", "halo"), (spatial, "_gather", "gather"),
+                    (spatial, "_scatter_sum", "gather_backward")])
+            sync()
+            before = read_launch_counts()
+            t = time.perf_counter()
+            out["losses"].append(sp_run_step(step, *batches[k % len(batches)], device, seed, k))
+            out["step_ms"].append((time.perf_counter() - t) * 1e3)
+            out["launches"].append({n: v - before[n] for n, v in read_launch_counts().items()})
+        if restore is not None:
+            restore()
+        out.update(peak=torch.cuda.max_memory_allocated(device) if on_card else 0,
+                   digest=state_digest(model))
+        del model, step, batches
+    finally:
+        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = flags
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+def sp_other_rank(device, opts, seed, note_canvases):
+    """(k) in one rank: {recipe: (``sp_other_steps`` on the mesh, seconds)}."""
+    out = {}
+    for recipe in SP_RECIPES:
+        t = time.perf_counter()
+        out[recipe] = (sp_other_steps(device, recipe, opts, seed, note_canvases, True),
+                       time.perf_counter() - t)
+    return out
+
+
+def sp_other_checks(ranks, ones):
+    """(k)'s gates: each recipe's ranks against its one process (``ones``:
+    {recipe: (``sp_other_steps`` in one process, seconds)}): every step's
+    losses within SP_OTHER_RTOL, each step's launches a rank equal to the one
+    process's, one state on both ranks.  Returns {path: launches}."""
+    by_path = {}
+    for recipe in SP_RECIPES:
+        one, secs_one = ones[recipe]
+        runs = [r[recipe][0] for r in ranks]
+        secs = max(r[recipe][1] for r in ranks)
+        for r in runs:
+            split = r["split"]
+            log(f"[22] (k) {recipe} on the 2-D mesh, rank {r['rank']} (its band of the images "
+                f"{r['band']}): f32 steps of 2 + 2 images {[round(v, 1) for v in r['step_ms']]} "
+                f"ms (a warm-up, a step, a step with each collective synchronised: the halo "
+                f"exchanges {split.get('halo', 0.0):.2f} ms in {split.get('halo_calls', 0)} "
+                f"calls, forward and backward, the map's gather {split.get('gather', 0.0):.2f} "
+                f"ms and its backward {split.get('gather_backward', 0.0):.2f} ms); peak device "
+                f"memory {r['peak'] / 2**30:.2f} GiB; launches a step {r['launches'][-1]}")
+        rel = max(abs(r["losses"][k][n] - v) / max(abs(v), 1e-12) for r in runs
+                  for k, m in enumerate(one["losses"]) for n, v in m.items())
+        same_launches = all(r["launches"] == one["launches"] for r in runs)
+        same_state = runs[0]["digest"] == runs[1]["digest"]
+        log(f"[22] (k) {recipe}: against one process on the whole 2 + 2 images ({secs_one:.1f} "
+            f"s; its steps {[round(v, 1) for v in one['step_ms']]} ms, peak "
+            f"{one['peak'] / 2**30:.2f} GiB), the ranks {secs:.1f} s with the build: every "
+            f"step's losses max rel diff {rel:.3g} (tol {SP_OTHER_RTOL}); launches a step equal "
+            f"{same_launches} ({one['launches'][-1]}); the ranks' states' hash equal "
+            f"{same_state}; total_loss {[round(m['total_loss'], 5) for m in runs[0]['losses']]}")
+        if not (rel <= SP_OTHER_RTOL and same_launches and same_state
+                and all(np.isfinite(v) for m in one["losses"] for v in m.values())):
+            raise AssertionError(f"the {recipe} recipe on the 2-D mesh is not one process's "
+                                 f"step")
+        by_path[f"spatial_{recipe}_rank0"] = {
+            k: sum(c[k] for c in runs[0]["launches"]) for k in runs[0]["launches"][0]}
+    return by_path
+
+
 def multi_rank(device, dp_args, sh_args):
     """One rank of the spawn phases 21 and 22 share: ``dp_all_rank(
     *dp_args)`` with its seconds, then ``sh_rank(sh_args)``."""
@@ -7422,6 +7839,8 @@ def main():
                "dock_serving": no_k1_k2_k4, "dock": no_kernel, "dock_full_batch": no_kernel,
                "dock_yaml": no_k1_k2_k4, "dock_yaml_serving": no_k1_k2_k4,
                "dock_run": no_k1_k2_k4, "dock_tta": no_k1_k2_k4,
+               # the 2-D mesh's steps of the note and of the dock with proposals
+               "spatial_note_rank0": no_k4, "spatial_dock_rank0": no_kernel,
                "serving_micro": ("roi_align_bwd", "bn_act_bwd"),
                "serving_artifact_predict": ("roi_align_bwd", "bn_act_bwd"),
                "serving_artifact_b1": ("roi_align_bwd", "bn_act_bwd"),

@@ -9,7 +9,9 @@ This module imports no jax: the ranks import it to find their functions
 (``rank_*``, also used by tests/test_torch_parallel.py, which holds the
 port against unit_tpu).  Here:
 
-  * the collectives of ``parallel.comm`` at world 2 and in one process;
+  * the collectives of ``parallel.comm`` at world 2 and in one process, and
+    ``host_group`` (the gloo group for the deferred losses' all-reduce where
+    the default backend is not gloo);
   * ``launch``'s refusals, a failing rank and a hanging rank;
   * ``_host_shard`` and ``_per_host_batch`` with rank and world taken from
     an initialised group, and the refusal of an indivisible batch;
@@ -23,6 +25,10 @@ port against unit_tpu).  Here:
     are what the comparison rests on);
     ``--num-gpus 2 --resume`` from step 2 (the runner's own spawn) ends with
     a step-4 checkpoint bit-identical to the uninterrupted run's;
+  * a stop requested on rank 1 alone, with the losses resolved 8 steps
+    late (``metrics_pipeline_depth``), stops both ranks on the same step,
+    within the depth of the request, with the same losses (in the run
+    loop's spawn);
   * ``--num-gpus`` above the cards present raises, naming both counts.
 """
 
@@ -95,7 +101,24 @@ def rank_comm(device):
     module.register_buffer("steps", torch.tensor([7 * (r + 1)], dtype=torch.int64))
     comm.broadcast_module(module)
     out["broadcast"] = (module.weight.tolist(), module.steps.tolist())
+    out["host_group"] = host_group_of_another_backend(dist)
     return out
+
+
+def host_group_of_another_backend(dist):
+    """``comm.host_group`` under gloo (None: the default group) and as it
+    goes where the default backend is not gloo (the backend's name patched):
+    a gloo group of the world, made once, that sums host tensors."""
+    default = comm.host_group()
+    real = dist.get_backend
+    dist.get_backend = lambda group=None: "nccl"
+    try:
+        group = comm.host_group()
+        again = comm.host_group() is group
+    finally:
+        dist.get_backend = real
+    total = comm.all_reduce_sum(torch.tensor([1.0, float(comm.rank())]), group).tolist()
+    return default, dist.get_backend(group), dist.get_world_size(group), again, total
 
 
 def test_collectives_at_world_two(tmp_path):
@@ -110,6 +133,7 @@ def test_collectives_at_world_two(tmp_path):
         assert [g["x"].tolist() for g in out["gather"]] == [[0], [0, 1]]
         assert out["normalizer"] == 3.5  # (3 + 4) / 2: the rank means sum to the global loss
         assert out["broadcast"] == ([[1.0] * 3] * 2, [7])  # rank 0's state everywhere
+        assert out["host_group"] == (None, "gloo", 2, True, [2.0, 1.0])
 
 
 def test_collectives_in_one_process_are_the_identity():
@@ -301,9 +325,8 @@ def rank_losses(device, frcnn, mask, attention):
     return out
 
 
-def rank_tiny_trainer(device):
-    """A tiny flagship trainer at world 2, each rank on its own images, 2 steps:
-    the world, the global losses and the parameters' digest."""
+def tiny_world_trainer():
+    """A tiny flagship trainer of this rank in a group, on its own images."""
     from unit_tpu_torch.config import get_cfg
     from unit_tpu_torch.engine import TrainerNoMeta
     from unit_tpu_torch.models import WSRCNN, ModelConfig
@@ -332,9 +355,43 @@ def rank_tiny_trainer(device):
     trainer = TrainerNoMeta(model, build_optimizer(cfg, model), itertools.repeat(strong),
                             itertools.repeat(weak), seed=1)
     trainer.init_state()
+    return trainer
+
+
+def rank_tiny_trainer(device):
+    """A tiny flagship trainer at world 2, each rank on its own images, 2 steps:
+    the world, the global losses and the parameters' digest."""
+    trainer = tiny_world_trainer()
     trainer.train(2)
-    return {"world": trainer.world, "digest": params_digest(model),
+    return {"world": trainer.world, "digest": params_digest(trainer.model),
             "losses": [m["total_loss"] for m in trainer.metrics_history]}
+
+
+class StopOnRankOne:
+    """A hook that takes lazy metrics and asks rank 1 alone to stop at ``step``."""
+
+    takes_lazy_metrics = True
+
+    def __init__(self, step):
+        self.step = step
+
+    def __call__(self, step, metrics, trainer):
+        if comm.rank() == 1 and step == self.step:
+            trainer.request_stop()
+
+
+STOP_AT, STOP_DEPTH = 3, 8
+
+
+def stop_at_depth(depth=STOP_DEPTH, at=STOP_AT, max_iter=12):
+    """The tiny trainer at ``depth`` with a stop requested on rank 1 after
+    step ``at``: (the step it stopped at, whether it saw the request, the
+    global total losses)."""
+    trainer = tiny_world_trainer()
+    trainer.metrics_pipeline_depth = depth
+    trainer.train(max_iter, hooks=[StopOnRankOne(at)])
+    return (trainer.state.step, trainer.stop_requested,
+            [m["total_loss"] for m in trainer.metrics_history])
 
 
 def voc_feed(ev, image_ids):
@@ -526,8 +583,9 @@ def rank_run(device, args):
     checkpointer.PeriodicCheckpointerWithEval.__call__ = hook
     DatasetCatalog.clear()
     final = runner.run(args, image_loader=seeded_image_loader)
+    checkpointer.PeriodicCheckpointerWithEval.__call__ = real_hook
     return {"written": list(written), "evals": evals, "final": final, "states": states,
-            "digest": params_digest(models[0])}
+            "digest": params_digest(models[0]), "stop": stop_at_depth()}
 
 
 def strip_time(results):
@@ -608,6 +666,17 @@ def test_run_loop_at_world_two_resumes_bit_identically(world_two_run, devkit, tm
         assert torch.equal(v, got["model"][k]), k
     for k, st in want["optimizer"]["state"].items():
         assert torch.equal(st["momentum_buffer"], got["optimizer"]["state"][k]["momentum_buffer"])
+
+
+def test_a_stop_on_one_rank_at_depth_eight_stops_both_on_one_step(world_two_run):
+    """Rank 1 asks to stop after step 3; its flag reaches rank 0 in the
+    all-reduce of the first resolution, step 1's, made when step 9 is
+    queued: both ranks stop after step 9, with the same global losses."""
+    _, (a, b) = world_two_run
+    assert a["stop"][:2] == b["stop"][:2] == (1 + STOP_DEPTH, True)
+    assert STOP_AT < a["stop"][0] <= STOP_AT + STOP_DEPTH
+    assert a["stop"][2] == b["stop"][2] and len(a["stop"][2]) == 1 + STOP_DEPTH
+    assert all(np.isfinite(v) for v in a["stop"][2])
 
 
 def test_num_gpus_above_the_cards_present_raises(devkit, tmp_path, monkeypatch):

@@ -25,7 +25,12 @@ tests/test_torch_spatial_run.py).  One spawn at world 4 holds:
     exchanges again in backward): bit-identical to the key off;
   * the refusals: a canvas height that does not split evenly, GRAD_ACCUM 2,
     and the trainer (R19), each a ValueError with its message; a
-    ``gt_masks`` array stays whole (the band is keyed on ``image``).
+    ``gt_masks`` array stays whole (the band is keyed on ``image``);
+  * VGG-CNN-F, InceptionResNetV2 and a dilated VGG16, each whole in f32, on
+    the two bands of a spatial group against the backbone whole: the
+    gathered map, the input gradient and every parameter gradient within
+    1e-5 of the largest value, the map's rows split unevenly where the
+    backbone's unpadded strided ops leave them so.
 """
 
 import jax
@@ -37,7 +42,7 @@ from tests.test_torch_losses import jax_params
 from tests.test_torch_parallel import global_batch, jax_cfg, worst_update
 from tests.test_torch_parallel_run import small_trainer, spawn
 from tests.test_torch_parallel_run import four_threads  # noqa: F401  (autouse)
-from tests.test_torch_spatial_run import OPS, rank_spatial
+from tests.test_torch_spatial_run import BACKBONES, OPS, rank_spatial
 from unit_tpu.engine.train import TrainState as JTrainState
 from unit_tpu.engine.train import make_train_step as jmake_train_step
 from unit_tpu.parallel import replicate
@@ -48,6 +53,7 @@ from unit_tpu_torch.checkpoint.jax_params import flatten_tree
 TIMEOUT = 150  # seconds: the group's collectives and the join
 LOSS_RTOL, LOSS_ATOL = 2e-4, 1e-5
 HALO_REL = 1e-6
+BACKBONE_REL = 1e-5
 
 
 @pytest.fixture(scope="module")
@@ -132,3 +138,17 @@ def test_2d_refusals_and_the_batch_part(steps):
         part = r["part"]
         assert part["image"] == (2, 80, 224, 3)  # the data rank's 2 images, a band of rows
         assert part["gt_masks"] == (2, 4, 28, 28) and part["gt_boxes"] == (2, 4, 4)
+
+
+# the map's row bounds over the two bands: uneven below VGG-CNN-F's and
+# InceptionResNetV2's unpadded strided ops
+BOUNDS = {"vgg_cnn_f": (0, 3, 5), "inception_resnet_v2": (0, 5, 8), "vgg16_dilated": (0, 3, 6)}
+
+
+@pytest.mark.parametrize("name", list(BACKBONES))
+def test_other_backbones_on_two_bands_match_the_whole_backbone(steps, name):
+    *_, ranks = steps
+    for r in ranks:
+        fwd, grad, params, bounds = r["backbones"][name]
+        assert max(fwd, grad, params) <= BACKBONE_REL, (name, fwd, grad, params)
+        assert bounds == BOUNDS[name]

@@ -12,16 +12,27 @@ plain containers only, no pickled code).  Layout under the output directory:
     best/model.pt        the eval-gated best snapshot
     best_info.json       {"AP50", "iteration"} of it, warm-started on resume
 
-orbax's background write is not ported: ``save`` returns when the file is in
-place and ``wait()`` is a no-op kept so the runner reads the same.  unit_tpu
-keeps its best snapshot in the orbax directory ``best/model``, and the
-fine-tune recipes name it so (``MODEL.WEIGHTS: <run>/best/model``):
-``resolve_own_checkpoint`` maps that name to the port's ``best/model.pt``.
+Writes go on in the background, as orbax's do in unit_tpu: ``save`` (and
+``maybe_save_best``) copies the payload's tensors into a host snapshot of its
+own (pinned memory, through non-blocking copies from the card and one event
+after them; clones on the CPU) and returns, so the step after it may change
+the state in place; a writer thread waits on the event, writes the file and
+then drops the oldest beyond ``max_to_keep``.  One write is in flight in a
+process at a time, whichever ``Checkpointer`` started it: the next ``save``
+joins it first, and so does every read of this module (``read_checkpoint``,
+``resolve_own_checkpoint``, ``restore``, ``latest_step``, ``all_steps``).
+``wait()`` joins it too, and a write that failed raises again at the next
+``save`` or ``wait()``.  A reader in another process must see the writer's
+``wait()`` return first.  unit_tpu keeps its best snapshot in the orbax
+directory ``best/model``, and the fine-tune recipes name it so
+(``MODEL.WEIGHTS: <run>/best/model``): ``resolve_own_checkpoint`` maps that
+name to the port's ``best/model.pt``.
 
 Under data parallelism every rank holds the same state and the same
 evaluation results: rank 0 alone writes (checkpoints, the best snapshot and
-its info), and every rank waits at a barrier after each write, so none reads
-or moves on before the file is in place.  Every rank reads a checkpoint.
+its info), and every rank meets the others at a barrier in ``wait()`` (which
+``restore``, ``latest_step`` and ``all_steps`` call) after a save, so none
+reads a checkpoint before the file is in place.  Every rank reads a checkpoint.
 
 One format for every topology: under FSDP and TP (``parallel.mesh``) the
 payload holds the whole model and the whole momentum, gathered from the
@@ -39,6 +50,7 @@ import json
 import logging
 import os
 import re
+import threading
 from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
@@ -98,10 +110,83 @@ def _write(path: str, payload: Dict[str, Any]) -> None:
     os.replace(tmp, path)
 
 
+def _map_tensors(fn: Callable, value):
+    """``value`` (nested dicts, lists and tuples) with ``fn`` applied to each tensor."""
+    if torch.is_tensor(value):
+        return fn(value)
+    if isinstance(value, dict):
+        return {k: _map_tensors(fn, v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return type(value)(_map_tensors(fn, v) for v in value)
+    return value
+
+
+def _host_snapshot(payload: Dict[str, Any]):
+    """(the payload with each tensor in host memory of its own, the CUDA event
+    after the copies or None): the card's tensors go into pinned memory
+    through non-blocking copies on its current stream, so they hold the
+    values of the work queued before this call, and a CPU tensor is cloned;
+    the caller may change the state in place once this returns."""
+    on_card = False
+
+    def copy(t: torch.Tensor) -> torch.Tensor:
+        nonlocal on_card
+        if not t.is_cuda:
+            return t.clone()
+        on_card = True
+        return torch.empty_like(t, device="cpu", pin_memory=True).copy_(t, non_blocking=True)
+
+    snapshot = _map_tensors(copy, payload)
+    event = None
+    if on_card:  # a process's state lives on its current card
+        event = torch.cuda.Event()
+        event.record()
+    return snapshot, event
+
+
+class _Writer:
+    """The process's one background write: a thread, and the exception of a
+    write that failed, raised again at the next ``join``."""
+
+    def __init__(self):
+        self.thread: Optional[threading.Thread] = None
+        self.error: Optional[BaseException] = None
+
+    def start(self, job: Callable[[], None]) -> None:
+        self.join()
+
+        def run():
+            try:
+                job()
+            except BaseException as e:  # noqa: BLE001  (kept for the caller's next join)
+                self.error = e
+
+        self.thread = threading.Thread(target=run, name="checkpoint-writer")
+        self.thread.start()
+
+    def join(self) -> None:
+        if self.thread is not None:
+            self.thread.join()
+            self.thread = None
+        error, self.error = self.error, None
+        if error is not None:
+            raise RuntimeError(f"a background checkpoint write failed: {error!r}") from error
+
+
+_WRITER = _Writer()
+
+
+def wait_for_writes() -> None:
+    """Join this process's background checkpoint write, if one is in flight,
+    and raise the error of a write that failed."""
+    _WRITER.join()
+
+
 def resolve_own_checkpoint(path: str) -> str:
     """``path``, or ``path + ".pt"`` where only that exists: the port's file
     behind a name spelled for unit_tpu's orbax layout (``<run>/best/model``).
     A path that names neither is returned as it is (the caller raises)."""
+    wait_for_writes()
     if not os.path.exists(path) and os.path.isfile(path + ".pt"):
         return path + ".pt"
     return path
@@ -109,7 +194,9 @@ def resolve_own_checkpoint(path: str) -> str:
 
 def read_checkpoint(path: str) -> Dict[str, Any]:
     """One of this package's checkpoint files (or the directory holding a
-    ``model.pt``) as a dict of CPU tensors and plain values."""
+    ``model.pt``) as a dict of CPU tensors and plain values (once this
+    process's background write has landed)."""
+    wait_for_writes()
     if os.path.isdir(path):
         path = os.path.join(path, "model.pt")
     payload = torch.load(path, map_location="cpu", weights_only=True)
@@ -119,7 +206,8 @@ def read_checkpoint(path: str) -> Dict[str, Any]:
 
 
 class Checkpointer:
-    """Periodic checkpoints with ``max_to_keep`` and best-metric tracking."""
+    """Periodic checkpoints with ``max_to_keep`` and best-metric tracking,
+    written in the background (the module's docstring)."""
 
     def __init__(self, directory: str, max_to_keep: int = 3):
         self.directory = os.path.abspath(directory)
@@ -129,6 +217,7 @@ class Checkpointer:
         self.max_to_keep = max_to_keep
         self._best_path = os.path.join(self.directory, "best_info.json")
         self.best_info = self._load_best_info()
+        self._saved = False  # a save since the last wait(): the ranks meet there
 
     def _load_best_info(self) -> Dict:
         # warm-start the best AP from disk, so a resumed run does not replace
@@ -141,26 +230,55 @@ class Checkpointer:
     def _path(self, step: int) -> str:
         return os.path.join(self.directory, f"step_{int(step)}.pt")
 
-    def all_steps(self) -> List[int]:
+    def _steps(self) -> List[int]:
         return sorted(int(m.group(1)) for m in map(_STEP_FILE.match, os.listdir(self.directory))
                       if m)
 
-    def save(self, step: int, state, wait: bool = False) -> str:
-        """Write ``state`` as the checkpoint of ``step`` and drop the oldest
-        beyond ``max_to_keep``.  ``wait`` is accepted for unit_tpu's signature:
-        the write is always complete on return, on every rank."""
-        path = self._path(step)
-        payload = state_payload(state, self.best_info)  # a collective on a split model
-        if comm.is_main():
-            _write(path, payload)
-            if self.max_to_keep:
-                for old in self.all_steps()[: -self.max_to_keep]:
+    def all_steps(self) -> List[int]:
+        self.wait()
+        return self._steps()
+
+    def _start_write(self, path: str, state, prune: bool) -> None:
+        """The payload (a collective on a split model), its host snapshot,
+        and on rank 0 the write of it to ``path`` in the background (after
+        the write in flight), then the pruning of old steps."""
+        _WRITER.join()
+        snapshot, event = _host_snapshot(state_payload(state, self.best_info))
+        self._saved = True
+        if not comm.is_main():
+            return
+
+        def job():
+            if event is not None:
+                event.synchronize()
+            _write(path, snapshot)
+            if prune and self.max_to_keep:
+                for old in self._steps()[: -self.max_to_keep]:
                     os.remove(self._path(old))
-        comm.barrier()
+
+        _WRITER.start(job)
+
+    def save(self, step: int, state, wait: bool = False) -> str:
+        """Start writing ``state`` as the checkpoint of ``step`` and return
+        its path; the oldest beyond ``max_to_keep`` go once it is written.
+        ``wait``: return once the file is in place on every rank (the
+        preemption save)."""
+        path = self._path(step)
+        self._start_write(path, state, prune=True)
+        if wait:
+            self.wait()
         return path
 
     def wait(self) -> None:
-        """Nothing is written in the background."""
+        """Join the background write and, after a save, meet the other ranks,
+        so every rank may read the file; a failed write raises here (after
+        the barrier: no rank is left waiting)."""
+        try:
+            _WRITER.join()
+        finally:
+            if self._saved:
+                self._saved = False
+                comm.barrier()
 
     def latest_step(self) -> Optional[int]:
         steps = self.all_steps()
@@ -174,6 +292,7 @@ class Checkpointer:
         step = step if step is not None else self.latest_step()
         if step is None:
             return None
+        self.wait()
         payload = read_checkpoint(self._path(step))
         if state is None:
             return payload
@@ -181,18 +300,17 @@ class Checkpointer:
         return state
 
     def maybe_save_best(self, step: int, ap50: float, state) -> bool:
-        """Eval-gated best snapshot: kept only if ``ap50`` beats the best so far."""
+        """Eval-gated best snapshot: kept only if ``ap50`` beats the best so
+        far.  ``best_info.json`` is written at once, ``best/model.pt`` in the
+        background after the write in flight (a previous best's among them)."""
         if ap50 <= self.best_info.get("AP50", -1.0):
             return False
         self.best_info = {"AP50": float(ap50), "iteration": int(step)}
-        payload = state_payload(state, self.best_info)  # a collective on a split model
         if comm.is_main():
             with open(self._best_path, "w") as f:
                 json.dump(self.best_info, f)
-            best_dir = os.path.join(self.directory, "best")
-            os.makedirs(best_dir, exist_ok=True)
-            _write(os.path.join(best_dir, "model.pt"), payload)
-        comm.barrier()
+            os.makedirs(os.path.join(self.directory, "best"), exist_ok=True)
+        self._start_write(os.path.join(self.directory, "best", "model.pt"), state, prune=False)
         return True
 
 
@@ -225,7 +343,12 @@ def merge_params_from_checkpoint(model: nn.Module, path: str) -> Tuple[nn.Module
 
 class PeriodicCheckpointerWithEval:
     """Training hook fusing periodic checkpoints with eval-gated best-model
-    saves."""
+    saves.  It takes a step's losses still in flight (``takes_lazy_metrics``)
+    and reads none, but it drains the trainer's in-flight losses before it
+    saves or evaluates: a non-finite loss raises before any checkpoint of the
+    state it left is written."""
+
+    takes_lazy_metrics = True
 
     def __init__(
         self,
@@ -243,14 +366,14 @@ class PeriodicCheckpointerWithEval:
         self.last_eval_results = None
 
     def __call__(self, step: int, metrics: dict, trainer):
-        if self.checkpoint_period and step % self.checkpoint_period == 0:
+        save = bool(self.checkpoint_period) and step % self.checkpoint_period == 0
+        evaluate = (self.eval_fn is not None and bool(self.eval_period)
+                    and step % self.eval_period == 0 and step >= self.min_eval_period)
+        if save or evaluate:
+            trainer.drain()
+        if save:
             self.ckpt.save(step, trainer.state)
-        if (
-            self.eval_fn is not None
-            and self.eval_period
-            and step % self.eval_period == 0
-            and step >= self.min_eval_period
-        ):
+        if evaluate:
             results = self.eval_fn(trainer.state)
             self.last_eval_results = results
             ap50 = results.get("bbox", {}).get("AP50", None)

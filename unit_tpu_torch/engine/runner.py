@@ -529,7 +529,10 @@ class PreciseBNHook:
     d2's ``hooks.PreciseBN`` runs right before the checkpointer, so the
     refreshed statistics are both evaluated and saved).  ``loader_factory()``
     gives a fresh training stream each period; it is closed after
-    ``num_iter`` batches."""
+    ``num_iter`` batches.  It takes a step's losses in flight and drains
+    them before it refreshes the statistics."""
+
+    takes_lazy_metrics = True
 
     def __init__(self, loader_factory: Callable, eval_period: int, num_iter: int):
         self.loader_factory = loader_factory
@@ -539,6 +542,7 @@ class PreciseBNHook:
     def __call__(self, step: int, metrics: dict, trainer):
         if not self.eval_period or step % self.eval_period != 0:
             return
+        trainer.drain()
         # a split model's statistics: on its whole replica
         on_whole_replica(trainer.state.model, lambda net: self._refresh(net, trainer.state.model))
         logger.info("PreciseBN: refreshed FrozenBN statistics over %d batches", self.num_iter)
@@ -652,6 +656,8 @@ def _run(device: torch.device, args, image_loader: Optional[Callable] = None):
             except ValueError:  # not the main thread (e.g. tests): skip
                 pass
         try:
+            # train() drains the losses in flight before it returns: the
+            # preemption save below follows known, finite steps
             trainer.train(cfg.SOLVER.MAX_ITER, hooks=hooks)
             if trainer.stop_requested:
                 step = int(trainer.state.step)

@@ -18,12 +18,23 @@ What differs from unit_tpu, on purpose:
     model with a VGG box head also gets a dropout generator of its own,
     seeded from the same step seed (``dropout_seed``, where unit_tpu folds 7
     into the step key), so that no other draw of the step moves;
-  * the loss dict comes to the host once per step, as one stacked
-    ``tolist()``, and every value is checked for NaN/Inf before any hook
-    runs (unit_tpu defers that check past the hooks, so a checkpoint hook
-    could save a corrupt state: fault R3 of the reference);
-  * ``LazyMetrics``, the remote-TPU fetch pipelining, is not ported
-    (ROADMAP Queue 1 item 29).
+  * a plain hook (a callable) sees only known, finite losses: before it
+    runs, the trainer resolves every step still in flight and raises on a
+    NaN/Inf (unit_tpu runs its hooks first and checks later, so a checkpoint
+    hook could save a corrupt state: fault R3 of the reference).  Only a
+    hook that declares ``takes_lazy_metrics`` gets a step's losses in
+    flight, and each of the runner's own that saves or evaluates drains
+    them first (``drain``).
+
+The deferred loss fetch (unit_tpu's ``LazyMetrics``): ``run_step`` stacks
+the step's losses on the device, starts their copy into pinned host memory
+and records an event after it, and returns a ``LazyMetrics``; the host reads
+the values when they are first asked for, or when ``metrics_pipeline_depth``
+(8) later steps have been queued (the oldest first), or when ``train()``
+ends.  So the host never waits for the step it has just queued, and the
+device has the next step's work queued behind it.  A time a step is read
+from the host clock therefore ends at a drain (``drain``): the clock around
+one ``run_step`` no longer holds the device's time.
 
 Data parallelism (unit_tpu's 1-D ``data`` mesh): inside a process group
 (``parallel.launch``) every rank takes its share of the global batch, and
@@ -36,9 +47,11 @@ out of its graph (zero-filled first) and ``TPU.GRAD_ACCUM`` without
 batch do so here too (``parallel.comm.global_normalizer``).  The rank is
 folded into the step's generator seeds (unit_tpu's pipeline step folds its
 ``axis_index`` into the key), and the loss vector is averaged over the ranks
-before its one host fetch: every rank logs the global losses and raises on a
-non-finite one together, and a stop request on any rank stops every rank
-after the next step.
+when it is resolved, with the stop flag, in one all-reduce of the host copy
+(over gloo, or a gloo group beside NCCL: no wait for the device): every rank
+resolves the same steps in the same order, logs the global losses, raises on
+a non-finite one and stops on the same step, at most
+``metrics_pipeline_depth`` steps after a request on any rank.
 
 FSDP and TP (unit_tpu's ``mesh`` with ``fsdp`` or ``tp``): the trainer takes
 a ``parallel.mesh`` ``DeviceMesh`` and a model already split over it
@@ -66,7 +79,7 @@ weak groups on one canvas (``_next_pair``, unit_tpu's
 ``_next_stacked_pair``) and seed with the data rank r // S, so the step
 equals the one-process accumulated step on the same micro-batches.  The
 losses come from the last stage: summed over the stage ranks and averaged
-over the data ranks before the one host fetch.
+over the data ranks when they are resolved.
 """
 
 from __future__ import annotations
@@ -74,6 +87,8 @@ from __future__ import annotations
 import dataclasses
 import functools
 import time
+from collections import deque
+from collections.abc import MutableMapping
 from typing import Callable, Dict, Iterator, List, Optional
 
 import numpy as np
@@ -413,11 +428,74 @@ def _check_split(model, mesh, fsdp: bool) -> None:
                          "before building its solver")
 
 
+class LazyMetrics(MutableMapping):
+    """One step's losses and ``data_time``, read on the host when first
+    needed (unit_tpu's ``LazyMetrics``): a mapping of floats, equal to the
+    dict of them, that resolves on its first read (its trainer's older steps
+    first, so every rank's all-reduces go in step order).  Resolution waits
+    for the copy's event and raises ``FloatingPointError`` naming the step
+    when a value is not finite.  Pickled, it is the dict of its values."""
+
+    __slots__ = ("_trainer", "step", "_names", "_values", "_event", "_data_time", "_vals")
+
+    def __init__(self, trainer, step: int, names, values: torch.Tensor, event,
+                 data_time: float):
+        self._trainer, self.step = trainer, int(step)
+        self._names, self._values, self._event = list(names), values, event
+        self._data_time = data_time
+        self._vals: Optional[Dict[str, float]] = None
+
+    @property
+    def resolved(self) -> bool:
+        return self._vals is not None
+
+    def resolve(self) -> Dict[str, float]:
+        """The values (the dict itself, resolved once)."""
+        if self._vals is None:
+            self._trainer._resolve_through(self)
+        return self._vals
+
+    def _settle(self, combine: Callable[[torch.Tensor], List[float]]) -> None:
+        """Wait for the copy, read (``combine``: the ranks' combination)
+        and check the values."""
+        if self._event is not None:
+            self._event.synchronize()
+        vals = dict(zip(self._names, combine(self._values)))
+        vals["data_time"] = self._data_time
+        self._vals, self._values, self._event, self._trainer = vals, None, None, None
+        if not all(np.isfinite(v) for v in vals.values()):
+            raise FloatingPointError(f"non-finite loss at iter {self.step}: {vals}")
+
+    def __getitem__(self, key):
+        return self.resolve()[key]
+
+    def __setitem__(self, key, value):
+        self.resolve()[key] = value
+
+    def __delitem__(self, key):
+        del self.resolve()[key]
+
+    def __iter__(self):
+        return iter(self.resolve())
+
+    def __len__(self):
+        return len(self.resolve())
+
+    def __reduce__(self):
+        return dict, (dict(self.resolve()),)
+
+    def __repr__(self):
+        return repr(self._vals) if self._vals is not None else (
+            f"LazyMetrics(step={self.step}, in flight)")
+
+
 class TrainerBase:
     """The loop: pull a strong and a weak batch (and a support batch where
     there is a ``meta_iter``), take one step, check the losses, call the
     hooks.  ``optimizer`` is ``solver.build_optimizer``'s
-    Solver (SGD, schedule and clipping: what unit_tpu's optax chain holds)."""
+    Solver (SGD, schedule and clipping: what unit_tpu's optax chain holds).
+    ``metrics_pipeline_depth``: the steps whose losses may be in flight
+    (0: each step's are read at its end)."""
 
     def __init__(
         self,
@@ -494,7 +572,13 @@ class TrainerBase:
         self.state: Optional[TrainState] = None
         self.stop_requested = False
         self._stop_agreed = False  # a stop request of some rank, seen by all (world > 1)
-        self.metrics_history: List[Dict[str, float]] = []
+        self.metrics_history: List[LazyMetrics] = []
+        # unit_tpu's bounded queue of steps whose losses are in flight
+        self.metrics_pipeline_depth = 8
+        self._inflight: "deque[LazyMetrics]" = deque()
+        # the losses' all-reduce runs on the host copies: the default group
+        # under gloo, a gloo group of the same ranks beside NCCL
+        self._host_group = comm.host_group() if self.world > 1 else None
 
     def init_state(self) -> TrainState:
         """The state at step 0 (the model's current parameters; in a process
@@ -578,7 +662,9 @@ class TrainerBase:
         generator.manual_seed(dropout_seed(seed) if dropout else seed)
         return generator
 
-    def run_step(self) -> Dict[str, float]:
+    def run_step(self) -> LazyMetrics:
+        """One step; its losses as a ``LazyMetrics``, in flight until read or
+        until ``metrics_pipeline_depth`` later steps (``drain``)."""
         assert self.state is not None, "call init_state() first"
         t0 = time.perf_counter()
         if self.pp and self.strong_iter is not None and self.weak_iter is not None:
@@ -604,41 +690,77 @@ class TrainerBase:
             dropouts = dropouts and dropouts[0]
         losses = self.train_step(strong, weak, generators, meta, dropouts)
         self.state.step += 1
-        values = torch.stack(list(losses.values()))
-        if self.world > 1:
-            # the ranks' mean, and whether any rank was asked to stop, in one
-            # all-reduce before the fetch: all ranks log, raise and stop alike.
-            # Under TP the model ranks of a data rank hold the same losses, so
-            # the world's mean is the data ranks' mean; under PP the stages
-            # before the last hold zeros, so the sum over the world divided by
-            # the data ranks is theirs
-            values = comm.all_reduce_sum(torch.cat(
-                [values.float(), values.new_full((1,), float(self.stop_requested))])
-            ).div_(self._loss_ranks)
-        values = values.tolist()  # one device-to-host fetch per step
-        if self.world > 1:
-            self._stop_agreed = values.pop() > 0
-        metrics = dict(zip(losses, values))
-        metrics["data_time"] = data_time
-        if not all(np.isfinite(v) for v in metrics.values()):
-            raise FloatingPointError(f"non-finite loss at iter {self.state.step}: {metrics}")
+        values, event = torch.stack(list(losses.values())), None
+        if values.is_cuda:  # the copy starts now; the host reads it later
+            host = torch.empty(values.shape, dtype=values.dtype, pin_memory=True)
+            values, event = host.copy_(values, non_blocking=True), torch.cuda.Event()
+            event.record()
+        metrics = LazyMetrics(self, self.state.step, losses, values, event, data_time)
+        self._inflight.append(metrics)
         self.metrics_history.append(metrics)
+        while len(self._inflight) > self.metrics_pipeline_depth:
+            self._settle(self._inflight.popleft())
         return metrics
+
+    def _combine(self, values: torch.Tensor) -> List[float]:
+        """A step's host loss vector as floats: in a process group the ranks'
+        mean, and whether any rank was asked to stop, from one all-reduce of
+        the host copies.  Under TP the model ranks of a data rank hold the
+        same losses, so the world's mean is the data ranks' mean; under PP
+        the stages before the last hold zeros, so the sum over the world
+        divided by the data ranks is theirs."""
+        if self.world == 1:
+            return values.tolist()
+        values = comm.all_reduce_sum(torch.cat(
+            [values.float(), values.new_full((1,), float(self.stop_requested), dtype=torch.float32)]),
+            self._host_group).div_(self._loss_ranks).tolist()
+        self._stop_agreed = values.pop() > 0
+        return values
+
+    def _settle(self, metrics: LazyMetrics) -> None:
+        metrics._settle(self._combine)
+
+    def _resolve_through(self, metrics: LazyMetrics) -> None:
+        """Resolve the steps in flight, oldest first, up to ``metrics``."""
+        while not metrics.resolved:  # (a step dropped after a failure: itself)
+            self._settle(self._inflight.popleft() if self._inflight else metrics)
+
+    def drain(self) -> None:
+        """Resolve every step whose losses are in flight, oldest first: a
+        ``FloatingPointError`` names the first non-finite one."""
+        while self._inflight:
+            self._settle(self._inflight.popleft())
 
     def train(self, max_iter: int, hooks=()) -> TrainState:
         """Run until ``state.step`` reaches ``max_iter`` (a resumed state
         continues from its step); ``request_stop()`` exits after the current
-        step.  Hooks are called as ``hook(step, metrics, trainer)``."""
+        step (in a process group, on the step where every rank has seen it).
+        Hooks are called as ``hook(step, metrics, trainer)``: a hook with a
+        true ``takes_lazy_metrics`` attribute gets the step's ``LazyMetrics``
+        in flight, any other is called after ``drain()``.  The losses still
+        in flight are resolved before this returns; after an exception they
+        are dropped."""
         assert self.state is not None, "call init_state() first"
         self.stop_requested = self._stop_agreed = False
-        for _ in range(self.state.step, max_iter):
-            # in a process group the ranks stop together, on the request that
-            # the last step's all-reduce carried (one step after the signal)
-            if self._stop_agreed if self.world > 1 else self.stop_requested:
-                break
-            metrics = self.run_step()
-            for hook in hooks:
-                hook(self.state.step, metrics, self)
+        finished = False
+        try:
+            for _ in range(self.state.step, max_iter):
+                # in a process group the ranks stop together, on the request
+                # that the last resolution's all-reduce carried
+                if self._stop_agreed if self.world > 1 else self.stop_requested:
+                    break
+                metrics = self.run_step()
+                for hook in hooks:
+                    if not getattr(hook, "takes_lazy_metrics", False):
+                        self.drain()
+                    hook(self.state.step, metrics, self)
+            finished = True
+        finally:
+            try:
+                if finished:
+                    self.drain()
+            finally:  # after a failure the later steps go unread
+                self._inflight.clear()
         if self.world > 1:
             self.stop_requested = self._stop_agreed
         return self.state

@@ -382,18 +382,17 @@ class WSRCNN(nn.Module):
         unpadded stem), while the pooler's scale stays 1/16 as in unit_tpu.
         Anchors are laid on the map as it comes.  Inside a 2-D step
         (``parallel.spatial.banded``) ``images`` is this rank's band of the
-        canvas rows: the backbone runs on the band, exchanging halo rows with
-        the neighbouring bands, and the map is gathered whole.  ``remat``:
+        canvas rows: the backbone (any of the four) runs on the band,
+        exchanging halo rows with the neighbouring bands, and the map is
+        gathered whole.  ``remat``:
         ``_run_backbone``; the preprocess stays outside the recompute."""
         x = self.preprocess(images)
         bands = spatial.active()
         if bands is None:
             return self._run_backbone(self.backbone, x, remat).permute(0, 2, 3, 1)
-        if not isinstance(self.backbone, ResNetC4):  # unpadded strided ops: uneven bands
-            raise _not_ported(f"the 2-D (data x spatial) mesh over "
-                              f"{type(self.backbone).__name__}", "ROADMAP Queue 1 item 41")
-        run = functools.partial(spatial.resnet_c4_bands, self.backbone, bands=bands)
-        return spatial.gather_rows(self._run_backbone(run, x, remat).permute(0, 2, 3, 1), bands)
+        run = functools.partial(spatial.backbone_bands, self.backbone, bands=bands)
+        y, rows = self._run_backbone(run, x, remat)
+        return spatial.gather_rows(y.permute(0, 2, 3, 1), bands, rows)
 
     def rpn(self, feats: torch.Tensor):
         return self.rpn_head(feats)

@@ -80,6 +80,21 @@ def barrier() -> None:
             dist.barrier()
 
 
+_HOST_GROUP: List[Any] = []  # [the default group it was made in, the gloo group]
+
+
+def host_group():
+    """The group for collectives on host tensors over the whole world: None
+    (the default group) where that is gloo, else a gloo group of the same
+    ranks, made at the first call in a process group (a collective: every
+    rank makes it)."""
+    if dist.get_backend() == "gloo":
+        return None
+    if not _HOST_GROUP or _HOST_GROUP[0] is not dist.group.WORLD:
+        _HOST_GROUP[:] = [dist.group.WORLD, dist.new_group(backend="gloo")]
+    return _HOST_GROUP[1]
+
+
 def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
     """The sum over the ranks of ``group`` (None: the world), in place
     (``t`` itself is returned); one rank: ``t``."""

@@ -24,6 +24,7 @@ from __future__ import annotations
 import datetime
 import faulthandler
 import os
+import pickle
 import queue
 import shutil
 import tempfile
@@ -81,7 +82,9 @@ def _worker(rank: int, main: Callable, world: int, devices: List[torch.device], 
         dist.init_process_group(backend, init_method=init_method, rank=rank,
                                 world_size=world, **_timeout(timeout))
         try:
-            out = main(device, *args)
+            # pickled while the group stands: a trainer's losses in flight
+            # (engine.train.LazyMetrics) resolve through an all-reduce
+            out = pickle.dumps(main(device, *args))
         finally:
             dist.destroy_process_group()
         results.put((rank, True, out))
@@ -136,7 +139,7 @@ def launch(main: Callable, world: int, devices: Sequence[Device], backend: Optio
                 continue
             if not ok:
                 _raise_failures(world, [(r, value)], results)
-            out[r] = value
+            out[r] = pickle.loads(value)
     finally:
         for p in procs:
             if p.pid is None:
@@ -178,7 +181,7 @@ def _check_alive(procs, out, results) -> None:
                                    "result") from None
             if not ok:
                 _raise_failures(len(procs), [(rank, value)], results)
-            out[rank] = value
+            out[rank] = pickle.loads(value)
 
 
 def init_from_env(device_type: str = "cuda") -> torch.device:

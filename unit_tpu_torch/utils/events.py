@@ -1,7 +1,8 @@
 """Metrics storage and writers (port of unit_tpu/utils/events.py).
 
-Scalars accumulated per step, written periodically to the terminal and to
-``metrics.json`` (one JSON line per write, d2's JSONWriter format), and,
+Scalars accumulated per step (kept in flight until a write), written
+periodically to the terminal and to ``metrics.json`` (one JSON line per
+write, d2's JSONWriter format), and,
 under ``MetricsHook(tensorboard=True)``, to TensorBoard event files in
 ``<output_dir>/tb``.  Two differences from unit_tpu: the console writer
 prints no ETA on its first line (unit_tpu divides a near-zero elapsed time
@@ -123,13 +124,19 @@ class TensorBoardWriter:
 
 class MetricsHook:
     """Trainer hook: accumulate every step's metrics, write every ``period``
-    (also to TensorBoard under ``tensorboard``); on rank 0 only."""
+    (also to TensorBoard under ``tensorboard``); on rank 0 only.  It takes a
+    step's losses in flight (``engine.train.LazyMetrics``) and keeps them
+    until the write, as unit_tpu's does: the window then resolves at once,
+    with the same values in the same order as step by step."""
+
+    takes_lazy_metrics = True
 
     def __init__(self, output_dir: str, period: int = 20, max_iter: Optional[int] = None,
                  tensorboard: bool = False, lr_fn=None):
         self.storage = EventStorage()
         self.period = period
         self.lr_fn = lr_fn  # step -> current lr (d2 logs lr per step)
+        self._buf: list = []  # (step, metrics) until the write
         self.writers = []
         if comm.is_main():
             self.writers = [
@@ -140,11 +147,14 @@ class MetricsHook:
                 self.writers.append(TensorBoardWriter(os.path.join(output_dir, "tb")))
 
     def __call__(self, step: int, metrics: dict, trainer):
-        self.storage.iter = step
-        self.storage.put_scalars(**metrics)
-        if self.lr_fn is not None:
-            self.storage.put_scalars(lr=float(self.lr_fn(step)))
+        self._buf.append((step, metrics))
         if step % self.period == 0:
+            for s, m in self._buf:
+                self.storage.iter = s
+                self.storage.put_scalars(**m)
+                if self.lr_fn is not None:
+                    self.storage.put_scalars(lr=float(self.lr_fn(s)))
+            self._buf.clear()
             for w in self.writers:
                 w.write(step, self.storage)
 

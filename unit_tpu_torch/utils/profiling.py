@@ -6,7 +6,7 @@ CPU activity, and CUDA activity where a card is present, and write one
 Chrome trace (``<logdir>/<host>.<pid>.<ns>.pt.trace.json``: chrome://tracing,
 Perfetto or TensorBoard's PyTorch profiler plugin read it).  unit_tpu's
 ``start_server`` (jax.profiler's live-profiling server) has no torch.profiler
-counterpart and is not ported (ROADMAP Queue 1 item 29).
+counterpart and needs none: the traces are files.
 
 ``annotate`` opens a ``record_function`` range named ``unit:<subsystem>``
 around each top-level part of a WSRCNN while a trace is taken (the package
@@ -72,7 +72,10 @@ def trace(logdir: str):
 
 class ProfileHook:
     """Trainer hook: trace the steps after ``start`` up to ``start + num_steps``
-    (TPU.PROFILE_START_STEP, TPU.PROFILE_NUM_STEPS)."""
+    (TPU.PROFILE_START_STEP, TPU.PROFILE_NUM_STEPS).  It reads no loss, so it
+    takes a step's losses in flight."""
+
+    takes_lazy_metrics = True
 
     def __init__(self, logdir: str, start: int = 10, num_steps: int = 3):
         self.logdir = logdir

@@ -64,7 +64,8 @@ Phases (any failure raises and the script exits non-zero):
      in turns (0, 8, 0, 8): every step's losses bit-identical, launches a
      step equal, peak memory within 2%, the wall time of a window of steps
      that ends in a drain a step, and the device's busy share of the last
-     turns' profiled window
+     turns' profiled window (the turns leave runner.run's final evaluation
+     out: no turn reads it)
  11  k-shot fine-tuning: engine.runner.run on the shipped 10-shot split1
      fine-tune recipe (8 strong images a step), warm-started from phase 10's
      best/model as the recipe spells it, 6 steps with checkpoints and
@@ -189,9 +190,10 @@ Phases (any failure raises and the script exits non-zero):
      host ms an image, C against PIL + numpy, to the 800x1344 canvases; (d)
      engine.runner.run at full width on a devkit of JPEG files (no
      image_loader), 12 steps through the C loader at metrics_pipeline_depth
-     0 and 8 in turns (0, 8, 0, 8; gated as phase 10's), then the same at 8
-     through PIL (the script patches data.native.available): windowed step
-     ms and data-wait medians, every step K1 2, K2 2, K3 1, K4 124 + 103; (e)
+     0 and 8 in turns (0, 8, 0, 8; gated as phase 10's; no final
+     evaluation), then the same at 8 with its evaluation through PIL (the
+     script patches data.native.available): windowed step ms and data-wait
+     medians, every step K1 2, K2 2, K3 1, K4 124 + 103; (e)
      detect_bytes on 16 JPEGs
      under 8 clients at batch 1 and micro-batched at 4, C against PIL: req/s,
      p50, images a device call; (f) TPU.HOST_TRANSFER_UINT8: served batch-4
@@ -258,6 +260,24 @@ Phases (any failure raises and the script exits non-zero):
      one process's, launches a rank as one process's (the note K1 2, K2 2,
      K3 1; the dock none), one state hash; step ms, the halo exchanges' ms
      and calls, the gather's ms, peak memory a rank
+ 23  the pairings a shipped recipe reaches with two keys changed, at full
+     width and depth: (a) the note recipe with MODEL.MASK_ON and
+     WSROIHeadNoMetaWithMask (the mask head over the InceptionResNetV2
+     tail's 8 x 8 x 1536 map: 16 x 16 masks): 2 requests (K1 x2, K3 x2, no
+     K4), K1 at the mask path's own input (P = 17 over 1088 channels, 100
+     final boxes), the f32 predict with masks and the f32 train path with
+     gt_masks kernels vs plain, 2 + 2 TrainerNoMeta steps of 2 + 2 images
+     (K1 2, K2 2, K3 1), K2 at the step's own gradients, engine.runner.run
+     on phase 12's shapes-COCO devkit (2 steps, bbox and segm AP); (b) the
+     note and (c) the dock recipes with the meta architecture and
+     WSROIHead: 2 + 2
+     Trainer steps with the recipe's 20 x 10 support shots (the note K1 3,
+     K2 2, K3 1; the dock, ROIPool and proposals for both streams, K1 1:
+     its shots at P = 6 over 256 channels; both K4 in the meta Res5 over the
+     shots and the query slots, forward and backward), K1 at the step's
+     shots, K4 bit-identical at the meta head's shapes (P = 17 -> 9, 6 ->
+     3), and meta_attention over the registered coco_note / coco_dock
+     support set of phase 12's devkit; step ms, peak memory, busy share
 The last three lines are the card (nvidia-smi), one JSON object describing
 the kernels (launches counted on the run loop of phase 10, and per path under
 launches_by_path), and {"ok": true, "device": {...}}.  Without a CUDA device, or without the
@@ -270,6 +290,7 @@ from __future__ import annotations
 import argparse
 import atexit
 import concurrent.futures
+import contextlib
 import dataclasses
 import io
 import itertools
@@ -920,6 +941,13 @@ def calibrate_frozen_bn(model, image, size):
     forward pass, in execution order (each layer sees calibrated upstream
     layers), on a synthetic image made from the seed.
     """
+    frozen_bn_from_inputs(model, lambda: model.predict_raw(image, size))
+
+
+def frozen_bn_from_inputs(root, fn):
+    """Every FrozenBN under ``root`` takes the per-channel mean and variance
+    of its own input during ``fn()`` (run without autograd), in execution
+    order."""
     import torch
 
     from unit_tpu_torch.models.resnet import FrozenBN
@@ -930,10 +958,10 @@ def calibrate_frozen_bn(model, image, size):
         mod.var.copy_(x.var(dim=(0, 2, 3), unbiased=False))
 
     handles = [m.register_forward_pre_hook(hook)
-               for m in model.modules() if isinstance(m, FrozenBN)]
+               for m in root.modules() if isinstance(m, FrozenBN)]
     try:
         with torch.no_grad():
-            model.predict_raw(image, size)
+            fn()
     finally:
         for h in handles:
             h.remove()
@@ -1173,6 +1201,19 @@ def loop_recording(made):
             return (self.end - self.starts[first]) * 1e3 / (len(self.starts) - first)
 
     return Recording
+
+
+@contextlib.contextmanager
+def no_final_evaluation(runner):
+    """A run-loop turn times steps: ``runner.run``'s final evaluation (the
+    devkit's test images, which no turn reads) is left out while the context
+    lasts, and ``run`` returns empty results."""
+    real = runner.make_eval_fn
+    runner.make_eval_fn = lambda *a, **kw: (lambda state: {})
+    try:
+        yield
+    finally:
+        runner.make_eval_fn = real
 
 
 def profile_run(fn, tag, what, top=15):
@@ -1883,7 +1924,7 @@ def depth_turns(tag, turns, steps, images):
                 f"busy {t['busy'][0]:.2f} ms, {100 * t['busy'][1]:.1f}% of the window"
                 if t["busy"] else "")
         log(f"{tag} turn {i + 1}, metrics_pipeline_depth {t['depth']}: {steps} steps in "
-            f"{t['secs']:.1f} s with the runner's set-up and final evaluation; the last "
+            f"{t['secs']:.1f} s with the runner's set-up (no final evaluation); the last "
             f"{steps - steps // 2} steps and the drain {t['ms']:.2f} ms a step "
             f"({images * 1e3 / t['ms']:.2f} images/s), data wait median "
             f"{np.median(t['waits']):.2f} ms; peak device memory {t['peak'] / 2**30:.3f} GiB"
@@ -2151,10 +2192,11 @@ def phase_run_loop(cfg, seed, workdir):
             Recording.depth, Recording.profile_last = depth, PROFILED_STEPS * (i >= 2)
             if dev.type == "cuda":
                 torch.cuda.reset_peak_memory_stats()
-            _, losses_e, trainer, secs = run(
-                os.path.join(tmp, f"run_e{i}"),
-                opts=["SOLVER.MAX_ITER", str(RUN_STEADY_STEPS), "SOLVER.CHECKPOINT_PERIOD", "0",
-                      "TEST.EVAL_PERIOD", "0"])
+            with no_final_evaluation(runner):
+                _, losses_e, trainer, secs = run(
+                    os.path.join(tmp, f"run_e{i}"),
+                    opts=["SOLVER.MAX_ITER", str(RUN_STEADY_STEPS),
+                          "SOLVER.CHECKPOINT_PERIOD", "0", "TEST.EVAL_PERIOD", "0"])
             turns.append(loop_turn(trainer, losses_e, secs, dev))
             del trainer
             if len(losses_e) != RUN_STEADY_STEPS:
@@ -5764,16 +5806,19 @@ def phase_host_wire(cfg, seed, workdir):
         total = {k: sum(c[k] for c in trainer.launches) for k in want}
         finite = all(np.isfinite(v) for m in trainer.metrics_history for v in m.values())
         out = loop_turn(trainer, dict(enumerate(trainer.metrics_history, 1)), secs, dev)
-        log(f"[20] (d) run loop through {path}{turn}: {HOST_WIRE_STEPS} steps and the final "
-            f"evaluation of {RUN_TEST_IMAGES} images in {secs:.1f} s ({calls['n']} C calls), "
+        evaluated = "bbox" in results  # the turns leave the final evaluation out
+        ap50 = results["bbox"]["AP50"] if evaluated else float("nan")
+        log(f"[20] (d) run loop through {path}{turn}: {HOST_WIRE_STEPS} steps"
+            + (f" and the final evaluation of {RUN_TEST_IMAGES} images" if evaluated else "")
+            + f" in {secs:.1f} s ({calls['n']} C calls), "
             f"metrics_pipeline_depth {out['depth']}: the last {len(out['waits'])} steps and "
             f"the drain {out['ms']:.2f} ms a step ({4e3 / out['ms']:.2f} images/s), data wait "
             f"median {np.median(out['waits']):.2f} ms (max {max(out['waits']):.2f}); AP50 "
-            f"{results['bbox']['AP50']:.4g}; launches a step {trainer.launches[-1]}")
+            f"{ap50:.4g}; launches a step {trainer.launches[-1]}")
         if on_card and any(c != want for c in trainer.launches):
             raise AssertionError(f"a run-loop step through {path} did not launch {want}: "
                                  f"{trainer.launches}")
-        if not finite or not np.isfinite(results["bbox"]["AP50"]) \
+        if not finite or (evaluated and not np.isfinite(ap50)) \
                 or (calls["n"] > 0) != (path == "C"):
             raise AssertionError(f"the run through {path} has a non-finite result or took "
                                  "the other decode path")
@@ -5788,7 +5833,8 @@ def phase_host_wire(cfg, seed, workdir):
         turns = []  # through C at each depth of the deferred loss fetch, in turns
         for i, depth in enumerate(DEPTH_TURNS):
             Recording.depth, Recording.profile_last = depth, PROFILED_STEPS * (i >= 2)
-            turns.append(run_loop("C", f" (turn {i + 1})"))
+            with no_final_evaluation(runner):
+                turns.append(run_loop("C", f" (turn {i + 1})"))
         ms = depth_turns("[20] (d) through C:", turns, HOST_WIRE_STEPS, 4)
         Recording.depth, Recording.profile_last = max(DEPTH_TURNS), 0
         loop = {"C": {"step_ms": ms[max(DEPTH_TURNS)],
@@ -5945,6 +5991,453 @@ def phase_host_wire(cfg, seed, workdir):
 # device, so the two ranks of (a)-(c) share card 0 over gloo (its all-reduce
 # of CUDA tensors goes through the host), and (d) runs one rank over NCCL
 # through --dist.  No NCCL figure at world >= 2 can be taken here.
+# Phase 23: the pairings a shipped recipe reaches with two keys changed, at
+# full width: the note with masks, the note and the dock with the meta stream.
+PAIR_MASK_KEYS = ("MODEL.MASK_ON", "True", "MODEL.ROI_HEADS.NAME", "WSROIHeadNoMetaWithMask")
+PAIR_META_KEYS = ("MODEL.META_ARCHITECTURE", "WeaklySupervisedRCNN",
+                  "MODEL.ROI_HEADS.NAME", "WSROIHead")
+PAIR_REQUESTS = 2
+PAIR_TRAIN_STEPS = 2       # timed steps after TRAIN_WARMUP, a path
+PAIR_SUPPORT_SHOTS = 2     # BASE_META_SHOTS of meta_attention over a registered support set
+PAIR_DOCK_CANVASES = TRAIN_CANVASES  # the dock's 800-pixel short side, both orientations
+
+
+def phase_pairs(seed, workdir):
+    """Phase 23: the pairings a shipped recipe reaches with two keys changed,
+    at full width and depth, seeded weights, bf16.  (a) the note recipe with
+    MODEL.MASK_ON and WSROIHeadNoMetaWithMask (the mask head over the
+    InceptionResNetV2 tail's [N, 8, 8, 1536] map: 16 x 16 masks): requests
+    (K1 x2, K3 x2, no K4), K1 at the mask path's own input ([1, h, w, 1088] x
+    100 final boxes at P = 17), the f32 predict with masks kernels vs plain,
+    TrainerNoMeta steps of 2 + 2 images with gt_masks (K1 2, K2 2, K3 1), K2
+    at the step's own gradients, the f32 train path kernels vs plain,
+    engine.runner.run on phase 12's shapes-COCO devkit (2 steps and the
+    bbox and segm evaluation); (b) the
+    note with the meta architecture and WSROIHead: Trainer steps with the
+    recipe's support batch (20 classes x 10 shots at 224; K1 3: the shots
+    at P = 17 over 1088 channels; K2 2; K3 1; K4 in the meta Res5 over the
+    shots and the query slots, forward and backward), K1 at the step's
+    shots, K4 at the meta head's shapes, meta_attention over the registered
+    coco_note_base_training_support; (c) the dock recipe with the same two
+    keys and precomputed proposals for both streams: Trainer steps (the
+    shots' K1 at P = 6 over VGG-CNN-F's 256 channels, the dock's first K1
+    launches; no RPN, no K2; K4 in the meta Res5, 6 x 6 -> 3 x 3), K1 at the
+    step's shots, K4 at the meta head's shapes, meta_attention over
+    coco_dock_base_training_support.  Returns ({path: launch counts}, K1's,
+    K2's and K4's numbers at the new shapes)."""
+    import runpy
+
+    import torch
+
+    from unit_tpu_torch.config import get_cfg
+    from unit_tpu_torch.data import DatasetCatalog
+    from unit_tpu_torch.data.loader import pin_batch
+    from unit_tpu_torch.data.transforms import TransformConfig, prepare_test_image
+    from unit_tpu_torch.data.utils import register_datasets
+    from unit_tpu_torch.engine import runner
+    from unit_tpu_torch.engine.train import Trainer, TrainerNoMeta
+    from unit_tpu_torch.models.resnet import FrozenBN
+    from unit_tpu_torch.models.similarity import COCO_CLASSES
+    from unit_tpu_torch.ops import roi_align as ra
+    from unit_tpu_torch.serving import DetectionService
+    from unit_tpu_torch.solver import build_optimizer
+
+    dev = torch.device(RUN_DEVICE)
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.deterministic = True
+    by_path, k1_out, k2_out, k4_out, wrong = {}, {}, {}, {}, []
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def peak_mib():
+        return torch.cuda.max_memory_allocated() / 2**20 if on_card else 0.0
+
+    def reset_peak():
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+
+    def free():
+        if on_card:
+            torch.cuda.empty_cache()
+
+    def expect(path, got, want):
+        """Launches a step (or a request) of ``path`` against ``want``; every
+        mismatch of the phase is reported at its end."""
+        ok = all(got[k] == want[k] for k in want)
+        log(f"[23] {path}: launches as expected {ok}")
+        if on_card and not ok:
+            wrong.append(f"{path}: {got}, want {want}")
+
+    def recipe(path, *keys):
+        cfg = get_cfg()
+        cfg.merge_from_file(str(path))
+        cfg.merge_from_list(list(keys) + list(RUN_EXTRA_OPTS))
+        cfg.SOLVER.CLIP_GRADIENTS.ENABLED = True  # random weights: clipped as in phase 7
+        cfg.SOLVER.CLIP_GRADIENTS.CLIP_TYPE = "norm"
+        return cfg
+
+    def steps(trainer, tag, n):
+        times = []
+        for _ in range(n):
+            t = time.perf_counter()
+            m = trainer.run_step().resolve()  # read now: the clock holds the device's time
+            times.append((time.perf_counter() - t) * 1e3)
+            log(f"{tag} step {trainer.state.step} {times[-1]:.1f} ms: " + ", ".join(
+                    f"{k} {v:.4g}" for k, v in m.items() if k != "data_time"))
+            if not all(np.isfinite(v) for v in m.values()):
+                raise AssertionError(f"{tag} a step without finite losses: {m}")
+        return times
+
+    real_k1, real_k2 = ra.roi_align_cuda, ra.roi_align_backward_cuda
+    k1_in, k2_in = [], []
+
+    def record_k1(feats, rois, *a):
+        k1_in.append((feats.detach().clone(), rois.clone(), a))
+        return real_k1(feats, rois, *a)
+
+    def record_k2(g, rois, shape, *a):
+        k2_in.append((g.clone(), rois.clone(), tuple(shape), a))
+        return real_k2(g, rois, shape, *a)
+
+    root = os.path.join(workdir, "shapes_coco")  # phase 12's devkit
+    if not os.path.isdir(root):
+        runpy.run_path(str(ROOT / "scripts" / "make_shapes_coco_torch.py"))[
+            "write_shapes_coco"](root, COCO_TRAIN_IMAGES, COCO_VAL_IMAGES, COCO_IMAGE_SIZE, seed)
+    for src, dst in (("val2017", "val2014"),  # the dock suite's 2014 names
+                     (os.path.join("annotations", "instances_val2017.json"),
+                      os.path.join("annotations", "instances_val2014.json"))):
+        if not os.path.exists(os.path.join(root, dst)):
+            os.symlink(os.path.basename(src), os.path.join(root, dst))
+
+    # (a) the note with masks: requests
+    cfg = recipe(NOTE_RECIPE, *PAIR_MASK_KEYS)
+    # random heads spread their probability over 81 classes and few scores
+    # pass the recipe's 0.05: phase 12's threshold, so that masks are served
+    cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST = 0.01
+    model = flagship_model(cfg, seed, dev)  # no FrozenBN anywhere: nothing to calibrate
+    mc = model.mc
+    p = mc.pooler_resolution
+    log(f"[23] (a) note + masks: {type(model.backbone).__name__} + "
+        f"{type(model.box_head).__name__} ({model.box_head.out_channels}-d map) + the mask head "
+        f"over it, {sum(q.numel() for q in model.parameters()) / 1e6:.1f} M params, P = {p}, "
+        f"{mc.num_classes} classes, compute {mc.compute_dtype}")
+    svc = DetectionService(cfg, model, class_names=COCO_CLASSES)
+    svc.warmup()
+    sync()
+    rng = np.random.RandomState(seed + 230)
+    images = [rng.uniform(0, 255, NOTE_REQUEST_SHAPES[i % 2] + (3,)).astype(np.float32)
+              for i in range(PAIR_REQUESTS)]
+    reset_peak()
+    reset_launch_counts()
+    lat, results = [], []
+    for img in images:
+        t0 = time.perf_counter()
+        results.append(svc.detect_array(img))
+        lat.append((time.perf_counter() - t0) * 1e3)
+    launches = read_launch_counts()
+    log(f"[23] (a) {PAIR_REQUESTS} requests with masks, latency ms "
+        f"{[round(v, 2) for v in lat]}, peak device memory {peak_mib():.1f} MiB; detections "
+        f"{[len(r) for r in results]}; launches {launches} (want K1 x2, K3 x2, no K4 each)")
+    expect("note_masks_serving", launches,
+           {"roi_align_fwd": 2 * PAIR_REQUESTS, "roi_align_bwd": 0,
+            "nms_mask": 2 * PAIR_REQUESTS, "nms_mask_images": 2 * PAIR_REQUESTS,
+            "bn_act_fwd": 0, "bn_act_bwd": 0})
+    by_path["note_masks_serving"] = launches
+    for img, dets in zip(images, results):
+        h, w = img.shape[:2]
+        for d in dets:
+            x1, y1, x2, y2 = d["box"]
+            if not (np.isfinite(d["box"]).all() and 0 <= x1 <= x2 <= w and 0 <= y1 <= y2 <= h
+                    and 0 < d["score"] <= 1 and 0 <= d["class_id"] < mc.num_classes):
+                raise AssertionError(f"a detection outside the image or range: {d}")
+    s = prepare_test_image(images[0], svc.tcfg)
+    img = torch.as_tensor(s["image"][None], device=dev)
+    size = torch.as_tensor(s["image_size"][None], device=dev)
+    with torch.inference_mode():
+        feats = model.predict_raw(img, size)[3]
+        dets = model.predict(img, size)
+    masks_ok = bool(torch.isfinite(dets.masks).all() and dets.masks.min() >= 0
+                    and dets.masks.max() <= 1)
+    log(f"[23] (a) one request's masks {tuple(dets.masks.shape)} (16 x 16 from the tail's "
+        f"8 x 8 map), in [0, 1] and finite {masks_ok}; {int(dets.valid.sum())} valid of "
+        f"{dets.boxes.shape[1]}")
+    if not (masks_ok and tuple(dets.masks.shape[2:]) == (16, 16)):
+        raise AssertionError("the note's masks are not 16 x 16 probabilities")
+    if on_card:
+        boxes = dets.boxes.float().contiguous()
+        label = f"note mask path {list(feats.shape)} x {boxes.shape[1]} final boxes P={p}"
+        err = k1_check(feats, boxes, label, tag="[23]", p=p)
+        k_ms, p_ms, least = k1_timed(feats, boxes, label, tag="[23]", p=p)
+        k1_out.update({"note_mask_path_ms": k_ms, "note_mask_path_plain_ms": p_ms,
+                       "note_mask_path_bound_ms": least["bound_ms"],
+                       "note_mask_path_max_abs_err": err,
+                       "note_mask_path_shape": list(feats.shape) + [boxes.shape[1], p]})
+        profile_run(lambda: svc.detect_array(images[0]), "[23]", "note request with masks",
+                    top=10)
+    del svc, model, feats, dets
+    free()
+
+    # the f32 predict with masks, kernels vs plain versions
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg32 = cfg.clone()
+    cfg32.TPU.COMPUTE_DTYPE = "float32"
+    model32 = flagship_model(cfg32, seed, dev)
+    s = prepare_test_image(images[1], TransformConfig.test_from_cfg(cfg32))
+    img = torch.as_tensor(s["image"][None], device=dev)
+    size = torch.as_tensor(s["image_size"][None], device=dev)
+    outs = {}
+    for impl in ("cuda", "plain"):
+        model32.mc = dataclasses.replace(model32.mc, roi_align_impl=impl, nms_impl=impl)
+        with torch.inference_mode():
+            outs[impl] = model32.predict(img, size)
+    dk, dp = outs["cuda"], outs["plain"]
+    same = torch.equal(dk.classes, dp.classes) and torch.equal(dk.valid, dp.valid)
+    dbox = float((dk.boxes - dp.boxes).abs().max())
+    dscore = float((dk.scores - dp.scores).abs().max())
+    dmask = float((dk.masks - dp.masks).abs().max())
+    log(f"[23] (a) f32, TF32 off, predict with masks: classes and valid identical {same} "
+        f"({int(dk.valid.sum())} valid); boxes max|diff| {dbox:.3g} px (tol {MASK_BOX_ATOL}), "
+        f"scores {dscore:.3g}, mask probabilities {dmask:.3g} (tol {MASK_PROBS_ATOL})")
+    if not (same and int(dk.valid.sum()) > 0 and dbox <= MASK_BOX_ATOL
+            and dscore <= MASK_PROBS_ATOL and dmask <= MASK_PROBS_ATOL):
+        raise AssertionError("the note's predict with masks disagrees with the plain path")
+    del model32, outs, dk, dp
+
+    # the f32 train path with gt_masks, kernels vs plain versions
+    model32 = flagship_model(cfg32, seed, dev)
+    build_optimizer(cfg32, model32)
+    strong, weak = synthetic_train_batches(cfg32, seed + 231, n_batches=1,
+                                           canvases=NOTE_CANVASES)
+    strong = {k: torch.as_tensor(v, device=dev) for k, v in strong[0].items()}
+    weak = {k: torch.as_tensor(v, device=dev) for k, v in weak[0].items()}
+    train_path_kernels_vs_plain(model32, strong, weak, seed, "[23] (a)")
+    del model32, strong, weak
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    free()
+
+    # train steps with gt_masks: 2 + 2 images, the warm-up's K2 inputs kept
+    model = flagship_model(cfg, seed, dev)
+    solver = build_optimizer(cfg, model)
+    strong, weak = synthetic_train_batches(cfg, seed + 232, canvases=NOTE_CANVASES)
+    trainer = TrainerNoMeta(model, solver, itertools.cycle(strong), itertools.cycle(weak),
+                            seed=seed)
+    trainer.init_state()
+    if on_card:
+        ra.roi_align_backward_cuda = record_k2
+    try:
+        steps(trainer, "[23] (a) note + masks warm-up", 1)
+    finally:
+        ra.roi_align_backward_cuda = real_k2
+    steps(trainer, "[23] (a) note + masks warm-up", TRAIN_WARMUP - 1)
+    sync()
+    reset_peak()
+    reset_launch_counts()
+    times = steps(trainer, "[23] (a) note + masks", PAIR_TRAIN_STEPS)
+    launches = read_launch_counts()
+    per_step = {k: v / PAIR_TRAIN_STEPS for k, v in launches.items()}
+    log(f"[23] (a) {PAIR_TRAIN_STEPS} note + masks steps of 2 + 2 images: median "
+        f"{np.median(times):.2f} ms, peak device memory {peak_mib():.1f} MiB; loss_mask "
+        f"{trainer.metrics_history[-1]['loss_mask']:.4g}; launches a step {per_step} (want K1 "
+        f"2, K2 2, K3 1 for 4 images, no K4)")
+    expect("note_masks", per_step, {"roi_align_fwd": 2, "roi_align_bwd": 2, "nms_mask": 1,
+                                    "nms_mask_images": 4, "bn_act_fwd": 0, "bn_act_bwd": 0})
+    by_path["note_masks"] = launches
+    if on_card:
+        profile_run(trainer.run_step, "[23]", "note + masks train step", top=10)
+        worst = 0.0
+        for i, (g, rois, shape, a) in enumerate(k2_in):
+            label = f"note + masks step g {list(g.shape)} onto {list(shape)}"
+            k2_check(g.float(), rois, shape, p, label + " f32", tag="[23]")
+            worst = max(worst, k2_check(g, rois, shape, p, label + " bf16", tag="[23]"))
+            if i == 0:
+                k_ms, p_ms, q_ms = k2_timed(g, rois, shape, label, tag="[23]", p=p)
+                out_bytes = int(np.prod(shape)) * g.element_size()
+                least = bound(nbytes(g, rois) + out_bytes, g.numel() * ROI_ALIGN_FLOPS)
+                k2_out.update({"note_masks_train_ms": k_ms, "note_masks_train_queued_ms": q_ms,
+                               "note_masks_train_plain_ms": p_ms,
+                               "note_masks_train_bound_ms": least["bound_ms"],
+                               "note_masks_train_shape": list(g.shape)})
+        k2_out["note_masks_train_max_abs_err"] = worst
+    del trainer, solver, model, strong, weak, k2_in[:]
+    free()
+
+    # engine.runner.run of the note + masks on phase 12's shapes-COCO
+    # devkit: its loaders' polygon masks, 2 steps, the bbox and segm
+    # evaluation of its 16 x 16 masks
+    made = []
+
+    class Recording(TrainerNoMeta):
+        """The runner's trainer, kept so that the script can read its losses."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    DatasetCatalog.clear()
+    args = runner.default_argument_parser().parse_args([
+        "--config-file", str(NOTE_RECIPE), "--data-root", root, "--device", RUN_DEVICE,
+        "OUTPUT_DIR", os.path.join(workdir, "note_masks_run"),
+        "MODEL.ROI_HEADS.EMBEDDING_PATH", str(ROOT / cfg.MODEL.ROI_HEADS.EMBEDDING_PATH),
+        "DATASETS.CLASSIFIER_DATAROOT", root, "SEED", str(seed), *PAIR_MASK_KEYS,
+        "SOLVER.IMS_PER_BATCH", "2", "SOLVER.MAX_ITER", "2", "SOLVER.CHECKPOINT_PERIOD", "0",
+        "TEST.EVAL_PERIOD", "0", "SOLVER.CLIP_GRADIENTS.ENABLED", "True",
+        "SOLVER.CLIP_GRADIENTS.CLIP_TYPE", "norm", *RUN_EXTRA_OPTS])
+    real_trainer, runner.TrainerNoMeta = runner.TrainerNoMeta, Recording
+    try:
+        t0 = time.perf_counter()
+        results = runner.run(args)
+        sync()
+        secs = time.perf_counter() - t0
+    finally:
+        runner.TrainerNoMeta = real_trainer
+        DatasetCatalog.clear()
+    history = made[-1].metrics_history
+    aps = {task: {k: float(results[task][k]) for k in ("AP", "AP50")} for task in ("bbox", "segm")}
+    log(f"[23] (a) run of the note + masks on the shapes-COCO devkit: {len(history)} steps "
+        f"and the evaluation in {secs:.1f} s; loss_mask "
+        f"{[round(m['loss_mask'], 4) for m in history]}; {aps}")
+    if not (len(history) == 2 and all(np.isfinite(v) for m in history for v in m.values())
+            and all(np.isfinite(v) for a in aps.values() for v in a.values())):
+        raise AssertionError("the note + masks run left out a step or a finite loss or AP")
+    del made[:]
+    free()
+
+    # (b), (c): the meta stream over InceptionResNetV2 and over VGG-CNN-F
+    writer = runpy.run_path(str(ROOT / "scripts" / "make_shapes_proposals_torch.py"))
+    for tag, path, name in (("(b)", NOTE_RECIPE, "note"), ("(c)", DOCK_RECIPE, "dock")):
+        cfg = recipe(path, *PAIR_META_KEYS)
+        model = flagship_model(cfg, seed, dev)
+        mc = model.mc
+        solver = build_optimizer(cfg, model)
+        canvases = NOTE_CANVASES if name == "note" else PAIR_DOCK_CANVASES
+        strong, weak = synthetic_train_batches(cfg, seed + 233, n_batches=2, canvases=canvases)
+        if mc.load_proposals:
+            topk = cfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TRAIN
+            strong, weak = with_dock_proposals(writer["mcg_like_proposals"],
+                                               np.random.RandomState(seed + 234), strong, weak,
+                                               topk)
+        support = synthetic_support_batches(cfg, seed + 235, n_batches=2)
+        # the meta Res5, which no predict runs, calibrated on the shots
+        shots0 = {k: torch.as_tensor(v, device=dev) for k, v in support[0].items()}
+        frozen_bn_from_inputs(model.visual_attention.meta_box_head,
+                              lambda: model.compute_meta_attention(shots0))
+        del shots0
+        shots = support[0]["image"].shape
+        n_meta = sum(isinstance(m, FrozenBN)
+                     for m in model.visual_attention.meta_box_head.modules())
+        if on_card:  # the runner's Prefetcher pins every stream
+            strong, weak, support = ([pin_batch(b) for b in s] for s in (strong, weak, support))
+        trainer = Trainer(model, solver, itertools.cycle(strong), itertools.cycle(weak),
+                          meta_iter=itertools.cycle(support), seed=seed)
+        trainer.init_state()
+        log(f"[23] {tag} {name} + meta: {type(model.backbone).__name__} "
+            f"({model.backbone.out_channels} channels) + {type(model.box_head).__name__}, "
+            f"{mc.pooler_type} at P = {mc.pooler_resolution}; the meta Res5 (depth {mc.depth}, "
+            f"{n_meta} FrozenBN) over {model.backbone.out_channels} channels; support "
+            f"{list(shots)} ({shots[0] * shots[1]} shots a step, pooled by ROIAlignV2 at P = "
+            f"{model.visual_attention.pooler_resolution})")
+        if on_card:
+            ra.roi_align_cuda = record_k1
+        try:
+            steps(trainer, f"[23] {tag} {name} + meta warm-up", 1)
+        finally:
+            ra.roi_align_cuda = real_k1
+        steps(trainer, f"[23] {tag} {name} + meta warm-up", TRAIN_WARMUP - 1)
+        sync()
+        reset_peak()
+        reset_launch_counts()
+        times = steps(trainer, f"[23] {tag} {name} + meta", PAIR_TRAIN_STEPS)
+        launches = read_launch_counts()
+        per_step = {k: v / PAIR_TRAIN_STEPS for k, v in launches.items()}
+        last = trainer.metrics_history[-1]
+        log(f"[23] {tag} {PAIR_TRAIN_STEPS} {name} + meta Trainer steps of 2 + 2 images and "
+            f"{shots[0] * shots[1]} shots: median {np.median(times):.2f} ms, peak device "
+            f"memory {peak_mib():.1f} MiB; rank losses margin {last['loss_rank_margin']:.6g} "
+            f"(the underflow's {(len(mc.base_ids)) * 0.5 / (len(mc.base_ids) + 1):.6g}), reg "
+            f"{last['loss_rank_reg']:.4g}, cls {last['loss_rank_cls']:.4g}; launches a step "
+            f"{per_step}")
+        # the note: K1 over the strong and weak ROIs and the shots, K2 for the
+        # first two (the shots and the query maps are detached), one K3 for
+        # the 4 images' RPN; the dock: ROIPool and proposals, so K1 over the
+        # shots alone; both: K4 in the meta head over the shots and over the
+        # query slots, forward and backward
+        heads = {"bn_act_fwd": 2 * n_meta, "bn_act_bwd": 2 * n_meta}
+        expect(f"{name}_meta", per_step, (
+            {"roi_align_fwd": 3, "roi_align_bwd": 2, "nms_mask": 1, "nms_mask_images": 4}
+            if name == "note" else
+            {"roi_align_fwd": 1, "roi_align_bwd": 0, "nms_mask": 0, "nms_mask_images": 0})
+            | heads)
+        by_path[f"{name}_meta"] = launches
+        if on_card:
+            profile_run(trainer.run_step, "[23]", f"{name} + meta train step", top=10)
+            shot_in = [(f, r, a) for f, r, a in k1_in
+                       if r.shape[1] == 1 and f.shape[0] == shots[0] * shots[1]]
+            if len(shot_in) != 1:
+                raise AssertionError(f"{name} + meta: {len(shot_in)} K1 launches over the shots "
+                                     "in the warm-up step")
+            (f, r, a), = shot_in
+            # K1's f32 bound is for features of order 1: scaled by a power of two
+            rms = float(f.float().square().mean().sqrt())
+            f = f * 2.0 ** -round(np.log2(rms))
+            pk = a[0] if a else p
+            label = f"{name} support {list(f.shape)} x 1 ROI P={pk} (RMS {rms:.4g} scaled)"
+            err = k1_check(f, r, label, tag="[23]", p=pk)
+            k_ms, p_ms, least = k1_timed(f, r, label, tag="[23]", p=pk)
+            k1_out.update({f"{name}_support_ms": k_ms, f"{name}_support_plain_ms": p_ms,
+                           f"{name}_support_bound_ms": least["bound_ms"],
+                           f"{name}_support_max_abs_err": err,
+                           f"{name}_support_shape": list(f.shape) + [1, pk]})
+            # K4 at the meta head's shapes over the query slots: res5's first
+            # block after its stride-2 1x1 (P -> ceil(P / 2))
+            n_q = 2 * min(mc.rank_loss_slots, mc.roi_batch_size)
+            side = -(-mc.pooler_resolution // 2)
+            width = 8 * mc.res2_out_channels
+            k4_rng = np.random.RandomState(seed + 236)
+            rows = [k4_case(k4_rng, (n_q, side, side, width // 4), False, True, tag="[23]"),
+                    k4_case(k4_rng, (n_q, side, side, width), True, True, tag="[23]")]
+            k4_out.update({f"{name}_meta_head_ms": rows[1]["ms"],
+                           f"{name}_meta_head_plain_ms": rows[1]["plain_ms"],
+                           f"{name}_meta_head_bound_ms": rows[1]["bound_ms"],
+                           f"{name}_meta_head_max_abs_err": max(r["max_abs_err"] for r in rows),
+                           f"{name}_meta_head_shape": [n_q, side, side, width]})
+        del trainer, solver, strong, weak, support, k1_in[:]
+        free()
+
+        # the prototypes of the suite's registered support set, as an
+        # evaluation binds them (R21: the evaluation itself looks the set up
+        # under the VOC name, as unit_tpu's does)
+        cfg_e = cfg.clone()
+        cfg_e.DATASETS.BASE_META_SHOTS = PAIR_SUPPORT_SHOTS
+        DatasetCatalog.clear()
+        register_datasets(cfg_e, root)
+        support_name = f"coco_{name}_base_training_support"
+        t0 = time.perf_counter()
+        att = runner.meta_attention(cfg_e, model.eval(), dataset_name=support_name)
+        sync()
+        secs = time.perf_counter() - t0
+        finite = int(torch.isfinite(att.logdet).sum())
+        log(f"[23] {tag} meta_attention over {support_name} ({PAIR_SUPPORT_SHOTS} shots a "
+            f"class) in {secs:.2f} s: prototypes {list(att.mean.shape)}, {finite} finite "
+            f"slots, finite means {bool(torch.isfinite(att.mean).all())}; the evaluation's own "
+            f"lookup, {runner.support_dataset_name(cfg_e)}, registered "
+            f"{runner.support_dataset_name(cfg_e) in DatasetCatalog}")
+        if not (att.mean.shape == (mc.num_classes + 1, 8 * mc.res2_out_channels)
+                and finite == len(mc.base_ids) + 1 and bool(torch.isfinite(att.mean).all())):
+            raise AssertionError(f"{name} + meta: the registered support set's prototypes")
+        DatasetCatalog.clear()
+        del model, att
+        free()
+    if wrong:
+        raise AssertionError("phase 23 launches: " + "; ".join(wrong))
+    log(f"[23] phase 23 in {time.perf_counter() - t_phase:.1f} s")
+    return by_path, k1_out, k2_out, k4_out
+
+
 DP_WORLD = 2
 DP_IMAGES_PER_RANK = 4      # the recipe's IMS_PER_BATCH 8: 4 + 4 images a rank
 DP_WARMUP, DP_STEPS = 1, 3
@@ -7810,6 +8303,8 @@ def main():
         trained_paths, k3_trained = timed(19, phase_trained, cfg, args.seed, workdir)
         by_path.update(trained_paths)
         by_path.update(timed(20, phase_host_wire, cfg, args.seed, workdir))
+        pair_paths, k1_pairs, k2_pairs, k4_pairs = timed(23, phase_pairs, args.seed, workdir)
+        by_path.update(pair_paths)
         by_path.update(timed("21-22", phase_multi_rank, args.seed, workdir))
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s; seconds a "
         f"phase {seconds}")
@@ -7839,6 +8334,11 @@ def main():
                "dock_serving": no_k1_k2_k4, "dock": no_kernel, "dock_full_batch": no_kernel,
                "dock_yaml": no_k1_k2_k4, "dock_yaml_serving": no_k1_k2_k4,
                "dock_run": no_k1_k2_k4, "dock_tta": no_k1_k2_k4,
+               # phase 23: the note with masks has no FrozenBN; the dock's
+               # meta model pools its ROIs with ROIPool and its support shots
+               # with K1 (no gradient), and its batches carry proposals
+               "note_masks_serving": ("roi_align_bwd",) + no_k4, "note_masks": no_k4,
+               "dock_meta": ("roi_align_bwd", "nms_mask", "nms_mask_images"),
                # the 2-D mesh's steps of the note and of the dock with proposals
                "spatial_note_rank0": no_k4, "spatial_dock_rank0": no_kernel,
                "serving_micro": ("roi_align_bwd", "bn_act_bwd"),
@@ -7870,11 +8370,11 @@ def main():
              replaces="unit_tpu/ops/roi_align_pallas.py:230",
              launches=launches["roi_align_fwd"],
              launches_by_path=per_path("roi_align_fwd"), **k1, **k1_mask, **k1_support,
-             **k1_tta, **k1_note),
+             **k1_tta, **k1_note, **k1_pairs),
         dict(name="roi_align_bwd", route="cuda", source="unit_tpu_torch/csrc/roi_align_bwd.cu",
              replaces="unit_tpu/ops/roi_align_pallas_bwd.py:564",
              launches=launches["roi_align_bwd"],
-             launches_by_path=per_path("roi_align_bwd"), **k2, **k2_note),
+             launches_by_path=per_path("roi_align_bwd"), **k2, **k2_note, **k2_pairs),
         dict(name="nms_mask", route="cuda", source="unit_tpu_torch/csrc/nms_mask.cu",
              replaces="unit_tpu/ops/nms_pallas.py:115",
              launches=launches["nms_mask"], launches_by_path=per_path("nms_mask"), **k3,
@@ -7882,7 +8382,7 @@ def main():
         dict(name="bn_act", route="cuda", source="unit_tpu_torch/csrc/bn_act.cu",
              replaces="scripts/bench_backbone_epilogue.py:155",
              launches=launches["bn_act_fwd"] + launches["bn_act_bwd"],
-             launches_by_path=per_path("bn_act_fwd", "bn_act_bwd"), **k4),
+             launches_by_path=per_path("bn_act_fwd", "bn_act_bwd"), **k4, **k4_pairs),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -6,8 +6,9 @@ with the full InceptionResNetV2 tail as its box head (InceptionResNetHead,
 1536-d) over 17x17 ROIAlignV2 maps.  Each module of
 unit_tpu_torch/models/{backbones,box_heads}.py is held against its flax
 counterpart in unit_tpu/models/{backbones,box_heads}.py on shared weights;
-the recipe builds under both backbone names, and the pairs no recipe ships
-raise.  The whole recipe against unit_tpu's WSRCNN is
+the recipe builds under both backbone names, and so does each pairing that
+one key makes of it (the Res5 head, masks, the meta head, ResNet-C4 under
+the tail), its new module held against unit_tpu's.  The whole recipe against unit_tpu's WSRCNN is
 tests/test_torch_note_slice.py, its run loop tests/test_torch_note_run.py.
 
 Weights: He-scaled convolution kernels (randn * sqrt(2 / fan_in)) and
@@ -256,9 +257,86 @@ def test_the_note_model_builds_under_both_backbone_names(name):
     ("MODEL.BACKBONE.NAME", "build_resnet_backbone"),
 ], ids=["res5_over_inception", "mask_head", "meta_head", "inception_head_over_resnet"])
 def test_pairs_no_recipe_ships_raise(opts):
+    """The note recipe with one key changed, which raised before these
+    pairings were ported and now builds over the backbone's width (shapes,
+    on the meta device); the module the key brings in is held against
+    unit_tpu's on shared weights, at the note's shapes: a Res5 over block17's
+    1088 channels at P = 17 (its stride-2 1x1 takes 17 to 9, as flax's
+    "SAME" does), the mask head over the tail's [N, 8, 8, 1536] map (16 x 16
+    logits), the visual attention head's prototypes of 17 x 17 shots over
+    1088 channels, the tail over ResNet-C4's 1024 channels at P = 14.  The
+    whole models: tests/test_torch_pair_paths.py, tests/test_torch_pairs.py."""
+    from tests.test_full_graph_torch_parity import randomize_params
+    from unit_tpu.models import mask_head as jmask
+    from unit_tpu.models import resnet as jres
+    from unit_tpu.models import visual_attention as jva
+    from unit_tpu_torch.models import mask_head as tmask
+    from unit_tpu_torch.models import resnet as tres
+    from unit_tpu_torch.models import visual_attention as tva
+
     _, tcfg = note_cfgs(*opts)
-    with pytest.raises(NotImplementedError, match="item 25"), torch.device("meta"):
-        WSRCNN(ModelConfig.from_cfg(tcfg))
+    with torch.device("meta"):
+        model = WSRCNN(ModelConfig.from_cfg(tcfg))
+    c = model.backbone.out_channels
+    rng = np.random.RandomState(len(opts[1]))
+    case = opts[1]
+    if case == "Res5BoxHead":
+        assert model.box_head.res5.block0.shortcut.weight.shape[1] == c == 1088
+        x = rng.randn(2, 17, 17, 1088).astype(np.float32)
+        jm, tm = jres.Res5(depth=50), tres.Res5(depth=50, in_channels=1088)
+        params = jax.tree.map(np.asarray, randomize_params(param_shapes(jm, x), seed=1))
+        load_jax_params(tm, params)
+        want = np.asarray(jax.jit(lambda p, v: jm.apply({"params": p}, v, spatial_mean=False))(
+            params, jnp.asarray(x)))
+        with torch.no_grad():
+            got = tm(torch.as_tensor(x), spatial_mean=False).numpy()
+        assert got.shape == want.shape == (2, 9, 9, 2048)
+    elif case == "True":
+        assert model.mask_head.deconv.weight.shape[0] == model.box_head.out_channels == 1536
+        x = rng.randn(3, 8, 8, 1536).astype(np.float32)
+        jm, tm = jmask.MaskRCNNConvUpsampleHead(num_classes=80), \
+            tmask.MaskRCNNConvUpsampleHead(1536, 80)
+        params = he_tree(jm, x)
+        load_jax_params(tm, params)
+        want = np.asarray(jit_apply(jm)(params, jnp.asarray(x)))
+        with torch.no_grad():
+            got = tm(torch.as_tensor(x))[0].numpy()
+        assert got.shape == want.shape == (3, 16, 16, 80)
+    elif case == "WSROIHead":
+        block0 = model.visual_attention.meta_box_head.res5.block0
+        assert block0.conv1.weight.shape[1] == block0.shortcut.weight.shape[1] == c == 1088
+        feats = rng.randn(2, 2, 10, 12, 1088).astype(np.float32)
+        boxes = np.asarray([[[8, 8, 120, 150], [0, 0, 160, 190]],
+                            [[30, 20, 90, 100], [50, 60, 170, 180]]], np.float32)
+        valid, base = np.asarray([True, True]), np.asarray([3, 40])
+        jm = jva.VisualAttentionHead(num_classes=80, pooler_resolution=17)
+        tm = tva.VisualAttentionHead(80, in_channels=1088, pooler_resolution=17,
+                                     roi_align_impl="plain")
+        shapes = jax.eval_shape(lambda f, b, v: jm.init(
+            jax.random.PRNGKey(0), f, b, v, base,
+            method=jva.VisualAttentionHead.support_prototypes), feats, boxes, valid)["params"]
+        params = jax.tree.map(np.asarray, randomize_params(shapes, seed=2))
+        params["rank_loss_classifier"] = {
+            "kernel": np.zeros((2048, 81), np.float32), "bias": np.zeros(81, np.float32)}
+        load_jax_params(tm, params)
+        want = np.asarray(jax.jit(lambda p, f, b, v: jm.apply(
+            {"params": p}, f, b, v, base, method=jva.VisualAttentionHead.support_prototypes
+        ).mean)(params, *(jnp.asarray(a) for a in (feats, boxes, valid))))
+        with torch.no_grad():
+            got = tm.support_prototypes(*(torch.as_tensor(a) for a in (feats, boxes, valid)),
+                                        base).mean.numpy()
+        assert got.shape == want.shape == (81, 2048) and np.abs(want[base]).max(-1).min() > 0
+    else:
+        assert model.box_head.m7a_b0_0.weight.shape[1] == c == 1024
+        x = rng.randn(3, 14, 14, 1024).astype(np.float32)
+        jm, tm = jbh.InceptionResNetHead(num_block8=1), tbh.InceptionResNetHead(1024, 1)
+        params = he_tree(jm, x)
+        load_jax_params(tm, params)
+        want = np.asarray(jit_apply(jm)(params, jnp.asarray(x)))
+        with torch.no_grad():
+            got = tm(torch.as_tensor(x)).numpy()
+        assert got.shape == want.shape == (3, 1536)
+    assert_close_rel(got, want)
 
 
 def test_seeded_init_follows_flax_initialisers():

@@ -213,7 +213,9 @@ def test_missing_weights_and_device_raise(devkit, tmp_path):
     # too: TPU.TP 2 in one process refuses, as unit_tpu's assert does
     # (runner.py:222), since 2 does not divide the one rank
     pytest.param(["TPU.TP", "2"], "not divisible by TPU.TP=2", id="opts3-items 27 and 29"),
-    (["MODEL.BACKBONE.NAME", "VGG_CNN_F"], "item 25"),
+    # a Res5 head over VGG-CNN-F is ported (tests/test_torch_pairs.py): the
+    # case keeps its name and trains and evaluates (item "trains alone")
+    pytest.param(["MODEL.BACKBONE.NAME", "VGG_CNN_F"], "trains alone", id="opts4-item 25"),
     # the meta Trainer is ported (tests/test_torch_meta.py); the case keeps
     # its name and holds pipeline parallelism instead, which is ported too
     # (tests/test_torch_pipeline*.py): in one process PP_STAGES 2 does not

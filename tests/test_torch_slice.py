@@ -171,20 +171,59 @@ def test_unported_paths_raise(pair):
             for given in ((boxes, valid), ()):
                 d = model.predict(torch.as_tensor(images), torch.as_tensor(sizes), *given)
                 assert d.boxes.shape[0] == 2 and torch.isfinite(d.scores).all(), opts
-    # the pairs no recipe ships are not ported: a Res5 head over a VGG
-    # backbone, a VGG head over ResNet-C4 or InceptionResNetV2, and the meta
-    # head or masks over VGG-CNN-F
-    vgg_f = ["MODEL.BACKBONE.NAME", "VGG_CNN_F", "MODEL.ROI_BOX_HEAD.NAME", "VGGCNNFBoxHead"]
-    for opts in (["MODEL.BACKBONE.NAME", "VGG"], ["MODEL.BACKBONE.NAME", "VGG_CNN_F"],
-                 ["MODEL.ROI_BOX_HEAD.NAME", "VGGCNNFBoxHead"],
-                 ["MODEL.BACKBONE.NAME", "InceptionResNetV2",
-                  "MODEL.ROI_BOX_HEAD.NAME", "VGGConvFCHead"],
-                 vgg_f + ["MODEL.ROI_HEADS.NAME", "WSROIHead"],
-                 vgg_f + ["MODEL.MASK_ON", "True"]):
+    # the pairs no recipe ships are ported: a Res5 head over a VGG backbone, a
+    # VGG head over ResNet-C4 or InceptionResNetV2 (over 2 x 2 maps: fc6 over
+    # 14 x 14 x 1088 would hold 0.9 G weights) and the meta head over
+    # VGG-CNN-F each build over the backbone's width and predict; the head
+    # each brings in takes unit_tpu's flax tree of that head over that width
+    # strictly and computes what it computes (the whole models against
+    # unit_tpu's: tests/test_torch_pairs.py, tests/test_torch_pair_meta.py).
+    # Masks over a VGG fc head, which keeps no map, fail in both packages
+    from unit_tpu.models import box_heads as jbh
+    from unit_tpu.models import mask_head as jmask
+    from unit_tpu.models import resnet as jres
+
+    vgg_f = ["MODEL.BACKBONE.NAME", "VGG_CNN_F", "MODEL.ROI_BOX_HEAD.NAME", "VGGCNNFBoxHead",
+             "MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION", "2"]
+    small = ["MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION", "2"]
+    res5 = jres.Res5(depth=26, res2_out_channels=16)
+    for opts, head, jhead, pooled in (
+            (["MODEL.BACKBONE.NAME", "VGG"], "box_head", res5, (14, 512)),
+            (["MODEL.BACKBONE.NAME", "VGG_CNN_F"], "box_head", res5, (14, 256)),
+            (["MODEL.ROI_BOX_HEAD.NAME", "VGGCNNFBoxHead", *small], "box_head",
+             jbh.VGGCNNFBoxHead(), (2, 64)),
+            (["MODEL.BACKBONE.NAME", "InceptionResNetV2", "MODEL.ROI_BOX_HEAD.NAME",
+              "VGGConvFCHead", *small], "box_head", jbh.VGGConvFCHead(), (2, 1088)),
+            (vgg_f + ["MODEL.ROI_HEADS.NAME", "WSROIHead"], "visual_attention.meta_box_head",
+             res5, (2, 256)),
+            (vgg_f + ["MODEL.MASK_ON", "True"], None, None, None)):
         cfg = small_flagship_cfg()
-        cfg.merge_from_list(opts)
-        with pytest.raises(NotImplementedError, match="item 25"):
-            WSRCNN(ModelConfig.from_cfg(cfg))
+        cfg.merge_from_list(opts + ["MODEL.RESNETS.RES2_OUT_CHANNELS", "16"])  # cheap inits
+        if head is None:
+            # unit_tpu's mask head over the VGG head's flat [N, 4096] features
+            with pytest.raises(Exception) as failure:
+                jmask.MaskRCNNConvUpsampleHead(num_classes=20).init(
+                    jax.random.PRNGKey(0), jnp.zeros((2, 4096)))
+            assert "mask_head" in "".join(str(f) for f in failure.traceback)
+            with pytest.raises(ValueError, match="has no spatial map|has none"):
+                WSRCNN(ModelConfig.from_cfg(cfg))
+            continue
+        model = WSRCNN(ModelConfig.from_cfg(cfg), torch.Generator().manual_seed(0)).eval()
+        module = model.get_submodule(head)
+        p, c = pooled
+        x = np.random.RandomState(c).randn(3, p, p, c).astype(np.float32)
+        tree = jax.tree.map(np.asarray, randomize_params(jax.jit(jhead.init)(
+            jax.random.PRNGKey(0), jnp.asarray(x))["params"], seed=3))
+        load_jax_params(module, tree)
+        want = np.asarray(jax.jit(jhead.apply)({"params": tree}, jnp.asarray(x)))
+        with torch.inference_mode():
+            got = module(torch.as_tensor(x)).float().numpy()
+            probs, bbox, props, _ = model.predict_raw(torch.as_tensor(images[:1]),
+                                                      torch.as_tensor(sizes[:1]))
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4 * np.abs(want).max(),
+                                   err_msg=str(opts))
+        assert int(props.valid.sum()) > 0 and torch.isfinite(probs).all(), opts
+        assert torch.isfinite(bbox).all() and probs.shape[-1] == 21, opts
     # the meta ROI heads are ported (tests/test_torch_meta.py): they build
     # the visual attention head
     cfg = small_flagship_cfg()

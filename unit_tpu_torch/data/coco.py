@@ -10,8 +10,9 @@ target) and keeps its raw polygons, from which the segm evaluator rasterises
 the image-frame mask.  The masks are bit-identical to unit_tpu's.
 
 ``RegisterCOCONote`` and ``RegisterCOCODock`` register the same family under
-the note and dock suites' prefixes; the models those suites train (their
-backbones, precomputed proposals) still raise under ROADMAP Queue 1 item 25.
+the note and dock suites' prefixes (``coco_note_*``, ``coco_dock_*``), their
+``*_base_training_support`` sets among them: the support shots of a meta
+model over InceptionResNetV2 or VGG-CNN-F.
 """
 
 from __future__ import annotations

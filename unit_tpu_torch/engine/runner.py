@@ -326,14 +326,15 @@ def build_everything(cfg, device: Optional[torch.device] = None, seed: int = 0,
     else:
         strong_iter = stream(build_strong_loader(cfg, seed=seed, image_loader=image_loader))
     weak_iter = meta_iter = None
-    if name in ("TrainerNoMeta", "TrainerOnlyWeak", "Trainer"):
-        weak_iter = stream(build_classifier_loader(cfg, seed=seed + 1,
-                                                   image_loader=image_loader))
-    if name == "Trainer":
-        meta_iter = stream(build_support_loader(cfg, support_dataset_name(cfg), seed=seed + 2,
-                                                image_loader=image_loader), per_step=1)
-    solver = build_optimizer(cfg, model)
-    try:
+    try:  # a stream that fails to build (R21's support lookup) stops the others
+        if name in ("TrainerNoMeta", "TrainerOnlyWeak", "Trainer"):
+            weak_iter = stream(build_classifier_loader(cfg, seed=seed + 1,
+                                                       image_loader=image_loader))
+        if name == "Trainer":
+            meta_iter = stream(build_support_loader(cfg, support_dataset_name(cfg),
+                                                    seed=seed + 2, image_loader=image_loader),
+                               per_step=1)
+        solver = build_optimizer(cfg, model)
         trainer = trainer_cls(model, solver, strong_iter=strong_iter, weak_iter=weak_iter,
                               meta_iter=meta_iter, seed=seed, grad_accum=grad_accum,
                               mesh=mesh, fsdp=fsdp, tp=tp, pp=pp)
@@ -374,18 +375,25 @@ def build_mesh(cfg, device: torch.device):
 
 
 def support_dataset_name(cfg) -> str:
-    """The registered support dataset (records by class) of the few-shot suite."""
+    """The registered support dataset (records by class) of the few-shot suite.
+    unit_tpu's mapping, kept for parity (ROADMAP R21): FEWSHOT.TYPE COCO_NOTE
+    and COCO_DOCK fall through to ``voc_base_training_support``, so a note or
+    dock run with the meta ROI heads fails on that lookup in both packages;
+    their own support sets (``coco_note_base_training_support``,
+    ``coco_dock_base_training_support``) are registered all the same."""
     return {"VOC": "voc_base_training_support",
             "COCO": "coco_base_training_support"}.get(cfg.DATASETS.FEWSHOT.TYPE,
                                                       "voc_base_training_support")
 
 
-def meta_attention(cfg, model, image_loader: Optional[Callable] = None):
+def meta_attention(cfg, model, image_loader: Optional[Callable] = None,
+                   dataset_name: Optional[str] = None):
     """The prototypes a meta model's evaluation binds (unit_tpu runner.py:
-    338-357): one deterministic batch of BASE_META_SHOTS shots a class through
-    ``compute_meta_attention``, without autograd; None, with a warning, where
-    the support dataset is not registered."""
-    name = support_dataset_name(cfg)
+    338-357): one deterministic batch of BASE_META_SHOTS shots a class of
+    ``dataset_name`` (None: ``support_dataset_name``, as the evaluation reads
+    it) through ``compute_meta_attention``, without autograd; None, with a
+    warning, where the support dataset is not registered."""
+    name = dataset_name or support_dataset_name(cfg)
     if name not in DatasetCatalog:
         logger.warning("meta eval: support dataset %s not registered; skipping the "
                        "attention precompute", name)

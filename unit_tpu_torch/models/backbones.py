@@ -278,10 +278,6 @@ BACKBONE_REGISTRY.register(build_vgg_backbone, name="VGG")
 BACKBONE_REGISTRY.register(build_vgg_cnn_f_backbone, name="VGG_CNN_F")
 BACKBONE_REGISTRY.register(build_inception_resnet_v2_backbone, name="InceptionResNetV2")
 
-# the registry names of each family (the box heads each can carry)
-VGG_BACKBONES = ("build_vgg_backbone", "VGG", "build_vgg_cnn_f_backbone", "VGG_CNN_F")
-INCEPTION_BACKBONES = ("build_inception_resnet_v2_backbone", "InceptionResNetV2")
-
 
 def build_backbone(name: str, depth: int = 50, res2_out_channels: int = 256,
                    dilated: bool = False, dtype: torch.dtype = torch.float32,

@@ -121,6 +121,9 @@ class VGGFCHead(nn.Module):
 
     def forward(self, x: torch.Tensor, spatial_mean: bool = True,
                 dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if not spatial_mean:
+            raise ValueError(f"{type(self).__name__} has no spatial map: fc6 flattens each "
+                             "ROI, so there is no map to keep (a mask head cannot read it)")
         return self.fc(x.reshape(x.shape[0], -1), dropout_generator).to(torch.float32)
 
 
@@ -165,8 +168,8 @@ class InceptionResNetHead(nn.Module):
 def build_res5_box_head(in_channels: int, depth: int = 50, res2_out_channels: int = 256,
                         dtype: torch.dtype = torch.float32,
                         generator: Optional[torch.Generator] = None, **_) -> Res5:
-    return Res5(depth=depth, res2_out_channels=res2_out_channels, dtype=dtype,
-                generator=generator)
+    return Res5(depth=depth, res2_out_channels=res2_out_channels, in_channels=in_channels,
+                dtype=dtype, generator=generator)
 
 
 def build_inception_resnet_head(in_channels: int, dtype: torch.dtype = torch.float32,

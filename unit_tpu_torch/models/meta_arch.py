@@ -41,8 +41,15 @@ stage before handed over).  ``predict_tta`` is the multi-scale +
 flip test-time augmentation: proposals from the canonical image (or
 precomputed ones in its frame), each scale's flip pair scored in one batch-2
 pass.  The VGG heads' dropout runs only when the train step passes a
-dropout generator.  The backbone and head pairs no recipe ships raise
-``NotImplementedError`` naming the ROADMAP item.
+dropout generator.  Every backbone carries every box head, the visual
+attention head and the mask head, each built over the backbone's width, as
+unit_tpu's flax modules infer theirs; masks over a VGG fc head, which keeps
+no map, raise a ``ValueError``, where unit_tpu fails too.  The attention
+head pools its support shots with ROIAlignV2 (K1) whatever the box pooler is
+(the dock's ROIPool model too), and its rank losses read the box pooler's
+maps of the sampled slots; the mask head reads the box head's map before its
+spatial mean (InceptionResNetHead's [N, 8, 8, 1536] at P = 17: 16 x 16
+masks).
 
 Precision mirrors ``TPU.COMPUTE_DTYPE``: backbone, RPN convs and box heads run in
 the compute dtype; RPN outputs, box features and all predictor, transfer and
@@ -84,7 +91,7 @@ from .predictors import (
     transfer_scores,
 )
 from ..ops.roi_pool import roi_pool_max
-from .backbones import BACKBONE_REGISTRY, INCEPTION_BACKBONES, VGG_BACKBONES, build_backbone
+from .backbones import BACKBONE_REGISTRY, build_backbone
 from .box_heads import BOX_HEAD_REGISTRY, VGG_HEADS, build_box_head
 from .resnet import ResNetC4, set_bn_act_impl
 from .visual_attention import MetaAttention, VisualAttentionHead
@@ -113,10 +120,6 @@ _RPN_CONV_DIM = {
     "build_inception_resnet_v2_backbone": 1088,
     "InceptionResNetV2": 1088,
 }
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to unit_tpu_torch yet ({item})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -266,30 +269,20 @@ class ModelConfig:
         )
 
 
-def _family(backbone_name: str) -> str:
-    if backbone_name in VGG_BACKBONES:
-        return "vgg"
-    return "inception" if backbone_name in INCEPTION_BACKBONES else "resnet"
-
-
-# MODEL.ROI_BOX_HEAD.NAME -> the backbone family whose map it can read
-_HEAD_FAMILY = dict.fromkeys(VGG_HEADS, "vgg") | {"InceptionResNetHead": "inception"}
-
-
 def _check_supported(mc: ModelConfig) -> None:
     if mc.backbone_name not in BACKBONE_REGISTRY:
         raise ValueError(f"unknown backbone {mc.backbone_name!r}")
     if mc.box_head_name not in BOX_HEAD_REGISTRY:
         raise ValueError(f"unknown box head {mc.box_head_name!r}")
-    # the shipped pairs: Res5 over ResNet-C4's map, the InceptionResNetV2 tail
-    # over InceptionResNetV2's (the note recipe), a VGG fc head over a VGG
-    # backbone (the dock recipe); no recipe gives the last two the visual
-    # attention head's Res5 or the mask head
-    family = _family(mc.backbone_name)
-    if _HEAD_FAMILY.get(mc.box_head_name, "resnet") != family or (
-            family != "resnet" and (mc.use_meta or mc.mask_on)):
-        raise _not_ported(f"box head {mc.box_head_name!r} over {mc.backbone_name} (meta "
-                          f"{mc.use_meta}, mask {mc.mask_on})", "ROADMAP Queue 1 item 25")
+    # every backbone carries every box head, the visual attention head's Res5
+    # and the mask head, as in unit_tpu, whose flax modules infer their input
+    # widths; the port builds each over the backbone's channels.  The one
+    # pairing refused: the mask head over a VGG fc head, which flattens each
+    # ROI and keeps no map to upsample (unit_tpu's mask head asserts a 4-D
+    # input there)
+    if mc.mask_on and mc.box_head_name in VGG_HEADS:
+        raise ValueError(f"MODEL.MASK_ON needs a box head with a spatial map; "
+                         f"{mc.box_head_name!r} has none (fc6 flattens each ROI)")
     if mc.pooler_type not in ("ROIAlignV2", "ROIAlign", "ROIPool"):
         raise ValueError(f"unknown pooler {mc.pooler_type!r} (ROIAlignV2 | ROIAlign | ROIPool)")
     for impl in (mc.roi_align_impl, mc.nms_impl, mc.bn_act_impl):
@@ -348,7 +341,7 @@ class WSRCNN(nn.Module):
         if mc.use_meta:
             self.visual_attention = VisualAttentionHead(
                 mc.num_classes, depth=mc.depth, res2_out_channels=mc.res2_out_channels,
-                mode=mc.attention_mode, pooler_resolution=mc.pooler_resolution,
+                in_channels=c, mode=mc.attention_mode, pooler_resolution=mc.pooler_resolution,
                 pooler_scale=mc.pooler_scale, sampling_ratio=mc.sampling_ratio,
                 roi_align_impl=mc.roi_align_impl, dtype=dt, generator=g)
         set_bn_act_impl(self, mc.bn_act_impl)

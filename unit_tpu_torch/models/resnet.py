@@ -248,16 +248,24 @@ class ResNetC4(nn.Module):
 
 
 class Res5(nn.Module):
-    """res5 over pooled ROI maps [N, P, P, C] -> spatial mean [N, 8 * res2]."""
+    """res5 over pooled ROI maps [N, P, P, C] -> spatial mean [N, 8 * res2].
+
+    ``in_channels`` is C, the pooled map's width (None: ResNet-C4's res4,
+    4 * res2): flax infers it, so unit_tpu runs the same head over
+    VGG-CNN-F's 256, VGG16's 512 or InceptionResNetV2's 1088 channels, and
+    the first block's projection shortcut and conv1 are built over it.  The
+    stride-2 1x1 conv1 (``stride_in_1x1``) takes an odd map to
+    ceil(P / 2) as flax's "SAME" does: 17 -> 9, 7 -> 4."""
 
     def __init__(self, depth: int = 50, stride_in_1x1: bool = True,
-                 res2_out_channels: int = 256, dtype: torch.dtype = torch.float32,
+                 res2_out_channels: int = 256, in_channels: Optional[int] = None,
+                 dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         out_ch = res2_out_channels * 8
         self.dtype = dtype
         self.res5 = ResNetStage(
-            BLOCKS_PER_STAGE[depth][3], out_ch // 2, out_ch, out_ch // 4,
+            BLOCKS_PER_STAGE[depth][3], in_channels or out_ch // 2, out_ch, out_ch // 4,
             first_stride=2, stride_in_1x1=stride_in_1x1, dtype=dtype,
             generator=generator,
         )

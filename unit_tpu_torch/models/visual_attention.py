@@ -1,8 +1,10 @@
 """The visual attention (support-prototype) head of the meta recipe.
 
 Port of unit_tpu/models/visual_attention.py.  Support shots are pooled at
-their GT boxes (ROIAlignV2, kernel K1: one launch over all C x K shots) and
-go through a meta box head of their own (a Res5); each class gets a
+their GT boxes (ROIAlignV2, kernel K1: one launch over all C x K shots,
+whatever MODEL.ROI_BOX_HEAD.POOLER_TYPE says, as in unit_tpu: the dock's
+ROIPool model pools its shots through K1 too) and go through a meta box
+head of their own (a Res5 over the backbone's channels); each class gets a
 prototype mean, and in the Mahalanobis mode a diagonal covariance inverse.
 Query ROIs, through the same meta head, are scored against the prototypes
 by ``likelihood`` and trained by the margin, regression and prototype
@@ -67,11 +69,14 @@ class VisualAttentionHead(nn.Module):
     locatron mode, which has no classification loss, so that the parameters
     are unit_tpu's leaf for leaf); in the matrix modes ``sim_matrix`` a
     Linear(D, D) without bias, initialised to the identity.
-    ``roi_align_impl`` (auto | cuda | plain) picks K1 or its plain version
-    for the support shots."""
+    ``in_channels``: the backbone map's width, which the meta head's first
+    block reads (None: ResNet-C4's 4 * res2_out_channels; 256, 512 or 1088
+    over VGG-CNN-F, VGG16 or InceptionResNetV2).  ``roi_align_impl`` (auto |
+    cuda | plain) picks K1 or its plain version for the support shots."""
 
     def __init__(self, num_classes: int, depth: int = 50, res2_out_channels: int = 256,
-                 mode: str = "mean", pooler_resolution: int = 14,
+                 in_channels: Optional[int] = None, mode: str = "mean",
+                 pooler_resolution: int = 14,
                  pooler_scale: float = 1.0 / 16.0, sampling_ratio: int = 2,
                  roi_align_impl: str = "auto", dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
@@ -82,7 +87,7 @@ class VisualAttentionHead(nn.Module):
         self.pooler_resolution, self.pooler_scale = pooler_resolution, pooler_scale
         self.sampling_ratio, self.roi_align_impl = sampling_ratio, roi_align_impl
         self.meta_box_head = Res5(depth=depth, res2_out_channels=res2_out_channels,
-                                  dtype=dtype, generator=generator)
+                                  in_channels=in_channels, dtype=dtype, generator=generator)
         d = self.meta_box_head.out_channels
         if mode != "locatron":  # unit_tpu's locatron head never calls it: no parameters
             self.rank_loss_classifier = nn.utils.skip_init(nn.Linear, d, num_classes + 1)
